@@ -47,6 +47,7 @@ from areal_tpu_torch.base.device import DeviceLike, resolve_device
 from areal_tpu_torch.engine.sampling import SamplingParams, sample_logits_keyed
 from areal_tpu_torch.models import paged
 from areal_tpu_torch.models.config import TransformerConfig
+from areal_tpu_torch.models.convert import serving_params
 
 #: the reference's default dense/paged crossover (areal_tpu/engine/
 #: dispatch.py): ``cache_mode="auto"`` resolves to paged at or above it
@@ -112,14 +113,6 @@ class _InflightChunk:
     snapshot: List[Tuple[int, int]]
 
 
-def _params_to(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: _params_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_params_to(v, device) for v in tree]
-    return tree.to(device)
-
-
 class ContinuousBatchingEngine:
     """Thread-safe continuous-batching generation on one device."""
 
@@ -151,7 +144,8 @@ class ContinuousBatchingEngine:
         ``cuda``; pass ``"cpu"`` to run on the CPU.  ``params`` is the port's
         parameter dictionary (:func:`~areal_tpu_torch.models.transformer.
         init_params`, or a reference tree through
-        :func:`~areal_tpu_torch.models.convert.params_from_jax`).
+        :func:`~areal_tpu_torch.models.convert.params_from_jax`), of which
+        the engine keeps a copy in the serving types.
 
         ``pipeline_depth`` is the most decode chunks dispatched but not yet
         harvested: K=1 dispatches and then harvests at once, K=2 overlaps a
@@ -195,7 +189,7 @@ class ContinuousBatchingEngine:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = _params_to(params, self.device)
+        self.params = serving_params(params, cfg, self.device)
         self.max_batch = max_batch
         self.kv_cache_len = kv_cache_len
         self.chunk_size = chunk_size
@@ -365,10 +359,15 @@ class ContinuousBatchingEngine:
 
     def update_weights(self, params, version: Optional[int] = None) -> int:
         """Swap weights between chunks; in-flight rows' KV is recomputed
-        under the new weights at the next step.  Returns the number of
-        interrupted (in-flight) requests."""
+        under the new weights at the next step.  ``params`` may be the
+        trainer's float32 master weights: they are copied in the serving
+        types here.  Returns the number of interrupted (in-flight)
+        requests."""
+        # the copy is made now: the trainer goes on updating its weights in
+        # place, and the swap applies the version of this call
+        new_params = serving_params(params, self.cfg, self.device)
         with self._lock:
-            self._new_params = (params, version)
+            self._new_params = (new_params, version)
             return self.n_inflight
 
     def stage_weights(self, params, version: int) -> int:
@@ -420,7 +419,7 @@ class ContinuousBatchingEngine:
         with self._lock:
             new_params, target_version = self._new_params
             self._new_params = None
-        self.params = _params_to(new_params, self.device)
+        self.params = new_params
         self.version = (
             target_version if target_version is not None else self.version + 1
         )

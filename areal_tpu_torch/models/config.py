@@ -1,10 +1,10 @@
 """Transformer architecture config (port of ``areal_tpu/models/config.py``).
 
 A copy of the reference's :class:`TransformerConfig` with the fields the
-serving forward reads.  Training-only knobs (remat, context parallelism,
-pipeline schedule, critic head) are not part of the serving slice and
-are left out.  Mixture-of-experts configs are rejected: the port serves
-dense models only so far.
+serving and training forwards read.  Of the training knobs only layer
+rematerialisation with the default policy (full recompute) is ported;
+context parallelism, the pipeline schedule and the critic head are not.
+Mixture-of-experts and critic configs are rejected.
 """
 
 from __future__ import annotations
@@ -41,9 +41,17 @@ class TransformerConfig:
     # MoE; n_experts=0 disables (the only value the port accepts)
     n_experts: int = 0
 
+    # head; True (a value head) is not ported
+    is_critic: bool = False
+
     # numerics
-    dtype: str = "bfloat16"  # activation/param dtype on device
+    dtype: str = "bfloat16"  # activation dtype (and serving param dtype)
     logits_dtype: str = "float32"
+    # rematerialise each layer in the backward (a per-layer checkpoint)
+    remat: bool = False
+    # what the layer checkpoint keeps: only the reference's default
+    # "none" (full recompute) is ported
+    remat_policy: str = "none"
 
     def __post_init__(self):
         if self.n_q_heads % self.n_kv_heads != 0:
@@ -59,6 +67,15 @@ class TransformerConfig:
             raise NotImplementedError(
                 "mixture-of-experts models are not ported yet; the torch "
                 "port serves dense models"
+            )
+        if self.is_critic:
+            raise NotImplementedError(
+                "critic (value-head) models are not ported yet"
+            )
+        if self.remat_policy != "none":
+            raise NotImplementedError(
+                f"remat_policy={self.remat_policy!r}: only the default full "
+                "per-layer recompute ('none') is ported"
             )
 
     @property

@@ -1,5 +1,8 @@
-"""Transformer building blocks of the serving forward (port of the pieces
-of ``areal_tpu/models/transformer.py`` that the paged forwards use).
+"""Transformer forwards (port of ``areal_tpu/models/transformer.py``): the
+building blocks the paged serving forwards use, and the training forward
+over packed ``[B, T]`` rows (:func:`forward`, :func:`hidden_states`,
+:func:`logprobs_of_labels`), whose attention goes through
+:func:`areal_tpu_torch.ops.flash_attention.flash_attention`.
 
 Parameters are plain dictionaries of tensors, laid out like the
 reference's param tree except that the per-layer parameters are a Python
@@ -9,10 +12,13 @@ in Python where the reference scans.  Matrices keep the reference's
 ``[in, out]`` orientation, so ``y @ w`` is the same product on both
 sides.
 
-Storage types follow what the reference computes with: matrices, biases
-and embeddings are stored in the model dtype (the reference casts them to
-the activation dtype at use), norm scales stay float32 (the reference
-multiplies in float32).
+Storage types: for serving, matrices, biases and embeddings are stored
+in the model dtype (the reference casts them to the activation dtype at
+use) and norm scales stay float32 (the reference multiplies in float32).
+For training every leaf is float32, as the reference keeps its master
+parameters (``init_params(..., dtype=torch.float32)`` or
+``params_from_jax`` of a reference tree); the forwards cast each matrix to
+the activation dtype at use, so gradients reach the float32 leaves.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch.base.device import DeviceLike, resolve_device
 from areal_tpu_torch.models.config import TransformerConfig
@@ -43,17 +50,24 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def init_params(
-    cfg: TransformerConfig, seed: int, device: DeviceLike = None
+    cfg: TransformerConfig,
+    seed: int,
+    device: DeviceLike = None,
+    dtype: Optional[torch.dtype] = None,
 ) -> Params:
     """Random parameters from ``seed``, with the reference's init scheme
     (``init_params`` there: uniform in +-1/sqrt(fan_in), zero biases, unit
-    norm scales).  The draws are torch's, not JAX's; to compute the same
-    function as a JAX model, convert its tree with
+    norm scales).  Matrices, biases and embeddings are stored in ``dtype``
+    (default: the model dtype, for serving; ``torch.float32`` for the
+    trainer's master weights); the draws are made in float32 either way, so
+    the two storages hold the same weights up to the cast.  The draws are
+    torch's, not JAX's; to compute the same function as a JAX model,
+    convert its tree with
     :func:`areal_tpu_torch.models.convert.params_from_jax`."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    dt = torch_dtype(cfg.dtype)
+    dt = dtype or torch_dtype(cfg.dtype)
     D, Fd, V = cfg.hidden_dim, cfg.intermediate_dim, cfg.vocab_size
     Hq, Hkv, hd = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -227,3 +241,136 @@ def _head(params: Params, cfg: TransformerConfig, x: torch.Tensor):
     else:
         logits = x @ params["lm_head"]["w"].to(x.dtype)
     return logits.to(torch_dtype(cfg.logits_dtype))
+
+
+# ---------------------------------------------------------------------------
+# Training forward over packed [B, T] rows
+# ---------------------------------------------------------------------------
+
+
+def make_attention_mask(
+    seg_q: torch.Tensor,
+    pos_q: torch.Tensor,
+    seg_kv: torch.Tensor,
+    pos_kv: torch.Tensor,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """[B, Tq, Tkv] bool mask: same segment, causal by position, non-pad;
+    optional sliding window (the reference's mask; the training forward
+    never builds it, the flash kernel applies the same rule by index)."""
+    same = seg_q[:, :, None] == seg_kv[:, None, :]
+    causal = pos_q[:, :, None] >= pos_kv[:, None, :]
+    valid = (seg_q[:, :, None] != 0) & (seg_kv[:, None, :] != 0)
+    mask = same & causal & valid
+    if sliding_window is not None:
+        mask &= pos_q[:, :, None] - pos_kv[:, None, :] < sliding_window
+    return mask
+
+
+def reference_attention(q, k, v, mask, logits_dtype=torch.float32):
+    """Attention under an explicit mask: q [B,T,Hq,hd], k/v [B,S,Hkv,hd],
+    mask [B,T,S] (the reference's ``reference_attention``: masked rows
+    average V uniformly)."""
+    B, T, Hq, hd = q.shape
+    rep = Hq // k.shape[2]
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    scores = torch.einsum(
+        "bthd,bshd->bhts", q.to(logits_dtype), k.to(logits_dtype)
+    ) / math.sqrt(hd)
+    scores = torch.where(mask[:, None], scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)
+
+
+def _attention_dispatch(q, k, v, cfg: TransformerConfig, seg_ids):
+    """Self-attention of the training forward: always the flash kernel's
+    wrapper (the CUDA kernel on a card, its plain version on the CPU)."""
+    from areal_tpu_torch.ops.flash_attention import flash_attention
+
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            "sliding-window attention is not ported to the training forward"
+        )
+    return flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), seg_ids
+    )
+
+
+def _layer(cfg: TransformerConfig, x, lp: Params, seg_ids, rope_cs):
+    """One transformer block of the training forward (no KV cache)."""
+    B, T, _ = x.shape
+    h = _norm(x, lp["attn_norm"], cfg)
+    q, k, v = _attn_qkv(cfg, lp, h, None, rope_cs)
+    attn = _attention_dispatch(q, k, v, cfg, seg_ids)
+    x = x + _proj(lp["attn"]["o"], attn.reshape(B, T, cfg.q_dim))
+    h = _norm(x, lp["mlp_norm"], cfg)
+    return x + _mlp_block(cfg, lp, h)
+
+
+def _run_layers(params: Params, cfg: TransformerConfig, x, positions, seg_ids):
+    """The layers in order (the reference's ``lax.scan``); with
+    ``cfg.remat`` each layer is checkpointed, so the backward recomputes
+    it (the reference's default ``jax.checkpoint`` policy)."""
+    rope_cs = (
+        None
+        if cfg.abs_position_embedding
+        else rope_tables(positions, cfg.rotary_base, cfg.head_dim)
+    )
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in params["layers"]:
+        if remat:
+            x = checkpoint(
+                _layer, cfg, x, lp, seg_ids, rope_cs, use_reentrant=False
+            )
+        else:
+            x = _layer(cfg, x, lp, seg_ids, rope_cs)
+    return x
+
+
+def forward(
+    params: Params,
+    cfg: TransformerConfig,
+    tokens: torch.Tensor,  # [B, T] int
+    positions: torch.Tensor,  # [B, T] int (within-segment positions)
+    seg_ids: torch.Tensor,  # [B, T] int32, 0 = padding
+) -> torch.Tensor:
+    """Full forward over a packed padded batch: logits [B, T, V]."""
+    x = _embed(params, cfg, tokens, positions)
+    x = _run_layers(params, cfg, x, positions, seg_ids)
+    return _head(params, cfg, x)
+
+
+def hidden_states(
+    params: Params, cfg: TransformerConfig, tokens, positions, seg_ids
+) -> torch.Tensor:
+    """Final-norm hidden states [B, T, D] (pre-head), for chunked losses."""
+    x = _embed(params, cfg, tokens, positions)
+    x = _run_layers(params, cfg, x, positions, seg_ids)
+    return _norm(x, params["final_norm"], cfg)
+
+
+def head_weight(params: Params, cfg: TransformerConfig) -> torch.Tensor:
+    """[D, V] output head weight (tied or untied), in its storage dtype."""
+    if cfg.tied_embedding:
+        return params["embed"]["weight"].T
+    return params["lm_head"]["w"]
+
+
+def logprobs_of_labels(
+    params: Params, cfg: TransformerConfig, tokens, positions, seg_ids,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """log p(tokens[t+1] | tokens[<=t]) [B, T-1], the head computed in
+    chunks of ``chunk`` tokens so full-vocab logits never materialize."""
+    x = hidden_states(params, cfg, tokens, positions, seg_ids)
+    w = head_weight(params, cfg).to(x.dtype)
+    labels = tokens[:, 1:].long()
+    hs = x[:, :-1]
+    out = []
+    for c0 in range(0, hs.shape[1], chunk):
+        logits = (hs[:, c0 : c0 + chunk] @ w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = labels[:, c0 : c0 + chunk, None]
+        out.append(torch.gather(logits, -1, lab)[..., 0] - lse)
+    return torch.cat(out, dim=1)

@@ -55,30 +55,52 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build(name: str) -> Library:
-    """Compile ``csrc/<name>.cu`` (if its hashed build is missing) and load
-    it."""
+def _target(name: str):
+    """(source, hashed output path) of ``csrc/<name>.cu``."""
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
-    log, seconds = "", 0.0
-    if not out.exists():
+    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_many(names) -> dict:
+    """Compile every ``csrc/<name>.cu`` whose hashed build is missing, one
+    ``nvcc`` process per source, all started together; then load each.
+    Returns ``{name: Library}``."""
+    jobs = {}
+    for name in names:
+        src, out = _target(name)
+        if out.exists():
+            continue
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".so.tmp-{os.getpid()}")
-        tik = time.perf_counter()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        jobs[name] = (src, out, tmp, proc, time.perf_counter())
+    logs = {}
+    for name, (src, out, tmp, proc, tik) in jobs.items():
+        log = proc.communicate()[0]
         seconds = time.perf_counter() - tik
-        log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {src}:\n{log}")
         os.replace(tmp, out)
-    return Library(ctypes.CDLL(str(out)), out, seconds, log)
+        logs[name] = (log, seconds)
+    libs = {}
+    for name in names:
+        _, out = _target(name)
+        log, seconds = logs.get(name, ("", 0.0))
+        libs[name] = Library(ctypes.CDLL(str(out)), out, seconds, log)
+    return libs
+
+
+def build(name: str) -> Library:
+    """Compile ``csrc/<name>.cu`` (if its hashed build is missing) and load
+    it."""
+    return build_many([name])[name]
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,3 +116,20 @@ def load_library(name: str) -> Library:
             "torch.cuda.is_available() is False"
         )
     return build(name)
+
+
+def load_libraries(*names: str) -> dict:
+    """Build the named libraries in parallel (one nvcc each) and load them
+    into :func:`load_library`'s cache.  Returns ``{name: Library}`` with
+    each build's nvcc log and seconds."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"the CUDA kernel libraries {names} need a CUDA device, and "
+            "torch.cuda.is_available() is False"
+        )
+    built = build_many(names)
+    for name in names:
+        load_library(name)  # finds the fresh builds on disk
+    return built

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from areal_tpu_torch.engine.inference_server import ContinuousBatchingEngine
+from areal_tpu_torch.engine.train_engine import TrainEngine
 from areal_tpu_torch.models.config import tiny_config
 from areal_tpu_torch.models.convert import params_from_jax
 from areal_tpu_torch.models.transformer import init_params
@@ -67,6 +68,10 @@ def test_engine_defaults_to_cuda(monkeypatch):
         init_params(cfg, 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({}, cfg)
+    master = init_params(cfg, 0, torch.device("cpu"), dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainEngine(cfg, None, master)
+    assert TrainEngine(cfg, None, master, device="cpu").device.type == "cpu"
     # an explicit CPU request is honoured
     eng = ContinuousBatchingEngine(cfg, params, kv_cache_len=64,
                                    cache_mode="paged", page_size=16,

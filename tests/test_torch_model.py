@@ -15,7 +15,7 @@ import __graft_entry__
 from areal_tpu.models import transformer as jt
 from areal_tpu_torch.models import transformer as tt
 from areal_tpu_torch.models.config import TransformerConfig
-from areal_tpu_torch.models.convert import params_from_jax
+from areal_tpu_torch.models.convert import params_from_jax, serving_params
 
 TOL = 1e-5
 
@@ -164,7 +164,8 @@ def test_convert_layout(model):
     )
     # bf16 models store matrices at model dtype, norm scales in float32
     bcfg = dataclasses.replace(cfg, dtype="bfloat16")
-    bparams = params_from_jax(jax.device_get(jparams), bcfg, "cpu")
+    bparams = serving_params(
+        params_from_jax(jax.device_get(jparams), bcfg, "cpu"), bcfg)
     assert bparams["layers"][0]["mlp"]["up"]["w"].dtype == torch.bfloat16
     assert bparams["layers"][0]["attn_norm"]["scale"].dtype == torch.float32
 
