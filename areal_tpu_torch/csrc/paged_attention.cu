@@ -14,14 +14,20 @@
 // their block/head/slot strides (hd contiguous), so a layer slice of the
 // stacked [L, NB, Hkv, BS, hd] pool is passed without a copy; tables
 // [B, MB] int32; lengths [B] int32; acc [B, Q, Hq, hd], m and l [B, Q, Hq].
+// An int8 pool comes with float32 scale pools [NB, Hkv, BS] (block and
+// head strides, slots contiguous): one absmax scale per (block, head,
+// slot), as the reference's `kv_cache_dtype="int8"` storage.
 //
 // What bounds it on an H100: HBM bytes.  Each call must read
-// sum_b lengths[b] * Hkv * hd * 2 (K and V) * itemsize bytes of cache; the
-// arithmetic is 4 * Q * Hq * hd flops per cached token, so decode (Q = 1)
-// sits far below the card's ops:byte ridge.  Prefill chunks (Q = 512)
-// do 512x more arithmetic per byte and become bound by the float32
-// arithmetic this kernel does on CUDA cores (the reference keeps
-// Precision.HIGHEST, i.e. f32 dot products, and so does this port).
+// sum_b lengths[b] * Hkv * 2 (K and V) * (hd * itemsize + scale bytes)
+// of cache; at the main path's decode shape (B = 16 rows of up to 32768
+// tokens, Hkv = 2, hd = 128) one layer's call moves up to 537 MB from a
+// bf16 pool (0.160 ms at 3.35 TB/s) or 277 MB from an int8 pool (0.083
+// ms).  The arithmetic is 4 * Q * Hq * hd flops per cached token, so
+// decode (Q = 1) sits far below the card's ops:byte ridge.  Prefill
+// chunks (Q = 512) do 512x more arithmetic per byte and become bound by
+// the float32 arithmetic this kernel does on CUDA cores (the reference
+// keeps Precision.HIGHEST, i.e. f32 dot products, and so does this port).
 //
 // Design:
 // * A thread block owns one (row b, KV head h, tile of kRows GQA query
@@ -36,6 +42,11 @@
 //   its hd/32 columns of each V row, so a warp reads a V row in one
 //   coalesced access).  No shared-memory staging, no block-wide barrier
 //   inside the key loop.
+// * int8 pools (the TPU kernel's branch at
+//   areal_tpu/ops/paged_attention.py:116-123): a lane loads its key's K
+//   and V scales beside the row and multiplies each int8 element by its
+//   scale right after the load, so the dots stay float32 as in the fp
+//   path.  K rows load 8 int8 values (8 bytes) at a time.
 // * The warps' partials merge once in shared memory at the end.
 // * Decode has few (row, head) pairs (B * Hkv blocks), too few to keep
 //   HBM busy, so the wrapper splits the key range over `n_splits` blocks
@@ -47,113 +58,38 @@
 // Plain C interface, bound from Python with ctypes
 // (areal_tpu_torch/ops/paged_attention.py); no PyTorch headers.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "paged_common.cuh"
 
 namespace {
+
+using paged::kFull;
+using paged::kNegInf;
+using paged::load_f32;
+using paged::to_f32;
+using paged::warp_max;
+using paged::warp_sum;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 8;   // query rows per block
 constexpr int kTile = 32;  // keys per warp tile: one per lane
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-
-// ---- loads of N contiguous elements, widened to float -------------------
-
-template <int N>
-__device__ __forceinline__ void load_f32(const float* p, float* out) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      float4 v = *reinterpret_cast<const float4*>(p + i);
-      out[i] = v.x; out[i + 1] = v.y; out[i + 2] = v.z; out[i + 3] = v.w;
-    }
-  } else if constexpr (N == 2) {
-    float2 v = *reinterpret_cast<const float2*>(p);
-    out[0] = v.x; out[1] = v.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = p[i];
-  }
-}
-
-__device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) {
-  return __bfloat1622float2(v);
-}
-__device__ __forceinline__ float2 to_float2(__half2 v) {
-  return __half22float2(v);
-}
-
-template <typename H2, typename H, int N>
-__device__ __forceinline__ void load_half_f32(const H* p, float* out) {
-  static_assert(N % 2 == 0, "half loads come in pairs");
-  constexpr int kBytes = N * 2;
-  if constexpr (kBytes % 16 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 8) {
-      uint4 raw = *reinterpret_cast<const uint4*>(p + i);
-      const H2* h2 = reinterpret_cast<const H2*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float2 f = to_float2(h2[j]);
-        out[i + 2 * j] = f.x; out[i + 2 * j + 1] = f.y;
-      }
-    }
-  } else if constexpr (kBytes == 8) {
-    uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const H2* h2 = reinterpret_cast<const H2*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float2 f = to_float2(h2[j]);
-      out[2 * j] = f.x; out[2 * j + 1] = f.y;
-    }
-  } else {
-    float2 f = to_float2(*reinterpret_cast<const H2*>(p));
-    out[0] = f.x; out[1] = f.y;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_f32(const __nv_bfloat16* p, float* out) {
-  load_half_f32<__nv_bfloat162, __nv_bfloat16, N>(p, out);
-}
-template <int N>
-__device__ __forceinline__ void load_f32(const __half* p, float* out) {
-  load_half_f32<__half2, __half, N>(p, out);
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
 
 // ---- the partials kernel -------------------------------------------------
 
-template <typename T, int HD>
+template <typename Tq, typename Tk, int HD>
 __global__ void __launch_bounds__(kThreads)
-paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                      const T* __restrict__ v_pool,
+paged_partials_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
+                      const Tk* __restrict__ v_pool,
+                      const float* __restrict__ k_scale,
+                      const float* __restrict__ v_scale,
                       const int* __restrict__ tables,
                       const int* __restrict__ lengths,
                       float* __restrict__ acc_out, float* __restrict__ m_out,
                       float* __restrict__ l_out, int Q, int Hq, int Hkv,
                       int BS, int MB, int NB, int n_splits, long long sb,
-                      long long sh, long long ss, float scale) {
+                      long long sh, long long ss, long long ssb,
+                      long long ssh, float scale) {
+  constexpr bool kQuant = std::is_same<Tk, int8_t>::value;
   constexpr int CPL = HD / 32;  // acc columns per lane
   __shared__ __align__(16) float q_s[kRows][HD];
   __shared__ float red_m[kWarps][kRows];
@@ -203,6 +139,7 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const int pos = tile * kTile + lane;
     const bool valid = pos < length;
     long long off = 0;
+    float vsc = 1.f;  // this lane's key's V scale (int8 pools)
     float s[kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) s[i] = 0.f;
@@ -210,11 +147,21 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       int page = table[pos / BS];
       page = min(max(page, 0), NB - 1);
       off = page * sb + h * sh + (long long)(pos % BS) * ss;
-      const T* kp = k_pool + off;
+      float ksc = 1.f;
+      if constexpr (kQuant) {
+        const long long so = page * ssb + h * ssh + pos % BS;
+        ksc = k_scale[so];
+        vsc = v_scale[so];
+      }
+      const Tk* kp = k_pool + off;
 #pragma unroll 4
       for (int d0 = 0; d0 < HD; d0 += 8) {
         float kf[8];
-        load_f32<8>(kp + d0, kf);
+        load_f32<Tk, 8>(kp + d0, kf);
+        if constexpr (kQuant) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) kf[e] *= ksc;
+        }
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
           const float4 qa = *reinterpret_cast<const float4*>(&q_s[i][d0]);
@@ -241,12 +188,17 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
       for (int c = 0; c < CPL; ++c) acc[i][c] *= alpha;
     }
-    // P.V: key k's offset and probabilities come from lane k
+    // P.V: key k's offset, scale and probabilities come from lane k
     const int n_keys = min(kTile, length - tile * kTile);
     for (int k = 0; k < n_keys; ++k) {
       const long long off_k = __shfl_sync(kFull, off, k);
       float vf[CPL];
-      load_f32<CPL>(v_pool + off_k + lane * CPL, vf);
+      load_f32<Tk, CPL>(v_pool + off_k + lane * CPL, vf);
+      if constexpr (kQuant) {
+        const float vs_k = __shfl_sync(kFull, vsc, k);
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) vf[c] *= vs_k;
+      }
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const float pk = __shfl_sync(kFull, p[i], k);
@@ -291,112 +243,51 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-// Merge n_splits partials [S, R, hd] / [S, R] into [R, hd] / [R].
-__global__ void __launch_bounds__(128)
-combine_splits_kernel(const float* __restrict__ acc_s,
-                      const float* __restrict__ m_s,
-                      const float* __restrict__ l_s, float* __restrict__ acc,
-                      float* __restrict__ m, float* __restrict__ l,
-                      long long R, int hd, int n_splits) {
-  const long long row = blockIdx.x;
-  float M = kNegInf;
-  for (int s = 0; s < n_splits; ++s) M = fmaxf(M, m_s[s * R + row]);
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float a = 0.f;
-    for (int s = 0; s < n_splits; ++s)
-      a += acc_s[(s * R + row) * hd + d] * expf(m_s[s * R + row] - M);
-    acc[row * hd + d] = a;
-  }
-  if (threadIdx.x == 0) {
-    float L = 0.f;
-    for (int s = 0; s < n_splits; ++s)
-      L += l_s[s * R + row] * expf(m_s[s * R + row] - M);
-    m[row] = M;
-    l[row] = L;
-  }
-}
-
-template <typename T, int HD>
-cudaError_t launch_typed(const void* q, const void* k_pool,
-                         const void* v_pool, const int* tables,
-                         const int* lengths, float* acc, float* m, float* l,
-                         int B, int Q, int Hq, int Hkv, int BS, int MB, int NB,
-                         int n_splits, long long sb, long long sh,
-                         long long ss, float scale, cudaStream_t stream) {
-  const int r = Hq / Hkv;
-  const int n_qtiles = (Q * r + kRows - 1) / kRows;
-  dim3 grid(n_qtiles * n_splits, Hkv, B);
-  paged_partials_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, lengths, acc, m, l, Q, Hq, Hkv,
-      BS, MB, NB, n_splits, sb, sh, ss, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k_pool,
-                      const void* v_pool, const int* tables,
-                      const int* lengths, float* acc, float* m, float* l,
-                      int B, int Q, int Hq, int Hkv, int BS, int MB, int NB,
-                      int n_splits, long long sb, long long sh, long long ss,
-                      float scale, cudaStream_t stream) {
-#define AREAL_PAGED_LAUNCH(HDV)                                              \
-  return launch_typed<T, HDV>(q, k_pool, v_pool, tables, lengths, acc, m, l, \
-                              B, Q, Hq, Hkv, BS, MB, NB, n_splits, sb, sh,   \
-                              ss, scale, stream)
-  switch (hd) {
-    case 64: AREAL_PAGED_LAUNCH(64);
-    case 128: AREAL_PAGED_LAUNCH(128);
-    case 256: AREAL_PAGED_LAUNCH(256);
-    default: return cudaErrorInvalidValue;
-  }
-#undef AREAL_PAGED_LAUNCH
-}
-
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q and both pools).
+// q_dtype: 0 = float32, 1 = bfloat16, 2 = float16; pool_dtype: the same
+// code as q, or 3 = int8 with float32 scale pools k_scale/v_scale (block
+// and head strides ssb/ssh, slots contiguous; null for fp pools).
 // With n_splits > 1 the partials land in the workspace buffers
 // ([n_splits, B*Q*Hq, hd] and [n_splits, B*Q*Hq]) and a second kernel
 // merges them into acc/m/l.  Returns the first CUDA error (0 = success).
 int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
+                        const float* k_scale, const float* v_scale,
                         const int* tables, const int* lengths, float* acc,
                         float* m, float* l, float* acc_ws, float* m_ws,
                         float* l_ws, int B, int Q, int Hq, int Hkv, int hd,
                         int BS, int MB, int NB, int n_splits, long long sb,
-                        long long sh, long long ss, int dtype, void* stream) {
+                        long long sh, long long ss, long long ssb,
+                        long long ssh, int q_dtype, int pool_dtype,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = 1.0f / sqrtf(static_cast<float>(hd));
   float* a_dst = n_splits > 1 ? acc_ws : acc;
   float* m_dst = n_splits > 1 ? m_ws : m;
   float* l_dst = n_splits > 1 ? l_ws : l;
-  cudaError_t err;
-  switch (dtype) {
-    case 0:
-      err = launch_hd<float>(hd, q, k_pool, v_pool, tables, lengths, a_dst,
-                             m_dst, l_dst, B, Q, Hq, Hkv, BS, MB, NB,
-                             n_splits, sb, sh, ss, scale, st);
-      break;
-    case 1:
-      err = launch_hd<__nv_bfloat16>(hd, q, k_pool, v_pool, tables, lengths,
-                                     a_dst, m_dst, l_dst, B, Q, Hq, Hkv, BS,
-                                     MB, NB, n_splits, sb, sh, ss, scale, st);
-      break;
-    case 2:
-      err = launch_hd<__half>(hd, q, k_pool, v_pool, tables, lengths, a_dst,
-                              m_dst, l_dst, B, Q, Hq, Hkv, BS, MB, NB,
-                              n_splits, sb, sh, ss, scale, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int r = Hq / Hkv;
+  const int n_qtiles = (Q * r + kRows - 1) / kRows;
+  const dim3 grid(n_qtiles * n_splits, Hkv, B);
+  cudaError_t err = paged::dispatch_types(
+      q_dtype, pool_dtype, [&](auto tq, auto tk) {
+        using Tq = decltype(tq);
+        using Tk = decltype(tk);
+        return paged::dispatch_hd(hd, [&](auto hd_c) {
+          constexpr int HD = decltype(hd_c)::value;
+          paged_partials_kernel<Tq, Tk, HD><<<grid, kThreads, 0, st>>>(
+              static_cast<const Tq*>(q), static_cast<const Tk*>(k_pool),
+              static_cast<const Tk*>(v_pool), k_scale, v_scale, tables,
+              lengths, a_dst, m_dst, l_dst, Q, Hq, Hkv, BS, MB, NB, n_splits,
+              sb, sh, ss, ssb, ssh, scale);
+          return cudaGetLastError();
+        });
+      });
   if (err != cudaSuccess || n_splits <= 1) return static_cast<int>(err);
-  const long long R = static_cast<long long>(B) * Q * Hq;
-  combine_splits_kernel<<<static_cast<unsigned>(R), 128, 0, st>>>(
-      acc_ws, m_ws, l_ws, acc, m, l, R, hd, n_splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(paged::combine_splits(
+      acc_ws, m_ws, l_ws, acc, m, l, static_cast<long long>(B) * Q * Hq, hd,
+      n_splits, st));
 }
 
 const char* paged_attention_error_string(int code) {

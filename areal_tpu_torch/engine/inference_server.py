@@ -21,14 +21,21 @@ Design, as in the reference:
   under the new weights.
 * Sampling is keyed on (engine seed, request seed, absolute position), so
   token streams do not depend on chunk size or pipeline depth.
+* A :class:`~areal_tpu_torch.engine.dispatch.PagedDispatchTable` resolves
+  ``cache_mode="auto"`` and routes a decode chunk to the deep paged
+  kernel once the batch's longest live context reaches its
+  ``deep_min_context``.
+* ``kv_cache_dtype="int8"`` stores the pool as int8 with float32 scales
+  per (block, head, slot); fill and decode chunks quantize at the scatter
+  and both kernels dequantize at the read.
 
 Left out of this slice, each rejected explicitly where a caller could ask
 for it: the radix prefix cache and group-prompt block sharing, parking
 and preemption (a finished row always releases its blocks, and the pool
-is sized so that every row fits), speculative decode, the int8 KV pool
-and int8 weights, P/D handoff and fleet prefix pulls, SLO records and
-token streams, tensor-parallel meshes, the dense cache mode, MoE models,
-and staged weight swaps.
+is sized so that every row fits), speculative decode, int8 weights, P/D
+handoff and fleet prefix pulls, SLO records and token streams,
+tensor-parallel meshes, the dense cache mode, MoE models, and staged
+weight swaps.
 """
 
 from __future__ import annotations
@@ -44,14 +51,11 @@ import torch
 
 from areal_tpu_torch.api import model_api
 from areal_tpu_torch.base.device import DeviceLike, resolve_device
+from areal_tpu_torch.engine.dispatch import PagedDispatchTable
 from areal_tpu_torch.engine.sampling import SamplingParams, sample_logits_keyed
 from areal_tpu_torch.models import paged
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.convert import serving_params
-
-#: the reference's default dense/paged crossover (areal_tpu/engine/
-#: dispatch.py): ``cache_mode="auto"`` resolves to paged at or above it
-PAGED_MIN_CACHE_LEN = 2048
 
 #: numpy types of the engine's device state tensors
 _NP = {torch.int32: np.int32, torch.bool: np.bool_}
@@ -134,6 +138,7 @@ class ContinuousBatchingEngine:
         serving_weight_dtype: str = "auto",
         prefill_chunk_tokens: int = 1024,
         pipeline_depth: int = 2,
+        dispatch_table: Optional[PagedDispatchTable] = None,
         prefix_cache: bool = False,
         spec_decode_params=None,
         slo_tracking: bool = False,
@@ -154,23 +159,37 @@ class ContinuousBatchingEngine:
 
         ``kv_pool_tokens`` may only grow the pool beyond the dense
         equivalent ``max_batch * kv_cache_len``: a smaller pool needs
-        preemption, which is not ported."""
+        preemption, which is not ported.
+
+        ``dispatch_table`` (default: paged from 2048 tokens, deep kernel
+        never) resolves ``cache_mode="auto"`` by ``kv_cache_len`` and picks
+        the deep paged kernel for a decode chunk by the batch's longest
+        live context.  ``kv_cache_dtype`` is ``"auto"`` (model-dtype pool)
+        or ``"int8"`` (int8 pool with float32 scales)."""
         if cache_mode not in ("auto", "dense", "paged"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
-        if cache_mode == "dense" or (
-            cache_mode == "auto" and kv_cache_len < PAGED_MIN_CACHE_LEN
-        ):
+        self.dispatch_table = dispatch_table or PagedDispatchTable()
+        paged_mode = cache_mode == "paged" or (
+            cache_mode == "auto"
+            and kv_cache_len >= self.dispatch_table.paged_min_cache_len
+            and cfg.sliding_window is None
+        )
+        if not paged_mode:
             raise _not_ported(
                 f"the dense cache mode (cache_mode={cache_mode!r}, "
-                f"kv_cache_len={kv_cache_len}; pass cache_mode='paged')"
+                f"kv_cache_len={kv_cache_len}, paged from "
+                f"{self.dispatch_table.paged_min_cache_len}; pass "
+                "cache_mode='paged')"
             )
         if cfg.sliding_window is not None:
             raise ValueError(
                 "the paged cache serves global-attention models; "
                 "sliding-window models need the dense path"
             )
-        if kv_cache_dtype != "auto":
-            raise _not_ported(f"kv_cache_dtype={kv_cache_dtype!r} (int8 KV pool)")
+        if kv_cache_dtype not in ("auto", "int8"):
+            raise ValueError(
+                f"kv_cache_dtype must be 'auto' or 'int8', got {kv_cache_dtype!r}"
+            )
         if serving_weight_dtype != "auto":
             raise _not_ported(
                 f"serving_weight_dtype={serving_weight_dtype!r} (int8 weights)"
@@ -198,6 +217,12 @@ class ContinuousBatchingEngine:
         self.stop_tokens = tuple(sorted(set(stop_tokens)))
         self.seed = seed
         self.version = 0
+        self.kv_cache_dtype = kv_cache_dtype
+        self._kv_quant = kv_cache_dtype == "int8"
+        # quality counters of the int8 pool: parity harnesses fold their
+        # greedy divergence checks in here
+        self.kv_quant_divergence_checks_total = 0
+        self.kv_quant_divergence_diverged_total = 0
 
         self._init_paged_state(page_size, kv_pool_tokens, prefill_chunk_tokens)
 
@@ -212,10 +237,12 @@ class ContinuousBatchingEngine:
         self._ring: Deque[_InflightChunk] = deque()
         # work counters: fill chunks and decode chunks dispatched (each
         # runs the paged kernel once per layer, decode chunks once per
-        # layer and step), tokens prefilled and generated
+        # layer and step; deep chunks through the deep kernel), tokens
+        # prefilled and generated
         self.prefill_calls = 0
         self.prefill_tokens_total = 0
         self.decode_chunks_total = 0
+        self.deep_decode_chunks_total = 0
         self.decode_tokens_total = 0  # tokens folded in from decode chunks
 
     # -- paged-cache state ----------------------------------------------------
@@ -238,7 +265,14 @@ class ContinuousBatchingEngine:
             )
         self.n_blocks = max(dense_blocks, -(-(kv_pool_tokens or 0) // BS))
         self.prefill_chunk_tokens = prefill_chunk_tokens
-        self.k_pool, self.v_pool = paged.alloc_kv_pool(cfg, self.n_blocks, BS, dev)
+        self.k_pool, self.v_pool, self.k_scale, self.v_scale = (
+            paged.alloc_kv_pool(
+                cfg, self.n_blocks, BS, dev, kv_cache_dtype=self.kv_cache_dtype
+            )
+        )
+        self.kv_pool_bytes, self.kv_scale_bytes = paged.kv_pool_layout_bytes(
+            cfg, self.n_blocks, BS, kv_cache_dtype=self.kv_cache_dtype
+        )
         self.kv_lengths = torch.zeros(max_batch, dtype=torch.int32, device=dev)
         self.cur_tokens = torch.zeros(max_batch, dtype=torch.int32, device=dev)
         self.active = torch.zeros(max_batch, dtype=torch.bool, device=dev)
@@ -306,6 +340,26 @@ class ContinuousBatchingEngine:
     @property
     def free_pool_blocks(self) -> int:
         return len(self._free_blocks)
+
+    def note_kv_divergence_check(self, checked: int, diverged: int):
+        """Fold a measured greedy-divergence check (an int8 arm compared
+        with an fp arm token by token) into the engine's cumulative
+        quality counters."""
+        self.kv_quant_divergence_checks_total += int(checked)
+        self.kv_quant_divergence_diverged_total += int(diverged)
+
+    def kv_quant_stats(self) -> Dict[str, int]:
+        """Quantized-KV storage counters."""
+        held = self.n_blocks - len(self._free_blocks) if self._kv_quant else 0
+        return {
+            "quantized": int(self._kv_quant),
+            "storage_bits": self.k_pool.element_size() * 8,
+            "quantized_blocks_held": int(held),
+            "divergence_checks_total": self.kv_quant_divergence_checks_total,
+            "divergence_diverged_total": (
+                self.kv_quant_divergence_diverged_total
+            ),
+        }
 
     def _new_fill(self, row_id: int, req, max_new: int, seq: List[int]):
         """A fill of ``seq`` into freshly allocated blocks (None when the
@@ -483,6 +537,8 @@ class ContinuousBatchingEngine:
             self._to_device(starts),
             self._to_device(cls),
             self._to_device(tables),
+            self.k_scale,
+            self.v_scale,
         )
         self.prefill_calls += 1
         self.prefill_tokens_total += int(cls.sum())
@@ -621,6 +677,22 @@ class ContinuousBatchingEngine:
             logits, self.seed, seeds, positions, self.sampling
         )
 
+    def _use_deep_kernel(self) -> bool:
+        """Dispatch-table decision: run this chunk's prefix attention
+        through the deep paged kernel when the batch's longest live
+        context (plus the un-harvested ring allowance) reaches
+        ``deep_min_context``.  Decided on the host from host state.  On the
+        CPU both kernels' plain version is the same function, so the
+        decision changes nothing there."""
+        longest = 0
+        for row in self.rows:
+            # filling rows are not in the decode batch: a long prompt
+            # mid-prefill must not route the decoding rows' chunk
+            if row is not None and not row.filling:
+                longest = max(longest, len(row.prompt) + len(row.generated) + 1)
+        thr = self.dispatch_table.deep_min_context
+        return longest + len(self._ring) * self.chunk_size >= thr
+
     def _dispatch_chunk_paged(self):
         snapshot = [
             (i, r.epoch) for i, r in enumerate(self.rows)
@@ -629,6 +701,7 @@ class ContinuousBatchingEngine:
         if self._tables_dirty:
             self._tables = self._to_device(self._tables_np)
             self._tables_dirty = False
+        deep = self._use_deep_kernel()
         (self.kv_lengths, out_t, out_l, emitted, self.cur_tokens,
          self.active, self.budgets) = paged.paged_decode_chunk(
             self.params,
@@ -645,8 +718,12 @@ class ContinuousBatchingEngine:
             self._stop_fn,
             max_len=self.kv_cache_len,
             row_seeds=self.row_seeds,
+            deep_kernel=deep,
+            k_scale=self.k_scale,
+            v_scale=self.v_scale,
         )
         self.decode_chunks_total += 1
+        self.deep_decode_chunks_total += int(deep)
         self._enqueue_chunk((out_t, out_l, emitted, self.active), snapshot)
 
     def _enqueue_chunk(self, arrs, snapshot):

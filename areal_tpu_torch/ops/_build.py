@@ -1,6 +1,7 @@
 """Build the port's CUDA sources at first use and bind them with ctypes.
 
-Each ``csrc/*.cu`` file has a plain C interface.  It is compiled by
+Each ``csrc/*.cu`` file has a plain C interface (helpers shared between
+sources live in ``csrc/*.cuh``).  It is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under
 ``areal_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
 its source and flags so an edited source is rebuilt, and loaded with
@@ -56,10 +57,12 @@ def find_nvcc() -> str:
 
 
 def _target(name: str):
-    """(source, hashed output path) of ``csrc/<name>.cu``."""
+    """(source, hashed output path) of ``csrc/<name>.cu``.  The hash
+    covers the source, the shared headers ``csrc/*.cuh`` and the flags."""
     src = CSRC_DIR / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -6,16 +6,23 @@ partials ``(acc [B,Q,Hq,hd] f32, m [B,Q,Hq] f32, l [B,Q,Hq] f32)`` of Q
 query tokens per row over the row's whole cached prefix ``[0, length)``,
 read through its block table; rows with ``length == 0`` give ``acc=0,
 l=0, m=-1e30``.  The caller merges them online with attention over KV
-not in the pool yet.
+not in the pool yet.  :func:`paged_flash_attention_deep` computes the
+same function with a kernel that keeps several key tiles in flight; the
+engine picks it for long contexts.
 
-On CUDA tensors it launches the hand-written Hopper kernel
+An int8 pool comes with float32 scales ``k_scale``/``v_scale`` ``[NB,
+Hkv, BS]`` (one per block, head and slot); both functions dequantize
+right after the load, so the attention arithmetic is float32 either way.
+
+On CUDA tensors each function launches its hand-written Hopper kernel
 (``csrc/paged_attention.cu``, which replaces the Pallas TPU kernel
-``paged_flash_attention`` at ``areal_tpu/ops/paged_attention.py:201``)
-or raises; it never falls back.  On CPU tensors it runs the plain
-version, :func:`reference_paged_partials`, a straight port of the
-reference's jnp ``reference_paged_partials``.  What bounds the kernel on
-an H100 and what its design does about it is written at the top of the
-CUDA source.
+``paged_flash_attention`` at ``areal_tpu/ops/paged_attention.py:201``,
+and ``csrc/paged_attention_deep.cu``, which replaces
+``paged_flash_attention_deep`` at :463) or raises; it never falls back.
+On CPU tensors both run the plain version,
+:func:`reference_paged_partials`, a straight port of the reference's jnp
+``reference_paged_partials``.  What bounds each kernel on an H100 and
+what its design does about it is written at the top of its CUDA source.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,7 +38,9 @@ from areal_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: dtype codes of the C interfaces (q; pools add int8)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+POOL_CODES = {**DTYPE_CODES, torch.int8: 3}
 _HEAD_DIMS = (64, 128, 256)
 #: SMs of an H100 SXM; the split heuristic aims for two blocks per SM
 _TARGET_BLOCKS = 2 * 132
@@ -56,16 +65,28 @@ def gather_paged_kv(
     return g(k_pool), g(v_pool)
 
 
-def reference_paged_partials(q, k_pool, v_pool, tables, lengths):
-    """Plain PyTorch version of :func:`paged_flash_attention` (same
-    contract), computed in float32."""
+def reference_paged_partials(
+    q, k_pool, v_pool, tables, lengths, k_scale=None, v_scale=None
+):
+    """Plain PyTorch version of :func:`paged_flash_attention` and
+    :func:`paged_flash_attention_deep` (same contract), computed in
+    float32.  ``k_scale``/``v_scale`` ([NB, Hkv, BS]) mark an int8 pool:
+    the gathered pages are multiplied by their per-(head, slot) scales
+    right after the block gather, as in the reference."""
     B, Q, Hq, hd = q.shape
     NB, Hkv, BS, _ = k_pool.shape
     r = Hq // Hkv
     k, v = gather_paged_kv(k_pool, v_pool, tables)  # [B, Hkv, S, hd]
+    k, v = k.float(), v.float()
+    if k_scale is not None:
+        ks, vs = gather_paged_kv(
+            k_scale[..., None], v_scale[..., None], tables
+        )  # [B, Hkv, S, 1]
+        k = k * ks
+        v = v * vs
     S = k.shape[2]
     qg = q.reshape(B, Q, Hkv, r, hd).float()
-    s = torch.einsum("bqkrd,bksd->bqkrs", qg, k.float()) / math.sqrt(hd)
+    s = torch.einsum("bqkrd,bksd->bqkrs", qg, k) / math.sqrt(hd)
     mask = (
         torch.arange(S, device=q.device)[None, None, None, None, :]
         < lengths.to(q.device)[:, None, None, None, None]
@@ -74,7 +95,7 @@ def reference_paged_partials(q, k_pool, v_pool, tables, lengths):
     m = s.amax(dim=-1)
     p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l = p.sum(dim=-1)
-    acc = torch.einsum("bqkrs,bksd->bqkrd", p, v.float())
+    acc = torch.einsum("bqkrs,bksd->bqkrd", p, v)
     return (
         acc.reshape(B, Q, Hq, hd),
         m.reshape(B, Q, Hq),
@@ -83,39 +104,62 @@ def reference_paged_partials(q, k_pool, v_pool, tables, lengths):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The built kernel's C entry point and error-string function (the
-    library is built at the first call)."""
-    cdll = _build.load_library("paged_attention").cdll
-    fn = cdll.paged_attention_fwd
+def kernel_entry(library: str, symbol: str):
+    """The C entry point ``symbol`` of ``csrc/<library>.cu`` (the library is
+    built at the first call) and its error-string function.  Every paged
+    entry point takes the arguments of ``paged_attention_fwd``."""
+    cdll = _build.load_library(library).cdll
+    fn = getattr(cdll, symbol)
     fn.argtypes = (
-        [ctypes.c_void_p] * 11  # q, k, v, tables, lengths, acc, m, l, 3 ws
+        [ctypes.c_void_p] * 13  # q, k, v, k/v scale, tables, lengths, acc, m, l, 3 ws
         + [ctypes.c_int] * 9  # B, Q, Hq, Hkv, hd, BS, MB, NB, n_splits
-        + [ctypes.c_longlong] * 3  # pool block/head/slot strides
-        + [ctypes.c_int, ctypes.c_void_p]  # dtype code, stream
+        + [ctypes.c_longlong] * 5  # pool block/head/slot, scale block/head strides
+        + [ctypes.c_int] * 2  # q dtype, pool dtype codes
+        + [ctypes.c_void_p]  # stream
     )
     fn.restype = ctypes.c_int
-    err = cdll.paged_attention_error_string
+    err = getattr(cdll, f"{library}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return fn, err
 
 
-def _n_splits(B: int, Q: int, Hq: int, Hkv: int, capacity: int) -> int:
+def n_splits(B: int, Q: int, Hq: int, Hkv: int, capacity: int,
+             one_wave: bool = False) -> int:
     """KV splits per (row, head, query tile): enough blocks to cover the
     card when the grid is small (decode), none when it is large (prefill
-    chunks).  Decided from shapes only, so no device value is read."""
+    chunks).  With ``one_wave`` the grid stays within the blocks that fit
+    on the card at once (the deep kernel's shared memory allows two per
+    SM, so a grid one block larger would run a second wave for that
+    block).  Decided from shapes only, so no device value is read."""
     n_qtiles = -(-(Q * (Hq // Hkv)) // _ROWS_PER_BLOCK)
     base = n_qtiles * Hkv * B
-    want = -(-_TARGET_BLOCKS // base)
+    want = _TARGET_BLOCKS // base if one_wave else -(-_TARGET_BLOCKS // base)
     return max(1, min(want, capacity // _MIN_KEYS_PER_SPLIT))
 
 
-def _check(q, k_pool, v_pool, tables, lengths):
+def split_workspace(S: int, shape, device):
+    """The key-split workspace (acc, m, l) for ``S`` splits of outputs
+    ``shape`` = (..., hd): its tensors and their pointers (null pointers
+    and no tensors when ``S == 1``).  The caller keeps the tensors alive
+    until the launch is enqueued."""
+    if S <= 1:
+        return (), (None, None, None)
+    f32 = dict(dtype=torch.float32, device=device)
+    ws = (
+        torch.empty((S, *shape), **f32),
+        torch.empty((S, *shape[:-1]), **f32),
+        torch.empty((S, *shape[:-1]), **f32),
+    )
+    return ws, tuple(t.data_ptr() for t in ws)
+
+
+def check_args(q, k_pool, v_pool, tables, lengths, k_scale, v_scale):
     dev = q.device
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("tables", tables), ("lengths", lengths)):
-        if t.device != dev:
+                    ("tables", tables), ("lengths", lengths),
+                    ("k_scale", k_scale), ("v_scale", v_scale)):
+        if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
     if q.dim() != 4 or k_pool.dim() != 4:
         raise ValueError(
@@ -130,11 +174,33 @@ def _check(q, k_pool, v_pool, tables, lengths):
         raise ValueError(f"q {tuple(q.shape)} does not fit pool {tuple(k_pool.shape)}")
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not supported (kernel builds {_HEAD_DIMS})")
-    if q.dtype not in _DTYPE_CODES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+    if q.dtype not in DTYPE_CODES:
         raise ValueError(
-            f"q/pool dtypes {q.dtype}/{k_pool.dtype}/{v_pool.dtype}: the "
-            "kernel takes one of float32, bfloat16, float16 for all three"
+            f"q is {q.dtype}: the kernel takes float32, bfloat16 or float16"
         )
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if k_scale is None:
+        if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+            raise ValueError(
+                f"q/pool dtypes {q.dtype}/{k_pool.dtype}/{v_pool.dtype}: an "
+                "fp pool has q's dtype (an int8 pool comes with scales)"
+            )
+    else:
+        if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+            raise ValueError(
+                f"scales were given, so the pools must be int8; got "
+                f"{k_pool.dtype}/{v_pool.dtype}"
+            )
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 or tuple(t.shape) != (NB, Hkv, BS):
+                raise ValueError(
+                    f"{name} must be float32 [NB={NB}, Hkv={Hkv}, BS={BS}]; "
+                    f"got {t.dtype} {tuple(t.shape)}"
+                )
+        if v_scale.stride() != k_scale.stride() or k_scale.stride(2) != 1:
+            raise ValueError("k_scale and v_scale need equal strides and "
+                             "contiguous slots")
     if tables.dtype != torch.int32 or tables.dim() != 2 or tables.shape[0] != B:
         raise ValueError(f"tables must be int32 [B={B}, MB]; got {tables.dtype} {tuple(tables.shape)}")
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,):
@@ -143,7 +209,8 @@ def _check(q, k_pool, v_pool, tables, lengths):
         raise ValueError("q, tables and lengths must be contiguous")
     if k_pool.stride(3) != 1:
         raise ValueError("the pools' head_dim axis must be contiguous")
-    # 16-byte vector loads: every page row starts on a 16-byte boundary
+    # 16-byte vector loads and copies: every page row starts on a 16-byte
+    # boundary (a 128-element int8 row is 128 bytes)
     vec = 16 // k_pool.element_size()
     if any(s % vec for s in k_pool.stride()[:3]) or any(
         t.data_ptr() % 16 for t in (q, k_pool, v_pool)
@@ -151,14 +218,20 @@ def _check(q, k_pool, v_pool, tables, lengths):
         raise ValueError("q and pool rows must be 16-byte aligned")
 
 
-def _launch(q, k_pool, v_pool, tables, lengths):
+def launch_paged(library, symbol, counter, q, k_pool, v_pool, tables,
+                 lengths, k_scale=None, v_scale=None, one_wave=False):
+    """Check the arguments, launch the paged kernel ``symbol`` of
+    ``library`` on the current stream and count the launch on
+    ``counter`` (``int8_launches`` for an int8 pool, else ``launches``).
+    Raises on anything the kernel does not take, and when the launch
+    fails."""
     if q.device.type != "cuda":
         raise RuntimeError(
-            f"paged_flash_attention's kernel runs on CUDA tensors; got a "
+            f"{counter.__name__}'s kernel runs on CUDA tensors; got a "
             f"{q.device.type} tensor (only CPU tensors take the plain version)"
         )
-    _check(q, k_pool, v_pool, tables, lengths)
-    fn, err_str = _kernel()
+    check_args(q, k_pool, v_pool, tables, lengths, k_scale, v_scale)
+    fn, err_str = kernel_entry(library, symbol)
     B, Q, Hq, hd = q.shape
     NB, Hkv, BS, _ = k_pool.shape
     MB = tables.shape[1]
@@ -166,28 +239,27 @@ def _launch(q, k_pool, v_pool, tables, lengths):
     acc = torch.empty((B, Q, Hq, hd), **f32)
     m = torch.empty((B, Q, Hq), **f32)
     l = torch.empty((B, Q, Hq), **f32)
-    S = _n_splits(B, Q, Hq, Hkv, MB * BS)
-    if S > 1:
-        acc_ws = torch.empty((S, B, Q, Hq, hd), **f32)
-        m_ws = torch.empty((S, B, Q, Hq), **f32)
-        l_ws = torch.empty((S, B, Q, Hq), **f32)
-        ws = (acc_ws.data_ptr(), m_ws.data_ptr(), l_ws.data_ptr())
-    else:
-        ws = (None, None, None)
+    S = n_splits(B, Q, Hq, Hkv, MB * BS, one_wave=one_wave)
+    ws, ws_ptrs = split_workspace(S, (B, Q, Hq, hd), q.device)
+    quant = k_scale is not None
+    ssb, ssh = k_scale.stride()[:2] if quant else (0, 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     sb, sh, ss, _ = k_pool.stride()
     rc = fn(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None,
         tables.data_ptr(), lengths.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), *ws,
-        B, Q, Hq, Hkv, hd, BS, MB, NB, S, sb, sh, ss,
-        _DTYPE_CODES[q.dtype], stream,
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), *ws_ptrs,
+        B, Q, Hq, Hkv, hd, BS, MB, NB, S, sb, sh, ss, ssb, ssh,
+        DTYPE_CODES[q.dtype], POOL_CODES[k_pool.dtype], stream,
     )
     if rc != 0:
-        raise RuntimeError(
-            f"paged_attention kernel launch failed: {err_str(rc).decode()}"
-        )
-    paged_flash_attention.launches += 1
+        raise RuntimeError(f"{symbol} launch failed: {err_str(rc).decode()}")
+    if quant:
+        counter.int8_launches += 1
+    else:
+        counter.launches += 1
     return acc, m, l
 
 
@@ -197,15 +269,53 @@ def paged_flash_attention(
     v_pool: torch.Tensor,
     tables: torch.Tensor,  # [B, MB] int32
     lengths: torch.Tensor,  # [B] int32
+    k_scale: Optional[torch.Tensor] = None,  # [NB, Hkv, BS] f32 (int8 pool)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Un-normalised online-softmax partials over paged KV (see the module
     docstring).  CPU tensors take the plain version; any other device
     launches the CUDA kernel or raises."""
     if q.device.type == "cpu":
-        return reference_paged_partials(q, k_pool, v_pool, tables, lengths)
-    return _launch(q, k_pool, v_pool, tables, lengths)
+        return reference_paged_partials(
+            q, k_pool, v_pool, tables, lengths, k_scale, v_scale
+        )
+    return launch_paged(
+        "paged_attention", "paged_attention_fwd", paged_flash_attention,
+        q, k_pool, v_pool, tables, lengths, k_scale, v_scale,
+    )
 
 
-#: kernel launches since the count was last set to 0 (the plain version,
-#: and failed launches, do not count)
+def paged_flash_attention_deep(
+    q: torch.Tensor,  # [B, Q, Hq, hd]
+    k_pool: torch.Tensor,  # [NB, Hkv, BS, hd] (a layer slice of the pool)
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,  # [B, MB] int32
+    lengths: torch.Tensor,  # [B] int32
+    k_scale: Optional[torch.Tensor] = None,  # [NB, Hkv, BS] f32 (int8 pool)
+    v_scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The deep variant of :func:`paged_flash_attention`: the same
+    contract, from a kernel that streams each block's key range through a
+    ring of tiles in flight (``csrc/paged_attention_deep.cu``, which
+    replaces ``paged_flash_attention_deep`` at
+    ``areal_tpu/ops/paged_attention.py:463``).  The engine picks it by
+    its dispatch table's ``deep_min_context``.  CPU tensors take the plain
+    version, :func:`reference_paged_partials`."""
+    if q.device.type == "cpu":
+        return reference_paged_partials(
+            q, k_pool, v_pool, tables, lengths, k_scale, v_scale
+        )
+    return launch_paged(
+        "paged_attention_deep", "paged_attention_deep_fwd",
+        paged_flash_attention_deep, q, k_pool, v_pool, tables, lengths,
+        k_scale, v_scale, one_wave=True,
+    )
+
+
+#: kernel launches since the counts were last set to 0, over fp pools
+#: (``launches``) and int8 pools (``int8_launches``); the plain version,
+#: and failed launches, do not count
 paged_flash_attention.launches = 0
+paged_flash_attention.int8_launches = 0
+paged_flash_attention_deep.launches = 0
+paged_flash_attention_deep.int8_launches = 0

@@ -10,18 +10,32 @@ It builds the port's CUDA kernels from ``areal_tpu_torch/csrc`` (into
 the full width and depth of the Qwen2.5-1.5B architecture (random weights
 from a seed, float32 master weights and their bf16 serving copy):
 
-1. holds the paged-attention kernel against its plain PyTorch version at
-   the serving path's shapes;
+1. holds the paged-attention kernels against their plain PyTorch version
+   at the serving paths' shapes: the standard kernel on bf16 and int8
+   pools at decode and prefill-chunk shapes, the deep kernel on both
+   pools at the prefill-chunk shape and at decode over 16 rows of up to
+   32768 tokens (lengths 0, 1, BS-1, BS, BS+1, full and between), and
+   ``flash_decode`` over a contiguous 16 x 32768 cache; times the standard
+   and deep kernels at decode for contexts 4096-32768 and prints the
+   dispatch threshold those times support;
 2. serves requests through ``ContinuousBatchingEngine`` (a greedy wave of
    8 requests, resubmission, weight swaps, a sampled wave at two pipeline
    depths, chunked prefill, and a profile of one decode and one prefill
    chunk);
-3. holds the flash-attention forward and backward kernels against their
+3. serves the async-PPO recipe's configuration (16 rows, 32768-token KV,
+   a wave of 12 prompts of 1024 tokens and 4 of 8000-31000) in three
+   arms: a bf16 pool on the default dispatch table, a bf16 pool routing
+   decode chunks past 8192 tokens to the deep kernel, and an int8 pool
+   with that table; checks each arm's kernel launches against the
+   dispatched work, its leak audit and its logprobs against the trainer
+   forward, and serves a deliberately broken int8 arm (V scales doubled)
+   that the gate must fail;
+4. holds the flash-attention forward and backward kernels against their
    plain version on packed, long and ragged rows (T from 32 to 16384, not
    always a multiple of a tile), with a bit-identical repeat of the
    backward, and times them on the packed and long rows beside
    ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick;
-4. runs one async-PPO trainer iteration on the greedy wave's rollout
+5. runs one async-PPO trainer iteration on the greedy wave's rollout
    through ``PPOActorInterface`` (actor_inf, then three actor_train steps
    with AdamW), with the recipe's settings but ``max_tokens_per_mb=2048``
    (so a minibatch accumulates over micro-batches), lr 1e-4 and no
@@ -64,6 +78,24 @@ NEW_TOKENS = 128
 #: page (256) and prefill-chunk (512) boundaries
 PROMPT_LENS = (300, 3000, 777, 1536, 513, 2049, 1023, 2600)
 
+#: the long-context serving phase: the async-PPO recipe's generation
+#: settings (training/configs/async_ppo.yaml: gen_max_concurrent_batch 16,
+#: gen_kv_cache_len 32768), 12 prompts at the recipe's prompt cap and 4
+#: long ones (91288 prompt tokens), 64 new tokens each
+LONG_MAX_BATCH = 16
+LONG_KV_CACHE_LEN = 32768
+LONG_PROMPT_LENS = (1024,) * 12 + (8000, 16000, 24000, 31000)
+LONG_NEW_TOKENS = 64
+#: the deep-kernel threshold of arms B and C
+DEEP_MIN_CONTEXT = 8192
+#: (arm, kv_cache_dtype, deep_min_context); None keeps the default table
+LONG_ARMS = (("A", "auto", None), ("B", "auto", DEEP_MIN_CONTEXT),
+             ("C", "int8", DEEP_MIN_CONTEXT))
+#: prompts of the broken int8 control wave (32 new tokens each)
+LONG_CONTROL_LENS = (1024,) * 4 + (8000, 16000)
+#: contexts at which the standard and deep kernels are timed at decode
+DISPATCH_CONTEXTS = (4096, 8192, 16384, 32768)
+
 #: GPU clock cycles the timing loop holds the stream for (~0.1 s at the
 #: H100's ~1.98 GHz boost clock; the timed calls enqueue in far less)
 SLEEP_CYCLES = 200_000_000
@@ -93,6 +125,15 @@ TOL_CHUNKED_LOGITS = 3e-2
 #: deviation near 0.06), so a fault moves logprobs by hundredths.
 TOL_PROX_MEAN = 3e-3
 TOL_PROX_MAX = 1e-2
+#: the same gate for the long-context arm served from an int8 pool, whose
+#: storage rounding adds to the bf16 roundings.  Read on an H100: the int8
+#: arm mean 5.7e-4, max 3.9e-3 (the bf16 arms 4.7e-4, 3.9e-3); a
+#: deliberately broken int8 arm (V dequantized at twice its scale) mean
+#: 1.3e-2, max 4.1e-2.  Each limit is 2.6-5.3x above the int8 reading and
+#: 4.1-4.4x below the control's; the script serves the control and fails
+#: if this gate does not see it
+TOL_INT8_MEAN = 3e-3
+TOL_INT8_MAX = 1e-2
 
 # flash-attention kernel vs plain version.  The kernels multiply bf16
 # operands on the tensor cores with f32 accumulation and round P and dS to
@@ -184,36 +225,56 @@ def time_ms(fn, iters: int, device) -> float:
 
 
 def paged_inputs(B, Q, Hq, Hkv, hd, BS, MB, lengths, device, dtype,
-                 n_layers, seed):
+                 n_layers, seed, int8=False):
     """q [B,Q,Hq,hd], pools [n_layers, NB, Hkv, BS, hd] (NB = B*MB) with a
-    scrambled table [B, MB] and the given lengths."""
+    scrambled table [B, MB] and the given lengths: (q, k_pool, v_pool,
+    k_scale, v_scale, tables, lengths).  With ``int8`` the random pools
+    are quantized as the engine stores them, with their scale pools
+    [n_layers, NB, Hkv, BS]; otherwise the scales are None."""
     import torch
+
+    from areal_tpu_torch.models.paged import quantize_kv
 
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     NB = B * MB
     q = torch.randn((B, Q, Hq, hd), generator=g, device=device).to(dtype)
-    kp = torch.randn((n_layers, NB, Hkv, BS, hd), generator=g,
-                     device=device).to(dtype)
-    vp = torch.randn((n_layers, NB, Hkv, BS, hd), generator=g,
-                     device=device).to(dtype)
+    pools = []
+    for _ in range(2):
+        pool = torch.empty((n_layers, NB, Hkv, BS, hd), dtype=dtype,
+                           device=device)
+        for layer in pool:  # one layer at a time: bounded f32 temporaries
+            layer.copy_(torch.randn(layer.shape, generator=g, device=device))
+        pools.append(pool)
+    scales = [None, None]
+    if int8:
+        for i, pool in enumerate(pools):
+            qp = torch.empty(pool.shape, dtype=torch.int8, device=device)
+            sc = torch.empty(pool.shape[:-1], dtype=torch.float32,
+                             device=device)
+            for layer in range(n_layers):
+                qp[layer], sc[layer] = quantize_kv(pool[layer])
+            pools[i], scales[i] = qp, sc
     perm = torch.randperm(NB, generator=g, device=device)
     tables = perm.reshape(B, MB).to(torch.int32)
     lens = torch.tensor(lengths, dtype=torch.int32, device=device)
-    return q, kp, vp, tables, lens
+    return (q, pools[0], pools[1], scales[0], scales[1], tables, lens)
 
 
-def bound(q, lengths, Hkv, hd):
+def bound(q, lengths, Hkv, hd, pool_item=None, scale_item=0):
     """(bytes ms, operations ms) for one call: bytes that must move (q,
-    the valid K/V prefix, tables and lengths read once; acc, m, l written
-    once) over HBM rate, vs the attention arithmetic over the bf16
-    tensor-core rate."""
+    the valid K/V prefix with its scales, tables and lengths read once;
+    acc, m, l written once) over HBM rate, vs the attention arithmetic
+    over the bf16 tensor-core rate.  ``pool_item`` is the pool's element
+    size (q's by default); ``scale_item`` the bytes of one slot's scale
+    (4 for an int8 pool)."""
     B, Q, Hq, _ = q.shape
     tot = int(lengths.clamp(min=0).sum())
     item = q.element_size()
+    pool_item = pool_item or item
     nbytes = (
         q.numel() * item
-        + tot * Hkv * hd * 2 * item
+        + tot * Hkv * 2 * (hd * pool_item + scale_item)
         + B * 4 * 2
         + B * Q * Hq * (hd + 2) * 4
     )
@@ -223,27 +284,15 @@ def bound(q, lengths, Hkv, hd):
     return t_bytes, t_ops
 
 
-def compare_kernel(name, B, Q, lengths, device, *, Hq=12, Hkv=2, hd=128,
-                   BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE, n_layers=4,
-                   timing_iters=20):
-    """Kernel vs plain version on one shape; returns the measurements.
-    The pool holds ``n_layers`` layers and timed launches cycle through
-    them, so the timed cache traffic does not sit in L2 (at the slice's
-    shapes 4 layers of pool exceed the H100's 50 MB L2)."""
+def check_partials(what, got, ref, lens):
+    """Kernel partials (acc, m, l) against the plain version's; raises past
+    TOL_OUT / TOL_M / TOL_L_REL or when a length-0 row is not exactly
+    acc = 0, l = 0, m = -1e30.  Returns the largest absolute error of
+    acc/l and m."""
     import torch
 
-    from areal_tpu_torch.ops import paged_attention as pa
-
-    q, kp, vp, tables, lens = paged_inputs(
-        B, Q, Hq, Hkv, hd, BS, MB, lengths, device, torch.bfloat16,
-        n_layers, SEED,
-    )
-    acc, m, l = pa.paged_flash_attention(q, kp[0], vp[0], tables, lens)
-    acc_r, m_r, l_r = pa.reference_paged_partials(
-        q, kp[0], vp[0], tables, lens
-    )
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    acc, m, l = got
+    acc_r, m_r, l_r = ref
     valid = lens > 0
     out = acc[valid] / l[valid][..., None]
     out_r = acc_r[valid] / l_r[valid][..., None]
@@ -256,51 +305,239 @@ def compare_kernel(name, B, Q, lengths, device, *, Hq=12, Hkv=2, hd=128,
         and (m[empty] == -1e30).all()
     )
     finite = bool(torch.isfinite(acc).all() and torch.isfinite(l).all())
-    log(f"kernel {name}: B={B} Q={Q} Hq={Hq} Hkv={Hkv} hd={hd} BS={BS} "
-        f"MB={MB} lengths={lengths}: max err acc/l={err_out:.3e} "
-        f"m={err_m:.3e} l(rel)={err_l:.3e} empty-rows-exact={empty_ok}")
+    log(f"kernel {what}: max err acc/l={err_out:.3e} m={err_m:.3e} "
+        f"l(rel)={err_l:.3e} empty-rows-exact={empty_ok}")
     if not (finite and empty_ok and err_out <= TOL_OUT and err_m <= TOL_M
             and err_l <= TOL_L_REL):
         raise AssertionError(
-            f"paged_flash_attention ({name}) disagrees with its plain "
-            f"version: acc/l {err_out} (tol {TOL_OUT}), m {err_m} (tol "
-            f"{TOL_M}), l {err_l} (tol {TOL_L_REL}), empty rows exact "
-            f"{empty_ok}, finite {finite}"
+            f"{what} disagrees with its plain version: acc/l {err_out} (tol "
+            f"{TOL_OUT}), m {err_m} (tol {TOL_M}), l {err_l} (tol "
+            f"{TOL_L_REL}), empty rows exact {empty_ok}, finite {finite}"
         )
+    return max(err_out, err_m)
+
+
+def kernel_case(name, fn, inputs, device, *, time_lengths=None,
+                timing_iters=20):
+    """``fn`` (a paged kernel's wrapper) against the plain version on
+    ``inputs`` from :func:`paged_inputs`, then timed with its plain
+    version at ``time_lengths`` (default: the compared lengths).  Timed
+    launches cycle through the pool's layers, so the cache traffic does
+    not sit in L2 (4 layers of pool exceed the H100's 50 MB L2 at every
+    shape timed here).  Returns the measurements."""
+    import torch
+
+    from areal_tpu_torch.ops import paged_attention as pa
+
+    q, kp, vp, ks, vs, tables, lens = inputs
+    n_layers = kp.shape[0]
+    B, Q, Hq, hd = q.shape
+    _, NB, Hkv, BS, _ = kp.shape
+
+    def call(f, i, lengths):
+        sc = () if ks is None else (ks[i], vs[i])
+        return f(q, kp[i], vp[i], tables, lengths, *sc)
+
+    got = call(fn, 0, lens)
+    ref = call(pa.reference_paged_partials, 0, lens)
+    _sync(device)
+    pool = "int8" if ks is not None else str(kp.dtype).removeprefix("torch.")
+    err = check_partials(
+        f"{name}: B={B} Q={Q} Hq={Hq} Hkv={Hkv} hd={hd} BS={BS} "
+        f"MB={tables.shape[1]} {pool} pool, lengths={lens.tolist()}",
+        got, ref, lens)
+    tl = lens if time_lengths is None else time_lengths
     layer = [0]
 
-    def kern():
-        i = layer[0] = (layer[0] + 1) % n_layers
-        pa.paged_flash_attention(q, kp[i], vp[i], tables, lens)
+    def timed(f):
+        def run():
+            i = layer[0] = (layer[0] + 1) % n_layers
+            call(f, i, tl)
+        return run
 
-    def plain():
-        i = layer[0] = (layer[0] + 1) % n_layers
-        pa.reference_paged_partials(q, kp[i], vp[i], tables, lens)
-
-    ms = time_ms(kern, timing_iters, device)
-    plain_ms = time_ms(plain, max(2, timing_iters // 10), device)
-    t_bytes, t_ops = bound(q, lens, Hkv, hd)
+    ms = time_ms(timed(fn), timing_iters, device)
+    plain_ms = time_ms(timed(pa.reference_paged_partials),
+                       max(2, timing_iters // 10), device)
+    t_bytes, t_ops = bound(q, tl, Hkv, hd, kp.element_size(),
+                           4 if ks is not None else 0)
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     log(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.5f} ms by {bound_by} (bytes / 3.35 TB/s: {t_bytes:.5f} "
-        f"ms; operations / 989 TFLOP/s: {t_ops:.5f} ms)")
-    return dict(max_abs_err=max(err_out, err_m), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+        f"ms; operations / 989 TFLOP/s: {t_ops:.5f} ms) at lengths "
+        f"{tl.tolist()}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                shape=f"B={B} Q={Q} Hq={Hq} Hkv={Hkv} hd={hd} {pool} pool, "
+                      f"{int(tl.sum())} cached tokens")
+
+
+def compare_kernel(name, B, Q, lengths, device, *, fn=None, int8=False,
+                   Hq=12, Hkv=2, hd=128, BS=PAGE_SIZE,
+                   MB=KV_CACHE_LEN // PAGE_SIZE, n_layers=4, timing_iters=20):
+    """A paged kernel (``fn``, default the standard one) against its plain
+    version on one shape of a bf16 (or, with ``int8``, int8) pool, then
+    timed; returns the measurements."""
+    import torch
+
+    from areal_tpu_torch.ops import paged_attention as pa
+
+    inputs = paged_inputs(B, Q, Hq, Hkv, hd, BS, MB, lengths, device,
+                          torch.bfloat16, n_layers, SEED, int8=int8)
+    return kernel_case(name, fn or pa.paged_flash_attention, inputs, device,
+                       timing_iters=timing_iters)
 
 
 def kernel_phase(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
                  Q_prefill=PREFILL_CHUNK, timing_iters=20, **shape):
-    """Decode (Q=1, B=8) and prefill-chunk (Q=prefill chunk) shapes, with
-    lengths 0, 1, BS-1, BS, BS+1, a full table and two in between."""
+    """The standard paged kernel at decode (Q=1, B=8) and prefill-chunk
+    (Q=prefill chunk) shapes, with lengths 0, 1, BS-1, BS, BS+1, a full
+    table and two in between; bf16 pools, then the int8 branch and the
+    deep kernel (bf16 and int8 pools) at the prefill-chunk shape."""
+    from areal_tpu_torch.ops import paged_attention as pa
+
     lengths = [0, 1, BS - 1, BS, BS + 1, MB * BS, (MB * BS) // 3,
                (MB * BS * 3) // 4]
-    dec = compare_kernel("decode", len(lengths), 1, lengths, device, BS=BS,
-                         MB=MB, timing_iters=timing_iters, **shape)
+    kw = dict(BS=BS, MB=MB, timing_iters=timing_iters, **shape)
+    dec = compare_kernel("decode", len(lengths), 1, lengths, device, **kw)
     pre = compare_kernel("prefill", len(lengths), Q_prefill, lengths,
-                         device, BS=BS, MB=MB, timing_iters=timing_iters,
-                         **shape)
-    return dec, pre
+                         device, **kw)
+    out = dict(decode=dec, prefill=pre)
+    out["int8_decode"] = compare_kernel(
+        "int8 decode", len(lengths), 1, lengths, device, int8=True, **kw)
+    out["int8_prefill"] = compare_kernel(
+        "int8 prefill", len(lengths), Q_prefill, lengths, device, int8=True,
+        **kw)
+    for int8 in (False, True):
+        out[f"deep{'_int8' if int8 else ''}_prefill"] = compare_kernel(
+            f"deep{' int8' if int8 else ''} prefill", len(lengths), Q_prefill,
+            lengths, device, fn=pa.paged_flash_attention_deep, int8=int8,
+            **kw)
+    return out
+
+
+def long_kernel_phase(device, *, B=16, MB=None, BS=PAGE_SIZE,
+                      contexts=None, timing_iters=20, n_layers=4):
+    """The long-context serving shapes: the standard and deep kernels at
+    decode (B rows, Q=1) over contexts up to ``MB * BS`` tokens, bf16 and
+    int8 pools, each compared with the plain version at lengths 0, 1,
+    BS-1, BS, BS+1, full and mixed, then timed on B full rows at every
+    context of ``contexts``; the threshold those times support, as
+    ``derive_dispatch_table`` reads them; and ``flash_decode`` over a
+    contiguous cache of the full length, compared at mixed lengths and
+    timed on full rows."""
+    import torch
+
+    from areal_tpu_torch.engine.dispatch import (
+        DISPATCH_NEVER,
+        derive_dispatch_table,
+    )
+    from areal_tpu_torch.ops import paged_attention as pa
+
+    MB = MB or LONG_KV_CACHE_LEN // BS
+    S = MB * BS
+    contexts = contexts or DISPATCH_CONTEXTS
+    lengths = ([0, 1, BS - 1, BS, BS + 1, S, S - 1, S // 2 + 3]
+               + [S * (i + 1) // (B - 8) for i in range(B - 8)])
+    assert len(lengths) == B
+    full = torch.full((B,), S, dtype=torch.int32, device=device)
+    out = {}
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        inputs = paged_inputs(B, 1, 12, 2, 128, BS, MB, lengths, device,
+                              torch.bfloat16, n_layers, SEED + 7, int8=int8)
+        for name, fn in (("standard", pa.paged_flash_attention),
+                         ("deep", pa.paged_flash_attention_deep)):
+            out[f"{name}_{tag}"] = kernel_case(
+                f"{name} decode {tag}", fn, inputs, device, time_lengths=full,
+                timing_iters=timing_iters)
+        q, kp, vp, ks, vs, tables, _ = inputs
+        rows = {}
+        for ctx in contexts:
+            mb = -(-ctx // BS)
+            tab = tables[:, :mb].contiguous()
+            lens = torch.full((B,), ctx, dtype=torch.int32, device=device)
+            times = {}
+            for name, fn in (("paged", pa.paged_flash_attention),
+                             ("deep", pa.paged_flash_attention_deep)):
+                layer = [0]
+
+                def run(fn=fn):
+                    i = layer[0] = (layer[0] + 1) % n_layers
+                    sc = () if ks is None else (ks[i], vs[i])
+                    fn(q, kp[i], vp[i], tab, lens, *sc)
+
+                times[name] = time_ms(run, timing_iters, device)
+            t_bytes, _ = bound(q, lens, 2, 128, kp.element_size(),
+                               4 if int8 else 0)
+            log(f"dispatch timing {tag} pool, {B} rows x {ctx} tokens: "
+                f"standard {times['paged']:.4f} ms, deep {times['deep']:.4f} "
+                f"ms (deep/standard {times['deep'] / times['paged']:.3f}); "
+                f"bound {t_bytes:.5f} ms (bytes)")
+            rows[ctx] = {"dense": None, "paged": 1.0 / times["paged"],
+                         "deep": 1.0 / times["deep"]}
+        table = derive_dispatch_table(rows)
+        thr = table.deep_min_context
+        log(f"dispatch timing {tag} pool: the times support deep_min_context="
+            f"{'never' if thr == DISPATCH_NEVER else thr} "
+            f"(derive_dispatch_table over calls per ms)")
+        del inputs, q, kp, vp, ks, vs, tables
+        torch.cuda.empty_cache()
+    out["flash_decode"] = flash_decode_case(
+        device, B=B, S=S, lengths=lengths, timing_iters=timing_iters,
+        n_layers=n_layers)
+    return out
+
+
+def flash_decode_case(device, *, B, S, lengths, timing_iters, n_layers,
+                      Hq=12, Hkv=2, hd=128):
+    """``flash_decode`` against its plain version over a contiguous bf16
+    cache [B, Hkv, S, hd] at ``lengths``, then timed on full rows."""
+    import torch
+
+    from areal_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 9)
+    q = torch.randn((B, Hq, hd), generator=g, device=device).to(torch.bfloat16)
+    caches = []
+    for _ in range(2):
+        c = torch.empty((n_layers, B, Hkv, S, hd), dtype=torch.bfloat16,
+                        device=device)
+        for layer in c:
+            layer.copy_(torch.randn(layer.shape, generator=g, device=device))
+        caches.append(c)
+    k, v = caches
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    got = da.flash_decode(q, k[0], v[0], lens)
+    ref = da.reference_decode_partials(q, k[0], v[0], lens)
+    _sync(device)
+    err = check_partials(
+        f"flash_decode: B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} bf16 cache, "
+        f"lengths={lengths}", got, ref, lens)
+    full = torch.full((B,), S, dtype=torch.int32, device=device)
+    layer = [0]
+
+    def timed(f):
+        def run():
+            i = layer[0] = (layer[0] + 1) % n_layers
+            f(q, k[i], v[i], full)
+        return run
+
+    ms = time_ms(timed(da.flash_decode), timing_iters, device)
+    plain_ms = time_ms(timed(da.reference_decode_partials),
+                       max(2, timing_iters // 10), device)
+    t_bytes, t_ops = bound(q[:, None], full, Hkv, hd)
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"kernel flash_decode: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms by {bound_by} ({B} full rows of {S} tokens)")
+    del caches, k, v
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by,
+                shape=f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} bf16 cache, "
+                      f"{B * S} cached tokens")
 
 
 # ---------------------------------------------------------------------------
@@ -496,7 +733,7 @@ def chunked_prefill_phase(cfg, params, device, *, prompt_len=1500,
     i32 = dict(dtype=torch.int32, device=device)
 
     def prefill(chunk_len):
-        kp, vp = paged.alloc_kv_pool(cfg, MB, BS, device)
+        kp, vp, _, _ = paged.alloc_kv_pool(cfg, MB, BS, device)
         for s in range(0, prompt_len, chunk_len):
             n = min(chunk_len, prompt_len - s)
             logits = paged.paged_fill_chunk(
@@ -599,7 +836,7 @@ def anatomy_phase(cfg, params, device, *, lens=PROMPT_LENS):
     from areal_tpu_torch.models import paged
 
     B, MB = len(lens), KV_CACHE_LEN // PAGE_SIZE
-    kp, vp = paged.alloc_kv_pool(cfg, B * MB, PAGE_SIZE, device)
+    kp, vp, _, _ = paged.alloc_kv_pool(cfg, B * MB, PAGE_SIZE, device)
     kp.normal_()
     vp.normal_()
     i32 = dict(dtype=torch.int32, device=device)
@@ -1067,6 +1304,194 @@ def train_phase(cfg, master, serving0, device, outs, card, *, lr=TRAIN_LR,
                 peak_gib=timed["peak"], steps=step_stats)
 
 
+def _gap_gate(what, gap, tol_mean, tol_max):
+    mean, mx = gap
+    ok = mean <= tol_mean and mx <= tol_max
+    log(f"long check: {what}: |trainer logprobs - serving logprobs| over "
+        f"response tokens: mean {mean:.3e} (tol {tol_mean}), max {mx:.3e} "
+        f"(tol {tol_max}){'' if ok else ' FAILS'}")
+    return ok
+
+
+def _first_divergence(a, b):
+    """(agreeing positions, index of the first differing position or
+    None) of two token lists."""
+    same = sum(x == y for x, y in zip(a, b))
+    first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if first is None and len(a) != len(b):
+        first = min(len(a), len(b))
+    return same, first
+
+
+def long_context_phase(cfg, master, params, device, card, *,
+                       prompt_lens=LONG_PROMPT_LENS, new_tokens=LONG_NEW_TOKENS,
+                       arms=LONG_ARMS, max_batch=LONG_MAX_BATCH,
+                       kv_cache_len=LONG_KV_CACHE_LEN, control_lens=None):
+    """The recipe's serving configuration (``max_batch=16``,
+    ``kv_cache_len=32768``) over a greedy wave of ``prompt_lens``, in the
+    arms of ``arms``: A, a bf16 pool on the default dispatch table; B, the
+    same with ``deep_min_context=8192``; C, an int8 pool with that table.
+    In every arm: prefill and decode tokens/s, the pool's bytes, the
+    kernels' launch counts against the dispatched work (counts set to 0
+    just before the wave, read just after), zero leaked blocks, and the
+    logprobs of the arm's tokens against the trainer forward of the
+    version-0 master weights ``master`` on the same tokens.  Then a broken
+    int8 arm (V dequantized at twice its scale) on a shorter wave, which
+    the int8 gate must fail, and the tokens of B and C against A's."""
+    import torch
+
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.engine.dispatch import resolve_dispatch_table
+    from areal_tpu_torch.engine.sampling import SamplingParams
+    from areal_tpu_torch.engine.train_engine import TrainEngine
+    from areal_tpu_torch.interfaces.ppo_interface import model_logprobs_fwd
+    from areal_tpu_torch.models import paged
+    from areal_tpu_torch.ops.paged_attention import (
+        paged_flash_attention as std,
+    )
+    from areal_tpu_torch.ops.paged_attention import (
+        paged_flash_attention_deep as deep,
+    )
+
+    L = cfg.n_layers
+    prompts = make_prompts(cfg.vocab_size, prompt_lens, SEED + 11)
+    # forward only: no optimizer state; the tree is shared, not copied
+    trainer = TrainEngine(cfg, None, master, device=device)
+    mb_spec = MicroBatchSpec(max_tokens_per_mb=kv_cache_len)
+
+    def gap_of(outs):
+        sample = rollout_sample(outs, SEED)
+        logp = trainer.forward_batch(sample, model_logprobs_fwd(), mb_spec,
+                                     output_shift=1)
+        return _response_gap(sample, logp)
+
+    def engine(kv_dtype, deep_min):
+        return build_engine(
+            cfg, params, device, SamplingParams(greedy=True),
+            max_batch=max_batch, kv_cache_len=kv_cache_len,
+            kv_cache_dtype=kv_dtype,
+            dispatch_table=resolve_dispatch_table(None, deep_min),
+        )
+
+    log(f"long: {len(prompts)} requests, prompts {list(prompt_lens)} "
+        f"({sum(prompt_lens)} tokens), {new_tokens} new tokens each; "
+        f"max_batch={max_batch}, kv_cache_len={kv_cache_len}, page "
+        f"{PAGE_SIZE}, prefill chunk {PREFILL_CHUNK}, chunk {CHUNK_SIZE}, "
+        f"pipeline depth {PIPELINE_DEPTH}")
+    results = {}
+    for name, kv_dtype, deep_min in arms:
+        eng = engine(kv_dtype, deep_min)
+        int8 = kv_dtype == "int8"
+        pool_bytes = eng.kv_pool_bytes + eng.kv_scale_bytes
+        pool_gib = pool_bytes / 2**30
+        p0 = eng.prefill_tokens_total
+        _, prefill_secs = serve(eng, requests(prompts, 1, f"{name}-first"))
+        prefill_tps = (eng.prefill_tokens_total - p0) / prefill_secs
+
+        f0, d0 = eng.prefill_calls, eng.decode_chunks_total
+        dd0, t0 = eng.deep_decode_chunks_total, eng.decode_tokens_total
+        for fn in (std, deep):
+            fn.launches = fn.int8_launches = 0
+        outs, secs = serve(eng, requests(prompts, new_tokens, f"{name}-greedy"))
+        counts = {f"{fn.__name__}.{k}": getattr(fn, k)
+                  for fn in (std, deep) for k in ("launches", "int8_launches")}
+        fills = eng.prefill_calls - f0
+        chunks = eng.decode_chunks_total - d0
+        deep_chunks = eng.deep_decode_chunks_total - dd0
+        dec_tok = eng.decode_tokens_total - t0
+        decode_tps = dec_tok / (secs - prefill_secs)
+        check_outputs(outs, cfg, new_tokens, f"long {name}")
+        key = "int8_launches" if int8 else "launches"
+        other = "launches" if int8 else "int8_launches"
+        got_std, got_deep = getattr(std, key), getattr(deep, key)
+        want_std = L * (fills + eng.chunk_size * (chunks - deep_chunks))
+        want_deep = L * eng.chunk_size * deep_chunks
+        log(f"long {name} ({kv_dtype} pool, {pool_bytes} bytes = "
+            f"{pool_gib:.2f} GiB, "
+            f"deep_min_context={eng.dispatch_table.deep_min_context}): "
+            f"{sum(len(o.output_ids) for o in outs)} new tokens in {secs:.2f} s; "
+            f"{fills} fill chunks, {chunks} decode chunks ({deep_chunks} deep); "
+            f"launches {counts}; expected standard {want_std}, deep "
+            f"{want_deep}")
+        log(f"long {name} throughput on {card}: prefill {prefill_tps:.1f} "
+            f"tok/s (first-token wave, {prefill_secs:.2f} s), decode "
+            f"{decode_tps:.1f} tok/s ({dec_tok} decode-chunk tokens)")
+        decode_launches = (got_std - L * fills) + got_deep
+        if (got_std != want_std or got_deep != want_deep
+                or decode_launches != L * eng.chunk_size * chunks
+                or getattr(std, other) or getattr(deep, other)
+                or got_std == 0):
+            raise AssertionError(f"long {name}: kernel launches {counts} do "
+                                 f"not match the dispatched work")
+        if (deep_chunks > 0) != (deep_min is not None):
+            raise AssertionError(f"long {name}: {deep_chunks} deep decode "
+                                 "chunks")
+        leaked = eng.close()
+        if leaked or eng.free_pool_blocks != eng.n_blocks:
+            raise AssertionError(f"long {name}: leaked pool blocks {leaked}")
+        del eng
+        torch.cuda.empty_cache()
+        gap = gap_of(outs)
+        tol = (TOL_INT8_MEAN, TOL_INT8_MAX) if int8 else (
+            TOL_PROX_MEAN, TOL_PROX_MAX)
+        if not _gap_gate(f"arm {name}", gap, *tol):
+            raise AssertionError(f"long {name}: serving and trainer "
+                                 "logprobs disagree")
+        results[name] = dict(
+            outs=outs, prefill_tps=prefill_tps, decode_tps=decode_tps,
+            gap=gap, pool_bytes=pool_bytes, fills=fills, chunks=chunks,
+            deep_chunks=deep_chunks, launches=dict(std=got_std, deep=got_deep),
+            int8=int8, secs=secs, prefill_secs=prefill_secs,
+        )
+        log(f"long {name}: leak check and logprob gate pass; done at "
+            f"{secs + prefill_secs:.1f} s of serving")
+
+    # the broken control: an int8 arm whose reads dequantize V at twice
+    # its scale, on a shorter wave
+    control = LONG_CONTROL_LENS if control_lens is None else control_lens
+    real = paged._prefix_partials
+
+    def broken(q, k_pool, v_pool, tables, lengths, layer, deep=False,
+               k_scale=None, v_scale=None):
+        return real(q, k_pool, v_pool, tables, lengths, layer, deep=deep,
+                    k_scale=k_scale, v_scale=v_scale * 2)
+
+    eng = engine("int8", DEEP_MIN_CONTEXT)
+    paged._prefix_partials = broken
+    try:
+        bad, _ = serve(eng, requests(
+            make_prompts(cfg.vocab_size, control, SEED + 12), 32, "control"))
+    finally:
+        paged._prefix_partials = real
+    if eng.close():
+        raise AssertionError("the control engine leaked pool blocks")
+    del eng
+    torch.cuda.empty_cache()
+    cgap = gap_of(bad)
+    if _gap_gate(f"control (int8 pool, V dequantized at 2x its scale, "
+                 f"prompts {control})", cgap, TOL_INT8_MEAN, TOL_INT8_MAX):
+        raise AssertionError("the int8 logprob gate does not see V scales "
+                             "off by 2x")
+    results["control_gap"] = cgap
+
+    if "A" in results:
+        ref = results["A"]["outs"]
+        for name in ("B", "C"):
+            if name not in results:
+                continue
+            pairs = [_first_divergence(a.output_ids, b.output_ids)
+                     for a, b in zip(ref, results[name]["outs"])]
+            agree = sum(s for s, _ in pairs)
+            total = sum(len(a.output_ids) for a in ref)
+            firsts = [f for _, f in pairs]
+            log(f"long check: arm {name} agrees with arm A at {agree} of "
+                f"{total} token positions; {sum(f is None for f in firsts)} "
+                f"of {len(firsts)} streams identical; first divergence per "
+                f"request {firsts}")
+            results[name]["agree"] = (agree, total, firsts)
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -1095,7 +1520,8 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t_start = tik = time.perf_counter()
-    libs = _build.load_libraries("paged_attention", "flash_attention")
+    libs = _build.load_libraries(
+        "paged_attention", "paged_attention_deep", "flash_attention")
     log(f"build: {len(libs)} libraries in {time.perf_counter() - tik:.1f} s "
         f"(nvcc in parallel, with loading)")
     for lib in libs.values():
@@ -1104,7 +1530,9 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"build: {line.strip()}")
 
-    dec, pre = kernel_phase(device)
+    kern = kernel_phase(device)
+    long_kern = long_kernel_phase(device)
+    log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     cfg = qwen25_15b_config()
     tik = time.perf_counter()
@@ -1122,31 +1550,85 @@ def main() -> int:
     anatomy_phase(cfg, params, device)
     log(f"serving phases done at {time.perf_counter() - t_start:.1f} s; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    long = long_context_phase(cfg, master, params, device, card)
+    log(f"long-context phase done at {time.perf_counter() - t_start:.1f} s; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     flash = flash_phase(device)
     log(f"flash phase done at {time.perf_counter() - t_start:.1f} s")
     train = train_phase(cfg, master, params, device, eng["outs"], card)
     log(f"train phase done at {time.perf_counter() - t_start:.1f} s")
 
-    entry = dict(
-        name="paged_flash_attention",
-        route="cuda",
-        source="areal_tpu_torch/csrc/paged_attention.cu",
-        replaces="areal_tpu/ops/paged_attention.py:201",
-        launches=eng["launches"],
-        max_abs_err=max(dec["max_abs_err"], pre["max_abs_err"]),
-        max_err=max(dec["max_abs_err"], pre["max_abs_err"]),
-        ms=dec["ms"],
-        plain_ms=dec["plain_ms"],
-        bound_ms=dec["bound_ms"],
-        bound_by=dec["bound_by"],
-        library_ms=None,
-        shape="decode Q=1 B=8 Hq=12 Hkv=2 hd=128 bf16",
-        prefill=dict(shape=f"Q={PREFILL_CHUNK} B=8", ms=pre["ms"],
-                     plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
-                     bound_by=pre["bound_by"]),
-    )
-    entries = [entry]
+    entries = kernel_entries(kern, long_kern, eng, long, flash, train)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card_line())
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+def kernel_entries(kern, long_kern, eng, long, flash, train):
+    """The ``{"kernels": [...]}`` line's entries: every kernel, with its
+    launches on the main paths (the engine's greedy wave and the
+    long-context arms; the trainer's steps for the flash kernels), its
+    comparison's largest absolute error, and its time, plain time and
+    bound at its main-path shape."""
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "shape")
+
+    def entry(name, source, replaces, launches, err, main, **extra):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches, max_abs_err=err,
+                    library_ms=None, **{k: main[k] for k in timed}, **extra)
+
+    paged_src = "areal_tpu_torch/csrc/paged_attention.cu"
+    deep_src = "areal_tpu_torch/csrc/paged_attention_deep.cu"
+    paged_ref = "areal_tpu/ops/paged_attention.py:201"
+    deep_ref = "areal_tpu/ops/paged_attention.py:463"
+
+    def arm_launches(kind, int8):
+        return sum(r["launches"][kind] for k, r in long.items()
+                   if k in ("A", "B", "C") and r["int8"] == int8)
+
+    def errs(*keys, src=kern):
+        return max(src[k]["max_abs_err"] for k in keys)
+
+    entries = [
+        entry("paged_flash_attention", paged_src, paged_ref,
+              eng["launches"] + arm_launches("std", False),
+              max(errs("decode", "prefill"), errs("standard_bf16", src=long_kern)),
+              kern["decode"],
+              launches_by_path=dict(engine_wave=eng["launches"],
+                                    long_context=arm_launches("std", False)),
+              prefill={k: kern["prefill"][k] for k in timed},
+              long_decode={k: long_kern["standard_bf16"][k] for k in timed}),
+        entry("paged_flash_attention_int8", paged_src,
+              "areal_tpu/ops/paged_attention.py:116",
+              arm_launches("std", True),
+              max(errs("int8_decode", "int8_prefill"),
+                  errs("standard_int8", src=long_kern)),
+              long_kern["standard_int8"],
+              prefill={k: kern["int8_prefill"][k] for k in timed}),
+        entry("paged_flash_attention_deep", deep_src, deep_ref,
+              arm_launches("deep", False),
+              max(errs("deep_prefill"), errs("deep_bf16", src=long_kern)),
+              long_kern["deep_bf16"],
+              prefill={k: kern["deep_prefill"][k] for k in timed}),
+        entry("paged_flash_attention_deep_int8", deep_src, deep_ref,
+              arm_launches("deep", True),
+              max(errs("deep_int8_prefill"), errs("deep_int8", src=long_kern)),
+              long_kern["deep_int8"],
+              prefill={k: kern["deep_int8_prefill"][k] for k in timed}),
+        entry("flash_decode", deep_src, "areal_tpu/ops/decode_attention.py:150",
+              0, long_kern["flash_decode"]["max_abs_err"],
+              long_kern["flash_decode"],
+              note="on no path: compared and timed only"),
+    ]
     for kind in ("fwd", "bwd"):
         main_shape, long_shape = flash["packed"][kind], flash["long"][kind]
         entries.append(dict(
@@ -1162,15 +1644,7 @@ def main() -> int:
                                              "bound_ms", "bound_by",
                                              "library_ms")},
         ))
-    log(f"total {time.perf_counter() - t_start:.1f} s")
-    log(card_line())
-    print(json.dumps({"kernels": entries}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
-    return 0
+    return entries
 
 
 def _perturbed(params, seed):

@@ -18,6 +18,7 @@ from areal_tpu_torch.models.config import tiny_config
 from areal_tpu_torch.models.convert import params_from_jax
 from areal_tpu_torch.models.transformer import init_params
 from areal_tpu_torch.ops import _build
+from areal_tpu_torch.ops import decode_attention as tda
 from areal_tpu_torch.ops import paged_attention as tpa
 
 REPO = Path(__file__).resolve().parents[1]
@@ -100,9 +101,60 @@ def test_kernel_wrapper_never_falls_back(monkeypatch):
         _build.load_library("paged_attention")
 
 
+def test_new_kernel_wrappers_never_fall_back():
+    """The deep paged kernel, the int8 branch and flash_decode: a tensor
+    off the CPU goes to the kernel path, which refuses it here."""
+    B, Q, Hq, Hkv, hd, NB, BS, MB = 2, 1, 4, 2, 128, 4, 16, 2
+    meta = dict(device="meta")
+    q = torch.empty((B, Q, Hq, hd), **meta)
+    pools = [torch.empty((NB, Hkv, BS, hd), **meta) for _ in range(2)]
+    i8 = [torch.empty((NB, Hkv, BS, hd), dtype=torch.int8, **meta)
+          for _ in range(2)]
+    scales = [torch.empty((NB, Hkv, BS), **meta) for _ in range(2)]
+    tables = torch.empty((B, MB), dtype=torch.int32, **meta)
+    lengths = torch.empty((B,), dtype=torch.int32, **meta)
+    for fn in (tpa.paged_flash_attention, tpa.paged_flash_attention_deep):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(q, *pools, tables, lengths)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(q, *i8, tables, lengths, *scales)
+        assert fn.launches == 0 and fn.int8_launches == 0
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tda.flash_decode(q[:, 0], torch.empty((B, Hkv, 64, hd), **meta),
+                         torch.empty((B, Hkv, 64, hd), **meta), lengths)
+    assert tda.flash_decode.launches == 0
+
+
+def test_kernel_args_are_checked():
+    """What the kernels do not take is refused before any launch: an
+    int8 pool without scales, scales with an fp pool, mismatched scale
+    shapes."""
+    B, Q, Hq, Hkv, hd, NB, BS, MB = 2, 1, 4, 2, 128, 4, 16, 2
+    q = torch.zeros((B, Q, Hq, hd), dtype=torch.bfloat16)
+    i8 = torch.zeros((NB, Hkv, BS, hd), dtype=torch.int8)
+    bf = torch.zeros((NB, Hkv, BS, hd), dtype=torch.bfloat16)
+    sc = torch.zeros((NB, Hkv, BS))
+    tables = torch.zeros((B, MB), dtype=torch.int32)
+    lengths = torch.zeros((B,), dtype=torch.int32)
+    tpa.check_args(q, bf, bf, tables, lengths, None, None)
+    tpa.check_args(q, i8, i8, tables, lengths, sc, sc)
+    for pools, scales in (
+        ((i8, i8), (None, None)),
+        ((bf, bf), (sc, sc)),
+        ((i8, i8), (sc, None)),
+        ((i8, i8), (sc[:, :, :8], sc[:, :, :8])),
+        ((i8, i8), (sc.double(), sc.double())),
+    ):
+        with pytest.raises(ValueError):
+            tpa.check_args(q, *pools, tables, lengths, *scales)
+
+
 def test_kernel_source_targets_hopper():
-    src = (REPO / "areal_tpu_torch/csrc/paged_attention.cu").read_text()
-    assert "paged_attention_fwd" in src
+    for name, entry in (("paged_attention", "paged_attention_fwd"),
+                        ("paged_attention_deep", "paged_attention_deep_fwd"),
+                        ("paged_attention_deep", "flash_decode_fwd")):
+        src = (REPO / f"areal_tpu_torch/csrc/{name}.cu").read_text()
+        assert entry in src
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
@@ -110,7 +162,6 @@ def test_kernel_source_targets_hopper():
     "kw",
     [
         dict(prefix_cache=True),
-        dict(kv_cache_dtype="int8"),
         dict(serving_weight_dtype="int8"),
         dict(spec_decode_params=object()),
         dict(slo_tracking=True),
