@@ -14,31 +14,54 @@
 // Layouts (all contiguous): q, out, dout, dq [B, T, Hq, hd]; k, v, dk, dv
 // [B, T, Hkv, hd]; seg [B, T] int32; lse and D [B, Hq, T] float32;
 // ranges [B, ceil(T / 32), 2] int32 (min nonzero and max segment id of
-// each 32-token tile).
+// each 32-token tile); the backward's f32 workspaces dk_ws, dv_ws
+// [B, T, Hq, hd].
 //
-// Arithmetic: bf16 tensor-core products (`mma.sync` m16n8k16, bf16
-// operands, f32 accumulation), as the TPU kernel's bf16-operand /
-// f32-accumulate dots; the online softmax, lse and D are f32.  The
-// probabilities P and dS are rounded to bf16 before their products with
-// V, dO, K and Q, as on the TPU.
+// Arithmetic: bf16 tensor-core products with f32 accumulation, as the TPU
+// kernel's bf16-operand / f32-accumulate dots (the forward on `mma.sync`
+// m16n8k16, the backward on warpgroup `wgmma`); the online softmax, lse
+// and D are f32.  The probabilities P and dS are rounded to bf16 before
+// their products with V, dO, K and Q, as on the TPU; dq, dk and dv
+// accumulate in f32.
 //
 // What bounds it on an H100: operations.  The forward does 4 * Hq * hd
 // flops per attended (i, j) pair (QK^T and PV), the backward 10 (QK^T
-// recomputed, dO V^T, P^T dO, dS^T Q, dS K); at a 4096-token row that is
+// recomputed, dO V^T, P^T dO, dS^T Q, dS K; the dq and dk/dv kernels
+// recompute QK^T and dO V^T each, 14 in all); at a 4096-token row that is
 // ~900 flops per byte of q/k/v, far right of the card's ~295 flop/byte
 // ridge.  What the design does about it:
-// * tensor cores (`mma.sync`), not CUDA-core FMAs, for every product;
+// * tensor cores, not CUDA-core FMAs, for every product;
 // * tiles that lie wholly above the diagonal or outside every segment of
 //   the other side's tile are skipped (a per-32-token-tile [min, max]
 //   segment-id table, built by a small kernel, decides), so a packed row
 //   costs ~sum L_s^2 instead of T^2;
-// * the forward walks query tiles heaviest first (most keys to visit);
-// * dk/dv: a block owns a key tile of one KV head and loops over query
-//   tiles AND the Hq / Hkv query heads of its group, so GQA needs no
-//   atomics and the gradients are bit-for-bit repeatable.
-// Still to do (later work): wgmma, TMA and a multi-stage copy pipeline;
-// loads here are plain 16-byte vector loads into shared memory between
-// two barriers, so the tensor cores idle while a tile loads.
+// * the forward walks query tiles heaviest first (most keys to visit).
+// The backward (a Hopper design):
+// * Enough independent blocks, no serial chain.  A dk/dv block owns (key
+//   tile of 64, QUERY head, row), not (key tile, KV head, row), so the
+//   grid has Hq / Hkv = 6x more blocks (1536 at B=2, T=4096) and no block
+//   loops over its group's heads; it writes its head's f32 partials to a
+//   workspace and a small kernel sums each group's r partials in a fixed
+//   order, so GQA needs no atomics and the gradients stay bit-for-bit
+//   repeatable.  The dq and dk/dv grids are flattened so that the
+//   heaviest tiles of every head and row launch first.
+// * Copies overlap products.  Q/dO/lse/D tiles (dk/dv) and K/V tiles (dq)
+//   stream through a two-stage `cp.async` ring: tile i + 1 loads while
+//   tile i multiplies, one barrier per tile, and a skipped tile issues no
+//   copy.  A block takes ~100 KB of shared memory, so two share an SM.
+// * Warpgroup products.  A block is one warpgroup owning a 64-row tile.
+//   S and dP (S^T and dP^T for dk/dv) are `wgmma` m64n64k16 with both
+//   operands read from shared memory through matrix descriptors; dV +=
+//   P^T dO, dK += dS^T Q and dQ += dS K take P / dS from registers (the
+//   accumulator converted to bf16 A fragments) and read the other operand
+//   from the same tile MN-major.  Tiles are stored in the 128-byte
+//   swizzle layout, so no fragment passes through registers on its way
+//   from shared memory and no read conflicts on a bank.
+// * exp2 of log2-domain scores on the special-function unit
+//   (`ex2.approx`), one instruction per probability.
+// Still to do (later work): TMA loads from a producer warp, overlapping
+// the next tile's products with this tile's elementwise work, and the
+// forward on the same design.
 //
 // Plain C interface, bound from Python with ctypes
 // (areal_tpu_torch/ops/flash_attention.py); no PyTorch headers.
@@ -47,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace {
 
@@ -58,20 +83,8 @@ constexpr unsigned kFull = 0xffffffffu;
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using tc::acc_to_a;
+using tc::mma_bf16;
 
 // two bf16 at consecutive addresses (lower address in the low half)
 __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
@@ -95,16 +108,6 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s,
   a[1] = ld_pair(p + 8 * ld);
   a[2] = ld_pair(p + 8);
   a[3] = ld_pair(p + 8 * ld + 8);
-}
-
-// A fragment from two f32 accumulator n-tiles (16 rows x 8 cols each),
-// which together cover 16 consecutive k.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 // Copy `rows` rows of `HD` bf16 (global row r at base + r * gstride) into
@@ -311,6 +314,8 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ---- backward ---------------------------------------------------------------
 
+constexpr int kBwdStages = 2;  // depth of the copy rings
+
 // D[b, h, t] = sum_d dout * out (f32), one warp per (b, t, h) row.
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -342,30 +347,132 @@ fa_bwd_dot_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
   }
 }
 
-// dq: one block per (query tile of 64, query head, row), looping over the
-// key tiles up to the diagonal.
+// Copy 64 rows of HD bf16 (global row i at base + i * gstride) with
+// cp.async into a 64-row tile in the 128-byte swizzle layout
+// wgmma reads (tc::swz_offset); rows at or past `valid` are zero-filled
+// and not read.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void copy_tile(unsigned char* s, const bf16* base,
+                                          long long gstride, int valid) {
+  constexpr int kVec = HD / 8;                  // 16-byte pieces per row
+  constexpr int kRows = kThreads / kVec;     // rows per pass
+  static_assert(kRows % 8 == 0, "passes keep a row's swizzle phase");
+  const int i0 = threadIdx.x / kVec, c = (threadIdx.x % kVec) * 8;
+  // a thread's rows are i0 + kRows p: one swizzle phase, fixed strides
+  unsigned char* dst = s + tc::swz_offset(64, i0, c);
+  const bf16* src = base + i0 * gstride + c;
+#pragma unroll
+  for (int p = 0; p < 64 / kRows; ++p) {
+    const bool in = i0 + p * kRows < valid;
+    tc::cp_async16(dst + p * kRows * 128, in ? src + p * kRows * gstride : base,
+                   in);
+  }
+}
+
+// Copy n (<= kThreads) 4-byte values src[0..n) into shared memory with
+// cp.async; those at or past `valid` are zero-filled.
+__device__ __forceinline__ void copy_words(void* s, const void* src, int n,
+                                           int valid) {
+  const int i = threadIdx.x;
+  if (i < n) {
+    const bool in = i < valid;
+    tc::cp_async4(static_cast<uint32_t*>(s) + i,
+                  static_cast<const uint32_t*>(src) + (in ? i : 0), in);
+  }
+}
+
+constexpr int round1k(int n) { return (n + 1023) / 1024 * 1024; }
+
+// The backward's two 64 x 64 products over the head dim, S = A B^T and
+// dP = C D^T (all four 64-row K-major tiles in shared memory), issued
+// together and waited for.
+template <int HD>
+__device__ __forceinline__ void scores_pair(float (&s)[32], float (&dp)[32],
+                                            const unsigned char* a,
+                                            const unsigned char* b,
+                                            const unsigned char* c,
+                                            const unsigned char* d) {
+#pragma unroll
+  for (int x = 0; x < 32; ++x) s[x] = dp[x] = 0.f;
+  tc::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int off = (kk >> 2) * 64 * 128 + (kk & 3) * 32;
+    tc::wgmma_64x64_ss(s, tc::wg_desc(a + off, 16, 1024),
+                       tc::wg_desc(b + off, 16, 1024));
+    tc::wgmma_64x64_ss(dp, tc::wg_desc(c + off, 16, 1024),
+                       tc::wg_desc(d + off, 16, 1024));
+  }
+  tc::wg_commit();
+  tc::wg_wait<0>();
+  tc::wg_fence_acc(s);
+  tc::wg_fence_acc(dp);
+}
+
+// The A fragments (bf16) of the four 16-column steps of a 64 x 64
+// accumulator held as s[4j + x] (row g + 8 (x >> 1), column 8j + 2tq +
+// (x & 1)).
+__device__ __forceinline__ void acc_to_frags(uint32_t (&a)[4][4],
+                                             const float (&s)[32]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      a[kc][x] = tc::pack_bf16(s[8 * kc + 2 * x], s[8 * kc + 2 * x + 1]);
+}
+
+// acc[64 x HD] += A [64 x 64] (registers, four 16-column steps) times the
+// 64-row tile b read MN-major (its rows are the product's k).
+template <int HD>
+__device__ __forceinline__ void issue_rows_product(float (&acc)[HD / 2],
+                                                   const uint32_t (&a)[4][4],
+                                                   const unsigned char* b) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+    tc::wgmma_rs<HD>(acc, a[kc], tc::wg_desc(b + kc * 16 * 128, 64 * 128, 1024));
+}
+
+// Shared-memory plan of the dq kernel (byte offsets from a 1024-aligned
+// base): the Q and dO tiles with their segment ids, lse and D, then a
+// ring of K/V stages with their segment ids.
+template <int HD>
+struct DqSmem {
+  static constexpr int kTile = 64 * HD * 2;  // a 64-row bf16 tile
+  static constexpr int kQ = 0, kDO = kTile, kSegQ = 2 * kTile;
+  static constexpr int kLse = kSegQ + 64 * 4, kD = kLse + 64 * 4;
+  static constexpr int kRing = round1k(kD + 64 * 4);
+  static constexpr int kStage = round1k(2 * kTile + 64 * 4);  // K, V, seg
+  static constexpr int kBytes = kRing + kBwdStages * kStage + 1024;
+};
+
+// dq: one block (a warpgroup) per (query tile of 64, query head, row), the
+// tiles with the most keys first; it walks the key tiles up to the
+// diagonal that share a segment with it, K/V streaming through the copy
+// ring.  Warp w owns query rows 16w..16w+15 of every product.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
 fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ seg,
                  const int* __restrict__ ranges, const bf16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ D,
-                 bf16* __restrict__ dq, int T, int Hq, int Hkv, int n_rt,
-                 float scale, float scale_log2) {
-  constexpr int BM = 64, BN = 64, LD = HD + 8, NT = HD / 8;
+                 bf16* __restrict__ dq, int B, int T, int Hq, int Hkv,
+                 int n_rt, float scale, float scale_log2) {
+  using L = DqSmem<HD>;
+  constexpr int BM = 64, BN = 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + BM * LD;
-  bf16* Ks = dOs + BM * LD;
-  bf16* Vs = Ks + BN * LD;
-  int* segq = reinterpret_cast<int*>(Vs + BN * LD);
-  int* segk = segq + BM;
-  float* lse_s = reinterpret_cast<float*>(segk + BN);
-  float* D_s = lse_s + BM;
+  unsigned char* smem =
+      smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  const unsigned char* Qs = smem + L::kQ;
+  const unsigned char* dOs = smem + L::kDO;
+  const int* segq = reinterpret_cast<const int*>(smem + L::kSegQ);
+  const float* lse_s = reinterpret_cast<const float*>(smem + L::kLse);
+  const float* D_s = reinterpret_cast<const float*>(smem + L::kD);
+  unsigned char* ring = smem + L::kRing;
 
-  const int n_qt = gridDim.x;
-  const int qt = n_qt - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_qt = (T + BM - 1) / BM;
+  const int per = Hq * B;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / per;
+  const int h = blockIdx.x % per % Hq, b = blockIdx.x % per / Hq;
   const int hk = h / (Hq / Hkv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -376,127 +483,154 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long qstride = (long long)Hq * HD;
   const long long kstride = (long long)Hkv * HD;
   const long long qoff = ((long long)b * T + q0) * qstride + h * HD;
-  load_tile<HD>(Qs, LD, q + qoff, qstride, BM, T - q0);
-  load_tile<HD>(dOs, LD, dout + qoff, qstride, BM, T - q0);
-  for (int i = threadIdx.x; i < BM; i += kThreads) {
-    const bool in = q0 + i < T;
-    segq[i] = in ? seg[(long long)b * T + q0 + i] : 0;
-    const long long li = ((long long)b * Hq + h) * T + q0 + i;
-    lse_s[i] = in ? lse[li] * kLog2e : INFINITY;
-    D_s[i] = in ? D[li] : 0.f;
-  }
+  const long long loff = ((long long)b * Hq + h) * T + q0;
+  copy_tile<HD>(smem + L::kQ, q + qoff, qstride, T - q0);
+  copy_tile<HD>(smem + L::kDO, dout + qoff, qstride, T - q0);
+  copy_words(smem + L::kSegQ, seg + (long long)b * T + q0, BM, T - q0);
+  copy_words(smem + L::kLse, lse + loff, BM, T - q0);
+  copy_words(smem + L::kD, D + loff, BM, T - q0);
 
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int wr = warp * 16;
-  for (int kt = 0; kt <= qt; ++kt) {
+  // the next key tile at or after kt that shares a segment with the query
+  // tile (qt + 1 when none is left)
+  auto next_active = [&](int kt) {
+    for (; kt <= qt; ++kt)
+      if (ranges_meet(qr, tile_range(rng, n_rt, kt * BN / kRangeTile,
+                                     BN / kRangeTile)))
+        return kt;
+    return qt + 1;
+  };
+  auto load_stage = [&](int kt, int slot) {
+    unsigned char* st = ring + slot * L::kStage;
     const int k0 = kt * BN;
-    if (!ranges_meet(qr, tile_range(rng, n_rt, k0 / kRangeTile,
-                                    BN / kRangeTile)))
-      continue;
-    __syncthreads();
-    load_tile<HD>(Ks, LD, k + ((long long)b * T + k0) * kstride + hk * HD,
-                  kstride, BN, T - k0);
-    load_tile<HD>(Vs, LD, v + ((long long)b * T + k0) * kstride + hk * HD,
-                  kstride, BN, T - k0);
-    for (int i = threadIdx.x; i < BN; i += kThreads)
-      segk[i] = k0 + i < T ? seg[(long long)b * T + k0 + i] : 0;
-    __syncthreads();
+    const long long koff = ((long long)b * T + k0) * kstride + hk * HD;
+    copy_tile<HD>(st, k + koff, kstride, T - k0);
+    copy_tile<HD>(st + L::kTile, v + koff, kstride, T - k0);
+    copy_words(st + 2 * L::kTile, seg + (long long)b * T + k0, BN, T - k0);
+  };
 
-    float s[8][4], dp[8][4];
+  float acc[HD / 2];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+  for (int x = 0; x < HD / 2; ++x) acc[x] = 0.f;
+
+  // prologue: the query side and the first kBwdStages - 1 key tiles
+  int kt_load = next_active(0);
+  for (int s = 0; s < kBwdStages - 1; ++s) {
+    if (kt_load <= qt) {
+      load_stage(kt_load, s);
+      kt_load = next_active(kt_load + 1);
     }
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4], ad[4];
-      load_a(a, Qs, LD, wr, kk * 16, g, tq);
-      load_a(ad, dOs, LD, wr, kk * 16, g, tq);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const bf16* pk = Ks + (n * 8 + g) * LD + kk * 16 + tq * 2;
-        mma_bf16(s[n], a, ld_pair(pk), ld_pair(pk + 8));
-        const bf16* pv = Vs + (n * 8 + g) * LD + kk * 16 + tq * 2;
-        mma_bf16(dp[n], ad, ld_pair(pv), ld_pair(pv + 8));
-      }
+    tc::cp_async_commit();
+  }
+  for (int kt = next_active(0), i = 0; kt <= qt; kt = next_active(kt + 1), ++i) {
+    tc::cp_async_wait<kBwdStages - 2>();
+    tc::fence_proxy_async();
+    __syncthreads();  // tile i landed for all; the stage of tile i-1 is free
+    if (kt_load <= qt) {
+      load_stage(kt_load, (i + kBwdStages - 1) % kBwdStages);
+      kt_load = next_active(kt_load + 1);
     }
+    tc::cp_async_commit();
+
+    const unsigned char* st = ring + (i % kBwdStages) * L::kStage;
+    const unsigned char* Ks = st;
+    const unsigned char* Vs = st + L::kTile;
+    const int* segk = reinterpret_cast<const int*>(st + 2 * L::kTile);
+    const int k0 = kt * BN;
+
+    // S = Q K^T and dP = dO V^T: 64 queries x 64 keys, s[4j + x] holds
+    // query 16w + g + 8 (x >> 1), key 8j + 2tq + (x & 1)
+    float s[32], dp[32];
+    scores_pair<HD>(s, dp, Qs, Ks, dOs, Vs);
     // dS = P * (dP - D), P = exp(S - lse) on attended pairs, else 0
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int row = wr + g + hr * 8;
+      const int row = warp * 16 + g + hr * 8;
       const int sq = segq[row];
-      const int i = q0 + row;
-      const float ls = lse_s[row], d = D_s[row];
+      const int qi = q0 + row;
+      const float ls = lse_s[row] * kLog2e, d = D_s[row];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const int col = n * 8 + tq * 2 + c;
-          const bool ok = sq != 0 && segk[col] == sq && k0 + col <= i;
-          const float p = ok ? exp2f(s[n][hr * 2 + c] * scale_log2 - ls) : 0.f;
-          s[n][hr * 2 + c] = p * (dp[n][hr * 2 + c] - d);
+          const int col = j * 8 + tq * 2 + c;
+          const int x = 4 * j + hr * 2 + c;
+          const bool ok = sq != 0 && segk[col] == sq && k0 + col <= qi;
+          const float p = ok ? tc::exp2_approx(s[x] * scale_log2 - ls) : 0.f;
+          s[x] = p * (dp[x] - d);
         }
       }
     }
-    // dQ += dS K
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const bf16* p = Ks + (kc * 16 + tq * 2) * LD + n * 8 + g;
-        mma_bf16(acc[n], a, ld_strided(p, LD), ld_strided(p + 8 * LD, LD));
-      }
-    }
+    // dQ += dS K (K read MN-major: its rows are the keys)
+    uint32_t a[4][4];
+    acc_to_frags(a, s);
+    tc::wg_fence();
+    issue_rows_product<HD>(acc, a, Ks);
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::wg_fence_acc(acc);
   }
+  tc::cp_async_wait<0>();
 
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int i = q0 + wr + g + hr * 8;
-    if (i >= T) continue;
-    bf16* o = dq + ((long long)b * T + i) * qstride + h * HD;
+    const int qi = q0 + warp * 16 + g + hr * 8;
+    if (qi >= T) continue;
+    bf16* o = dq + ((long long)b * T + qi) * qstride + h * HD;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(o + n * 8 + tq * 2) =
-          __floats2bfloat162_rn(acc[n][hr * 2] * scale,
-                                acc[n][hr * 2 + 1] * scale);
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(o + j * 8 + tq * 2) =
+          __floats2bfloat162_rn(acc[4 * j + hr * 2] * scale,
+                                acc[4 * j + hr * 2 + 1] * scale);
     }
   }
 }
 
-// dk, dv: one block per (key tile of 64, KV head, row), looping over the
-// query heads of the KV head's group and, for each, over the query tiles
-// of 32 at or below the diagonal.  Warp w owns keys 16w..16w+15 and holds
-// S^T = K Q^T with keys as rows, so P^T and dS^T feed the dV and dK
-// products straight from the accumulators.
+// Shared-memory plan of the dk/dv kernel (byte offsets from a
+// 1024-aligned base): the K and V tiles with their segment ids, then a
+// ring of query stages (Q, dO, segment ids, lse, D).
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+struct DkvSmem {
+  static constexpr int kTile = 64 * HD * 2;
+  static constexpr int kK = 0, kV = kTile, kSegK = 2 * kTile;
+  static constexpr int kRing = round1k(kSegK + 64 * 4);
+  static constexpr int kSegQ = 2 * kTile, kLse = kSegQ + 64 * 4,
+                       kD = kLse + 64 * 4;
+  static constexpr int kStage = round1k(kD + 64 * 4);
+  static constexpr int kBytes = kRing + kBwdStages * kStage + 1024;
+};
+
+// dk, dv partials of ONE query head: one block (a warpgroup) per (key
+// tile of 64, query head h, row), key tile 0 (the most query tiles below
+// the diagonal) first.  It walks the query tiles at or below the diagonal
+// that share a segment with it, Q/dO/lse/D streaming through the copy
+// ring, and writes its head's f32 partials dk_ws, dv_ws [B, T, Hq, hd]
+// (dk unscaled); the reduce kernel sums each group's heads.  The products
+// hold S^T = K Q^T with keys as rows, so P^T and dS^T feed dV += P^T dO
+// and dK += dS^T Q straight from the accumulators.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
 fa_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const int* __restrict__ seg,
                    const int* __restrict__ ranges,
                    const bf16* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ D,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int T,
-                   int Hq, int Hkv, int n_rt, float scale, float scale_log2) {
-  constexpr int BN = 64, BQ = 32, LD = HD + 8, NT = HD / 8, NQ = BQ / 8;
+                   float* __restrict__ dk_ws, float* __restrict__ dv_ws,
+                   int B, int T, int Hq, int Hkv, int n_rt,
+                   float scale_log2) {
+  using L = DkvSmem<HD>;
+  constexpr int BN = 64, BQ = 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BN * LD;
-  bf16* Qs = Vs + BN * LD;
-  bf16* dOs = Qs + BQ * LD;
-  int* segk = reinterpret_cast<int*>(dOs + BQ * LD);
-  int* segq = segk + BN;
-  float* lse_s = reinterpret_cast<float*>(segq + BQ);
-  float* D_s = lse_s + BQ;
+  unsigned char* smem =
+      smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  const unsigned char* Ks = smem + L::kK;
+  const unsigned char* Vs = smem + L::kV;
+  const int* segk = reinterpret_cast<const int*>(smem + L::kSegK);
+  unsigned char* ring = smem + L::kRing;
 
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int r = Hq / Hkv;
+  const int per = Hq * B;
+  const int kt = static_cast<int>(blockIdx.x) / per;
+  const int h = blockIdx.x % per % Hq, b = blockIdx.x % per / Hq;
+  const int hk = h / (Hq / Hkv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int k0 = kt * BN;
@@ -507,126 +641,156 @@ fa_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long qstride = (long long)Hq * HD;
   const long long kstride = (long long)Hkv * HD;
   const long long koff = ((long long)b * T + k0) * kstride + hk * HD;
-  load_tile<HD>(Ks, LD, k + koff, kstride, BN, T - k0);
-  load_tile<HD>(Vs, LD, v + koff, kstride, BN, T - k0);
-  for (int i = threadIdx.x; i < BN; i += kThreads)
-    segk[i] = k0 + i < T ? seg[(long long)b * T + k0 + i] : 0;
+  copy_tile<HD>(smem + L::kK, k + koff, kstride, T - k0);
+  copy_tile<HD>(smem + L::kV, v + koff, kstride, T - k0);
+  copy_words(smem + L::kSegK, seg + (long long)b * T + k0, BN, T - k0);
 
-  float dkacc[NT][4], dvacc[NT][4];
+  // the next query tile at or after qt that shares a segment with the key
+  // tile (n_qt when none is left)
+  auto next_active = [&](int qt) {
+    for (; qt < n_qt; ++qt)
+      if (ranges_meet(kr, tile_range(rng, n_rt, qt * BQ / kRangeTile,
+                                     BQ / kRangeTile)))
+        return qt;
+    return n_qt;
+  };
+  auto load_stage = [&](int qt, int slot) {
+    unsigned char* st = ring + slot * L::kStage;
+    const int q0 = qt * BQ;
+    const long long qoff = ((long long)b * T + q0) * qstride + h * HD;
+    const long long loff = ((long long)b * Hq + h) * T + q0;
+    copy_tile<HD>(st, q + qoff, qstride, T - q0);
+    copy_tile<HD>(st + L::kTile, dout + qoff, qstride, T - q0);
+    copy_words(st + L::kSegQ, seg + (long long)b * T + q0, BQ, T - q0);
+    copy_words(st + L::kLse, lse + loff, BQ, T - q0);
+    copy_words(st + L::kD, D + loff, BQ, T - q0);
+  };
+
+  float dkacc[HD / 2], dvacc[HD / 2];
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    dkacc[n][0] = dkacc[n][1] = dkacc[n][2] = dkacc[n][3] = 0.f;
-    dvacc[n][0] = dvacc[n][1] = dvacc[n][2] = dvacc[n][3] = 0.f;
+  for (int x = 0; x < HD / 2; ++x) dkacc[x] = dvacc[x] = 0.f;
+
+  // prologue: the key side and the first kBwdStages - 1 query tiles
+  // (query tiles at or below the key tile's diagonal start at k0 / BQ)
+  int qt_load = next_active(k0 / BQ);
+  for (int s = 0; s < kBwdStages - 1; ++s) {
+    if (qt_load < n_qt) {
+      load_stage(qt_load, s);
+      qt_load = next_active(qt_load + 1);
+    }
+    tc::cp_async_commit();
   }
+  for (int qt = next_active(k0 / BQ), i = 0; qt < n_qt;
+       qt = next_active(qt + 1), ++i) {
+    tc::cp_async_wait<kBwdStages - 2>();
+    tc::fence_proxy_async();
+    __syncthreads();  // tile i landed for all; the stage of tile i-1 is free
+    if (qt_load < n_qt) {
+      load_stage(qt_load, (i + kBwdStages - 1) % kBwdStages);
+      qt_load = next_active(qt_load + 1);
+    }
+    tc::cp_async_commit();
 
-  const int wr = warp * 16;
-  for (int j = 0; j < r; ++j) {
-    const int h = hk * r + j;
-    for (int qt = k0 / BQ; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      if (!ranges_meet(kr, tile_range(rng, n_rt, q0 / kRangeTile,
-                                      BQ / kRangeTile)))
-        continue;
-      __syncthreads();
-      const long long qoff = ((long long)b * T + q0) * qstride + h * HD;
-      load_tile<HD>(Qs, LD, q + qoff, qstride, BQ, T - q0);
-      load_tile<HD>(dOs, LD, dout + qoff, qstride, BQ, T - q0);
-      for (int i = threadIdx.x; i < BQ; i += kThreads) {
-        const bool in = q0 + i < T;
-        segq[i] = in ? seg[(long long)b * T + q0 + i] : 0;
-        const long long li = ((long long)b * Hq + h) * T + q0 + i;
-        lse_s[i] = in ? lse[li] * kLog2e : INFINITY;
-        D_s[i] = in ? D[li] : 0.f;
-      }
-      __syncthreads();
+    const unsigned char* st = ring + (i % kBwdStages) * L::kStage;
+    const unsigned char* Qs = st;
+    const unsigned char* dOs = st + L::kTile;
+    const int* segq = reinterpret_cast<const int*>(st + L::kSegQ);
+    const float* lse_s = reinterpret_cast<const float*>(st + L::kLse);
+    const float* D_s = reinterpret_cast<const float*>(st + L::kD);
+    const int q0 = qt * BQ;
 
-      // S^T = K Q^T and dP^T = V dO^T, 16 keys x 32 queries per warp
-      float s[NQ][4], dp[NQ][4];
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, s[4j + x] holds
+    // key 16w + g + 8 (x >> 1), query 8j + 2tq + (x & 1)
+    float s[32], dp[32];
+    scores_pair<HD>(s, dp, Ks, Qs, Vs, dOs);
+    // P^T (kept in s) and dS^T (in dp)
 #pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-      }
+    for (int hr = 0; hr < 2; ++hr) {
+      const int key = warp * 16 + g + hr * 8;
+      const int sk = segk[key];
+      const int jk = k0 + key;
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t a[4], av[4];
-        load_a(a, Ks, LD, wr, kk * 16, g, tq);
-        load_a(av, Vs, LD, wr, kk * 16, g, tq);
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          const bf16* pq = Qs + (n * 8 + g) * LD + kk * 16 + tq * 2;
-          mma_bf16(s[n], a, ld_pair(pq), ld_pair(pq + 8));
-          const bf16* pd = dOs + (n * 8 + g) * LD + kk * 16 + tq * 2;
-          mma_bf16(dp[n], av, ld_pair(pd), ld_pair(pd + 8));
-        }
-      }
-      // P^T (kept in s) and dS^T (in dp)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int key = wr + g + hr * 8;
-        const int sk = segk[key];
-        const int jk = k0 + key;
-#pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int col = n * 8 + tq * 2 + c;
-            const int sq = segq[col];
-            const bool ok = sq != 0 && sk == sq && jk <= q0 + col;
-            const float p =
-                ok ? exp2f(s[n][hr * 2 + c] * scale_log2 - lse_s[col]) : 0.f;
-            s[n][hr * 2 + c] = p;
-            dp[n][hr * 2 + c] = p * (dp[n][hr * 2 + c] - D_s[col]);
-          }
-        }
-      }
-      // dV += P^T dO ; dK += dS^T Q
-#pragma unroll
-      for (int kc = 0; kc < BQ / 16; ++kc) {
-        uint32_t ap[4], ads[4];
-        acc_to_a(ap, s[2 * kc], s[2 * kc + 1]);
-        acc_to_a(ads, dp[2 * kc], dp[2 * kc + 1]);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const bf16* pd = dOs + (kc * 16 + tq * 2) * LD + n * 8 + g;
-          mma_bf16(dvacc[n], ap, ld_strided(pd, LD),
-                   ld_strided(pd + 8 * LD, LD));
-          const bf16* pq = Qs + (kc * 16 + tq * 2) * LD + n * 8 + g;
-          mma_bf16(dkacc[n], ads, ld_strided(pq, LD),
-                   ld_strided(pq + 8 * LD, LD));
+        for (int c = 0; c < 2; ++c) {
+          const int col = j * 8 + tq * 2 + c;
+          const int x = 4 * j + hr * 2 + c;
+          const int sq = segq[col];
+          const bool ok = sq != 0 && sk == sq && jk <= q0 + col;
+          const float p =
+              ok ? tc::exp2_approx(s[x] * scale_log2 - lse_s[col] * kLog2e) : 0.f;
+          s[x] = p;
+          dp[x] = p * (dp[x] - D_s[col]);
         }
       }
     }
+    // dV += P^T dO ; dK += dS^T Q (dO and Q read MN-major: their rows are
+    // the queries)
+    uint32_t ap[4][4], ads[4][4];
+    acc_to_frags(ap, s);
+    tc::wg_fence();
+    issue_rows_product<HD>(dvacc, ap, dOs);
+    acc_to_frags(ads, dp);
+    tc::wg_fence();
+    issue_rows_product<HD>(dkacc, ads, Qs);
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::wg_fence_acc(dvacc);
+    tc::wg_fence_acc(dkacc);
   }
+  tc::cp_async_wait<0>();
 
+  // this head's partials; every key row < T is written (zeros when no
+  // query tile met the key tile), so the workspace needs no clearing
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int jk = k0 + wr + g + hr * 8;
+    const int jk = k0 + warp * 16 + g + hr * 8;
     if (jk >= T) continue;
-    const long long off = ((long long)b * T + jk) * kstride + hk * HD;
+    const long long off = (((long long)b * T + jk) * Hq + h) * HD;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8 + tq * 2) =
-          __floats2bfloat162_rn(dkacc[n][hr * 2] * scale,
-                                dkacc[n][hr * 2 + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8 + tq * 2) =
-          __floats2bfloat162_rn(dvacc[n][hr * 2], dvacc[n][hr * 2 + 1]);
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<float2*>(dk_ws + off + j * 8 + tq * 2) =
+          make_float2(dkacc[4 * j + hr * 2], dkacc[4 * j + hr * 2 + 1]);
+      *reinterpret_cast<float2*>(dv_ws + off + j * 8 + tq * 2) =
+          make_float2(dvacc[4 * j + hr * 2], dvacc[4 * j + hr * 2 + 1]);
     }
   }
+}
+
+// dk[b, t, hk] = scale * sum_j dk_ws[b, t, hk * r + j] and dv likewise, j
+// = 0 .. r-1 in that fixed order (no atomics: bit-for-bit repeatable);
+// one thread per 4 columns of a (b, t, KV head) row.
+template <int HD>
+__global__ void __launch_bounds__(256)
+fa_bwd_reduce_kernel(const float* __restrict__ dk_ws,
+                     const float* __restrict__ dv_ws, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, long long rows, int r,
+                     float scale) {
+  constexpr int kV4 = HD / 4;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= rows * kV4) return;
+  const long long row = idx / kV4;  // (b * T + t) * Hkv + hk
+  const int c = static_cast<int>(idx % kV4) * 4;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), e = a;
+  for (int j = 0; j < r; ++j) {
+    // the workspace row of query head hk * r + j
+    const long long w = (row * r + j) * HD + c;
+    const float4 x = *reinterpret_cast<const float4*>(dk_ws + w);
+    const float4 y = *reinterpret_cast<const float4*>(dv_ws + w);
+    a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+    e.x += y.x; e.y += y.y; e.z += y.z; e.w += y.w;
+  }
+  __nv_bfloat162* ok = reinterpret_cast<__nv_bfloat162*>(dk + row * HD + c);
+  __nv_bfloat162* ov = reinterpret_cast<__nv_bfloat162*>(dv + row * HD + c);
+  ok[0] = __floats2bfloat162_rn(a.x * scale, a.y * scale);
+  ok[1] = __floats2bfloat162_rn(a.z * scale, a.w * scale);
+  ov[0] = __floats2bfloat162_rn(e.x, e.y);
+  ov[1] = __floats2bfloat162_rn(e.z, e.w);
 }
 
 constexpr size_t fwd_smem(int hd) {
   return (3 * 64 * (hd + 8)) * sizeof(bf16) + 2 * 64 * sizeof(int);
 }
-constexpr size_t dq_smem(int hd) {
-  return (4 * 64 * (hd + 8)) * sizeof(bf16) + 2 * 64 * sizeof(int) +
-         2 * 64 * sizeof(float);
-}
-constexpr size_t dkdv_smem(int hd) {
-  return (2 * 64 * (hd + 8) + 2 * 32 * (hd + 8)) * sizeof(bf16) +
-         (64 + 32) * sizeof(int) + 2 * 32 * sizeof(float);
-}
-
 cudaError_t launch_ranges(const int* seg, int* ranges, int B, int T,
                           cudaStream_t st) {
   const int n_rt = (T + kRangeTile - 1) / kRangeTile;
@@ -656,49 +820,71 @@ cudaError_t fwd_typed(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the backward's kernels, as bits of flash_attention_bwd's `parts`
+constexpr int kPartD = 1, kPartDq = 2, kPartDkdv = 4, kPartReduce = 8;
+
 template <int HD>
 cudaError_t bwd_typed(const void* q, const void* k, const void* v,
                       const int* seg, const int* ranges, const void* out,
-                      const void* dout, const float* lse, float* D, void* dq,
-                      void* dk, void* dv, int B, int T, int Hq, int Hkv,
+                      const void* dout, const float* lse, float* D,
+                      float* dk_ws, float* dv_ws, void* dq, void* dk,
+                      void* dv, int B, int T, int Hq, int Hkv, int parts,
                       cudaStream_t st) {
   const int n_rt = (T + kRangeTile - 1) / kRangeTile;
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
-  const long long rows = (long long)B * T * Hq;
-  const int warps = kThreads / 32;
-  fa_bwd_dot_kernel<HD><<<static_cast<unsigned>((rows + warps - 1) / warps),
-                          kThreads, 0, st>>>(
-      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), D, B, T,
-      Hq);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  cudaError_t err = cudaSuccess;
+  if (parts & kPartD) {
+    const long long rows = (long long)B * T * Hq;
+    const int warps = kThreads / 32;
+    fa_bwd_dot_kernel<HD><<<static_cast<unsigned>((rows + warps - 1) / warps),
+                            kThreads, 0, st>>>(
+        static_cast<const bf16*>(out), static_cast<const bf16*>(dout), D, B,
+        T, Hq);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
 
-  size_t smem = dq_smem(HD);
-  err = cudaFuncSetAttribute(fa_bwd_dq_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid_q((T + 63) / 64, Hq, B);
-  fa_bwd_dq_kernel<HD><<<grid_q, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), seg, ranges,
-      static_cast<const bf16*>(dout), lse, D, static_cast<bf16*>(dq), T, Hq,
-      Hkv, n_rt, scale, scale * kLog2e);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  // above 48 KB a block's shared memory must be asked for, once
+  static const cudaError_t dq_attr = cudaFuncSetAttribute(
+      fa_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DqSmem<HD>::kBytes);
+  if (dq_attr != cudaSuccess) return dq_attr;
+  const unsigned n_tiles = static_cast<unsigned>((T + 63) / 64);
+  if (parts & kPartDq) {
+    fa_bwd_dq_kernel<HD><<<n_tiles * Hq * B, kThreads, DqSmem<HD>::kBytes,
+                           st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), seg, ranges,
+        static_cast<const bf16*>(dout), lse, D, static_cast<bf16*>(dq), B,
+        T, Hq, Hkv, n_rt, scale, scale * kLog2e);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
 
-  smem = dkdv_smem(HD);
-  err = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid_k((T + 63) / 64, Hkv, B);
-  fa_bwd_dkdv_kernel<HD><<<grid_k, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), seg, ranges,
-      static_cast<const bf16*>(dout), lse, D, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), T, Hq, Hkv, n_rt, scale, scale * kLog2e);
-  return cudaGetLastError();
+  static const cudaError_t kv_attr = cudaFuncSetAttribute(
+      fa_bwd_dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DkvSmem<HD>::kBytes);
+  if (kv_attr != cudaSuccess) return kv_attr;
+  if (parts & kPartDkdv) {
+    fa_bwd_dkdv_kernel<HD><<<n_tiles * Hq * B, kThreads,
+                             DkvSmem<HD>::kBytes, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), seg, ranges,
+        static_cast<const bf16*>(dout), lse, D, dk_ws, dv_ws, B, T, Hq, Hkv,
+        n_rt, scale * kLog2e);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (parts & kPartReduce) {
+    const long long kv_rows = (long long)B * T * Hkv;
+    const long long threads = kv_rows * (HD / 4);
+    fa_bwd_reduce_kernel<HD><<<static_cast<unsigned>((threads + 255) / 256),
+                               256, 0, st>>>(
+        dk_ws, dv_ws, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        kv_rows, Hq / Hkv, scale);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace
@@ -727,25 +913,30 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// Backward: D = rowsum(dout * out) into the f32 workspace D [B, Hq, T],
-// then dq, then dk and dv (each written once, no atomics).
+// Backward: D = rowsum(dout * out) into the f32 workspace D [B, Hq, T];
+// dq; the dk/dv partials of each query head into the f32 workspaces
+// dk_ws, dv_ws [B, T, Hq, hd]; then their fixed-order sum over each
+// group into dk, dv (no atomics).  `parts` selects the kernels that run
+// (bits 1 D, 2 dq, 4 dk/dv, 8 reduce; 15 for a backward), so each can be
+// timed alone.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const int* seg, const int* ranges, const void* out,
                         const void* dout, const float* lse, float* D,
-                        void* dq, void* dk, void* dv, int B, int T, int Hq,
-                        int Hkv, int hd, void* stream) {
+                        float* dk_ws, float* dv_ws, void* dq, void* dk,
+                        void* dv, int B, int T, int Hq, int Hkv, int hd,
+                        int parts, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     case 64:
       return static_cast<int>(bwd_typed<64>(q, k, v, seg, ranges, out, dout,
-                                            lse, D, dq, dk, dv, B, T, Hq, Hkv,
-                                            st));
+                                            lse, D, dk_ws, dv_ws, dq, dk, dv,
+                                            B, T, Hq, Hkv, parts, st));
     case 128:
       return static_cast<int>(bwd_typed<128>(q, k, v, seg, ranges, out, dout,
-                                             lse, D, dq, dk, dv, B, T, Hq,
-                                             Hkv, st));
+                                             lse, D, dk_ws, dv_ws, dq, dk,
+                                             dv, B, T, Hq, Hkv, parts, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -14,7 +14,10 @@ On CUDA tensors it launches the hand-written Hopper kernels
 (``csrc/flash_attention.cu``: forward, ``dq`` and ``dk/dv`` backward,
 replacing the Pallas TPU kernel that ``areal_tpu/ops/flash_attention.py:36``
 calls), as a ``torch.autograd.Function`` that saves ``q, k, v, out, lse``,
-or raises; it never falls back.  On CPU tensors it runs the plain
+or raises; it never falls back.  The backward writes each query head's
+dk/dv to float32 workspaces ``[B, T, Hq, hd]`` (allocated here) and sums
+each KV head's group of them in a fixed order, so it is bit-for-bit
+repeatable.  On CPU tensors it runs the plain
 version, :func:`reference_flash_attention` (mask plus softmax in float32),
 with autograd through it.  What bounds the kernels on an H100 and what
 their design does about it is written at the top of the CUDA source.
@@ -35,6 +38,10 @@ from areal_tpu_torch.ops import _build
 _HEAD_DIMS = (64, 128)
 #: token granularity of the kernel's segment-range workspace
 _RANGE_TILE = 32
+#: the backward's kernels, as bits of the C entry's ``parts`` (a backward
+#: call runs them all; one bit runs that kernel alone, for timing)
+BWD_PARTS = {"D": 1, "dq": 2, "dkdv": 4, "reduce": 8}
+_BWD_ALL = 15
 
 
 def attention_mask(seg_ids: torch.Tensor) -> torch.Tensor:
@@ -84,7 +91,7 @@ def _kernels():
     fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fwd.restype = ctypes.c_int
     bwd = cdll.flash_attention_bwd
-    bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     bwd.restype = ctypes.c_int
     err = cdll.flash_attention_error_string
     err.argtypes = [ctypes.c_int]
@@ -156,7 +163,7 @@ def _launch_fwd(q, k, v, seg_ids):
     return out, lse, ranges
 
 
-def _launch_bwd(q, k, v, seg_ids, ranges, out, lse, dout):
+def _launch_bwd(q, k, v, seg_ids, ranges, out, lse, dout, parts=_BWD_ALL):
     bwd = _kernels()[1]
     dout = dout.contiguous()
     if dout.dtype != q.dtype or dout.shape != q.shape:
@@ -166,12 +173,16 @@ def _launch_bwd(q, k, v, seg_ids, ranges, out, lse, dout):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     D = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+    # each query head's dk/dv partials, f32; every row is written before
+    # it is read, so they are not cleared
+    dk_ws = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dv_ws = torch.empty_like(dk_ws)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ids.data_ptr(),
         ranges.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, T, Hq, k.shape[2], hd, stream,
+        D.data_ptr(), dk_ws.data_ptr(), dv_ws.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, T, Hq, k.shape[2], hd, parts, stream,
     )
     _raise_on(rc, "backward")
     flash_attention.bwd_launches += 1
@@ -216,7 +227,8 @@ def flash_attention(
 
 
 #: kernel launches since the counts were last set to 0: one forward launch
-#: per forward call, one backward launch (the D, dq and dk/dv kernels) per
-#: backward call; the plain version and failed launches do not count
+#: per forward call, one backward launch (the D, dq, dk/dv and reduce
+#: kernels) per backward call; the plain version and failed launches do
+#: not count
 flash_attention.fwd_launches = 0
 flash_attention.bwd_launches = 0

@@ -19,6 +19,10 @@ On CUDA tensors each function launches its hand-written Hopper kernel
 ``paged_flash_attention`` at ``areal_tpu/ops/paged_attention.py:201``,
 and ``csrc/paged_attention_deep.cu``, which replaces
 ``paged_flash_attention_deep`` at :463) or raises; it never falls back.
+:func:`paged_flash_attention` has two entries in its source, picked by
+:func:`paged_entry` from shapes and dtypes alone: a prefill chunk (more
+than one query token per row, bf16 q over a bf16 or int8 pool) runs on
+the tensor cores, everything else (decode, fp32/fp16) on CUDA cores.
 On CPU tensors both run the plain version,
 :func:`reference_paged_partials`, a straight port of the reference's jnp
 ``reference_paged_partials``.  What bounds each kernel on an H100 and
@@ -47,6 +51,15 @@ _TARGET_BLOCKS = 2 * 132
 #: fewest keys a KV split should own (4 warps x 4 tiles of 32 keys)
 _MIN_KEYS_PER_SPLIT = 512
 _ROWS_PER_BLOCK = 8  # kRows in the CUDA source
+#: the prefill entry: grouped query rows per block (kPfRows), blocks to
+#: aim for (two waves of two blocks per SM, so unequal splits even out)
+#: and the fewest keys a split should own (16 tiles of 64)
+_PREFILL_ROWS_PER_BLOCK = 64
+_PREFILL_TARGET_BLOCKS = 4 * 132
+_PREFILL_MIN_KEYS_PER_SPLIT = 1024
+#: the C entry points of csrc/paged_attention.cu
+DECODE_ENTRY = "paged_attention_fwd"
+PREFILL_ENTRY = "paged_attention_prefill_fwd"
 
 
 def gather_paged_kv(
@@ -124,18 +137,37 @@ def kernel_entry(library: str, symbol: str):
     return fn, err
 
 
+def paged_entry(Q: int, q_dtype: torch.dtype, pool_dtype: torch.dtype) -> str:
+    """The C entry of ``csrc/paged_attention.cu`` that a call runs: the
+    tensor-core prefill entry for more than one query token per row with
+    bf16 q over a bf16 or int8 pool, else the decode entry.  Decided from
+    shapes and dtypes only."""
+    if Q > 1 and q_dtype == torch.bfloat16 and pool_dtype in (
+        torch.bfloat16, torch.int8
+    ):
+        return PREFILL_ENTRY
+    return DECODE_ENTRY
+
+
 def n_splits(B: int, Q: int, Hq: int, Hkv: int, capacity: int,
-             one_wave: bool = False) -> int:
+             one_wave: bool = False, prefill: bool = False) -> int:
     """KV splits per (row, head, query tile): enough blocks to cover the
-    card when the grid is small (decode), none when it is large (prefill
-    chunks).  With ``one_wave`` the grid stays within the blocks that fit
-    on the card at once (the deep kernel's shared memory allows two per
-    SM, so a grid one block larger would run a second wave for that
-    block).  Decided from shapes only, so no device value is read."""
-    n_qtiles = -(-(Q * (Hq // Hkv)) // _ROWS_PER_BLOCK)
+    card when the grid is small (decode, or a prefill chunk over one long
+    row), none when it is large.  With ``one_wave`` the grid stays within
+    the blocks that fit on the card at once (the deep kernel's shared
+    memory allows two per SM, so a grid one block larger would run a
+    second wave for that block).  ``prefill`` sizes the splits for the
+    prefill entry (64-row query tiles, 64-key tiles).  Decided from shapes
+    only, so no device value is read."""
+    rows, target, min_keys = (
+        (_PREFILL_ROWS_PER_BLOCK, _PREFILL_TARGET_BLOCKS,
+         _PREFILL_MIN_KEYS_PER_SPLIT)
+        if prefill else (_ROWS_PER_BLOCK, _TARGET_BLOCKS, _MIN_KEYS_PER_SPLIT)
+    )
+    n_qtiles = -(-(Q * (Hq // Hkv)) // rows)
     base = n_qtiles * Hkv * B
-    want = _TARGET_BLOCKS // base if one_wave else -(-_TARGET_BLOCKS // base)
-    return max(1, min(want, capacity // _MIN_KEYS_PER_SPLIT))
+    want = target // base if one_wave else -(-target // base)
+    return max(1, min(want, capacity // min_keys))
 
 
 def split_workspace(S: int, shape, device):
@@ -222,9 +254,9 @@ def launch_paged(library, symbol, counter, q, k_pool, v_pool, tables,
                  lengths, k_scale=None, v_scale=None, one_wave=False):
     """Check the arguments, launch the paged kernel ``symbol`` of
     ``library`` on the current stream and count the launch on
-    ``counter`` (``int8_launches`` for an int8 pool, else ``launches``).
-    Raises on anything the kernel does not take, and when the launch
-    fails."""
+    ``counter`` (``int8_launches`` for an int8 pool, else ``launches``;
+    a launch of the prefill entry also on ``prefill_launches``).  Raises
+    on anything the kernel does not take, and when the launch fails."""
     if q.device.type != "cuda":
         raise RuntimeError(
             f"{counter.__name__}'s kernel runs on CUDA tensors; got a "
@@ -239,7 +271,8 @@ def launch_paged(library, symbol, counter, q, k_pool, v_pool, tables,
     acc = torch.empty((B, Q, Hq, hd), **f32)
     m = torch.empty((B, Q, Hq), **f32)
     l = torch.empty((B, Q, Hq), **f32)
-    S = n_splits(B, Q, Hq, Hkv, MB * BS, one_wave=one_wave)
+    prefill = symbol == PREFILL_ENTRY
+    S = n_splits(B, Q, Hq, Hkv, MB * BS, one_wave=one_wave, prefill=prefill)
     ws, ws_ptrs = split_workspace(S, (B, Q, Hq, hd), q.device)
     quant = k_scale is not None
     ssb, ssh = k_scale.stride()[:2] if quant else (0, 0)
@@ -260,6 +293,8 @@ def launch_paged(library, symbol, counter, q, k_pool, v_pool, tables,
         counter.int8_launches += 1
     else:
         counter.launches += 1
+    if prefill:
+        counter.prefill_launches += 1
     return acc, m, l
 
 
@@ -280,8 +315,9 @@ def paged_flash_attention(
             q, k_pool, v_pool, tables, lengths, k_scale, v_scale
         )
     return launch_paged(
-        "paged_attention", "paged_attention_fwd", paged_flash_attention,
-        q, k_pool, v_pool, tables, lengths, k_scale, v_scale,
+        "paged_attention", paged_entry(q.shape[1], q.dtype, k_pool.dtype),
+        paged_flash_attention, q, k_pool, v_pool, tables, lengths, k_scale,
+        v_scale,
     )
 
 
@@ -313,9 +349,11 @@ def paged_flash_attention_deep(
 
 
 #: kernel launches since the counts were last set to 0, over fp pools
-#: (``launches``) and int8 pools (``int8_launches``); the plain version,
+#: (``launches``) and int8 pools (``int8_launches``), and of those the
+#: prefill entry's (``prefill_launches``, either pool); the plain version,
 #: and failed launches, do not count
 paged_flash_attention.launches = 0
 paged_flash_attention.int8_launches = 0
+paged_flash_attention.prefill_launches = 0
 paged_flash_attention_deep.launches = 0
 paged_flash_attention_deep.int8_launches = 0

@@ -12,7 +12,9 @@ from a seed, float32 master weights and their bf16 serving copy):
 
 1. holds the paged-attention kernels against their plain PyTorch version
    at the serving paths' shapes: the standard kernel on bf16 and int8
-   pools at decode and prefill-chunk shapes, the deep kernel on both
+   pools at decode and prefill-chunk shapes (a prefill chunk runs its
+   tensor-core entry: 8 rows of Q=512, and one row of Q=512 after a
+   31000-token prefix), the deep kernel on both
    pools at the prefill-chunk shape and at decode over 16 rows of up to
    32768 tokens (lengths 0, 1, BS-1, BS, BS+1, full and between), and
    ``flash_decode`` over a contiguous 16 x 32768 cache; times the standard
@@ -20,8 +22,8 @@ from a seed, float32 master weights and their bf16 serving copy):
    dispatch threshold those times support;
 2. serves requests through ``ContinuousBatchingEngine`` (a greedy wave of
    8 requests, resubmission, weight swaps, a sampled wave at two pipeline
-   depths, chunked prefill, and a profile of one decode and one prefill
-   chunk);
+   depths, chunked prefill, and profiles of one decode chunk and of one
+   prefill chunk after a short and after a 31000-token prefix);
 3. serves the async-PPO recipe's configuration (16 rows, 32768-token KV,
    a wave of 12 prompts of 1024 tokens and 4 of 8000-31000) in three
    arms: a bf16 pool on the default dispatch table, a bf16 pool routing
@@ -34,7 +36,8 @@ from a seed, float32 master weights and their bf16 serving copy):
    plain version on packed, long and ragged rows (T from 32 to 16384, not
    always a multiple of a tile), with a bit-identical repeat of the
    backward, and times them on the packed and long rows beside
-   ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick;
+   ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick,
+   the backward also by part (D, dq, dk/dv with its reduction);
 5. runs one async-PPO trainer iteration on the greedy wave's rollout
    through ``PPOActorInterface`` (actor_inf, then three actor_train steps
    with AdamW), with the recipe's settings but ``max_tokens_per_mb=2048``
@@ -95,6 +98,9 @@ LONG_ARMS = (("A", "auto", None), ("B", "auto", DEEP_MIN_CONTEXT),
 LONG_CONTROL_LENS = (1024,) * 4 + (8000, 16000)
 #: contexts at which the standard and deep kernels are timed at decode
 DISPATCH_CONTEXTS = (4096, 8192, 16384, 32768)
+#: the cached prefix of the long prefill-chunk shape (the long wave's
+#: largest prompt is 31000 tokens)
+LONG_PREFILL_PREFIX = 31000
 
 #: GPU clock cycles the timing loop holds the stream for (~0.1 s at the
 #: H100's ~1.98 GHz boost clock; the timed calls enqueue in far less)
@@ -389,25 +395,38 @@ def compare_kernel(name, B, Q, lengths, device, *, fn=None, int8=False,
 
 
 def kernel_phase(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
-                 Q_prefill=PREFILL_CHUNK, timing_iters=20, **shape):
+                 Q_prefill=PREFILL_CHUNK, long_prefix=LONG_PREFILL_PREFIX,
+                 long_MB=LONG_KV_CACHE_LEN // PAGE_SIZE, timing_iters=20,
+                 **shape):
     """The standard paged kernel at decode (Q=1, B=8) and prefill-chunk
-    (Q=prefill chunk) shapes, with lengths 0, 1, BS-1, BS, BS+1, a full
-    table and two in between; bf16 pools, then the int8 branch and the
-    deep kernel (bf16 and int8 pools) at the prefill-chunk shape."""
+    (Q=prefill chunk, its tensor-core entry) shapes, with lengths 0, 1,
+    BS-1, BS, BS+1, a full table and two in between, and at one prefill
+    chunk after a ``long_prefix``-token prefix; bf16 pools, then the int8
+    branch; then the deep kernel (bf16 and int8 pools) at the
+    prefill-chunk shape."""
     from areal_tpu_torch.ops import paged_attention as pa
 
     lengths = [0, 1, BS - 1, BS, BS + 1, MB * BS, (MB * BS) // 3,
                (MB * BS * 3) // 4]
     kw = dict(BS=BS, MB=MB, timing_iters=timing_iters, **shape)
-    dec = compare_kernel("decode", len(lengths), 1, lengths, device, **kw)
-    pre = compare_kernel("prefill", len(lengths), Q_prefill, lengths,
-                         device, **kw)
-    out = dict(decode=dec, prefill=pre)
-    out["int8_decode"] = compare_kernel(
-        "int8 decode", len(lengths), 1, lengths, device, int8=True, **kw)
-    out["int8_prefill"] = compare_kernel(
-        "int8 prefill", len(lengths), Q_prefill, lengths, device, int8=True,
-        **kw)
+    long_kw = dict(kw, MB=long_MB)
+    out = {}
+    for int8 in (False, True):
+        tag = "int8 " if int8 else ""
+        key = tag.replace(" ", "_")
+        out[f"{key}decode"] = compare_kernel(
+            f"{tag}decode", len(lengths), 1, lengths, device, int8=int8, **kw)
+        # the prefill calls must run the tensor-core entry
+        pa.paged_flash_attention.prefill_launches = 0
+        out[f"{key}prefill"] = compare_kernel(
+            f"{tag}prefill", len(lengths), Q_prefill, lengths, device,
+            int8=int8, **kw)
+        out[f"{key}prefill_long"] = compare_kernel(
+            f"{tag}prefill after {long_prefix} tokens", 1, Q_prefill,
+            [long_prefix], device, int8=int8, **long_kw)
+        if pa.paged_flash_attention.prefill_launches == 0:
+            raise AssertionError(f"{tag}prefill calls did not run the "
+                                 "tensor-core prefill entry")
     for int8 in (False, True):
         out[f"deep{'_int8' if int8 else ''}_prefill"] = compare_kernel(
             f"deep{' int8' if int8 else ''} prefill", len(lengths), Q_prefill,
@@ -641,8 +660,10 @@ def engine_phase(cfg, params, device, *, prompt_lens=PROMPT_LENS,
     f0, d0 = eng.prefill_calls, eng.decode_chunks_total
     t0 = eng.decode_tokens_total
     paged_flash_attention.launches = 0
+    paged_flash_attention.prefill_launches = 0
     outs, secs = serve(eng, requests(prompts, new_tokens, "greedy"))
     launches = paged_flash_attention.launches
+    prefill_launches = paged_flash_attention.prefill_launches
     fills, chunks = eng.prefill_calls - f0, eng.decode_chunks_total - d0
     expected = cfg.n_layers * (fills + chunks * eng.chunk_size)
     check_outputs(outs, cfg, new_tokens, "greedy")
@@ -652,11 +673,14 @@ def engine_phase(cfg, params, device, *, prompt_lens=PROMPT_LENS,
         f"{sum(len(o.output_ids) for o in outs)} new tokens in {secs:.2f} s; "
         f"{fills} fill chunks + {chunks} decode chunks of {eng.chunk_size} "
         f"steps x {cfg.n_layers} layers = {expected} kernel launches "
-        f"expected, {launches} counted")
-    if launches != expected or launches == 0:
+        f"expected, {launches} counted, {prefill_launches} of them on the "
+        f"prefill entry (expected {cfg.n_layers * fills})")
+    if (launches != expected or launches == 0
+            or prefill_launches != cfg.n_layers * fills):
         raise AssertionError(
             f"paged_flash_attention launched {launches} times on the main "
-            f"path; the engine dispatched work for {expected}"
+            f"path ({prefill_launches} prefill-entry); the engine dispatched "
+            f"work for {expected} ({cfg.n_layers * fills} fill-chunk calls)"
         )
     log(f"engine throughput on {card}: prefill {prefill_tps:.1f} tok/s (prompt tokens "
         f"of a first-token-only wave / its wall time {prefill_secs:.2f} s); "
@@ -690,8 +714,8 @@ def engine_phase(cfg, params, device, *, prompt_lens=PROMPT_LENS,
         raise AssertionError(f"leaked pool blocks: {leaked}, free "
                              f"{eng.free_pool_blocks}/{eng.n_blocks}")
     log("engine check: close() reports no leaked blocks")
-    return dict(launches=launches, prefill_tps=prefill_tps,
-                decode_tps=decode_tps, outs=outs)
+    return dict(launches=launches, prefill_launches=prefill_launches,
+                prefill_tps=prefill_tps, decode_tps=decode_tps, outs=outs)
 
 
 def sampled_phase(cfg, params, device, *, prompt_lens=PROMPT_LENS,
@@ -788,12 +812,14 @@ def top_device_rows(prof, n):
     return sorted(rows, reverse=True)[:n]
 
 
-def anatomy(fn, label):
+def anatomy(fn, label, top=0):
     """Host enqueue time, wall time and device busy time of one call of
-    ``fn`` (warmed up), and the paged kernel's share of the device time.
-    Device time is the sum of the kernels' and copies' own time in a
-    ``torch.profiler`` trace of a second call; idle share is one minus
-    device time over the unprofiled wall time."""
+    ``fn`` (warmed up), and the paged kernel's share of the device time
+    (both of its entries and the split merge).  Device time is the sum of
+    the kernels' and copies' own time in a ``torch.profiler`` trace of a
+    second call; idle share is one minus device time over the unprofiled
+    wall time.  With ``top``, also the ``top`` device rows with the most
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -809,7 +835,8 @@ def anatomy(fn, label):
         fn()
         torch.cuda.synchronize()
     busy, kern = device_seconds(
-        prof, ("paged_partials_kernel", "combine_splits_kernel"))
+        prof, ("paged_partials_kernel", "paged_prefill_kernel",
+               "combine_splits_kernel"))
     if busy > 0:
         dev = (f"device busy {busy * 1e3:.2f} ms (idle share "
                f"{1 - busy / wall:.3f}), paged kernel "
@@ -818,15 +845,20 @@ def anatomy(fn, label):
         dev = "device time not measured (the profiler saw no device events)"
     log(f"anatomy {label}: host enqueue {enqueue * 1e3:.2f} ms, wall "
         f"{wall * 1e3:.2f} ms; {dev}")
+    for sec, calls, name in top_device_rows(prof, top):
+        log(f"anatomy {label} device time: {sec * 1e3:.3f} ms in {calls} "
+            f"calls of {name}")
     return wall
 
 
-def anatomy_phase(cfg, params, device, *, lens=PROMPT_LENS):
+def anatomy_phase(cfg, params, device, *, lens=PROMPT_LENS,
+                  long_prefix=LONG_PREFILL_PREFIX):
     """Where a decode chunk's and a prefill chunk's time goes, outside the
     engine: one decode chunk (8 rows at the prompt lengths, all active,
     ``CHUNK_SIZE`` steps) and one prefill chunk (one row,
-    ``PREFILL_CHUNK`` tokens after a 2560-token cached prefix), over a
-    pool of random KV."""
+    ``PREFILL_CHUNK`` tokens after a 2560-token cached prefix, and after a
+    ``long_prefix``-token prefix read through a table over the whole
+    pool), over a pool of random KV."""
     import torch
 
     from areal_tpu_torch.engine.sampling import (
@@ -866,6 +898,18 @@ def anatomy_phase(cfg, params, device, *, lens=PROMPT_LENS):
         f"({wall / CHUNK_SIZE * 1e3:.2f} ms per step)")
     wall = anatomy(fill, f"prefill chunk ({PREFILL_CHUNK} tokens)")
     log(f"anatomy: prefill chunk runs {PREFILL_CHUNK / wall:.1f} tok/s")
+
+    def fill_long():
+        paged.paged_fill_chunk(
+            params, kp, vp, cfg, toks, torch.tensor([long_prefix], **i32),
+            torch.tensor([PREFILL_CHUNK], **i32),
+            torch.arange(B * MB, **i32)[None],
+        )
+
+    wall = anatomy(fill_long, f"prefill chunk ({PREFILL_CHUNK} tokens after "
+                   f"{long_prefix})", top=8)
+    log(f"anatomy: prefill chunk after {long_prefix} tokens runs "
+        f"{PREFILL_CHUNK / wall:.1f} tok/s")
 
 
 # ---------------------------------------------------------------------------
@@ -1026,6 +1070,17 @@ def compare_flash(name, B, T, rows, device, timing_iters=10, timed=True):
                    timing_iters, device)
     ms_b = time_ms(bwd_timer(lambda *a: fa.flash_attention(*a, seg)),
                    timing_iters, device)
+    # the backward's kernels one at a time, on the forward's outputs
+    _, lse_k, ranges = fa._launch_fwd(q, k, v, seg)
+    parts = {
+        part: time_ms(lambda bit=bit: fa._launch_bwd(
+            q, k, v, seg, ranges, out, lse_k, dout, parts=bit),
+            timing_iters, device)
+        for part, bit in fa.BWD_PARTS.items()
+    }
+    log(f"flash {name} bwd by kernel (ms per call): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.4f}")
     plain_f = time_ms(lambda: plain_flash(q, k, v, seg), 2, device)
     plain_fb = time_ms(lambda: plain_flash(q, k, v, seg, dout), 2, device)
     try:
@@ -1048,6 +1103,7 @@ def compare_flash(name, B, T, rows, device, timing_iters=10, timed=True):
             library_ms=lib_ms,
             shape=f"B={B} T={T} Hq=12 Hkv=2 hd=128 bf16 segments "
                   f"{[list(r) for r in rows]}",
+            **({"parts_ms": parts} if kind == "bwd" else {}),
         )
         log(f"flash {name} {kind}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"SDPA {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
@@ -1392,9 +1448,11 @@ def long_context_phase(cfg, master, params, device, card, *,
         dd0, t0 = eng.deep_decode_chunks_total, eng.decode_tokens_total
         for fn in (std, deep):
             fn.launches = fn.int8_launches = 0
+        std.prefill_launches = 0
         outs, secs = serve(eng, requests(prompts, new_tokens, f"{name}-greedy"))
         counts = {f"{fn.__name__}.{k}": getattr(fn, k)
                   for fn in (std, deep) for k in ("launches", "int8_launches")}
+        counts[f"{std.__name__}.prefill_launches"] = std.prefill_launches
         fills = eng.prefill_calls - f0
         chunks = eng.decode_chunks_total - d0
         deep_chunks = eng.deep_decode_chunks_total - dd0
@@ -1411,8 +1469,8 @@ def long_context_phase(cfg, master, params, device, card, *,
             f"deep_min_context={eng.dispatch_table.deep_min_context}): "
             f"{sum(len(o.output_ids) for o in outs)} new tokens in {secs:.2f} s; "
             f"{fills} fill chunks, {chunks} decode chunks ({deep_chunks} deep); "
-            f"launches {counts}; expected standard {want_std}, deep "
-            f"{want_deep}")
+            f"launches {counts}; expected standard {want_std} ({L * fills} "
+            f"on the prefill entry), deep {want_deep}")
         log(f"long {name} throughput on {card}: prefill {prefill_tps:.1f} "
             f"tok/s (first-token wave, {prefill_secs:.2f} s), decode "
             f"{decode_tps:.1f} tok/s ({dec_tok} decode-chunk tokens)")
@@ -1420,7 +1478,7 @@ def long_context_phase(cfg, master, params, device, card, *,
         if (got_std != want_std or got_deep != want_deep
                 or decode_launches != L * eng.chunk_size * chunks
                 or getattr(std, other) or getattr(deep, other)
-                or got_std == 0):
+                or got_std == 0 or std.prefill_launches != L * fills):
             raise AssertionError(f"long {name}: kernel launches {counts} do "
                                  f"not match the dispatched work")
         if (deep_chunks > 0) != (deep_min is not None):
@@ -1440,7 +1498,9 @@ def long_context_phase(cfg, master, params, device, card, *,
         results[name] = dict(
             outs=outs, prefill_tps=prefill_tps, decode_tps=decode_tps,
             gap=gap, pool_bytes=pool_bytes, fills=fills, chunks=chunks,
-            deep_chunks=deep_chunks, launches=dict(std=got_std, deep=got_deep),
+            deep_chunks=deep_chunks,
+            launches=dict(std=got_std, deep=got_deep,
+                          prefill=std.prefill_launches),
             int8=int8, secs=secs, prefill_secs=prefill_secs,
         )
         log(f"long {name}: leak check and logprob gate pass; done at "
@@ -1601,19 +1661,25 @@ def kernel_entries(kern, long_kern, eng, long, flash, train):
     entries = [
         entry("paged_flash_attention", paged_src, paged_ref,
               eng["launches"] + arm_launches("std", False),
-              max(errs("decode", "prefill"), errs("standard_bf16", src=long_kern)),
+              max(errs("decode", "prefill", "prefill_long"),
+                  errs("standard_bf16", src=long_kern)),
               kern["decode"],
               launches_by_path=dict(engine_wave=eng["launches"],
                                     long_context=arm_launches("std", False)),
+              prefill_entry_launches=(eng["prefill_launches"]
+                                      + arm_launches("prefill", False)),
               prefill={k: kern["prefill"][k] for k in timed},
+              prefill_long={k: kern["prefill_long"][k] for k in timed},
               long_decode={k: long_kern["standard_bf16"][k] for k in timed}),
         entry("paged_flash_attention_int8", paged_src,
               "areal_tpu/ops/paged_attention.py:116",
               arm_launches("std", True),
-              max(errs("int8_decode", "int8_prefill"),
+              max(errs("int8_decode", "int8_prefill", "int8_prefill_long"),
                   errs("standard_int8", src=long_kern)),
               long_kern["standard_int8"],
-              prefill={k: kern["int8_prefill"][k] for k in timed}),
+              prefill_entry_launches=arm_launches("prefill", True),
+              prefill={k: kern["int8_prefill"][k] for k in timed},
+              prefill_long={k: kern["int8_prefill_long"][k] for k in timed}),
         entry("paged_flash_attention_deep", deep_src, deep_ref,
               arm_launches("deep", False),
               max(errs("deep_prefill"), errs("deep_bf16", src=long_kern)),
@@ -1643,6 +1709,9 @@ def kernel_entries(kern, long_kern, eng, long, flash, train):
             long={k: long_shape[k] for k in ("shape", "ms", "plain_ms",
                                              "bound_ms", "bound_by",
                                              "library_ms")},
+            **({"parts_ms": main_shape["parts_ms"],
+                "long_parts_ms": long_shape["parts_ms"]}
+               if kind == "bwd" else {}),
         ))
     return entries
 
