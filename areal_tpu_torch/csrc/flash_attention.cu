@@ -83,49 +83,6 @@ constexpr unsigned kFull = 0xffffffffu;
 
 typedef __nv_bfloat16 bf16;
 
-using tc::acc_to_a;
-using tc::mma_bf16;
-
-// two bf16 at consecutive addresses (lower address in the low half)
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 one row apart (strided), packed as a pair
-__device__ __forceinline__ uint32_t ld_strided(const bf16* p, int stride) {
-  const uint16_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint16_t hi = *reinterpret_cast<const uint16_t*>(p + stride);
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// A fragment (16 rows x 16 k) of a row-major bf16 tile in shared memory:
-// rows r0.., columns k0.., leading dimension ld.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s,
-                                       int ld, int r0, int k0, int g,
-                                       int tq) {
-  const bf16* p = s + (r0 + g) * ld + k0 + tq * 2;
-  a[0] = ld_pair(p);
-  a[1] = ld_pair(p + 8 * ld);
-  a[2] = ld_pair(p + 8);
-  a[3] = ld_pair(p + 8 * ld + 8);
-}
-
-// Copy `rows` rows of `HD` bf16 (global row r at base + r * gstride) into
-// shared memory (row r at s + r * ld); rows at or past `valid` are zero.
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* s, int ld, const bf16* base,
-                                          long long gstride, int rows,
-                                          int valid) {
-  constexpr int kVec = HD / 8;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < rows * kVec; idx += kThreads) {
-    const int r = idx / kVec, c = (idx % kVec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid)
-      val = *reinterpret_cast<const uint4*>(base + r * gstride + c);
-    *reinterpret_cast<uint4*>(s + r * ld + c) = val;
-  }
-}
-
 // [min nonzero segment id, max segment id] of the tiles [t0, t0 + n) of
 // the range table, merged; min > max when the tiles hold no real token.
 __device__ __forceinline__ int2 tile_range(const int* ranges, int n_rt,
@@ -160,94 +117,196 @@ __global__ void seg_ranges_kernel(const int* __restrict__ seg,
   ranges[2 * i + 1] = hi;
 }
 
+// ---- copies and fragments shared by the forward and backward ---------------
+
+// Copy ROWS rows of HD bf16 (global row i at base + i * gstride) with
+// cp.async into a ROWS-row tile in the 128-byte swizzle layout wgmma reads
+// (tc::swz_offset); rows at or past `valid` are zero-filled and not read.
+template <int HD, int ROWS = 64>
+__device__ __forceinline__ void copy_tile(unsigned char* s, const bf16* base,
+                                          long long gstride, int valid) {
+  constexpr int kVec = HD / 8;               // 16-byte pieces per row
+  constexpr int kPass = kThreads / kVec;     // rows per pass
+  static_assert(kPass % 8 == 0, "passes keep a row's swizzle phase");
+  const int i0 = threadIdx.x / kVec, c = (threadIdx.x % kVec) * 8;
+  // a thread's rows are i0 + kPass p: one swizzle phase, fixed strides
+  unsigned char* dst = s + tc::swz_offset(ROWS, i0, c);
+  const bf16* src = base + i0 * gstride + c;
+#pragma unroll
+  for (int p = 0; p < ROWS / kPass; ++p) {
+    const bool in = i0 + p * kPass < valid;
+    tc::cp_async16(dst + p * kPass * 128, in ? src + p * kPass * gstride : base,
+                   in);
+  }
+}
+
+// Copy n (<= kThreads) 4-byte values src[0..n) into shared memory with
+// cp.async; those at or past `valid` are zero-filled.
+__device__ __forceinline__ void copy_words(void* s, const void* src, int n,
+                                           int valid) {
+  const int i = threadIdx.x;
+  if (i < n) {
+    const bool in = i < valid;
+    tc::cp_async4(static_cast<uint32_t*>(s) + i,
+                  static_cast<const uint32_t*>(src) + (in ? i : 0), in);
+  }
+}
+
+constexpr int round1k(int n) { return (n + 1023) / 1024 * 1024; }
+
+// The A fragments (bf16) of the N / 16 sixteen-column steps of a 64 x N
+// accumulator held as s[4j + x] (row g + 8 (x >> 1), column 8j + 2tq +
+// (x & 1)).
+template <int N>
+__device__ __forceinline__ void acc_to_frags(uint32_t (&a)[N / 16][4],
+                                             const float (&s)[N / 2]) {
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      a[kc][x] = tc::pack_bf16(s[8 * kc + 2 * x], s[8 * kc + 2 * x + 1]);
+}
+
 // ---- forward ----------------------------------------------------------------
 
-// One block: (query tile of 64, query head h, row b).  Warp w owns query
-// rows 16w..16w+15 of the tile; thread (g = lane / 4, tq = lane % 4) holds
-// rows g and g + 8 of the warp's 16.
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kFwdStages = 2;  // depth of the forward's K/V copy ring
+
+// Shared-memory plan of the forward (byte offsets from a 1024-aligned
+// base): the Q tile and its segment ids, then a ring of key stages (K, V
+// and the keys' segment ids), BN keys each.
+template <int HD, int BN>
+struct FwdSmem {
+  static constexpr int kQTile = 64 * HD * 2;
+  static constexpr int kKV = BN * HD * 2;  // one K or V tile
+  static constexpr int kQ = 0, kSegQ = kQTile;
+  static constexpr int kRing = round1k(kSegQ + 64 * 4);
+  static constexpr int kStage = round1k(2 * kKV + BN * 4);
+  static constexpr int kBytes = kRing + kFwdStages * kStage + 1024;
+};
+
+// One block (a warpgroup) per (query tile of 64, query head h, row b),
+// the tiles with the most keys first across every head and row.  It walks
+// the BN-key tiles up to the diagonal that share a segment with it, K/V
+// and their segment ids streaming through the copy ring; S = Q K^T and O
+// += P V run on wgmma.  Warp w owns query rows 16w..16w+15.
+template <int HD, int BN>
+__global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
 fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const int* __restrict__ seg,
               const int* __restrict__ ranges, bf16* __restrict__ out,
-              float* __restrict__ lse, int T, int Hq, int Hkv, int n_rt,
-              float scale_log2) {
-  constexpr int BM = 64, BN = 64, LD = HD + 8, NT = HD / 8;
+              float* __restrict__ lse, int B, int T, int Hq, int Hkv,
+              int n_rt, float scale_log2) {
+  using L = FwdSmem<HD, BN>;
+  constexpr int BM = 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BM * LD;
-  bf16* Vs = Ks + BN * LD;
-  int* segq = reinterpret_cast<int*>(Vs + BN * LD);
-  int* segk = segq + BM;
+  unsigned char* smem =
+      smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  const unsigned char* Qs = smem + L::kQ;
+  const int* segq = reinterpret_cast<const int*>(smem + L::kSegQ);
+  unsigned char* ring = smem + L::kRing;
 
-  const int n_qt = gridDim.x;
-  const int qt = n_qt - 1 - blockIdx.x;  // heaviest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_qt = (T + BM - 1) / BM;
+  const int per = Hq * B;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / per;
+  const int h = blockIdx.x % per % Hq, b = blockIdx.x % per / Hq;
   const int hk = h / (Hq / Hkv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int q0 = qt * BM;
   const int* rng = ranges + (long long)b * n_rt * 2;
   const int2 qr = tile_range(rng, n_rt, q0 / kRangeTile, BM / kRangeTile);
+  // the last key tile at or below the diagonal (k0 <= q0 + 63, so k0 < T)
+  const int kt_last = (q0 + BM - 1) / BN;
 
   const long long qstride = (long long)Hq * HD;
   const long long kstride = (long long)Hkv * HD;
-  load_tile<HD>(Qs, LD, q + ((long long)b * T + q0) * qstride + h * HD,
-                qstride, BM, T - q0);
-  for (int i = threadIdx.x; i < BM; i += kThreads)
-    segq[i] = q0 + i < T ? seg[(long long)b * T + q0 + i] : 0;
+  copy_tile<HD>(smem + L::kQ, q + ((long long)b * T + q0) * qstride + h * HD,
+                qstride, T - q0);
+  copy_words(smem + L::kSegQ, seg + (long long)b * T + q0, BM, T - q0);
 
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int wr = warp * 16;
-  for (int kt = 0; kt <= qt; ++kt) {
+  // the next key tile at or after kt that shares a segment with the query
+  // tile (kt_last + 1 when none is left)
+  auto next_active = [&](int kt) {
+    for (; kt <= kt_last; ++kt)
+      if (ranges_meet(qr, tile_range(rng, n_rt, kt * BN / kRangeTile,
+                                     BN / kRangeTile)))
+        return kt;
+    return kt_last + 1;
+  };
+  auto load_stage = [&](int kt, int slot) {
+    unsigned char* st = ring + slot * L::kStage;
     const int k0 = kt * BN;
-    if (!ranges_meet(qr, tile_range(rng, n_rt, k0 / kRangeTile,
-                                    BN / kRangeTile)))
-      continue;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<HD>(Ks, LD, k + ((long long)b * T + k0) * kstride + hk * HD,
-                  kstride, BN, T - k0);
-    load_tile<HD>(Vs, LD, v + ((long long)b * T + k0) * kstride + hk * HD,
-                  kstride, BN, T - k0);
-    for (int i = threadIdx.x; i < BN; i += kThreads)
-      segk[i] = k0 + i < T ? seg[(long long)b * T + k0 + i] : 0;
-    __syncthreads();
+    const long long koff = ((long long)b * T + k0) * kstride + hk * HD;
+    copy_tile<HD, BN>(st, k + koff, kstride, T - k0);
+    copy_tile<HD, BN>(st + L::kKV, v + koff, kstride, T - k0);
+    copy_words(st + 2 * L::kKV, seg + (long long)b * T + k0, BN, T - k0);
+  };
 
-    // S = Q K^T, 16 x 64 per warp
-    float s[8][4];
+  // online-softmax state of rows g and g + 8 of the warp (log2 domain)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[HD / 2];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  for (int x = 0; x < HD / 2; ++x) acc[x] = 0.f;
+
+  // prologue: the query side and the first kFwdStages - 1 key tiles
+  int kt_load = next_active(0);
+  for (int s = 0; s < kFwdStages - 1; ++s) {
+    if (kt_load <= kt_last) {
+      load_stage(kt_load, s);
+      kt_load = next_active(kt_load + 1);
+    }
+    tc::cp_async_commit();
+  }
+  for (int kt = next_active(0), i = 0; kt <= kt_last;
+       kt = next_active(kt + 1), ++i) {
+    tc::cp_async_wait<kFwdStages - 2>();
+    tc::fence_proxy_async();
+    __syncthreads();  // tile i landed for all; the stage of tile i-1 is free
+    if (kt_load <= kt_last) {
+      load_stage(kt_load, (i + kFwdStages - 1) % kFwdStages);
+      kt_load = next_active(kt_load + 1);
+    }
+    tc::cp_async_commit();
+
+    const unsigned char* st = ring + (i % kFwdStages) * L::kStage;
+    const unsigned char* Ks = st;
+    const unsigned char* Vs = st + L::kKV;
+    const int* segk = reinterpret_cast<const int*>(st + 2 * L::kKV);
+    const int k0 = kt * BN;
+
+    // S = Q K^T: 64 queries x BN keys, s[4j + x] holds query 16w + g +
+    // 8 (x >> 1), key 8j + 2tq + (x & 1)
+    float s[BN / 2];
+#pragma unroll
+    for (int x = 0; x < BN / 2; ++x) s[x] = 0.f;
+    tc::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, Qs, LD, wr, kk * 16, g, tq);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const bf16* p = Ks + (n * 8 + g) * LD + kk * 16 + tq * 2;
-        mma_bf16(s[n], a, ld_pair(p), ld_pair(p + 8));
-      }
+      // k16 step kk: 64-column block kk / 4, 32 bytes per step inside it
+      const int kin = (kk & 3) * 32;
+      tc::wgmma_ss<BN>(s, tc::wg_desc(Qs + (kk >> 2) * 64 * 128 + kin, 16, 1024),
+                       tc::wg_desc(Ks + (kk >> 2) * BN * 128 + kin, 16, 1024));
     }
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::wg_fence_acc(s);
+
     // mask, online softmax (log2 domain)
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int row = wr + g + hr * 8;
+      const int row = warp * 16 + g + hr * 8;
       const int sq = segq[row];
-      const int i = q0 + row;
+      const int qi = q0 + row;
       float mx = -INFINITY;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const int col = n * 8 + tq * 2 + c;
-          const bool ok = sq != 0 && segk[col] == sq && k0 + col <= i;
-          const float x = ok ? s[n][hr * 2 + c] * scale_log2 : -INFINITY;
-          s[n][hr * 2 + c] = x;
-          mx = fmaxf(mx, x);
+          const int col = j * 8 + tq * 2 + c;
+          const int x = 4 * j + hr * 2 + c;
+          const bool ok = sq != 0 && segk[col] == sq && k0 + col <= qi;
+          s[x] = ok ? s[x] * scale_log2 : -INFINITY;
+          mx = fmaxf(mx, s[x]);
         }
       }
       mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
@@ -255,59 +314,60 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float m_new = fmaxf(m[hr], mx);
       float alpha = 1.f, rs = 0.f;
       if (m_new != -INFINITY) {
-        alpha = exp2f(m[hr] - m_new);  // 0 when m[hr] is -inf
+        alpha = tc::exp2_approx(m[hr] - m_new);  // 0 when m[hr] is -inf
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
+        for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            const float x = s[n][hr * 2 + c];
-            const float p = x == -INFINITY ? 0.f : exp2f(x - m_new);
-            s[n][hr * 2 + c] = p;
-            rs += p;
+            const int x = 4 * j + hr * 2 + c;
+            s[x] = tc::exp2_approx(s[x] - m_new);  // 0 where masked
+            rs += s[x];
           }
         }
-      } else {
+      } else {  // nothing attended yet: this row's probabilities are 0
 #pragma unroll
-        for (int n = 0; n < 8; ++n) s[n][hr * 2] = s[n][hr * 2 + 1] = 0.f;
+        for (int j = 0; j < BN / 8; ++j) s[4 * j + hr * 2] = s[4 * j + hr * 2 + 1] = 0.f;
       }
       m[hr] = m_new;
-      l[hr] = l[hr] * alpha + rs;  // per-thread partial, reduced at the end
+      l[hr] = l[hr] * alpha + rs;  // this thread's columns; summed at the end
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        acc[n][hr * 2] *= alpha;
-        acc[n][hr * 2 + 1] *= alpha;
+      for (int j = 0; j < HD / 8; ++j) {
+        acc[4 * j + hr * 2] *= alpha;
+        acc[4 * j + hr * 2 + 1] *= alpha;
       }
     }
-    // O += P V
+    // O += P V: P rounded to bf16 in registers, V read MN-major (its rows
+    // are the keys)
+    uint32_t a[BN / 16][4];
+    acc_to_frags<BN>(a, s);
+    tc::wg_fence();
 #pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const bf16* p = Vs + (kc * 16 + tq * 2) * LD + n * 8 + g;
-        mma_bf16(acc[n], a, ld_strided(p, LD), ld_strided(p + 8 * LD, LD));
-      }
-    }
+    for (int kc = 0; kc < BN / 16; ++kc)
+      tc::wgmma_rs<HD>(acc, a[kc],
+                       tc::wg_desc(Vs + kc * 16 * 128, BN * 128, 1024));
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::wg_fence_acc(acc);
   }
+  tc::cp_async_wait<0>();
 
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     float lt = l[hr];
     lt += __shfl_xor_sync(kFull, lt, 1);
     lt += __shfl_xor_sync(kFull, lt, 2);
-    const int i = q0 + wr + g + hr * 8;
-    if (i >= T) continue;
+    const int qi = q0 + warp * 16 + g + hr * 8;
+    if (qi >= T) continue;
     const float inv = lt > 0.f ? 1.f / lt : 0.f;
-    bf16* o = out + ((long long)b * T + i) * qstride + h * HD;
+    bf16* o = out + ((long long)b * T + qi) * qstride + h * HD;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(o + n * 8 + tq * 2) =
-          __floats2bfloat162_rn(acc[n][hr * 2] * inv,
-                                acc[n][hr * 2 + 1] * inv);
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(o + j * 8 + tq * 2) =
+          __floats2bfloat162_rn(acc[4 * j + hr * 2] * inv,
+                                acc[4 * j + hr * 2 + 1] * inv);
     }
     if (tq == 0)
-      lse[((long long)b * Hq + h) * T + i] =
+      lse[((long long)b * Hq + h) * T + qi] =
           lt > 0.f ? (m[hr] + log2f(lt)) * kLn2 : INFINITY;
   }
 }
@@ -347,42 +407,6 @@ fa_bwd_dot_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
   }
 }
 
-// Copy 64 rows of HD bf16 (global row i at base + i * gstride) with
-// cp.async into a 64-row tile in the 128-byte swizzle layout
-// wgmma reads (tc::swz_offset); rows at or past `valid` are zero-filled
-// and not read.
-template <int HD>
-__device__ __forceinline__ void copy_tile(unsigned char* s, const bf16* base,
-                                          long long gstride, int valid) {
-  constexpr int kVec = HD / 8;                  // 16-byte pieces per row
-  constexpr int kRows = kThreads / kVec;     // rows per pass
-  static_assert(kRows % 8 == 0, "passes keep a row's swizzle phase");
-  const int i0 = threadIdx.x / kVec, c = (threadIdx.x % kVec) * 8;
-  // a thread's rows are i0 + kRows p: one swizzle phase, fixed strides
-  unsigned char* dst = s + tc::swz_offset(64, i0, c);
-  const bf16* src = base + i0 * gstride + c;
-#pragma unroll
-  for (int p = 0; p < 64 / kRows; ++p) {
-    const bool in = i0 + p * kRows < valid;
-    tc::cp_async16(dst + p * kRows * 128, in ? src + p * kRows * gstride : base,
-                   in);
-  }
-}
-
-// Copy n (<= kThreads) 4-byte values src[0..n) into shared memory with
-// cp.async; those at or past `valid` are zero-filled.
-__device__ __forceinline__ void copy_words(void* s, const void* src, int n,
-                                           int valid) {
-  const int i = threadIdx.x;
-  if (i < n) {
-    const bool in = i < valid;
-    tc::cp_async4(static_cast<uint32_t*>(s) + i,
-                  static_cast<const uint32_t*>(src) + (in ? i : 0), in);
-  }
-}
-
-constexpr int round1k(int n) { return (n + 1023) / 1024 * 1024; }
-
 // The backward's two 64 x 64 products over the head dim, S = A B^T and
 // dP = C D^T (all four 64-row K-major tiles in shared memory), issued
 // together and waited for.
@@ -407,18 +431,6 @@ __device__ __forceinline__ void scores_pair(float (&s)[32], float (&dp)[32],
   tc::wg_wait<0>();
   tc::wg_fence_acc(s);
   tc::wg_fence_acc(dp);
-}
-
-// The A fragments (bf16) of the four 16-column steps of a 64 x 64
-// accumulator held as s[4j + x] (row g + 8 (x >> 1), column 8j + 2tq +
-// (x & 1)).
-__device__ __forceinline__ void acc_to_frags(uint32_t (&a)[4][4],
-                                             const float (&s)[32]) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc)
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-      a[kc][x] = tc::pack_bf16(s[8 * kc + 2 * x], s[8 * kc + 2 * x + 1]);
 }
 
 // acc[64 x HD] += A [64 x 64] (registers, four 16-column steps) times the
@@ -562,7 +574,7 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     // dQ += dS K (K read MN-major: its rows are the keys)
     uint32_t a[4][4];
-    acc_to_frags(a, s);
+    acc_to_frags<64>(a, s);
     tc::wg_fence();
     issue_rows_product<HD>(acc, a, Ks);
     tc::wg_commit();
@@ -727,10 +739,10 @@ fa_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // dV += P^T dO ; dK += dS^T Q (dO and Q read MN-major: their rows are
     // the queries)
     uint32_t ap[4][4], ads[4][4];
-    acc_to_frags(ap, s);
+    acc_to_frags<64>(ap, s);
     tc::wg_fence();
     issue_rows_product<HD>(dvacc, ap, dOs);
-    acc_to_frags(ads, dp);
+    acc_to_frags<64>(ads, dp);
     tc::wg_fence();
     issue_rows_product<HD>(dkacc, ads, Qs);
     tc::wg_commit();
@@ -788,14 +800,36 @@ fa_bwd_reduce_kernel(const float* __restrict__ dk_ws,
   ov[1] = __floats2bfloat162_rn(e.z, e.w);
 }
 
-constexpr size_t fwd_smem(int hd) {
-  return (3 * 64 * (hd + 8)) * sizeof(bf16) + 2 * 64 * sizeof(int);
-}
 cudaError_t launch_ranges(const int* seg, int* ranges, int B, int T,
                           cudaStream_t st) {
   const int n_rt = (T + kRangeTile - 1) / kRangeTile;
   const int n = B * n_rt;
   seg_ranges_kernel<<<(n + 127) / 128, 128, 0, st>>>(seg, ranges, B, T, n_rt);
+  return cudaGetLastError();
+}
+
+// keys per forward stage: 64, or 128 (one 64 x 128 S product per k-step)
+int g_fwd_keys = 64;
+
+template <int HD, int BN>
+cudaError_t fwd_launch(const void* q, const void* k, const void* v,
+                       const int* seg, const int* ranges, void* out,
+                       float* lse, int B, int T, int Hq, int Hkv,
+                       cudaStream_t st) {
+  const int n_rt = (T + kRangeTile - 1) / kRangeTile;
+  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  constexpr int smem = FwdSmem<HD, BN>::kBytes;
+  static_assert(smem <= 227 * 1024, "forward stage too large");
+  // above 48 KB a block's shared memory must be asked for, once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fa_fwd_kernel<HD, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return attr;
+  const unsigned n_tiles = static_cast<unsigned>((T + 63) / 64);
+  fa_fwd_kernel<HD, BN><<<n_tiles * Hq * B, kThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), seg, ranges, static_cast<bf16*>(out), lse,
+      B, T, Hq, Hkv, n_rt, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -805,19 +839,11 @@ cudaError_t fwd_typed(const void* q, const void* k, const void* v,
                       int B, int T, int Hq, int Hkv, cudaStream_t st) {
   cudaError_t err = launch_ranges(seg, ranges, B, T, st);
   if (err != cudaSuccess) return err;
-  const int n_rt = (T + kRangeTile - 1) / kRangeTile;
-  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
-  const size_t smem = fwd_smem(HD);
-  err = cudaFuncSetAttribute(fa_fwd_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid((T + 63) / 64, Hq, B);
-  fa_fwd_kernel<HD><<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), seg, ranges, static_cast<bf16*>(out), lse,
-      T, Hq, Hkv, n_rt, scale * kLog2e);
-  return cudaGetLastError();
+  return g_fwd_keys == 128
+             ? fwd_launch<HD, 128>(q, k, v, seg, ranges, out, lse, B, T, Hq,
+                                   Hkv, st)
+             : fwd_launch<HD, 64>(q, k, v, seg, ranges, out, lse, B, T, Hq,
+                                  Hkv, st);
 }
 
 // the backward's kernels, as bits of flash_attention_bwd's `parts`
@@ -940,6 +966,13 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Keys per forward stage (64 or 128) for the calls that follow.
+int flash_attention_fwd_keys(int keys) {
+  if (keys != 64 && keys != 128) return static_cast<int>(cudaErrorInvalidValue);
+  g_fwd_keys = keys;
+  return 0;
 }
 
 const char* flash_attention_error_string(int code) {

@@ -1,12 +1,13 @@
 // Tensor-core and async-copy helpers shared by the kernels that multiply
 // bf16 tiles on Hopper's tensor cores (flash_attention.cu and the prefill
-// entry of paged_attention.cu): `mma.sync` m16n8k16 and warpgroup `wgmma`
-// products with f32 accumulation, and `cp.async` copies with zero fill.
+// entry of paged_attention.cu): warpgroup `wgmma` products with f32
+// accumulation, and `cp.async` copies with zero fill.
 //
-// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): lane = 4 g + tq holds
-// A[g][2tq..2tq+1], A[g+8][..], A[g][2tq+8..], A[g+8][2tq+8..] of a 16x16
-// A tile; B[2tq..2tq+1][g], B[2tq+8..2tq+9][g] of a 16x8 B tile; and
-// C[g][2tq..2tq+1], C[g+8][2tq..2tq+1] of the 16x8 accumulator.
+// Register fragments (PTX ISA, the m16n8k16 .bf16 layouts that wgmma's
+// register operands and accumulators follow per warp): lane = 4 g + tq
+// holds A[g][2tq..2tq+1], A[g+8][..], A[g][2tq+8..], A[g+8][2tq+8..] of a
+// 16x16 A tile, and C[g][2tq..2tq+1], C[g+8][2tq..2tq+1] of each 16x8
+// block of the accumulator.
 
 #pragma once
 
@@ -18,29 +19,9 @@ namespace tc {
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragment from two f32 accumulator n-tiles (16 rows x 8 cols each),
-// which together cover 16 consecutive k, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 // 2^x on the special-function unit (relative error about 2^-22; results
@@ -86,8 +67,8 @@ __device__ __forceinline__ void cp_async_wait() {
 //
 // A warpgroup (the 4 warps of a 128-thread block) multiplies a 64-row
 // tile: warp w owns rows 16w..16w+15, its accumulator fragment per 8
-// columns is the mma.sync C layout above, and an A operand held in
-// registers is the mma.sync A fragment of the warp's 16 rows.  Shared
+// columns is the C layout above, and an A operand held in
+// registers is the A fragment above, of the warp's 16 rows.  Shared
 // operands are read through matrix descriptors over tiles stored in the
 // 128-byte swizzle layout of `swz_offset`.  wgmma runs asynchronously:
 // issue, `wg_commit`, `wg_wait<0>`, then `wg_fence_acc` on the
@@ -162,6 +143,52 @@ __device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t da,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A B^T: as wgmma_64x64_ss with B [128 x 16].
+__device__ __forceinline__ void wgmma_64x128_ss(float (&d)[64], uint64_t da,
+    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x N] += A B^T for N = 64 or 128 (A, B both K-major in shared memory).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 128)
+    wgmma_64x128_ss(d, da, db);
+  else
+    wgmma_64x64_ss(d, da, db);
 }
 
 // D[64 x 64] += A B: A [64 x 16] in registers, B [16 x 64] MN-major in

@@ -96,181 +96,442 @@ using paged::kFull;
 using paged::kNegInf;
 using paged::load_f32;
 using paged::to_f32;
-using paged::warp_max;
-using paged::warp_sum;
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+// ---- the decode entry: a shared-memory copy ring ----------------------------
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 8;   // query rows per block
-constexpr int kTile = 32;  // keys per warp tile: one per lane
+constexpr int kPad = 16;                  // bytes after each staged key row
+constexpr int kRingBudget = 110 * 1024;   // bytes of ring per block
 
-// ---- the partials kernel -------------------------------------------------
+// Shared-memory plan of the decode entry (byte offsets): the R query rows
+// (f32), each warp's probabilities of its keys, then a ring of stages of
+// kKeys keys (K rows, V rows, padded by kPad bytes, and for an int8 pool
+// their K and V scales).  The stage count follows a budget that lets two
+// blocks share an SM, between 2 and 4.
+template <typename Tk, int HD, int R>
+struct DecLayout {
+  static constexpr bool kQuant = std::is_same<Tk, int8_t>::value;
+  static constexpr int kRowBytes = HD * static_cast<int>(sizeof(Tk));
+  static constexpr int kKeys = kRowBytes > 512 ? 32 : 64;
+  static constexpr int kWarpKeys = kKeys / kWarps;    // keys per warp
+  static constexpr int kParts = 32 / kWarpKeys;       // lanes per key
+  static constexpr int kChunks = kRowBytes / 16;      // 16-byte pieces
+  static constexpr int kRowStride = kRowBytes + kPad;
+  static constexpr int kKBytes = kKeys * kRowStride;
+  static constexpr int kStageBytes = 2 * kKBytes + (kQuant ? 2 * kKeys * 4 : 0);
+  static constexpr int kStages =
+      kRingBudget / kStageBytes < 2 ? 2
+      : (kRingBudget / kStageBytes > 4 ? 4 : kRingBudget / kStageBytes);
+  static constexpr int kQBytes = R * HD * 4;
+  static constexpr int kPBytes = kWarps * kWarpKeys * 8 * 4;
+  static constexpr int kBar = kQBytes + kPBytes;       // the stages' mbarriers
+  static constexpr int kRing = kBar + 64;
+  static constexpr int kRedBytes = kWarps * R * (HD + 2) * 4;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kBytes =
+      kRing + (kRingBytes > kRedBytes ? kRingBytes : kRedBytes);
+  static_assert(kChunks % kParts == 0, "a key's lanes split its row evenly");
+  static_assert(kBytes <= 227 * 1024, "decode stage too large");
+};
 
-template <typename Tq, typename Tk, int HD>
-__global__ void __launch_bounds__(kThreads)
-paged_partials_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
-                      const Tk* __restrict__ v_pool,
-                      const float* __restrict__ k_scale,
-                      const float* __restrict__ v_scale,
-                      const int* __restrict__ tables,
-                      const int* __restrict__ lengths,
-                      float* __restrict__ acc_out, float* __restrict__ m_out,
-                      float* __restrict__ l_out, int Q, int Hq, int Hkv,
-                      int BS, int MB, int NB, int n_splits, long long sb,
-                      long long sh, long long ss, long long ssb,
-                      long long ssh, float scale) {
-  constexpr bool kQuant = std::is_same<Tk, int8_t>::value;
+// ---- mbarrier and bulk-copy helpers (sm_90) ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   tc::smem_u32(bar)), "r"(count) : "memory");
+}
+// one arrival, announcing `bytes` of bulk copies that complete on `bar`
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], "
+      "%1;\n}\n" ::"r"(tc::smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(tc::smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+// `bytes` (a multiple of 16, both ends 16-byte aligned) global -> shared,
+// completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(tc::smem_u32(dst)), "l"(src),
+      "r"(bytes), "r"(tc::smem_u32(bar)) : "memory");
+}
+
+// Write the empty partials (acc = 0, m = -1e30, l = 0) of the block's rows.
+template <int HD, int R>
+__device__ __forceinline__ void write_empty(float* acc, float* m, float* l,
+                                            long long row_base, int row0,
+                                            int n_rows_total, int Q, int Hq,
+                                            int r, int b, int h) {
+  for (int idx = threadIdx.x; idx < R * HD; idx += kThreads) {
+    const int i = idx / HD, d = idx % HD, gr = row0 + i;
+    if (gr >= n_rows_total) continue;
+    const int t = gr / r, j = gr % r;
+    const long long row = row_base + ((long long)b * Q + t) * Hq + h * r + j;
+    acc[row * HD + d] = 0.f;
+    if (d == 0) {
+      m[row] = kNegInf;
+      l[row] = 0.f;
+    }
+  }
+}
+
+// One block: (tile of R grouped query rows, KV split) of (KV head h, row
+// b).  The split owns tiles [t_begin, t_begin + n) of the row's live keys
+// (kKeys each), which stream through the copy ring; warp w takes keys
+// [w kWarpKeys, (w + 1) kWarpKeys) of every tile with its own online-softmax
+// state, merged across the warps at the end.  With several live splits
+// the block writes its partials to the workspace, and with `fused` the
+// last split of (b, h, query tile) to finish merges them all in split
+// order (a ticket from `counters`, which it resets); otherwise the
+// combine kernel does.
+template <typename Tq, typename Tk, int HD, int R, bool kBulk>
+__global__ void __launch_bounds__(kThreads, 2)
+paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
+                    const Tk* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ tables,
+                    const int* __restrict__ lengths, float* __restrict__ acc_out,
+                    float* __restrict__ m_out, float* __restrict__ l_out,
+                    float* __restrict__ acc_ws, float* __restrict__ m_ws,
+                    float* __restrict__ l_ws, int* __restrict__ counters,
+                    int Q, int Hq, int Hkv, int BS, int MB, int NB,
+                    int n_splits, long long sb, long long sh, long long ss,
+                    long long ssb, long long ssh, float scale_log2,
+                    int fused) {
+  using Lay = DecLayout<Tk, HD, R>;
+  constexpr bool kQuant = Lay::kQuant;
+  constexpr int KT = Lay::kKeys, WK = Lay::kWarpKeys, PARTS = Lay::kParts;
+  constexpr int NCP = Lay::kChunks / PARTS;  // chunks per lane of a key
+  constexpr int E = 16 / static_cast<int>(sizeof(Tk));  // elements per chunk
   constexpr int CPL = HD / 32;  // acc columns per lane
-  __shared__ __align__(16) float q_s[kRows][HD];
-  __shared__ float red_m[kWarps][kRows];
-  __shared__ float red_l[kWarps][kRows];
-  __shared__ __align__(16) float red_acc[kWarps][kRows][HD];
+  constexpr int S = Lay::kStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);                 // [R][HD]
+  float* p_s = reinterpret_cast<float*>(smem + Lay::kQBytes);  // [warp][WK][8]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + Lay::kBar);
+  unsigned char* ring = smem + Lay::kRing;
 
   const int r = Hq / Hkv;
+  const int n_qtiles = gridDim.x / n_splits;
   const int qtile = blockIdx.x / n_splits;
   const int split = blockIdx.x % n_splits;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int B = gridDim.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_rows_total = Q * r;
-  const int row0 = qtile * kRows;
+  const int row0 = qtile * R;
+  const long long R_all = (long long)B * Q * Hq;  // rows of one split
 
-  // query tile -> float32 shared memory; padding rows are zero
-  for (int idx = threadIdx.x; idx < kRows * HD; idx += kThreads) {
+  const int length = max(0, min(lengths[b], MB * BS));
+  const int n_tiles = (length + KT - 1) / KT;
+  const int per_split = (n_tiles + n_splits - 1) / n_splits;
+  const int n_live = per_split > 0 ? (n_tiles + per_split - 1) / per_split : 0;
+  const int t_begin = split * per_split;
+  const int n = max(0, min(n_tiles, t_begin + per_split) - t_begin);
+  // where this block's partials go: the outputs when it is the row's only
+  // split (or the splits are merged by the combine kernel and there is one)
+  const bool direct = fused ? n_live <= 1 : n_splits <= 1;
+  float* a_dst = direct ? acc_out : acc_ws;
+  float* m_dst = direct ? m_out : m_ws;
+  float* l_dst = direct ? l_out : l_ws;
+  const long long row_base = direct ? 0 : split * R_all;
+  if (n == 0) {  // no live key: the row's empty result, or nothing
+    if (!fused || (n_tiles == 0 && split == 0))
+      write_empty<HD, R>(a_dst, m_dst, l_dst, row_base, row0, n_rows_total, Q,
+                         Hq, r, b, h);
+    return;
+  }
+
+  // the query rows -> float32 shared memory; padding rows are zero
+  for (int idx = threadIdx.x; idx < R * HD; idx += kThreads) {
     const int i = idx / HD, d = idx % HD, gr = row0 + i;
     float v = 0.f;
     if (gr < n_rows_total) {
       const int t = gr / r, j = gr % r;
       v = to_f32(q[(((long long)b * Q + t) * Hq + h * r + j) * HD + d]);
     }
-    q_s[i][d] = v;
+    q_s[i * HD + d] = v;
+  }
+  if constexpr (kBulk) {
+    if (threadIdx.x == 0) {
+      for (int st = 0; st < S; ++st) mbar_init(bars + st, kThreads);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
   }
   __syncthreads();
 
-  const int length = max(0, min(lengths[b], MB * BS));
-  const int n_tiles = (length + kTile - 1) / kTile;
-  const int per_split = (n_tiles + n_splits - 1) / n_splits;
-  const int t_begin = split * per_split;
-  const int t_end = min(n_tiles, t_begin + per_split);
   const int* table = tables + (long long)b * MB;
+  // a page holds whole tiles (the usual page sizes): one table lookup per
+  // tile instead of one per key
+  const bool whole = BS % KT == 0;
+  auto key_page = [&](int pos) { return min(max(table[pos / BS], 0), NB - 1); };
 
-  float m[kRows], l[kRows], acc[kRows][CPL];
+  // copy tile `tile`'s live keys into ring stage `slot` (keys past the
+  // length are not copied and never read)
+  auto load_stage = [&](int tile, int slot) {
+    unsigned char* st = ring + slot * Lay::kStageBytes;
+    const int base = tile * KT;
+    const int n_valid = min(KT, length - base);
+    if constexpr (kBulk) {
+      // whole tiles only: one bulk copy per K and V row, by the key's thread;
+      // the tile's scales (int8) as two runs by thread KT
+      const int page = key_page(base);
+      uint32_t bytes = 0;
+      const int key = threadIdx.x;
+      if (key < n_valid) {
+        bytes = 2 * Lay::kRowBytes;
+        const long long off = page * sb + h * sh + (long long)(base % BS + key) * ss;
+        mbar_arrive_tx(bars + slot, bytes);
+        bulk_copy(st + key * Lay::kRowStride, k_pool + off, Lay::kRowBytes, bars + slot);
+        bulk_copy(st + Lay::kKBytes + key * Lay::kRowStride, v_pool + off,
+                  Lay::kRowBytes, bars + slot);
+      } else if (kQuant && key == KT) {
+        const uint32_t sbytes = (n_valid + 3) / 4 * 16;
+        const long long so = page * ssb + h * ssh + base % BS;
+        float* sc = reinterpret_cast<float*>(st + 2 * Lay::kKBytes);
+        mbar_arrive_tx(bars + slot, 2 * sbytes);
+        bulk_copy(sc, k_scale + so, sbytes, bars + slot);
+        bulk_copy(sc + KT, v_scale + so, sbytes, bars + slot);
+      } else {
+        mbar_arrive_tx(bars + slot, 0);
+      }
+    } else {
+      // 16-byte cp.async pieces, consecutive threads on consecutive pieces
+      // of a key row
+      long long tile_off = 0, tile_soff = 0;
+      if (whole) {
+        const int page = key_page(base);
+        tile_off = page * sb + h * sh + (long long)(base % BS) * ss;
+        tile_soff = page * ssb + h * ssh + base % BS;
+      }
+      for (int idx = threadIdx.x; idx < n_valid * Lay::kChunks; idx += kThreads) {
+        const int key = idx / Lay::kChunks, c = idx % Lay::kChunks;
+        long long off;
+        if (whole) {
+          off = tile_off + key * ss;
+        } else {
+          const int pos = base + key;
+          off = key_page(pos) * sb + h * sh + (long long)(pos % BS) * ss;
+        }
+        const int dst = key * Lay::kRowStride + c * 16;
+        tc::cp_async16(st + dst,
+                       reinterpret_cast<const unsigned char*>(k_pool + off) + c * 16,
+                       true);
+        tc::cp_async16(st + Lay::kKBytes + dst,
+                       reinterpret_cast<const unsigned char*>(v_pool + off) + c * 16,
+                       true);
+      }
+      if constexpr (kQuant) {
+        float* sc = reinterpret_cast<float*>(st + 2 * Lay::kKBytes);
+        for (int key = threadIdx.x; key < n_valid; key += kThreads) {
+          long long so;
+          if (whole) {
+            so = tile_soff + key;
+          } else {
+            const int pos = base + key;
+            so = key_page(pos) * ssb + h * ssh + pos % BS;
+          }
+          tc::cp_async4(sc + key, k_scale + so, true);
+          tc::cp_async4(sc + KT + key, v_scale + so, true);
+        }
+      }
+    }
+  };
+
+  // online-softmax state of the warp (log2 domain) for each query row
+  float m[R], l[R], acc[R][CPL];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < CPL; ++c) acc[i][c] = 0.f;
   }
+  const int kk = lane % WK, part = lane / WK;
+  float* pw = p_s + warp * WK * 8;
 
-  for (int tile = t_begin + warp; tile < t_end; tile += kWarps) {
-    const int pos = tile * kTile + lane;
-    const bool valid = pos < length;
-    long long off = 0;
-    float vsc = 1.f;  // this lane's key's V scale (int8 pools)
-    float s[kRows];
+  // prologue: tiles 0 .. S-2 in flight (one cp.async group each, empty
+  // groups included, so the group count stays uniform)
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < n) load_stage(t_begin + st, st);
+    if constexpr (!kBulk) tc::cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    if constexpr (kBulk) {
+      mbar_wait(bars + i % S, (i / S) & 1);
+    } else {
+      tc::cp_async_wait<S - 2>();  // this thread's copies of tile i landed
+    }
+    __syncthreads();  // everyone's did; the stage of tile i-1 is free
+    const int nxt = i + S - 1;
+    if (nxt < n) {
+      if constexpr (kBulk) tc::fence_proxy_async();
+      load_stage(t_begin + nxt, nxt % S);
+    }
+    if constexpr (!kBulk) tc::cp_async_commit();
+
+    const unsigned char* st = ring + (i % S) * Lay::kStageBytes;
+    const float* ksc = reinterpret_cast<const float*>(st + 2 * Lay::kKBytes);
+    const int wbase = (t_begin + i) * KT + warp * WK;  // the warp's first key
+    if (wbase >= length) continue;  // warp-uniform: no valid key here
+    const int key = warp * WK + kk;  // key within the stage
+    const bool valid = wbase + kk < length;
+
+    // scores: the PARTS lanes of a key each dot NCP chunks of its row
+    // (lanes of a quarter warp read 8 rows at one column: the padding puts
+    // them on distinct banks, and q is a broadcast)
+    float s[R];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) s[i] = 0.f;
-    if (valid) {
-      int page = table[pos / BS];
-      page = min(max(page, 0), NB - 1);
-      off = page * sb + h * sh + (long long)(pos % BS) * ss;
-      float ksc = 1.f;
-      if constexpr (kQuant) {
-        const long long so = page * ssb + h * ssh + pos % BS;
-        ksc = k_scale[so];
-        vsc = v_scale[so];
-      }
-      const Tk* kp = k_pool + off;
-#pragma unroll 4
-      for (int d0 = 0; d0 < HD; d0 += 8) {
-        float kf[8];
-        load_f32<Tk, 8>(kp + d0, kf);
-        if constexpr (kQuant) {
+    for (int i2 = 0; i2 < R; ++i2) s[i2] = 0.f;
+    const unsigned char* krow = st + key * Lay::kRowStride;
 #pragma unroll
-          for (int e = 0; e < 8; ++e) kf[e] *= ksc;
+    for (int c = 0; c < NCP; ++c) {
+      const int chunk = part * NCP + c;
+      float kf[E];
+      load_f32<Tk, E>(reinterpret_cast<const Tk*>(krow + chunk * 16), kf);
+#pragma unroll
+      for (int i2 = 0; i2 < R; ++i2) {
+        const float* qp = q_s + i2 * HD + chunk * E;
+        float a = s[i2];
+#pragma unroll
+        for (int e = 0; e < E; e += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qp + e);
+          a = fmaf(qv.x, kf[e], a);
+          a = fmaf(qv.y, kf[e + 1], a);
+          a = fmaf(qv.z, kf[e + 2], a);
+          a = fmaf(qv.w, kf[e + 3], a);
         }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const float4 qa = *reinterpret_cast<const float4*>(&q_s[i][d0]);
-          const float4 qb = *reinterpret_cast<const float4*>(&q_s[i][d0 + 4]);
-          float a = s[i];
-          a = fmaf(qa.x, kf[0], a); a = fmaf(qa.y, kf[1], a);
-          a = fmaf(qa.z, kf[2], a); a = fmaf(qa.w, kf[3], a);
-          a = fmaf(qb.x, kf[4], a); a = fmaf(qb.y, kf[5], a);
-          a = fmaf(qb.z, kf[6], a); a = fmaf(qb.w, kf[7], a);
-          s[i] = a;
-        }
+        s[i2] = a;
       }
     }
-    // online-softmax update over this tile (the tile holds >= 1 valid key)
-    float p[kRows];
+    const float f = kQuant ? ksc[key] * scale_log2 : scale_log2;
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float sv = valid ? s[i] * scale : kNegInf;
-      const float m_new = fmaxf(m[i], warp_max(sv));
-      p[i] = expf(sv - m_new);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + warp_sum(p[i]);
-      m[i] = m_new;
+    for (int i2 = 0; i2 < R; ++i2) {
+      float dot = s[i2];
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) acc[i][c] *= alpha;
+      for (int o = WK; o < 32; o <<= 1) dot += __shfl_xor_sync(kFull, dot, o);
+      const float sv = valid ? dot * f : kNegInf;
+      float mx = sv;
+#pragma unroll
+      for (int o = 1; o < WK; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      const float m_new = fmaxf(m[i2], mx);  // finite: the warp has a valid key
+      const float p = tc::exp2_approx(sv - m_new);  // 0 past the length
+      float ps = p;
+#pragma unroll
+      for (int o = 1; o < WK; o <<= 1) ps += __shfl_xor_sync(kFull, ps, o);
+      const float alpha = tc::exp2_approx(m[i2] - m_new);
+      l[i2] = l[i2] * alpha + ps;
+      m[i2] = m_new;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) acc[i2][c] *= alpha;
+      s[i2] = p;
     }
-    // P.V: key k's offset, scale and probabilities come from lane k
-    const int n_keys = min(kTile, length - tile * kTile);
-    for (int k = 0; k < n_keys; ++k) {
-      const long long off_k = __shfl_sync(kFull, off, k);
+    if (part == 0) {
+      const float vs = kQuant ? ksc[KT + key] : 1.f;
+#pragma unroll
+      for (int i2 = 0; i2 < R; ++i2) pw[kk * 8 + i2] = s[i2] * vs;
+    }
+    __syncwarp();
+    // P.V: every lane reads its CPL columns of each of the warp's V rows
+    const int n_keys = min(WK, length - wbase);
+    const unsigned char* vst = st + Lay::kKBytes + warp * WK * Lay::kRowStride;
+    for (int k2 = 0; k2 < n_keys; ++k2) {
       float vf[CPL];
-      load_f32<Tk, CPL>(v_pool + off_k + lane * CPL, vf);
-      if constexpr (kQuant) {
-        const float vs_k = __shfl_sync(kFull, vsc, k);
+      load_f32<Tk, CPL>(
+          reinterpret_cast<const Tk*>(vst + k2 * Lay::kRowStride) + lane * CPL, vf);
+      float pk[8];
+      *reinterpret_cast<float4*>(pk) = *reinterpret_cast<const float4*>(pw + k2 * 8);
+      *reinterpret_cast<float4*>(pk + 4) =
+          *reinterpret_cast<const float4*>(pw + k2 * 8 + 4);
 #pragma unroll
-        for (int c = 0; c < CPL; ++c) vf[c] *= vs_k;
-      }
+      for (int i2 = 0; i2 < R; ++i2)
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float pk = __shfl_sync(kFull, p[i], k);
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) acc[i][c] = fmaf(pk, vf[c], acc[i][c]);
-      }
+        for (int c = 0; c < CPL; ++c) acc[i2][c] = fmaf(pk[i2], vf[c], acc[i2][c]);
     }
   }
+  if constexpr (!kBulk) tc::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the warps' partials merge there
 
-  // merge the warps' partials
+  float* red_m = reinterpret_cast<float*>(ring);  // [kWarps][R]
+  float* red_l = red_m + kWarps * R;              // [kWarps][R]
+  float* red_acc = red_l + kWarps * R;            // [kWarps][R][HD]
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < R; ++i) {
     if (lane == 0) {
-      red_m[warp][i] = m[i];
-      red_l[warp][i] = l[i];
+      red_m[warp * R + i] = m[i];
+      red_l[warp * R + i] = l[i];
     }
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) red_acc[warp][i][lane * CPL + c] = acc[i][c];
+    for (int c = 0; c < CPL; ++c)
+      red_acc[(warp * R + i) * HD + lane * CPL + c] = acc[i][c];
   }
   __syncthreads();
-  const long long R = (long long)B * Q * Hq;  // rows of one split's output
-  for (int idx = threadIdx.x; idx < kRows * HD; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < R * HD; idx += kThreads) {
     const int i = idx / HD, d = idx % HD, gr = row0 + i;
     if (gr >= n_rows_total) continue;
-    float M = red_m[0][i];
+    float M = red_m[i];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) M = fmaxf(M, red_m[w][i]);
+    for (int w = 1; w < kWarps; ++w) M = fmaxf(M, red_m[w * R + i]);
     float a = 0.f, L = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float e = expf(red_m[w][i] - M);
-      a += red_acc[w][i][d] * e;
-      L += red_l[w][i] * e;
+      const float e = tc::exp2_approx(red_m[w * R + i] - M);
+      a += red_acc[(w * R + i) * HD + d] * e;
+      L += red_l[w * R + i] * e;
     }
     const int t = gr / r, j = gr % r;
-    const long long row = split * R + ((long long)b * Q + t) * Hq + h * r + j;
+    const long long row = row_base + ((long long)b * Q + t) * Hq + h * r + j;
+    a_dst[row * HD + d] = a;
+    if (d == 0) {
+      m_dst[row] = M * kLn2;
+      l_dst[row] = L;
+    }
+  }
+  if (!fused || direct) return;
+
+  // the last live split of (b, h, query tile) to get here merges them all
+  __shared__ int s_last;
+  __threadfence();  // this block's partials are visible device-wide
+  __syncthreads();
+  int* ticket = counters + ((long long)b * Hkv + h) * n_qtiles + qtile;
+  if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1) == n_live - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int idx = threadIdx.x; idx < R * HD; idx += kThreads) {
+    const int i = idx / HD, d = idx % HD, gr = row0 + i;
+    if (gr >= n_rows_total) continue;
+    const int t = gr / r, j = gr % r;
+    const long long row = ((long long)b * Q + t) * Hq + h * r + j;
+    float M = kNegInf;
+    for (int sp = 0; sp < n_live; ++sp) M = fmaxf(M, __ldcg(m_ws + sp * R_all + row));
+    float a = 0.f, L = 0.f;
+    for (int sp = 0; sp < n_live; ++sp) {
+      const float e = expf(__ldcg(m_ws + sp * R_all + row) - M);
+      a += __ldcg(acc_ws + (sp * R_all + row) * HD + d) * e;
+      L += __ldcg(l_ws + sp * R_all + row) * e;
+    }
     acc_out[row * HD + d] = a;
     if (d == 0) {
       m_out[row] = M;
       l_out[row] = L;
     }
   }
+  if (threadIdx.x == 0) *ticket = 0;  // ready for the next call
 }
 
 // ---- the prefill entry: tensor cores ----------------------------------------
@@ -279,8 +540,6 @@ constexpr int kPfThreads = 128;  // one warpgroup
 constexpr int kPfRows = 64;      // grouped query rows per block (wgmma M)
 constexpr int kPfKeys = 64;      // keys per ring stage
 constexpr int kPfStages = 2;
-constexpr float kLn2 = 0.6931471805599453f;
-
 typedef __nv_bfloat16 bf16;
 
 // Four int8 values (a 32-bit word, lowest byte first) -> bf16 pairs
@@ -609,6 +868,9 @@ paged_prefill_kernel(const bf16* __restrict__ q, const Tk* __restrict__ k_pool,
   }
 }
 
+int g_decode_bulk = 0;
+int g_decode_fused = 1;
+
 }  // namespace
 
 extern "C" {
@@ -616,44 +878,84 @@ extern "C" {
 // q_dtype: 0 = float32, 1 = bfloat16, 2 = float16; pool_dtype: the same
 // code as q, or 3 = int8 with float32 scale pools k_scale/v_scale (block
 // and head strides ssb/ssh, slots contiguous; null for fp pools).
-// With n_splits > 1 the partials land in the workspace buffers
-// ([n_splits, B*Q*Hq, hd] and [n_splits, B*Q*Hq]) and a second kernel
-// merges them into acc/m/l.  Returns the first CUDA error (0 = success).
+// With n_splits > 1 the live splits' partials land in the workspace
+// buffers ([n_splits, B*Q*Hq, hd] and [n_splits, B*Q*Hq]) and the last
+// split of each (row, KV head, query tile) to finish merges them into
+// acc/m/l, taking a ticket from `counters` (int32, one per (row, KV head,
+// query tile), zero between calls; the merging block resets its own).
+// Calls that share `counters` must not run concurrently.  Returns the
+// first CUDA error (0 = success).
 int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
                         const float* k_scale, const float* v_scale,
                         const int* tables, const int* lengths, float* acc,
                         float* m, float* l, float* acc_ws, float* m_ws,
-                        float* l_ws, int B, int Q, int Hq, int Hkv, int hd,
-                        int BS, int MB, int NB, int n_splits, long long sb,
-                        long long sh, long long ss, long long ssb,
-                        long long ssh, int q_dtype, int pool_dtype,
-                        void* stream) {
+                        float* l_ws, int* counters, int B, int Q, int Hq,
+                        int Hkv, int hd, int BS, int MB, int NB, int n_splits,
+                        long long sb, long long sh, long long ss,
+                        long long ssb, long long ssh, int q_dtype,
+                        int pool_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
-  float* a_dst = n_splits > 1 ? acc_ws : acc;
-  float* m_dst = n_splits > 1 ? m_ws : m;
-  float* l_dst = n_splits > 1 ? l_ws : l;
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(hd));
   const int r = Hq / Hkv;
-  const int n_qtiles = (Q * r + kRows - 1) / kRows;
+  const int rows = Q * r;
+  // query rows per block: the GQA group of one token when it fits (no
+  // padding rows at Hq / Hkv = 6), else tiles of 8
+  const int R = rows <= 4 ? 4 : (rows <= 6 ? 6 : 8);
+  const int n_qtiles = (rows + R - 1) / R;
   const dim3 grid(n_qtiles * n_splits, Hkv, B);
+  const int fused = g_decode_fused;
   cudaError_t err = paged::dispatch_types(
       q_dtype, pool_dtype, [&](auto tq, auto tk) {
         using Tq = decltype(tq);
         using Tk = decltype(tk);
         return paged::dispatch_hd(hd, [&](auto hd_c) {
           constexpr int HD = decltype(hd_c)::value;
-          paged_partials_kernel<Tq, Tk, HD><<<grid, kThreads, 0, st>>>(
-              static_cast<const Tq*>(q), static_cast<const Tk*>(k_pool),
-              static_cast<const Tk*>(v_pool), k_scale, v_scale, tables,
-              lengths, a_dst, m_dst, l_dst, Q, Hq, Hkv, BS, MB, NB, n_splits,
-              sb, sh, ss, ssb, ssh, scale);
-          return cudaGetLastError();
+          auto launch = [&](auto r_c, auto bulk_c) -> cudaError_t {
+            constexpr int RR = decltype(r_c)::value;
+            constexpr bool kBulk = decltype(bulk_c)::value;
+            constexpr int smem = DecLayout<Tk, HD, RR>::kBytes;
+            auto kernel = paged_decode_kernel<Tq, Tk, HD, RR, kBulk>;
+            // above 48 KB a block's shared memory must be asked for, once
+            static const cudaError_t attr = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (attr != cudaSuccess) return attr;
+            kernel<<<grid, kThreads, smem, st>>>(
+                static_cast<const Tq*>(q), static_cast<const Tk*>(k_pool),
+                static_cast<const Tk*>(v_pool), k_scale, v_scale, tables,
+                lengths, acc, m, l, acc_ws, m_ws, l_ws, counters, Q, Hq, Hkv,
+                BS, MB, NB, n_splits, sb, sh, ss, ssb, ssh, scale_log2, fused);
+            return cudaGetLastError();
+          };
+          using I4 = std::integral_constant<int, 4>;
+          using I6 = std::integral_constant<int, 6>;
+          using I8 = std::integral_constant<int, 8>;
+          using Yes = std::integral_constant<bool, true>;
+          using No = std::integral_constant<bool, false>;
+          if constexpr (HD == 128 && std::is_same<Tq, bf16>::value &&
+                        sizeof(Tk) <= 2) {
+            // bulk copies: whole tiles, 16-byte aligned scale runs
+            constexpr int KT = DecLayout<Tk, HD, 6>::kKeys;
+            const bool ok = BS % KT == 0 && ssb % 4 == 0 && ssh % 4 == 0;
+            if (g_decode_bulk && ok && R == 6) return launch(I6{}, Yes{});
+          }
+          if (R == 4) return launch(I4{}, No{});
+          if (R == 6) return launch(I6{}, No{});
+          return launch(I8{}, No{});
         });
       });
-  if (err != cudaSuccess || n_splits <= 1) return static_cast<int>(err);
+  if (err != cudaSuccess || fused || n_splits <= 1) return static_cast<int>(err);
   return static_cast<int>(paged::combine_splits(
       acc_ws, m_ws, l_ws, acc, m, l, static_cast<long long>(B) * Q * Hq, hd,
       n_splits, st));
+}
+
+// Decode-entry design variants for the calls that follow: bulk copies
+// (1) or 16-byte cp.async pieces (0); the fused split merge (1) or the
+// combine kernel (0).
+int paged_decode_variant(int bulk, int fused) {
+  g_decode_bulk = bulk;
+  g_decode_fused = fused;
+  return 0;
 }
 
 // The prefill entry: arguments as paged_attention_fwd, for bf16 q (q_dtype

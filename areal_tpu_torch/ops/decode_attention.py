@@ -95,7 +95,7 @@ def _launch(q, k, v, lengths):
     acc = torch.empty((B, Hq, hd), **f32)
     m = torch.empty((B, Hq), **f32)
     l = torch.empty((B, Hq), **f32)
-    n = pa.n_splits(B, 1, Hq, Hkv, S, one_wave=True)
+    n = pa.n_splits(B, 1, Hq, Hkv, S, entry=pa.DEEP_ENTRY)
     ws, ws_ptrs = pa.split_workspace(n, (B, Hq, hd), q.device)
     sb, sh, ss, _ = k.stride()
     rc = fn(

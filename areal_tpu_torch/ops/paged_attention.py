@@ -46,21 +46,24 @@ _NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 POOL_CODES = {**DTYPE_CODES, torch.int8: 3}
 _HEAD_DIMS = (64, 128, 256)
-#: SMs of an H100 SXM; the split heuristic aims for two blocks per SM
-_TARGET_BLOCKS = 2 * 132
-#: fewest keys a KV split should own (4 warps x 4 tiles of 32 keys)
-_MIN_KEYS_PER_SPLIT = 512
-_ROWS_PER_BLOCK = 8  # kRows in the CUDA source
-#: the prefill entry: grouped query rows per block (kPfRows), blocks to
-#: aim for (two waves of two blocks per SM, so unequal splits even out)
-#: and the fewest keys a split should own (16 tiles of 64)
-_PREFILL_ROWS_PER_BLOCK = 64
-_PREFILL_TARGET_BLOCKS = 4 * 132
-_PREFILL_MIN_KEYS_PER_SPLIT = 1024
-#: the C entry points of csrc/paged_attention.cu
+#: the C entry points of csrc/paged_attention.cu and csrc/paged_attention_deep.cu
 DECODE_ENTRY = "paged_attention_fwd"
 PREFILL_ENTRY = "paged_attention_prefill_fwd"
-
+DEEP_ENTRY = "paged_attention_deep_fwd"
+#: how each entry splits a row's keys over blocks: (grouped query rows per
+#: block, blocks to aim for, fewest keys a split should own, whether the
+#: grid must stay within the blocks that fit on the card at once).  An
+#: H100 SXM has 132 SMs.  The decode and deep kernels' shared memory allows
+#: two blocks per SM, so a grid one block larger than 264 would run a
+#: second wave for that block; the decode entry's splits own at least four
+#: 64-key tiles (a ring of three or four stages keeps them all in flight),
+#: the deep kernel's eight.  The prefill entry aims for two waves of two
+#: blocks per SM, so unequal splits even out, of at least 16 tiles each.
+_SPLIT_RULES = {
+    DECODE_ENTRY: (8, 2 * 132, 256, True),
+    PREFILL_ENTRY: (64, 4 * 132, 1024, False),
+    DEEP_ENTRY: (8, 2 * 132, 512, True),
+}
 
 def gather_paged_kv(
     k_pool: torch.Tensor,  # [NB, Hkv, BS, hd]
@@ -120,11 +123,13 @@ def reference_paged_partials(
 def kernel_entry(library: str, symbol: str):
     """The C entry point ``symbol`` of ``csrc/<library>.cu`` (the library is
     built at the first call) and its error-string function.  Every paged
-    entry point takes the arguments of ``paged_attention_fwd``."""
+    entry point takes the arguments of ``paged_attention_fwd``; the decode
+    entry also its ticket counters, after the workspace."""
     cdll = _build.load_library(library).cdll
     fn = getattr(cdll, symbol)
     fn.argtypes = (
         [ctypes.c_void_p] * 13  # q, k, v, k/v scale, tables, lengths, acc, m, l, 3 ws
+        + [ctypes.c_void_p] * (symbol == DECODE_ENTRY)  # ticket counters
         + [ctypes.c_int] * 9  # B, Q, Hq, Hkv, hd, BS, MB, NB, n_splits
         + [ctypes.c_longlong] * 5  # pool block/head/slot, scale block/head strides
         + [ctypes.c_int] * 2  # q dtype, pool dtype codes
@@ -150,20 +155,15 @@ def paged_entry(Q: int, q_dtype: torch.dtype, pool_dtype: torch.dtype) -> str:
 
 
 def n_splits(B: int, Q: int, Hq: int, Hkv: int, capacity: int,
-             one_wave: bool = False, prefill: bool = False) -> int:
-    """KV splits per (row, head, query tile): enough blocks to cover the
-    card when the grid is small (decode, or a prefill chunk over one long
-    row), none when it is large.  With ``one_wave`` the grid stays within
-    the blocks that fit on the card at once (the deep kernel's shared
-    memory allows two per SM, so a grid one block larger would run a
-    second wave for that block).  ``prefill`` sizes the splits for the
-    prefill entry (64-row query tiles, 64-key tiles).  Decided from shapes
+             entry: str = DECODE_ENTRY) -> int:
+    """KV splits per (row, KV head, query tile) for the C entry ``entry``
+    (its rule in ``_SPLIT_RULES``): enough blocks to cover the card when
+    the grid is small (decode, or a prefill chunk over one long row), none
+    when it is large, and never fewer keys per split than the entry's
+    least.  A row's split owns an equal share of the row's live tiles, so
+    a split past the live length has nothing to do.  Decided from shapes
     only, so no device value is read."""
-    rows, target, min_keys = (
-        (_PREFILL_ROWS_PER_BLOCK, _PREFILL_TARGET_BLOCKS,
-         _PREFILL_MIN_KEYS_PER_SPLIT)
-        if prefill else (_ROWS_PER_BLOCK, _TARGET_BLOCKS, _MIN_KEYS_PER_SPLIT)
-    )
+    rows, target, min_keys, one_wave = _SPLIT_RULES[entry]
     n_qtiles = -(-(Q * (Hq // Hkv)) // rows)
     base = n_qtiles * Hkv * B
     want = target // base if one_wave else -(-target // base)
@@ -250,8 +250,27 @@ def check_args(q, k_pool, v_pool, tables, lengths, k_scale, v_scale):
         raise ValueError("q and pool rows must be 16-byte aligned")
 
 
+#: the decode entry's ticket counters, one int32 per (row, KV head, query
+#: tile), by (device, stream): zero between calls (the kernel resets the
+#: ones it uses), grown when a call needs more
+_TICKETS: dict = {}
+
+
+def ticket_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 ticket counters for the decode entry's
+    calls on ``stream`` of ``device``, kept from call to call.  A larger
+    set replaces a smaller one; the kernels still queued on the stream
+    finish with the old set before the allocator hands its memory out
+    again."""
+    t = _TICKETS.get((device, stream))
+    if t is None or t.numel() < n:
+        t = torch.zeros(n, dtype=torch.int32, device=device)
+        _TICKETS[(device, stream)] = t
+    return t
+
+
 def launch_paged(library, symbol, counter, q, k_pool, v_pool, tables,
-                 lengths, k_scale=None, v_scale=None, one_wave=False):
+                 lengths, k_scale=None, v_scale=None):
     """Check the arguments, launch the paged kernel ``symbol`` of
     ``library`` on the current stream and count the launch on
     ``counter`` (``int8_launches`` for an int8 pool, else ``launches``;
@@ -271,19 +290,24 @@ def launch_paged(library, symbol, counter, q, k_pool, v_pool, tables,
     acc = torch.empty((B, Q, Hq, hd), **f32)
     m = torch.empty((B, Q, Hq), **f32)
     l = torch.empty((B, Q, Hq), **f32)
-    prefill = symbol == PREFILL_ENTRY
-    S = n_splits(B, Q, Hq, Hkv, MB * BS, one_wave=one_wave, prefill=prefill)
+    S = n_splits(B, Q, Hq, Hkv, MB * BS, entry=symbol)
     ws, ws_ptrs = split_workspace(S, (B, Q, Hq, hd), q.device)
     quant = k_scale is not None
     ssb, ssh = k_scale.stride()[:2] if quant else (0, 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets = ()
+    if symbol == DECODE_ENTRY:
+        rows = _SPLIT_RULES[DECODE_ENTRY][0]
+        n_qtiles = -(-(Q * (Hq // Hkv)) // rows)
+        tickets = (ticket_counters(q.device, stream,
+                                   B * Hkv * n_qtiles).data_ptr(),)
     sb, sh, ss, _ = k_pool.stride()
     rc = fn(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         tables.data_ptr(), lengths.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), *ws_ptrs,
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), *ws_ptrs, *tickets,
         B, Q, Hq, Hkv, hd, BS, MB, NB, S, sb, sh, ss, ssb, ssh,
         DTYPE_CODES[q.dtype], POOL_CODES[k_pool.dtype], stream,
     )
@@ -293,7 +317,7 @@ def launch_paged(library, symbol, counter, q, k_pool, v_pool, tables,
         counter.int8_launches += 1
     else:
         counter.launches += 1
-    if prefill:
+    if symbol == PREFILL_ENTRY:
         counter.prefill_launches += 1
     return acc, m, l
 
@@ -342,9 +366,8 @@ def paged_flash_attention_deep(
             q, k_pool, v_pool, tables, lengths, k_scale, v_scale
         )
     return launch_paged(
-        "paged_attention_deep", "paged_attention_deep_fwd",
-        paged_flash_attention_deep, q, k_pool, v_pool, tables, lengths,
-        k_scale, v_scale, one_wave=True,
+        "paged_attention_deep", DEEP_ENTRY, paged_flash_attention_deep, q,
+        k_pool, v_pool, tables, lengths, k_scale, v_scale,
     )
 
 

@@ -80,19 +80,21 @@ def test_entry_routing(Q, q_dtype, pool_dtype):
         # a short table caps the splits at 1024 keys each
         (1, 512, 2048, True, 2),
         (1, 512, 1024, True, 1),
-        # decode keeps the decode entry's rule (8-row tiles, 512 keys)
-        (8, 1, 4096, False, 8),
-        (16, 1, 32768, False, 9),
+        # decode keeps the decode entry's rule (one-group tiles, at least
+        # 256 keys per split, one wave of two blocks per SM)
+        (8, 1, 4096, False, 16),
+        (16, 1, 32768, False, 8),
     ],
 )
 def test_split_counts(B, Q, capacity, prefill, want):
-    got = tpa.n_splits(B, Q, 12, 2, capacity, prefill=prefill)
+    entry = tpa.PREFILL_ENTRY if prefill else tpa.DECODE_ENTRY
+    got = tpa.n_splits(B, Q, 12, 2, capacity, entry=entry)
     assert got == want
 
 
 def test_split_workspace_shapes():
     shape = (1, 512, 12, 128)
-    S = tpa.n_splits(1, 512, 12, 2, 32768, prefill=True)
+    S = tpa.n_splits(1, 512, 12, 2, 32768, entry=tpa.PREFILL_ENTRY)
     ws, ptrs = tpa.split_workspace(S, shape, torch.device("cpu"))
     assert [tuple(t.shape) for t in ws] == [
         (S, 1, 512, 12, 128), (S, 1, 512, 12), (S, 1, 512, 12)]
