@@ -120,13 +120,13 @@ __global__ void seg_ranges_kernel(const int* __restrict__ seg,
 // ---- copies and fragments shared by the forward and backward ---------------
 
 // Copy ROWS rows of HD bf16 (global row i at base + i * gstride) with
-// cp.async into a ROWS-row tile in the 128-byte swizzle layout wgmma reads
+// cp.async, by NT threads, into a ROWS-row tile in the 128-byte swizzle layout wgmma reads
 // (tc::swz_offset); rows at or past `valid` are zero-filled and not read.
-template <int HD, int ROWS = 64>
+template <int HD, int ROWS = 64, int NT = kThreads>
 __device__ __forceinline__ void copy_tile(unsigned char* s, const bf16* base,
                                           long long gstride, int valid) {
   constexpr int kVec = HD / 8;               // 16-byte pieces per row
-  constexpr int kPass = kThreads / kVec;     // rows per pass
+  constexpr int kPass = NT / kVec;           // rows per pass
   static_assert(kPass % 8 == 0, "passes keep a row's swizzle phase");
   const int i0 = threadIdx.x / kVec, c = (threadIdx.x % kVec) * 8;
   // a thread's rows are i0 + kPass p: one swizzle phase, fixed strides
@@ -140,7 +140,7 @@ __device__ __forceinline__ void copy_tile(unsigned char* s, const bf16* base,
   }
 }
 
-// Copy n (<= kThreads) 4-byte values src[0..n) into shared memory with
+// Copy n (<= the block's threads) 4-byte values src[0..n) into shared memory with
 // cp.async; those at or past `valid` are zero-filled.
 __device__ __forceinline__ void copy_words(void* s, const void* src, int n,
                                            int valid) {
@@ -169,35 +169,39 @@ __device__ __forceinline__ void acc_to_frags(uint32_t (&a)[N / 16][4],
 
 // ---- forward ----------------------------------------------------------------
 
-constexpr int kFwdStages = 2;  // depth of the forward's K/V copy ring
+constexpr int kFwdKeys = 64;  // keys per forward stage
 
 // Shared-memory plan of the forward (byte offsets from a 1024-aligned
-// base): the Q tile and its segment ids, then a ring of key stages (K, V
-// and the keys' segment ids), BN keys each.
-template <int HD, int BN>
+// base): the Q tile (64 rows per warpgroup) and its segment ids, then a
+// ring of key stages (K, V and the keys' segment ids).
+template <int HD, int NWG>
 struct FwdSmem {
-  static constexpr int kQTile = 64 * HD * 2;
-  static constexpr int kKV = BN * HD * 2;  // one K or V tile
+  static constexpr int kRows = 64 * NWG;
+  static constexpr int kStages = NWG == 1 ? 2 : 3;
+  static constexpr int kQTile = kRows * HD * 2;
+  static constexpr int kKV = kFwdKeys * HD * 2;  // one K or V tile
   static constexpr int kQ = 0, kSegQ = kQTile;
-  static constexpr int kRing = round1k(kSegQ + 64 * 4);
-  static constexpr int kStage = round1k(2 * kKV + BN * 4);
-  static constexpr int kBytes = kRing + kFwdStages * kStage + 1024;
+  static constexpr int kRing = round1k(kSegQ + kRows * 4);
+  static constexpr int kStage = round1k(2 * kKV + kFwdKeys * 4);
+  static constexpr int kBytes = kRing + kStages * kStage + 1024;
 };
 
-// One block (a warpgroup) per (query tile of 64, query head h, row b),
-// the tiles with the most keys first across every head and row.  It walks
-// the BN-key tiles up to the diagonal that share a segment with it, K/V
-// and their segment ids streaming through the copy ring; S = Q K^T and O
-// += P V run on wgmma.  Warp w owns query rows 16w..16w+15.
-template <int HD, int BN>
-__global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
+// One block (NWG warpgroups) per (query tile of 64 NWG rows, query head
+// h, row b), the tiles with the most keys first across every head and
+// row.  It walks the 64-key tiles up to the diagonal that share a segment
+// with it, K/V and their segment ids streaming through the copy ring; S =
+// Q K^T and O += P V run on wgmma, each warpgroup on its 64 query rows.
+// Warp w of warpgroup v owns query rows 64v + 16w .. 64v + 16w + 15.
+template <int HD, int NWG>
+__global__ void __launch_bounds__(kThreads * NWG, NWG == 1 ? 2 : 1)
 fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const int* __restrict__ seg,
               const int* __restrict__ ranges, bf16* __restrict__ out,
               float* __restrict__ lse, int B, int T, int Hq, int Hkv,
               int n_rt, float scale_log2) {
-  using L = FwdSmem<HD, BN>;
-  constexpr int BM = 64;
+  using L = FwdSmem<HD, NWG>;
+  constexpr int BM = L::kRows, BN = kFwdKeys, NT = kThreads * NWG;
+  constexpr int S = L::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
@@ -210,18 +214,20 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / per;
   const int h = blockIdx.x % per % Hq, b = blockIdx.x % per / Hq;
   const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = threadIdx.x / kThreads;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int q0 = qt * BM;
   const int* rng = ranges + (long long)b * n_rt * 2;
   const int2 qr = tile_range(rng, n_rt, q0 / kRangeTile, BM / kRangeTile);
-  // the last key tile at or below the diagonal (k0 <= q0 + 63, so k0 < T)
-  const int kt_last = (q0 + BM - 1) / BN;
+  // the last key tile at or below the diagonal (k0 <= q0 + BM - 1 < T + BM)
+  const int kt_last = min((q0 + BM - 1) / BN, (T - 1) / BN);
 
   const long long qstride = (long long)Hq * HD;
   const long long kstride = (long long)Hkv * HD;
-  copy_tile<HD>(smem + L::kQ, q + ((long long)b * T + q0) * qstride + h * HD,
-                qstride, T - q0);
+  copy_tile<HD, BM, NT>(smem + L::kQ,
+                        q + ((long long)b * T + q0) * qstride + h * HD, qstride,
+                        T - q0);
   copy_words(smem + L::kSegQ, seg + (long long)b * T + q0, BM, T - q0);
 
   // the next key tile at or after kt that shares a segment with the query
@@ -237,8 +243,8 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     unsigned char* st = ring + slot * L::kStage;
     const int k0 = kt * BN;
     const long long koff = ((long long)b * T + k0) * kstride + hk * HD;
-    copy_tile<HD, BN>(st, k + koff, kstride, T - k0);
-    copy_tile<HD, BN>(st + L::kKV, v + koff, kstride, T - k0);
+    copy_tile<HD, BN, NT>(st, k + koff, kstride, T - k0);
+    copy_tile<HD, BN, NT>(st + L::kKV, v + koff, kstride, T - k0);
     copy_words(st + 2 * L::kKV, seg + (long long)b * T + k0, BN, T - k0);
   };
 
@@ -248,34 +254,40 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int x = 0; x < HD / 2; ++x) acc[x] = 0.f;
 
-  // prologue: the query side and the first kFwdStages - 1 key tiles
+  // prologue: the query side and the first S - 1 key tiles
   int kt_load = next_active(0);
-  for (int s = 0; s < kFwdStages - 1; ++s) {
+  for (int st = 0; st < S - 1; ++st) {
     if (kt_load <= kt_last) {
-      load_stage(kt_load, s);
+      load_stage(kt_load, st);
       kt_load = next_active(kt_load + 1);
     }
     tc::cp_async_commit();
   }
   for (int kt = next_active(0), i = 0; kt <= kt_last;
        kt = next_active(kt + 1), ++i) {
-    tc::cp_async_wait<kFwdStages - 2>();
-    tc::fence_proxy_async();
-    __syncthreads();  // tile i landed for all; the stage of tile i-1 is free
-    if (kt_load <= kt_last) {
-      load_stage(kt_load, (i + kFwdStages - 1) % kFwdStages);
-      kt_load = next_active(kt_load + 1);
-    }
-    tc::cp_async_commit();
-
-    const unsigned char* st = ring + (i % kFwdStages) * L::kStage;
+    const unsigned char* st = ring + (i % S) * L::kStage;
     const unsigned char* Ks = st;
     const unsigned char* Vs = st + L::kKV;
     const int* segk = reinterpret_cast<const int*>(st + 2 * L::kKV);
     const int k0 = kt * BN;
+    tc::cp_async_wait<S - 2>();
+    tc::fence_proxy_async();
+    // tile i landed for all; the stage of tile i-1 is free.  The tile
+    // needs no mask when it lies below the diagonal and every query and
+    // key of the two tiles is in one segment (each thread checks the ids
+    // it copied itself against the query tile's least nonzero id).
+    const int tid = threadIdx.x;
+    const bool same = (tid >= BM || segq[tid] == qr.x) &&
+                      (tid >= BN || segk[tid] == qr.x);
+    const bool full = __syncthreads_and(same) && k0 + BN - 1 <= q0;
+    if (kt_load <= kt_last) {
+      load_stage(kt_load, (i + S - 1) % S);
+      kt_load = next_active(kt_load + 1);
+    }
+    tc::cp_async_commit();
 
-    // S = Q K^T: 64 queries x BN keys, s[4j + x] holds query 16w + g +
-    // 8 (x >> 1), key 8j + 2tq + (x & 1)
+    // S = Q K^T: the warpgroup's 64 queries x 64 keys, s[4j + x] holds
+    // query 16w + g + 8 (x >> 1), key 8j + 2tq + (x & 1)
     float s[BN / 2];
 #pragma unroll
     for (int x = 0; x < BN / 2; ++x) s[x] = 0.f;
@@ -284,8 +296,9 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < HD / 16; ++kk) {
       // k16 step kk: 64-column block kk / 4, 32 bytes per step inside it
       const int kin = (kk & 3) * 32;
-      tc::wgmma_ss<BN>(s, tc::wg_desc(Qs + (kk >> 2) * 64 * 128 + kin, 16, 1024),
-                       tc::wg_desc(Ks + (kk >> 2) * BN * 128 + kin, 16, 1024));
+      tc::wgmma_64x64_ss(
+          s, tc::wg_desc(Qs + (kk >> 2) * BM * 128 + wg * 64 * 128 + kin, 16, 1024),
+          tc::wg_desc(Ks + (kk >> 2) * BN * 128 + kin, 16, 1024));
     }
     tc::wg_commit();
     tc::wg_wait<0>();
@@ -294,19 +307,31 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // mask, online softmax (log2 domain)
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int row = warp * 16 + g + hr * 8;
-      const int sq = segq[row];
-      const int qi = q0 + row;
+      const int row = wg * 64 + warp * 16 + g + hr * 8;
       float mx = -INFINITY;
+      if (full) {
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
+        for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = j * 8 + tq * 2 + c;
-          const int x = 4 * j + hr * 2 + c;
-          const bool ok = sq != 0 && segk[col] == sq && k0 + col <= qi;
-          s[x] = ok ? s[x] * scale_log2 : -INFINITY;
-          mx = fmaxf(mx, s[x]);
+          for (int c = 0; c < 2; ++c) {
+            const int x = 4 * j + hr * 2 + c;
+            s[x] *= scale_log2;
+            mx = fmaxf(mx, s[x]);
+          }
+        }
+      } else {
+        const int sq = segq[row];
+        const int qi = q0 + row;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = j * 8 + tq * 2 + c;
+            const int x = 4 * j + hr * 2 + c;
+            const bool ok = sq != 0 && segk[col] == sq && k0 + col <= qi;
+            s[x] = ok ? s[x] * scale_log2 : -INFINITY;
+            mx = fmaxf(mx, s[x]);
+          }
         }
       }
       mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
@@ -356,7 +381,7 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float lt = l[hr];
     lt += __shfl_xor_sync(kFull, lt, 1);
     lt += __shfl_xor_sync(kFull, lt, 2);
-    const int qi = q0 + warp * 16 + g + hr * 8;
+    const int qi = q0 + wg * 64 + warp * 16 + g + hr * 8;
     if (qi >= T) continue;
     const float inv = lt > 0.f ? 1.f / lt : 0.f;
     bf16* o = out + ((long long)b * T + qi) * qstride + h * HD;
@@ -808,25 +833,26 @@ cudaError_t launch_ranges(const int* seg, int* ranges, int B, int T,
   return cudaGetLastError();
 }
 
-// keys per forward stage: 64, or 128 (one 64 x 128 S product per k-step)
-int g_fwd_keys = 64;
+// warpgroups per forward block: 1, or 2 sharing the key stream
+int g_fwd_wgs = 1;
 
-template <int HD, int BN>
+template <int HD, int NWG>
 cudaError_t fwd_launch(const void* q, const void* k, const void* v,
                        const int* seg, const int* ranges, void* out,
                        float* lse, int B, int T, int Hq, int Hkv,
                        cudaStream_t st) {
   const int n_rt = (T + kRangeTile - 1) / kRangeTile;
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
-  constexpr int smem = FwdSmem<HD, BN>::kBytes;
+  constexpr int smem = FwdSmem<HD, NWG>::kBytes;
   static_assert(smem <= 227 * 1024, "forward stage too large");
   // above 48 KB a block's shared memory must be asked for, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      fa_fwd_kernel<HD, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_fwd_kernel<HD, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return attr;
-  const unsigned n_tiles = static_cast<unsigned>((T + 63) / 64);
-  fa_fwd_kernel<HD, BN><<<n_tiles * Hq * B, kThreads, smem, st>>>(
+  constexpr int BM = 64 * NWG;
+  const unsigned n_tiles = static_cast<unsigned>((T + BM - 1) / BM);
+  fa_fwd_kernel<HD, NWG><<<n_tiles * Hq * B, kThreads * NWG, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), seg, ranges, static_cast<bf16*>(out), lse,
       B, T, Hq, Hkv, n_rt, scale * kLog2e);
@@ -839,11 +865,11 @@ cudaError_t fwd_typed(const void* q, const void* k, const void* v,
                       int B, int T, int Hq, int Hkv, cudaStream_t st) {
   cudaError_t err = launch_ranges(seg, ranges, B, T, st);
   if (err != cudaSuccess) return err;
-  return g_fwd_keys == 128
-             ? fwd_launch<HD, 128>(q, k, v, seg, ranges, out, lse, B, T, Hq,
-                                   Hkv, st)
-             : fwd_launch<HD, 64>(q, k, v, seg, ranges, out, lse, B, T, Hq,
-                                  Hkv, st);
+  return g_fwd_wgs == 2
+             ? fwd_launch<HD, 2>(q, k, v, seg, ranges, out, lse, B, T, Hq,
+                                 Hkv, st)
+             : fwd_launch<HD, 1>(q, k, v, seg, ranges, out, lse, B, T, Hq,
+                                 Hkv, st);
 }
 
 // the backward's kernels, as bits of flash_attention_bwd's `parts`
@@ -968,10 +994,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   }
 }
 
-// Keys per forward stage (64 or 128) for the calls that follow.
-int flash_attention_fwd_keys(int keys) {
-  if (keys != 64 && keys != 128) return static_cast<int>(cudaErrorInvalidValue);
-  g_fwd_keys = keys;
+// Warpgroups per forward block (1 or 2) for the calls that follow.
+int flash_attention_fwd_wgs(int wgs) {
+  if (wgs != 1 && wgs != 2) return static_cast<int>(cudaErrorInvalidValue);
+  g_fwd_wgs = wgs;
   return 0;
 }
 

@@ -127,8 +127,7 @@ struct DecLayout {
       : (kRingBudget / kStageBytes > 4 ? 4 : kRingBudget / kStageBytes);
   static constexpr int kQBytes = R * HD * 4;
   static constexpr int kPBytes = kWarps * kWarpKeys * 8 * 4;
-  static constexpr int kBar = kQBytes + kPBytes;       // the stages' mbarriers
-  static constexpr int kRing = kBar + 64;
+  static constexpr int kRing = kQBytes + kPBytes;
   static constexpr int kRedBytes = kWarps * R * (HD + 2) * 4;
   static constexpr int kRingBytes = kStages * kStageBytes;
   static constexpr int kBytes =
@@ -136,37 +135,6 @@ struct DecLayout {
   static_assert(kChunks % kParts == 0, "a key's lanes split its row evenly");
   static_assert(kBytes <= 227 * 1024, "decode stage too large");
 };
-
-// ---- mbarrier and bulk-copy helpers (sm_90) ----
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   tc::smem_u32(bar)), "r"(count) : "memory");
-}
-// one arrival, announcing `bytes` of bulk copies that complete on `bar`
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], "
-      "%1;\n}\n" ::"r"(tc::smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
-        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(tc::smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-// `bytes` (a multiple of 16, both ends 16-byte aligned) global -> shared,
-// completing on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(tc::smem_u32(dst)), "l"(src),
-      "r"(bytes), "r"(tc::smem_u32(bar)) : "memory");
-}
 
 // Write the empty partials (acc = 0, m = -1e30, l = 0) of the block's rows.
 template <int HD, int R>
@@ -196,7 +164,7 @@ __device__ __forceinline__ void write_empty(float* acc, float* m, float* l,
 // last split of (b, h, query tile) to finish merges them all in split
 // order (a ticket from `counters`, which it resets); otherwise the
 // combine kernel does.
-template <typename Tq, typename Tk, int HD, int R, bool kBulk>
+template <typename Tq, typename Tk, int HD, int R>
 __global__ void __launch_bounds__(kThreads, 2)
 paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
                     const Tk* __restrict__ v_pool,
@@ -221,7 +189,6 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
   extern __shared__ __align__(16) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem);                 // [R][HD]
   float* p_s = reinterpret_cast<float*>(smem + Lay::kQBytes);  // [warp][WK][8]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + Lay::kBar);
   unsigned char* ring = smem + Lay::kRing;
 
   const int r = Hq / Hkv;
@@ -266,12 +233,6 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
     }
     q_s[i * HD + d] = v;
   }
-  if constexpr (kBulk) {
-    if (threadIdx.x == 0) {
-      for (int st = 0; st < S; ++st) mbar_init(bars + st, kThreads);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-  }
   __syncthreads();
 
   const int* table = tables + (long long)b * MB;
@@ -286,68 +247,43 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
     unsigned char* st = ring + slot * Lay::kStageBytes;
     const int base = tile * KT;
     const int n_valid = min(KT, length - base);
-    if constexpr (kBulk) {
-      // whole tiles only: one bulk copy per K and V row, by the key's thread;
-      // the tile's scales (int8) as two runs by thread KT
+    // 16-byte cp.async pieces, consecutive threads on consecutive pieces
+    // of a key row
+    long long tile_off = 0, tile_soff = 0;
+    if (whole) {
       const int page = key_page(base);
-      uint32_t bytes = 0;
-      const int key = threadIdx.x;
-      if (key < n_valid) {
-        bytes = 2 * Lay::kRowBytes;
-        const long long off = page * sb + h * sh + (long long)(base % BS + key) * ss;
-        mbar_arrive_tx(bars + slot, bytes);
-        bulk_copy(st + key * Lay::kRowStride, k_pool + off, Lay::kRowBytes, bars + slot);
-        bulk_copy(st + Lay::kKBytes + key * Lay::kRowStride, v_pool + off,
-                  Lay::kRowBytes, bars + slot);
-      } else if (kQuant && key == KT) {
-        const uint32_t sbytes = (n_valid + 3) / 4 * 16;
-        const long long so = page * ssb + h * ssh + base % BS;
-        float* sc = reinterpret_cast<float*>(st + 2 * Lay::kKBytes);
-        mbar_arrive_tx(bars + slot, 2 * sbytes);
-        bulk_copy(sc, k_scale + so, sbytes, bars + slot);
-        bulk_copy(sc + KT, v_scale + so, sbytes, bars + slot);
-      } else {
-        mbar_arrive_tx(bars + slot, 0);
-      }
-    } else {
-      // 16-byte cp.async pieces, consecutive threads on consecutive pieces
-      // of a key row
-      long long tile_off = 0, tile_soff = 0;
+      tile_off = page * sb + h * sh + (long long)(base % BS) * ss;
+      tile_soff = page * ssb + h * ssh + base % BS;
+    }
+    for (int idx = threadIdx.x; idx < n_valid * Lay::kChunks; idx += kThreads) {
+      const int key = idx / Lay::kChunks, c = idx % Lay::kChunks;
+      long long off;
       if (whole) {
-        const int page = key_page(base);
-        tile_off = page * sb + h * sh + (long long)(base % BS) * ss;
-        tile_soff = page * ssb + h * ssh + base % BS;
+        off = tile_off + key * ss;
+      } else {
+        const int pos = base + key;
+        off = key_page(pos) * sb + h * sh + (long long)(pos % BS) * ss;
       }
-      for (int idx = threadIdx.x; idx < n_valid * Lay::kChunks; idx += kThreads) {
-        const int key = idx / Lay::kChunks, c = idx % Lay::kChunks;
-        long long off;
+      const int dst = key * Lay::kRowStride + c * 16;
+      tc::cp_async16(st + dst,
+                     reinterpret_cast<const unsigned char*>(k_pool + off) + c * 16,
+                     true);
+      tc::cp_async16(st + Lay::kKBytes + dst,
+                     reinterpret_cast<const unsigned char*>(v_pool + off) + c * 16,
+                     true);
+    }
+    if constexpr (kQuant) {
+      float* sc = reinterpret_cast<float*>(st + 2 * Lay::kKBytes);
+      for (int key = threadIdx.x; key < n_valid; key += kThreads) {
+        long long so;
         if (whole) {
-          off = tile_off + key * ss;
+          so = tile_soff + key;
         } else {
           const int pos = base + key;
-          off = key_page(pos) * sb + h * sh + (long long)(pos % BS) * ss;
+          so = key_page(pos) * ssb + h * ssh + pos % BS;
         }
-        const int dst = key * Lay::kRowStride + c * 16;
-        tc::cp_async16(st + dst,
-                       reinterpret_cast<const unsigned char*>(k_pool + off) + c * 16,
-                       true);
-        tc::cp_async16(st + Lay::kKBytes + dst,
-                       reinterpret_cast<const unsigned char*>(v_pool + off) + c * 16,
-                       true);
-      }
-      if constexpr (kQuant) {
-        float* sc = reinterpret_cast<float*>(st + 2 * Lay::kKBytes);
-        for (int key = threadIdx.x; key < n_valid; key += kThreads) {
-          long long so;
-          if (whole) {
-            so = tile_soff + key;
-          } else {
-            const int pos = base + key;
-            so = key_page(pos) * ssb + h * ssh + pos % BS;
-          }
-          tc::cp_async4(sc + key, k_scale + so, true);
-          tc::cp_async4(sc + KT + key, v_scale + so, true);
-        }
+        tc::cp_async4(sc + key, k_scale + so, true);
+        tc::cp_async4(sc + KT + key, v_scale + so, true);
       }
     }
   };
@@ -368,21 +304,14 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
   // groups included, so the group count stays uniform)
   for (int st = 0; st < S - 1; ++st) {
     if (st < n) load_stage(t_begin + st, st);
-    if constexpr (!kBulk) tc::cp_async_commit();
+    tc::cp_async_commit();
   }
   for (int i = 0; i < n; ++i) {
-    if constexpr (kBulk) {
-      mbar_wait(bars + i % S, (i / S) & 1);
-    } else {
-      tc::cp_async_wait<S - 2>();  // this thread's copies of tile i landed
-    }
+    tc::cp_async_wait<S - 2>();  // this thread's copies of tile i landed
     __syncthreads();  // everyone's did; the stage of tile i-1 is free
     const int nxt = i + S - 1;
-    if (nxt < n) {
-      if constexpr (kBulk) tc::fence_proxy_async();
-      load_stage(t_begin + nxt, nxt % S);
-    }
-    if constexpr (!kBulk) tc::cp_async_commit();
+    if (nxt < n) load_stage(t_begin + nxt, nxt % S);
+    tc::cp_async_commit();
 
     const unsigned char* st = ring + (i % S) * Lay::kStageBytes;
     const float* ksc = reinterpret_cast<const float*>(st + 2 * Lay::kKBytes);
@@ -449,6 +378,7 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
     // P.V: every lane reads its CPL columns of each of the warp's V rows
     const int n_keys = min(WK, length - wbase);
     const unsigned char* vst = st + Lay::kKBytes + warp * WK * Lay::kRowStride;
+#pragma unroll 4
     for (int k2 = 0; k2 < n_keys; ++k2) {
       float vf[CPL];
       load_f32<Tk, CPL>(
@@ -463,7 +393,7 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
         for (int c = 0; c < CPL; ++c) acc[i2][c] = fmaf(pk[i2], vf[c], acc[i2][c]);
     }
   }
-  if constexpr (!kBulk) tc::cp_async_wait<0>();
+  tc::cp_async_wait<0>();
   __syncthreads();  // the ring is free: the warps' partials merge there
 
   float* red_m = reinterpret_cast<float*>(ring);  // [kWarps][R]
@@ -512,25 +442,67 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  for (int idx = threadIdx.x; idx < R * HD; idx += kThreads) {
-    const int i = idx / HD, d = idx % HD, gr = row0 + i;
-    if (gr >= n_rows_total) continue;
-    const int t = gr / r, j = gr % r;
-    const long long row = ((long long)b * Q + t) * Hq + h * r + j;
-    float M = kNegInf;
-    for (int sp = 0; sp < n_live; ++sp) M = fmaxf(M, __ldcg(m_ws + sp * R_all + row));
-    float a = 0.f, L = 0.f;
-    for (int sp = 0; sp < n_live; ++sp) {
-      const float e = expf(__ldcg(m_ws + sp * R_all + row) - M);
-      a += __ldcg(acc_ws + (sp * R_all + row) * HD + d) * e;
-      L += __ldcg(l_ws + sp * R_all + row) * e;
+  // every split's m and l -> shared memory (the ring is free), then each
+  // row's maximum, the splits' weights exp(m - M) and the merged l; all
+  // loads of the workspace are issued before their first use
+  float* wm = reinterpret_cast<float*>(ring);  // [n_live][R]: m, then weight
+  float* wl = wm + n_live * R;                 // [n_live][R]
+  for (int idx = threadIdx.x; idx < n_live * R; idx += kThreads) {
+    const int sp = idx / R, i = idx % R, gr = row0 + i;
+    float mv = kNegInf, lv = 0.f;
+    if (gr < n_rows_total) {
+      const long long row =
+          sp * R_all + ((long long)b * Q + gr / r) * Hq + h * r + gr % r;
+      mv = __ldcg(m_ws + row);
+      lv = __ldcg(l_ws + row);
     }
-    acc_out[row * HD + d] = a;
-    if (d == 0) {
+    wm[idx] = mv;
+    wl[idx] = lv;
+  }
+  __syncthreads();
+  if (threadIdx.x < R) {
+    const int i = threadIdx.x, gr = row0 + i;
+    float M = kNegInf;
+    for (int sp = 0; sp < n_live; ++sp) M = fmaxf(M, wm[sp * R + i]);
+    float L = 0.f;
+    for (int sp = 0; sp < n_live; ++sp) {
+      const float e = expf(wm[sp * R + i] - M);
+      wm[sp * R + i] = e;
+      L += wl[sp * R + i] * e;
+    }
+    if (gr < n_rows_total) {
+      const long long row = ((long long)b * Q + gr / r) * Hq + h * r + gr % r;
       m_out[row] = M;
       l_out[row] = L;
     }
   }
+  __syncthreads();
+  // acc: each thread sums its R * HD / kThreads elements over the splits
+  // in split order
+  constexpr int kPer = (R * HD + kThreads - 1) / kThreads;
+  float a[kPer];
+  long long rows[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) {
+    a[e] = 0.f;
+    const int idx = threadIdx.x + e * kThreads, i = idx / HD, gr = row0 + i;
+    rows[e] = idx < R * HD && gr < n_rows_total
+                  ? (((long long)b * Q + gr / r) * Hq + h * r + gr % r) * HD +
+                        idx % HD
+                  : -1;
+  }
+#pragma unroll 4
+  for (int sp = 0; sp < n_live; ++sp) {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      if (rows[e] < 0) continue;
+      const int i = (threadIdx.x + e * kThreads) / HD;
+      a[e] += __ldcg(acc_ws + sp * R_all * HD + rows[e]) * wm[sp * R + i];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kPer; ++e)
+    if (rows[e] >= 0) acc_out[rows[e]] = a[e];
   if (threadIdx.x == 0) *ticket = 0;  // ready for the next call
 }
 
@@ -868,7 +840,6 @@ paged_prefill_kernel(const bf16* __restrict__ q, const Tk* __restrict__ k_pool,
   }
 }
 
-int g_decode_bulk = 0;
 int g_decode_fused = 1;
 
 }  // namespace
@@ -910,11 +881,10 @@ int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
         using Tk = decltype(tk);
         return paged::dispatch_hd(hd, [&](auto hd_c) {
           constexpr int HD = decltype(hd_c)::value;
-          auto launch = [&](auto r_c, auto bulk_c) -> cudaError_t {
+          auto launch = [&](auto r_c) -> cudaError_t {
             constexpr int RR = decltype(r_c)::value;
-            constexpr bool kBulk = decltype(bulk_c)::value;
             constexpr int smem = DecLayout<Tk, HD, RR>::kBytes;
-            auto kernel = paged_decode_kernel<Tq, Tk, HD, RR, kBulk>;
+            auto kernel = paged_decode_kernel<Tq, Tk, HD, RR>;
             // above 48 KB a block's shared memory must be asked for, once
             static const cudaError_t attr = cudaFuncSetAttribute(
                 kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -926,21 +896,9 @@ int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
                 BS, MB, NB, n_splits, sb, sh, ss, ssb, ssh, scale_log2, fused);
             return cudaGetLastError();
           };
-          using I4 = std::integral_constant<int, 4>;
-          using I6 = std::integral_constant<int, 6>;
-          using I8 = std::integral_constant<int, 8>;
-          using Yes = std::integral_constant<bool, true>;
-          using No = std::integral_constant<bool, false>;
-          if constexpr (HD == 128 && std::is_same<Tq, bf16>::value &&
-                        sizeof(Tk) <= 2) {
-            // bulk copies: whole tiles, 16-byte aligned scale runs
-            constexpr int KT = DecLayout<Tk, HD, 6>::kKeys;
-            const bool ok = BS % KT == 0 && ssb % 4 == 0 && ssh % 4 == 0;
-            if (g_decode_bulk && ok && R == 6) return launch(I6{}, Yes{});
-          }
-          if (R == 4) return launch(I4{}, No{});
-          if (R == 6) return launch(I6{}, No{});
-          return launch(I8{}, No{});
+          if (R == 4) return launch(std::integral_constant<int, 4>{});
+          if (R == 6) return launch(std::integral_constant<int, 6>{});
+          return launch(std::integral_constant<int, 8>{});
         });
       });
   if (err != cudaSuccess || fused || n_splits <= 1) return static_cast<int>(err);
@@ -949,11 +907,9 @@ int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
       n_splits, st));
 }
 
-// Decode-entry design variants for the calls that follow: bulk copies
-// (1) or 16-byte cp.async pieces (0); the fused split merge (1) or the
-// combine kernel (0).
-int paged_decode_variant(int bulk, int fused) {
-  g_decode_bulk = bulk;
+// Decode-entry design variant for the calls that follow: the fused split
+// merge (1) or the combine kernel (0).
+int paged_decode_variant(int fused) {
   g_decode_fused = fused;
   return 0;
 }

@@ -5,10 +5,11 @@ Run from the repository root::
 
     python3 areal_tpu_torch/tools/variant_ab.py
 
-Variants: the decode entry's copy method (16-byte ``cp.async`` pieces, or
-one bulk copy per key row completing on an mbarrier) and split merge
-(fused into the last split's block, or the separate combine kernel); the
-forward's key tile (64 or 128 keys per stage).  Prints one ``VARIANT``
+Variants: the decode entry's split merge (fused into the last split's
+block, or the separate combine kernel) and split rule (at least 256 keys
+per split in one wave of 264 blocks, or 128 keys in two waves); the
+forward's warpgroups per block (one, with a two-stage ring and two blocks
+per SM, or two sharing a three-stage ring).  Prints one ``VARIANT``
 JSON line per timing.
 """
 
@@ -43,10 +44,12 @@ def main() -> int:
     pcd = libs["paged_attention"].cdll
     fcd = libs["flash_attention"].cdll
 
-    variants = [(0, 1), (1, 1), (0, 0)]  # (bulk, fused)
+    rules = {"256x264": (8, 264, 256, True), "128x528": (8, 528, 128, True)}
+    variants = [(1, "256x264"), (0, "256x264"), (1, "128x528")]  # (fused, rule)
 
-    def set_variant(bulk, fused):
-        assert pcd.paged_decode_variant(bulk, fused) == 0
+    def set_variant(fused, rule):
+        assert pcd.paged_decode_variant(fused) == 0
+        pa._SPLIT_RULES[pa.DECODE_ENTRY] = rules[rule]
 
     # correctness of every decode variant, bf16 and int8, both shapes
     BS = ab.PAGE_SIZE
@@ -60,20 +63,20 @@ def main() -> int:
             q, kp, vp, ks, vs, tables, ln = inputs
             sc = () if ks is None else (ks[0], vs[0])
             ref = pa.reference_paged_partials(q, kp[0], vp[0], tables, ln, *sc)
-            for bulk, fused in variants:
-                set_variant(bulk, fused)
+            for fused, rule in variants:
+                set_variant(fused, rule)
                 got = pa.paged_flash_attention(q, kp[0], vp[0], tables, ln, *sc)
                 again = pa.paged_flash_attention(q, kp[0], vp[0], tables, ln, *sc)
                 torch.cuda.synchronize()
                 same = all(torch.equal(a, b) for a, b in zip(got, again))
-                c.check_partials(f"variant bulk={bulk} fused={fused} "
+                c.check_partials(f"variant fused={fused} rule={rule} "
                                  f"int8={int8} B={B}", got, ref, ln)
                 print(f"  repeat bit-identical: {same}", flush=True)
                 if not same:
                     raise AssertionError("repeat differs")
             del inputs, q, kp, vp, ks, vs
             torch.cuda.empty_cache()
-    set_variant(0, 1)
+    set_variant(1, "256x264")
 
     # timing of the decode variants, in turns
     for int8 in (False, True):
@@ -85,22 +88,22 @@ def main() -> int:
             times = {}
             for rep in range(2):
                 order = variants if rep == 0 else variants[::-1]
-                for bulk, fused in order:
-                    set_variant(bulk, fused)
+                for fused, rule in order:
+                    set_variant(fused, rule)
                     ms = ab.time_ms(ab.cycling(pa.paged_flash_attention, inputs),
                                     iters, dev)
-                    times.setdefault(f"bulk={bulk},fused={fused}", []).append(ms)
+                    times.setdefault(f"fused={fused},rule={rule}", []).append(ms)
             print("VARIANT " + json.dumps(dict(
                 kernel="decode", pool="int8" if int8 else "bf16", B=B,
                 layers=n, lengths=list(lens)[:8], ms=times, card=card)),
                 flush=True)
             del inputs
             torch.cuda.empty_cache()
-    set_variant(0, 1)
+    set_variant(1, "256x264")
 
-    # the forward's key tile: correctness on every layout, then timing
-    for keys in (64, 128):
-        assert fcd.flash_attention_fwd_keys(keys) == 0
+    # the forward's warpgroups per block: correctness on every layout, then timing
+    for keys in (1, 2):
+        assert fcd.flash_attention_fwd_wgs(keys) == 0
         for name, B, T, rows in c.FLASH_LAYOUTS:
             q, k, v, _, seg = c.flash_inputs(B, T, rows, dev)
             out, lse = fa.flash_attention_with_lse(q, k, v, seg)
@@ -113,19 +116,24 @@ def main() -> int:
             el = float((lse - ref_lse).transpose(1, 2)[real].abs().max())
             pad = bool((out[~real] == 0).all()) and bool(
                 torch.isposinf(lse.transpose(1, 2)[~real]).all())
-            print(f"fwd keys={keys} {name}: out rel {err:.3e} token {tok:.3e} "
+            print(f"fwd warpgroups={keys} {name}: out rel {err:.3e} token {tok:.3e} "
                   f"lse {el:.3e} padding {pad}", flush=True)
             if not (err <= c.TOL_FA_OUT and tok <= c.TOL_FA_OUT_TOKEN
                     and el <= c.TOL_FA_LSE and pad):
-                raise AssertionError(f"forward keys={keys} {name} disagrees")
+                raise AssertionError(f"forward warpgroups={keys} {name} disagrees")
     for name, B, T, rows in ab.FLASH_LAYOUTS:
         times = {}
-        for keys in (64, 128, 128, 64):
-            assert fcd.flash_attention_fwd_keys(keys) == 0
+        for keys in (1, 2, 2, 1):
+            assert fcd.flash_attention_fwd_wgs(keys) == 0
             times.setdefault(keys, []).append(ab.flash_fwd_ms(B, T, rows, dev))
+        qt, kt, vt, _, seg = c.flash_inputs(B, T, rows, dev)
+        mask = fa.attention_mask(seg)[:, None]
+        times["sdpa"] = ab.time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True), 10, dev)
         print("VARIANT " + json.dumps(dict(kernel="flash_fwd", layout=name,
                                            ms=times, card=card)), flush=True)
-    assert fcd.flash_attention_fwd_keys(64) == 0
+    assert fcd.flash_attention_fwd_wgs(1) == 0
     print("variants done", flush=True)
     return 0
 
