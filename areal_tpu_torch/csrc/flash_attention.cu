@@ -17,51 +17,57 @@
 // each 32-token tile); the backward's f32 workspaces dk_ws, dv_ws
 // [B, T, Hq, hd].
 //
-// Arithmetic: bf16 tensor-core products with f32 accumulation, as the TPU
-// kernel's bf16-operand / f32-accumulate dots (the forward on `mma.sync`
-// m16n8k16, the backward on warpgroup `wgmma`); the online softmax, lse
-// and D are f32.  The probabilities P and dS are rounded to bf16 before
-// their products with V, dO, K and Q, as on the TPU; dq, dk and dv
-// accumulate in f32.
+// Arithmetic: bf16 tensor-core products with f32 accumulation (warpgroup
+// `wgmma`), as the TPU kernel's bf16-operand / f32-accumulate dots; the
+// online softmax, lse and D are f32.  The probabilities P and dS are
+// rounded to bf16 before their products with V, dO, K and Q, as on the
+// TPU; dq, dk and dv accumulate in f32.
 //
 // What bounds it on an H100: operations.  The forward does 4 * Hq * hd
 // flops per attended (i, j) pair (QK^T and PV), the backward 10 (QK^T
 // recomputed, dO V^T, P^T dO, dS^T Q, dS K; the dq and dk/dv kernels
 // recompute QK^T and dO V^T each, 14 in all); at a 4096-token row that is
 // ~900 flops per byte of q/k/v, far right of the card's ~295 flop/byte
-// ridge.  What the design does about it:
-// * tensor cores, not CUDA-core FMAs, for every product;
-// * tiles that lie wholly above the diagonal or outside every segment of
+// ridge.  What the design does about it, in every kernel:
+// * Tensor cores for every product, on Hopper's warpgroup `wgmma`: a
+//   block is one warpgroup owning a 64-row tile; S (and dP) are
+//   m64n64k16 products with both operands read from shared memory through
+//   matrix descriptors, and the products with P or dS take them from
+//   registers (the accumulator converted to bf16 A fragments) and read the
+//   other operand from the same tile MN-major.  Tiles are stored in the
+//   128-byte swizzle layout, so no fragment passes through registers on
+//   its way from shared memory and no read conflicts on a bank.
+// * Tiles that lie wholly above the diagonal or outside every segment of
 //   the other side's tile are skipped (a per-32-token-tile [min, max]
-//   segment-id table, built by a small kernel, decides), so a packed row
-//   costs ~sum L_s^2 instead of T^2;
-// * the forward walks query tiles heaviest first (most keys to visit).
-// The backward (a Hopper design):
+//   segment-id table, built by a small kernel, decides) and issue no
+//   copy, so a packed row costs ~sum L_s^2 instead of T^2.
+// * Copies overlap products: the streamed tiles go through a two-stage
+//   `cp.async` ring written straight into the swizzled tiles; tile i + 1
+//   loads while tile i multiplies, one barrier per tile.  A block takes
+//   ~84-100 KB of shared memory, so two share an SM.
+// * exp2 of log2-domain scores on the special-function unit
+//   (`ex2.approx`), one instruction per probability.
+// The forward: one block per (query tile of 64, query head, row); the Q
+// tile stays in shared memory while K, V and the keys' segment ids stream
+// through the ring; the grid is flattened so that the query tiles with
+// the most keys start first across every head and row.  A key tile below
+// the diagonal whose queries and keys all share one segment (checked in
+// the barrier that ends each copy wait) skips the per-element mask.  A
+// 128-key tile (one 64 x 128 S product per k-step, one block per SM) and
+// two warpgroups per block sharing a three-stage ring both measured
+// slower.
+// The backward:
 // * Enough independent blocks, no serial chain.  A dk/dv block owns (key
 //   tile of 64, QUERY head, row), not (key tile, KV head, row), so the
 //   grid has Hq / Hkv = 6x more blocks (1536 at B=2, T=4096) and no block
 //   loops over its group's heads; it writes its head's f32 partials to a
 //   workspace and a small kernel sums each group's r partials in a fixed
 //   order, so GQA needs no atomics and the gradients stay bit-for-bit
-//   repeatable.  The dq and dk/dv grids are flattened so that the
-//   heaviest tiles of every head and row launch first.
-// * Copies overlap products.  Q/dO/lse/D tiles (dk/dv) and K/V tiles (dq)
-//   stream through a two-stage `cp.async` ring: tile i + 1 loads while
-//   tile i multiplies, one barrier per tile, and a skipped tile issues no
-//   copy.  A block takes ~100 KB of shared memory, so two share an SM.
-// * Warpgroup products.  A block is one warpgroup owning a 64-row tile.
-//   S and dP (S^T and dP^T for dk/dv) are `wgmma` m64n64k16 with both
-//   operands read from shared memory through matrix descriptors; dV +=
-//   P^T dO, dK += dS^T Q and dQ += dS K take P / dS from registers (the
-//   accumulator converted to bf16 A fragments) and read the other operand
-//   from the same tile MN-major.  Tiles are stored in the 128-byte
-//   swizzle layout, so no fragment passes through registers on its way
-//   from shared memory and no read conflicts on a bank.
-// * exp2 of log2-domain scores on the special-function unit
-//   (`ex2.approx`), one instruction per probability.
-// Still to do (later work): TMA loads from a producer warp, overlapping
-// the next tile's products with this tile's elementwise work, and the
-// forward on the same design.
+//   repeatable.  The dq and dk/dv grids are flattened as the forward's.
+// * Q/dO/lse/D tiles (dk/dv) and K/V tiles (dq) stream through the ring.
+// Still to do (later work): TMA loads from a producer warp, and
+// overlapping the next tile's products with this tile's elementwise work
+// (a deeper ring needs the shared memory two blocks per SM now share).
 //
 // Plain C interface, bound from Python with ctypes
 // (areal_tpu_torch/ops/flash_attention.py); no PyTorch headers.
@@ -119,28 +125,28 @@ __global__ void seg_ranges_kernel(const int* __restrict__ seg,
 
 // ---- copies and fragments shared by the forward and backward ---------------
 
-// Copy ROWS rows of HD bf16 (global row i at base + i * gstride) with
-// cp.async, by NT threads, into a ROWS-row tile in the 128-byte swizzle layout wgmma reads
+// Copy 64 rows of HD bf16 (global row i at base + i * gstride) with
+// cp.async into a 64-row tile in the 128-byte swizzle layout wgmma reads
 // (tc::swz_offset); rows at or past `valid` are zero-filled and not read.
-template <int HD, int ROWS = 64, int NT = kThreads>
+template <int HD>
 __device__ __forceinline__ void copy_tile(unsigned char* s, const bf16* base,
                                           long long gstride, int valid) {
-  constexpr int kVec = HD / 8;               // 16-byte pieces per row
-  constexpr int kPass = NT / kVec;           // rows per pass
-  static_assert(kPass % 8 == 0, "passes keep a row's swizzle phase");
+  constexpr int kVec = HD / 8;                  // 16-byte pieces per row
+  constexpr int kRows = kThreads / kVec;     // rows per pass
+  static_assert(kRows % 8 == 0, "passes keep a row's swizzle phase");
   const int i0 = threadIdx.x / kVec, c = (threadIdx.x % kVec) * 8;
-  // a thread's rows are i0 + kPass p: one swizzle phase, fixed strides
-  unsigned char* dst = s + tc::swz_offset(ROWS, i0, c);
+  // a thread's rows are i0 + kRows p: one swizzle phase, fixed strides
+  unsigned char* dst = s + tc::swz_offset(64, i0, c);
   const bf16* src = base + i0 * gstride + c;
 #pragma unroll
-  for (int p = 0; p < ROWS / kPass; ++p) {
-    const bool in = i0 + p * kPass < valid;
-    tc::cp_async16(dst + p * kPass * 128, in ? src + p * kPass * gstride : base,
+  for (int p = 0; p < 64 / kRows; ++p) {
+    const bool in = i0 + p * kRows < valid;
+    tc::cp_async16(dst + p * kRows * 128, in ? src + p * kRows * gstride : base,
                    in);
   }
 }
 
-// Copy n (<= the block's threads) 4-byte values src[0..n) into shared memory with
+// Copy n (<= kThreads) 4-byte values src[0..n) into shared memory with
 // cp.async; those at or past `valid` are zero-filled.
 __device__ __forceinline__ void copy_words(void* s, const void* src, int n,
                                            int valid) {
@@ -154,54 +160,60 @@ __device__ __forceinline__ void copy_words(void* s, const void* src, int n,
 
 constexpr int round1k(int n) { return (n + 1023) / 1024 * 1024; }
 
-// The A fragments (bf16) of the N / 16 sixteen-column steps of a 64 x N
+// The A fragments (bf16) of the four 16-column steps of a 64 x 64
 // accumulator held as s[4j + x] (row g + 8 (x >> 1), column 8j + 2tq +
 // (x & 1)).
-template <int N>
-__device__ __forceinline__ void acc_to_frags(uint32_t (&a)[N / 16][4],
-                                             const float (&s)[N / 2]) {
+__device__ __forceinline__ void acc_to_frags(uint32_t (&a)[4][4],
+                                             const float (&s)[32]) {
 #pragma unroll
-  for (int kc = 0; kc < N / 16; ++kc)
+  for (int kc = 0; kc < 4; ++kc)
 #pragma unroll
     for (int x = 0; x < 4; ++x)
       a[kc][x] = tc::pack_bf16(s[8 * kc + 2 * x], s[8 * kc + 2 * x + 1]);
 }
 
+// acc[64 x HD] += A [64 x 64] (registers, four 16-column steps) times the
+// 64-row tile b read MN-major (its rows are the product's k).
+template <int HD>
+__device__ __forceinline__ void issue_rows_product(float (&acc)[HD / 2],
+                                                   const uint32_t (&a)[4][4],
+                                                   const unsigned char* b) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+    tc::wgmma_rs<HD>(acc, a[kc], tc::wg_desc(b + kc * 16 * 128, 64 * 128, 1024));
+}
+
 // ---- forward ----------------------------------------------------------------
 
-constexpr int kFwdKeys = 64;  // keys per forward stage
+constexpr int kFwdStages = 2;  // depth of the forward's K/V copy ring
 
 // Shared-memory plan of the forward (byte offsets from a 1024-aligned
-// base): the Q tile (64 rows per warpgroup) and its segment ids, then a
-// ring of key stages (K, V and the keys' segment ids).
-template <int HD, int NWG>
+// base): the Q tile and its segment ids, then a ring of 64-key stages (K,
+// V and the keys' segment ids).  About 84 KB at hd 128: two blocks share
+// an SM.
+template <int HD>
 struct FwdSmem {
-  static constexpr int kRows = 64 * NWG;
-  static constexpr int kStages = NWG == 1 ? 2 : 3;
-  static constexpr int kQTile = kRows * HD * 2;
-  static constexpr int kKV = kFwdKeys * HD * 2;  // one K or V tile
-  static constexpr int kQ = 0, kSegQ = kQTile;
-  static constexpr int kRing = round1k(kSegQ + kRows * 4);
-  static constexpr int kStage = round1k(2 * kKV + kFwdKeys * 4);
-  static constexpr int kBytes = kRing + kStages * kStage + 1024;
+  static constexpr int kTile = 64 * HD * 2;  // a 64-row bf16 tile
+  static constexpr int kQ = 0, kSegQ = kTile;
+  static constexpr int kRing = round1k(kSegQ + 64 * 4);
+  static constexpr int kStage = round1k(2 * kTile + 64 * 4);
+  static constexpr int kBytes = kRing + kFwdStages * kStage + 1024;
 };
 
-// One block (NWG warpgroups) per (query tile of 64 NWG rows, query head
-// h, row b), the tiles with the most keys first across every head and
-// row.  It walks the 64-key tiles up to the diagonal that share a segment
-// with it, K/V and their segment ids streaming through the copy ring; S =
-// Q K^T and O += P V run on wgmma, each warpgroup on its 64 query rows.
-// Warp w of warpgroup v owns query rows 64v + 16w .. 64v + 16w + 15.
-template <int HD, int NWG>
-__global__ void __launch_bounds__(kThreads * NWG, NWG == 1 ? 2 : 1)
+// One block (a warpgroup) per (query tile of 64, query head h, row b), the
+// tiles with the most keys first across every head and row.  It walks the
+// 64-key tiles up to the diagonal that share a segment with it, K/V and
+// their segment ids streaming through the copy ring; S = Q K^T and O +=
+// P V run on wgmma.  Warp w owns query rows 16w..16w+15.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
 fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const int* __restrict__ seg,
               const int* __restrict__ ranges, bf16* __restrict__ out,
               float* __restrict__ lse, int B, int T, int Hq, int Hkv,
               int n_rt, float scale_log2) {
-  using L = FwdSmem<HD, NWG>;
-  constexpr int BM = L::kRows, BN = kFwdKeys, NT = kThreads * NWG;
-  constexpr int S = L::kStages;
+  using L = FwdSmem<HD>;
+  constexpr int BM = 64, BN = 64, S = kFwdStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
@@ -214,20 +226,17 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / per;
   const int h = blockIdx.x % per % Hq, b = blockIdx.x % per / Hq;
   const int hk = h / (Hq / Hkv);
-  const int wg = threadIdx.x / kThreads;
-  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int q0 = qt * BM;
   const int* rng = ranges + (long long)b * n_rt * 2;
   const int2 qr = tile_range(rng, n_rt, q0 / kRangeTile, BM / kRangeTile);
-  // the last key tile at or below the diagonal (k0 <= q0 + BM - 1 < T + BM)
-  const int kt_last = min((q0 + BM - 1) / BN, (T - 1) / BN);
+  const int kt_last = qt;  // the diagonal tile (k0 = q0 < T)
 
   const long long qstride = (long long)Hq * HD;
   const long long kstride = (long long)Hkv * HD;
-  copy_tile<HD, BM, NT>(smem + L::kQ,
-                        q + ((long long)b * T + q0) * qstride + h * HD, qstride,
-                        T - q0);
+  copy_tile<HD>(smem + L::kQ, q + ((long long)b * T + q0) * qstride + h * HD,
+                qstride, T - q0);
   copy_words(smem + L::kSegQ, seg + (long long)b * T + q0, BM, T - q0);
 
   // the next key tile at or after kt that shares a segment with the query
@@ -243,9 +252,9 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     unsigned char* st = ring + slot * L::kStage;
     const int k0 = kt * BN;
     const long long koff = ((long long)b * T + k0) * kstride + hk * HD;
-    copy_tile<HD, BN, NT>(st, k + koff, kstride, T - k0);
-    copy_tile<HD, BN, NT>(st + L::kKV, v + koff, kstride, T - k0);
-    copy_words(st + 2 * L::kKV, seg + (long long)b * T + k0, BN, T - k0);
+    copy_tile<HD>(st, k + koff, kstride, T - k0);
+    copy_tile<HD>(st + L::kTile, v + koff, kstride, T - k0);
+    copy_words(st + 2 * L::kTile, seg + (long long)b * T + k0, BN, T - k0);
   };
 
   // online-softmax state of rows g and g + 8 of the warp (log2 domain)
@@ -267,8 +276,8 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
        kt = next_active(kt + 1), ++i) {
     const unsigned char* st = ring + (i % S) * L::kStage;
     const unsigned char* Ks = st;
-    const unsigned char* Vs = st + L::kKV;
-    const int* segk = reinterpret_cast<const int*>(st + 2 * L::kKV);
+    const unsigned char* Vs = st + L::kTile;
+    const int* segk = reinterpret_cast<const int*>(st + 2 * L::kTile);
     const int k0 = kt * BN;
     tc::cp_async_wait<S - 2>();
     tc::fence_proxy_async();
@@ -286,7 +295,7 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     tc::cp_async_commit();
 
-    // S = Q K^T: the warpgroup's 64 queries x 64 keys, s[4j + x] holds
+    // S = Q K^T: 64 queries x 64 keys, s[4j + x] holds
     // query 16w + g + 8 (x >> 1), key 8j + 2tq + (x & 1)
     float s[BN / 2];
 #pragma unroll
@@ -294,11 +303,9 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      // k16 step kk: 64-column block kk / 4, 32 bytes per step inside it
-      const int kin = (kk & 3) * 32;
-      tc::wgmma_64x64_ss(
-          s, tc::wg_desc(Qs + (kk >> 2) * BM * 128 + wg * 64 * 128 + kin, 16, 1024),
-          tc::wg_desc(Ks + (kk >> 2) * BN * 128 + kin, 16, 1024));
+      const int off = (kk >> 2) * 64 * 128 + (kk & 3) * 32;
+      tc::wgmma_64x64_ss(s, tc::wg_desc(Qs + off, 16, 1024),
+                         tc::wg_desc(Ks + off, 16, 1024));
     }
     tc::wg_commit();
     tc::wg_wait<0>();
@@ -307,7 +314,7 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // mask, online softmax (log2 domain)
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int row = wg * 64 + warp * 16 + g + hr * 8;
+      const int row = warp * 16 + g + hr * 8;
       float mx = -INFINITY;
       if (full) {
 #pragma unroll
@@ -363,13 +370,10 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     // O += P V: P rounded to bf16 in registers, V read MN-major (its rows
     // are the keys)
-    uint32_t a[BN / 16][4];
-    acc_to_frags<BN>(a, s);
+    uint32_t a[4][4];
+    acc_to_frags(a, s);
     tc::wg_fence();
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc)
-      tc::wgmma_rs<HD>(acc, a[kc],
-                       tc::wg_desc(Vs + kc * 16 * 128, BN * 128, 1024));
+    issue_rows_product<HD>(acc, a, Vs);
     tc::wg_commit();
     tc::wg_wait<0>();
     tc::wg_fence_acc(acc);
@@ -381,7 +385,7 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float lt = l[hr];
     lt += __shfl_xor_sync(kFull, lt, 1);
     lt += __shfl_xor_sync(kFull, lt, 2);
-    const int qi = q0 + wg * 64 + warp * 16 + g + hr * 8;
+    const int qi = q0 + warp * 16 + g + hr * 8;
     if (qi >= T) continue;
     const float inv = lt > 0.f ? 1.f / lt : 0.f;
     bf16* o = out + ((long long)b * T + qi) * qstride + h * HD;
@@ -456,17 +460,6 @@ __device__ __forceinline__ void scores_pair(float (&s)[32], float (&dp)[32],
   tc::wg_wait<0>();
   tc::wg_fence_acc(s);
   tc::wg_fence_acc(dp);
-}
-
-// acc[64 x HD] += A [64 x 64] (registers, four 16-column steps) times the
-// 64-row tile b read MN-major (its rows are the product's k).
-template <int HD>
-__device__ __forceinline__ void issue_rows_product(float (&acc)[HD / 2],
-                                                   const uint32_t (&a)[4][4],
-                                                   const unsigned char* b) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc)
-    tc::wgmma_rs<HD>(acc, a[kc], tc::wg_desc(b + kc * 16 * 128, 64 * 128, 1024));
 }
 
 // Shared-memory plan of the dq kernel (byte offsets from a 1024-aligned
@@ -599,7 +592,7 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     // dQ += dS K (K read MN-major: its rows are the keys)
     uint32_t a[4][4];
-    acc_to_frags<64>(a, s);
+    acc_to_frags(a, s);
     tc::wg_fence();
     issue_rows_product<HD>(acc, a, Ks);
     tc::wg_commit();
@@ -764,10 +757,10 @@ fa_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // dV += P^T dO ; dK += dS^T Q (dO and Q read MN-major: their rows are
     // the queries)
     uint32_t ap[4][4], ads[4][4];
-    acc_to_frags<64>(ap, s);
+    acc_to_frags(ap, s);
     tc::wg_fence();
     issue_rows_product<HD>(dvacc, ap, dOs);
-    acc_to_frags<64>(ads, dp);
+    acc_to_frags(ads, dp);
     tc::wg_fence();
     issue_rows_product<HD>(dkacc, ads, Qs);
     tc::wg_commit();
@@ -833,43 +826,25 @@ cudaError_t launch_ranges(const int* seg, int* ranges, int B, int T,
   return cudaGetLastError();
 }
 
-// warpgroups per forward block: 1, or 2 sharing the key stream
-int g_fwd_wgs = 1;
-
-template <int HD, int NWG>
-cudaError_t fwd_launch(const void* q, const void* k, const void* v,
-                       const int* seg, const int* ranges, void* out,
-                       float* lse, int B, int T, int Hq, int Hkv,
-                       cudaStream_t st) {
-  const int n_rt = (T + kRangeTile - 1) / kRangeTile;
-  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
-  constexpr int smem = FwdSmem<HD, NWG>::kBytes;
-  static_assert(smem <= 227 * 1024, "forward stage too large");
-  // above 48 KB a block's shared memory must be asked for, once
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      fa_fwd_kernel<HD, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (attr != cudaSuccess) return attr;
-  constexpr int BM = 64 * NWG;
-  const unsigned n_tiles = static_cast<unsigned>((T + BM - 1) / BM);
-  fa_fwd_kernel<HD, NWG><<<n_tiles * Hq * B, kThreads * NWG, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), seg, ranges, static_cast<bf16*>(out), lse,
-      B, T, Hq, Hkv, n_rt, scale * kLog2e);
-  return cudaGetLastError();
-}
-
 template <int HD>
 cudaError_t fwd_typed(const void* q, const void* k, const void* v,
                       const int* seg, int* ranges, void* out, float* lse,
                       int B, int T, int Hq, int Hkv, cudaStream_t st) {
   cudaError_t err = launch_ranges(seg, ranges, B, T, st);
   if (err != cudaSuccess) return err;
-  return g_fwd_wgs == 2
-             ? fwd_launch<HD, 2>(q, k, v, seg, ranges, out, lse, B, T, Hq,
-                                 Hkv, st)
-             : fwd_launch<HD, 1>(q, k, v, seg, ranges, out, lse, B, T, Hq,
-                                 Hkv, st);
+  const int n_rt = (T + kRangeTile - 1) / kRangeTile;
+  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  constexpr int smem = FwdSmem<HD>::kBytes;
+  // above 48 KB a block's shared memory must be asked for, once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fa_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const unsigned n_tiles = static_cast<unsigned>((T + 63) / 64);
+  fa_fwd_kernel<HD><<<n_tiles * Hq * B, kThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), seg, ranges, static_cast<bf16*>(out), lse,
+      B, T, Hq, Hkv, n_rt, scale * kLog2e);
+  return cudaGetLastError();
 }
 
 // the backward's kernels, as bits of flash_attention_bwd's `parts`
@@ -992,13 +967,6 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// Warpgroups per forward block (1 or 2) for the calls that follow.
-int flash_attention_fwd_wgs(int wgs) {
-  if (wgs != 1 && wgs != 2) return static_cast<int>(cudaErrorInvalidValue);
-  g_fwd_wgs = wgs;
-  return 0;
 }
 
 const char* flash_attention_error_string(int code) {

@@ -31,37 +31,52 @@
 //
 // Decode entry (`paged_attention_fwd`; every q/pool type; the wrapper
 // sends it the calls with one query token per row, and those over fp32
-// or fp16):
-// * A thread block owns one (row b, KV head h, tile of kRows GQA query
-//   rows, KV split).  The query rows of a tile are (token, head-in-group)
-//   pairs that share KV head h, so each streamed K/V row serves all of
-//   them (the TPU kernel's GQA grouping).
-// * The block reads its own length and block table and walks only the
-//   row's valid keys, 32 at a time (one key per lane).  The four warps
-//   take interleaved 32-key tiles and keep private (m, l, acc) state in
-//   registers; K and V go straight from global memory into registers (a
-//   lane reads its key's K row for the scores; for P.V every lane reads
-//   its hd/32 columns of each V row, so a warp reads a V row in one
-//   coalesced access).  No shared-memory staging, no block-wide barrier
-//   inside the key loop.
-// * int8 pools (the TPU kernel's branch at
-//   areal_tpu/ops/paged_attention.py:116-123): a lane loads its key's K
-//   and V scales beside the row and multiplies each int8 element by its
-//   scale right after the load, so the dots stay float32.
-// * The warps' partials merge once in shared memory at the end.
-// * Decode has few (row, head) pairs (B * Hkv blocks), too few to keep
-//   HBM busy, so the wrapper splits the key range over `n_splits` blocks
-//   and a second small kernel merges their partials.
-// * Scores and softmax are float32 (expf), as the reference's
-//   HIGHEST-precision dots.
-//
+// or fp16).  At the main path's 8-row decode shape (9302 cached tokens,
+// 9.5 MB of a bf16 pool, 2.9 us at 3.35 TB/s) a call is bound by latency:
+// a few round trips to device memory and a short key loop per block, not
+// by bandwidth.  At 16 rows of 32768 tokens it is bound by bytes (bf16)
+// and, for an int8 pool, close to the CUDA cores' issue rate (the dots
+// run ~8 f32 FMAs per pool byte).  The design:
+// * A thread block (4 warps) owns (row b, KV head h, KV split) with the
+//   row's whole GQA group of query rows (R = 4, 6 or 8 rows, the
+//   smallest that holds Q * Hq / Hkv; Q * Hq / Hkv > 8 takes tiles of 8),
+//   so each staged K/V row serves all of them and Hq / Hkv = 6 has no
+//   padding rows (the TPU kernel's GQA grouping).
+// * Keys stream through a ring of 3-4 shared-memory stages of 64 keys
+//   (16-byte `cp.async` pieces, consecutive threads on consecutive pieces
+//   of a key row; one table lookup per tile when a page holds whole tiles,
+//   else one per key; keys past the length are neither copied nor read),
+//   so a block keeps its next tiles in flight while it computes one and
+//   no device-memory load sits inside the key loop.  Rows are padded by
+//   16 bytes: the 8 lanes of a quarter warp read 8 rows at one column on
+//   distinct banks while their q reads are broadcasts.  The first tiles
+//   are issued before the query rows are loaded.
+// * Warp w takes 16 keys of each stage, 2 lanes per key each dotting half
+//   of the row (f32 FMAs; an int8 pool's K scale multiplies the score), and
+//   keeps its own online-softmax state in the log2 domain (`ex2.approx`
+//   of pre-scaled scores; m reported in natural units).  P.V reads the
+//   stage too: every lane owns hd/32 columns and walks the warp's 16 V
+//   rows, the probabilities (times each key's V scale for an int8 pool)
+//   broadcast from shared memory.  The warps' partials merge once in
+//   shared memory at the end.
+// * Splits come from shapes alone (the wrapper's `n_splits`: at least
+//   256 keys each, one wave of two blocks per SM), and each split takes an
+//   equal share of the row's live tiles; a split past the live length
+//   exits at once.  The last live split of (row, KV head) to finish, found
+//   by a ticket from a per-(row, KV head) counter that it resets, merges
+//   every split's partials in split order: one launch per call, and the
+//   result is bit-identical on repeat.  A device value is never read on
+//   the host and nothing is allocated by length.
+// * The scores and P.V stay f32, as the reference's HIGHEST-precision
+//   dots.
+
 // Prefill entry (`paged_attention_prefill_fwd`; bf16 q over a bf16 or an
 // int8 pool, the calls with more than one query token per row):
 // * A block (one warpgroup) owns (row b, KV head h, tile of kPfRows = 64
 //   grouped query rows, key split).  The Q tile stays in shared memory
-//   for the whole key loop, so each K/V byte serves 64 query rows (the
-//   decode entry's 8): a 512-token chunk's 3072 grouped rows per (row, KV
-//   head) re-read the prefix 48 times, not 384.
+//   for the whole key loop, so each K/V byte serves 64 query rows: a
+//   512-token chunk's 3072 grouped rows per (row, KV head) re-read the
+//   prefix 48 times.
 // * K and V stream through a two-stage `cp.async` ring of 64-key tiles
 //   (one table lookup per tile when a page holds whole tiles, else one
 //   per key; keys past the length are zero-filled, not read): tile i + 1
@@ -82,7 +97,7 @@
 //   scores); m is reported in natural units.
 // * A chunk over a long prefix has few query tiles (96 blocks at one
 //   512-token row), so the wrapper splits the key range to fill the card
-//   and the decode entry's merge kernel combines the splits.
+//   and a second small kernel (paged_common.cuh) combines the splits.
 //
 // Plain C interface, bound from Python with ctypes
 // (areal_tpu_torch/ops/paged_attention.py); no PyTorch headers.
@@ -101,8 +116,6 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // ---- the decode entry: a shared-memory copy ring ----------------------------
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 16;                  // bytes after each staged key row
 constexpr int kRingBudget = 110 * 1024;   // bytes of ring per block
 
@@ -111,7 +124,7 @@ constexpr int kRingBudget = 110 * 1024;   // bytes of ring per block
 // kKeys keys (K rows, V rows, padded by kPad bytes, and for an int8 pool
 // their K and V scales).  The stage count follows a budget that lets two
 // blocks share an SM, between 2 and 4.
-template <typename Tk, int HD, int R>
+template <typename Tk, int HD, int R, int kWarps>
 struct DecLayout {
   static constexpr bool kQuant = std::is_same<Tk, int8_t>::value;
   static constexpr int kRowBytes = HD * static_cast<int>(sizeof(Tk));
@@ -137,16 +150,15 @@ struct DecLayout {
 };
 
 // Write the empty partials (acc = 0, m = -1e30, l = 0) of the block's rows.
-template <int HD, int R>
+template <int HD, int R, int kThreads>
 __device__ __forceinline__ void write_empty(float* acc, float* m, float* l,
-                                            long long row_base, int row0,
-                                            int n_rows_total, int Q, int Hq,
-                                            int r, int b, int h) {
+                                            int row0, int n_rows_total, int Q,
+                                            int Hq, int r, int b, int h) {
   for (int idx = threadIdx.x; idx < R * HD; idx += kThreads) {
     const int i = idx / HD, d = idx % HD, gr = row0 + i;
     if (gr >= n_rows_total) continue;
     const int t = gr / r, j = gr % r;
-    const long long row = row_base + ((long long)b * Q + t) * Hq + h * r + j;
+    const long long row = ((long long)b * Q + t) * Hq + h * r + j;
     acc[row * HD + d] = 0.f;
     if (d == 0) {
       m[row] = kNegInf;
@@ -160,12 +172,11 @@ __device__ __forceinline__ void write_empty(float* acc, float* m, float* l,
 // (kKeys each), which stream through the copy ring; warp w takes keys
 // [w kWarpKeys, (w + 1) kWarpKeys) of every tile with its own online-softmax
 // state, merged across the warps at the end.  With several live splits
-// the block writes its partials to the workspace, and with `fused` the
-// last split of (b, h, query tile) to finish merges them all in split
-// order (a ticket from `counters`, which it resets); otherwise the
-// combine kernel does.
-template <typename Tq, typename Tk, int HD, int R>
-__global__ void __launch_bounds__(kThreads, 2)
+// the block writes its partials to the workspace, and the last split of
+// (b, h, query tile) to finish merges them all in split order (a ticket
+// from `counters`, which it resets), so a call is one launch.
+template <typename Tq, typename Tk, int HD, int R, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32, 2)
 paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
                     const Tk* __restrict__ v_pool,
                     const float* __restrict__ k_scale,
@@ -177,9 +188,9 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
                     float* __restrict__ l_ws, int* __restrict__ counters,
                     int Q, int Hq, int Hkv, int BS, int MB, int NB,
                     int n_splits, long long sb, long long sh, long long ss,
-                    long long ssb, long long ssh, float scale_log2,
-                    int fused) {
-  using Lay = DecLayout<Tk, HD, R>;
+                    long long ssb, long long ssh, float scale_log2) {
+  using Lay = DecLayout<Tk, HD, R, kWarps>;
+  constexpr int kThreads = kWarps * 32;
   constexpr bool kQuant = Lay::kQuant;
   constexpr int KT = Lay::kKeys, WK = Lay::kWarpKeys, PARTS = Lay::kParts;
   constexpr int NCP = Lay::kChunks / PARTS;  // chunks per lane of a key
@@ -209,31 +220,19 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
   const int n_live = per_split > 0 ? (n_tiles + per_split - 1) / per_split : 0;
   const int t_begin = split * per_split;
   const int n = max(0, min(n_tiles, t_begin + per_split) - t_begin);
+  if (n == 0) {  // no live key: split 0 writes a length-0 row's result
+    if (n_tiles == 0 && split == 0)
+      write_empty<HD, R, kThreads>(acc_out, m_out, l_out, row0, n_rows_total, Q, Hq, r,
+                         b, h);
+    return;
+  }
   // where this block's partials go: the outputs when it is the row's only
-  // split (or the splits are merged by the combine kernel and there is one)
-  const bool direct = fused ? n_live <= 1 : n_splits <= 1;
+  // live split, else the workspace
+  const bool direct = n_live == 1;
   float* a_dst = direct ? acc_out : acc_ws;
   float* m_dst = direct ? m_out : m_ws;
   float* l_dst = direct ? l_out : l_ws;
   const long long row_base = direct ? 0 : split * R_all;
-  if (n == 0) {  // no live key: the row's empty result, or nothing
-    if (!fused || (n_tiles == 0 && split == 0))
-      write_empty<HD, R>(a_dst, m_dst, l_dst, row_base, row0, n_rows_total, Q,
-                         Hq, r, b, h);
-    return;
-  }
-
-  // the query rows -> float32 shared memory; padding rows are zero
-  for (int idx = threadIdx.x; idx < R * HD; idx += kThreads) {
-    const int i = idx / HD, d = idx % HD, gr = row0 + i;
-    float v = 0.f;
-    if (gr < n_rows_total) {
-      const int t = gr / r, j = gr % r;
-      v = to_f32(q[(((long long)b * Q + t) * Hq + h * r + j) * HD + d]);
-    }
-    q_s[i * HD + d] = v;
-  }
-  __syncthreads();
 
   const int* table = tables + (long long)b * MB;
   // a page holds whole tiles (the usual page sizes): one table lookup per
@@ -305,6 +304,18 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
   for (int st = 0; st < S - 1; ++st) {
     if (st < n) load_stage(t_begin + st, st);
     tc::cp_async_commit();
+  }
+  // the query rows -> float32 shared memory (padding rows are zero),
+  // while the first tiles are in flight; the first barrier below orders
+  // them before their reads
+  for (int idx = threadIdx.x; idx < R * HD; idx += kThreads) {
+    const int i = idx / HD, d = idx % HD, gr = row0 + i;
+    float v = 0.f;
+    if (gr < n_rows_total) {
+      const int t = gr / r, j = gr % r;
+      v = to_f32(q[(((long long)b * Q + t) * Hq + h * r + j) * HD + d]);
+    }
+    q_s[i * HD + d] = v;
   }
   for (int i = 0; i < n; ++i) {
     tc::cp_async_wait<S - 2>();  // this thread's copies of tile i landed
@@ -431,7 +442,7 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
       l_dst[row] = L;
     }
   }
-  if (!fused || direct) return;
+  if (direct) return;
 
   // the last live split of (b, h, query tile) to get here merges them all
   __shared__ int s_last;
@@ -840,7 +851,7 @@ paged_prefill_kernel(const bf16* __restrict__ q, const Tk* __restrict__ k_pool,
   }
 }
 
-int g_decode_fused = 1;
+int g_decode_warps = 4;
 
 }  // namespace
 
@@ -874,44 +885,40 @@ int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
   const int R = rows <= 4 ? 4 : (rows <= 6 ? 6 : 8);
   const int n_qtiles = (rows + R - 1) / R;
   const dim3 grid(n_qtiles * n_splits, Hkv, B);
-  const int fused = g_decode_fused;
   cudaError_t err = paged::dispatch_types(
       q_dtype, pool_dtype, [&](auto tq, auto tk) {
         using Tq = decltype(tq);
         using Tk = decltype(tk);
         return paged::dispatch_hd(hd, [&](auto hd_c) {
           constexpr int HD = decltype(hd_c)::value;
-          auto launch = [&](auto r_c) -> cudaError_t {
+          auto launch = [&](auto r_c, auto w_c) -> cudaError_t {
             constexpr int RR = decltype(r_c)::value;
-            constexpr int smem = DecLayout<Tk, HD, RR>::kBytes;
-            auto kernel = paged_decode_kernel<Tq, Tk, HD, RR>;
+            constexpr int W = decltype(w_c)::value;
+            constexpr int smem = DecLayout<Tk, HD, RR, W>::kBytes;
+            auto kernel = paged_decode_kernel<Tq, Tk, HD, RR, W>;
             // above 48 KB a block's shared memory must be asked for, once
             static const cudaError_t attr = cudaFuncSetAttribute(
                 kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
             if (attr != cudaSuccess) return attr;
-            kernel<<<grid, kThreads, smem, st>>>(
+            kernel<<<grid, W * 32, smem, st>>>(
                 static_cast<const Tq*>(q), static_cast<const Tk*>(k_pool),
                 static_cast<const Tk*>(v_pool), k_scale, v_scale, tables,
                 lengths, acc, m, l, acc_ws, m_ws, l_ws, counters, Q, Hq, Hkv,
-                BS, MB, NB, n_splits, sb, sh, ss, ssb, ssh, scale_log2, fused);
+                BS, MB, NB, n_splits, sb, sh, ss, ssb, ssh, scale_log2);
             return cudaGetLastError();
           };
-          if (R == 4) return launch(std::integral_constant<int, 4>{});
-          if (R == 6) return launch(std::integral_constant<int, 6>{});
-          return launch(std::integral_constant<int, 8>{});
+          using W4 = std::integral_constant<int, 4>;
+          if constexpr (HD == 128 && sizeof(Tk) <= 2) {
+            if (g_decode_warps == 8 && R == 6)
+              return launch(std::integral_constant<int, 6>{},
+                            std::integral_constant<int, 8>{});
+          }
+          if (R == 4) return launch(std::integral_constant<int, 4>{}, W4{});
+          if (R == 6) return launch(std::integral_constant<int, 6>{}, W4{});
+          return launch(std::integral_constant<int, 8>{}, W4{});
         });
       });
-  if (err != cudaSuccess || fused || n_splits <= 1) return static_cast<int>(err);
-  return static_cast<int>(paged::combine_splits(
-      acc_ws, m_ws, l_ws, acc, m, l, static_cast<long long>(B) * Q * Hq, hd,
-      n_splits, st));
-}
-
-// Decode-entry design variant for the calls that follow: the fused split
-// merge (1) or the combine kernel (0).
-int paged_decode_variant(int fused) {
-  g_decode_fused = fused;
-  return 0;
+  return static_cast<int>(err);
 }
 
 // The prefill entry: arguments as paged_attention_fwd, for bf16 q (q_dtype
@@ -961,6 +968,12 @@ int paged_attention_prefill_fwd(
   return static_cast<int>(paged::combine_splits(
       acc_ws, m_ws, l_ws, acc, m, l, static_cast<long long>(B) * Q * Hq, hd,
       n_splits, st));
+}
+
+// Warps per decode block (4 or 8) for the calls that follow.
+int paged_decode_warps(int warps) {
+  g_decode_warps = warps;
+  return 0;
 }
 
 const char* paged_attention_error_string(int code) {

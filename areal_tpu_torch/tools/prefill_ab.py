@@ -72,7 +72,7 @@ def main(tag: str) -> int:
         fill()
         torch.cuda.synchronize()
     busy, kern = c.device_seconds(
-        prof, ("paged_partials_kernel", "paged_prefill_kernel",
+        prof, ("paged_decode_kernel", "paged_prefill_kernel",
                "combine_splits_kernel"))
     del kp, vp
     torch.cuda.empty_cache()

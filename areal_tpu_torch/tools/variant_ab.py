@@ -1,16 +1,13 @@
-"""Design variants of the decode entry and the flash-attention forward,
-checked against their plain versions and timed in turns on one CUDA card.
+"""Design variants of the decode entry, checked against the plain version
+and timed in turns on one CUDA card.
 
 Run from the repository root::
 
     python3 areal_tpu_torch/tools/variant_ab.py
 
-Variants: the decode entry's split merge (fused into the last split's
-block, or the separate combine kernel) and split rule (at least 256 keys
-per split in one wave of 264 blocks, or 128 keys in two waves); the
-forward's warpgroups per block (one, with a two-stage ring and two blocks
-per SM, or two sharing a three-stage ring).  Prints one ``VARIANT``
-JSON line per timing.
+Variant: warps per block (4, or 8 with 8 keys per warp and stage) for
+the main path's GQA group of 6 rows.  Prints one ``VARIANT`` JSON line per
+shape and pool.
 """
 
 import json
@@ -24,34 +21,20 @@ def main() -> int:
 
     import chip_smoke as c
     from areal_tpu_torch.ops import _build
-    from areal_tpu_torch.ops import flash_attention as fa
     from areal_tpu_torch.ops import paged_attention as pa
     from areal_tpu_torch.tools import kernel_ab as ab
 
     if not torch.cuda.is_available():
         return 2
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
     card = ab.card_line()
     print("card:", card, flush=True)
-    libs = _build.load_libraries("paged_attention", "flash_attention")
-    for lib in libs.values():
-        print(f"build {lib.path.name}: {lib.build_seconds:.1f} s", flush=True)
-        for line in lib.log.splitlines():
-            if ("registers" in line or "spill" in line or "smem" in line
-                    or "error" in line):
-                print("  ", line.strip(), flush=True)
-    pcd = libs["paged_attention"].cdll
-    fcd = libs["flash_attention"].cdll
-
-    rules = {"256x264": (8, 264, 256, True), "128x528": (8, 528, 128, True)}
-    variants = [(1, "256x264"), (0, "256x264"), (1, "128x528")]  # (fused, rule)
-
-    def set_variant(fused, rule):
-        assert pcd.paged_decode_variant(fused) == 0
-        pa._SPLIT_RULES[pa.DECODE_ENTRY] = rules[rule]
-
-    # correctness of every decode variant, bf16 and int8, both shapes
+    lib = _build.load_libraries("paged_attention")["paged_attention"]
+    print(f"build {lib.path.name}: {lib.build_seconds:.1f} s", flush=True)
+    for line in lib.log.splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            print("  ", line.strip(), flush=True)
+    cd = lib.cdll
     BS = ab.PAGE_SIZE
     S = ab.LONG_MB * BS
     long_lens = ([0, 1, BS - 1, BS, BS + 1, S, S - 1, S // 2 + 3]
@@ -59,26 +42,20 @@ def main() -> int:
     for int8 in (False, True):
         for B, MB, lens in ((8, ab.DECODE_MB, ab.DECODE_LENGTHS),
                             (16, ab.LONG_MB, long_lens)):
-            inputs = ab.decode_inputs(B, MB, lens, int8, 1, dev, seed=5)
-            q, kp, vp, ks, vs, tables, ln = inputs
+            q, kp, vp, ks, vs, tables, ln = ab.decode_inputs(
+                B, MB, lens, int8, 1, dev, seed=5)
             sc = () if ks is None else (ks[0], vs[0])
             ref = pa.reference_paged_partials(q, kp[0], vp[0], tables, ln, *sc)
-            for fused, rule in variants:
-                set_variant(fused, rule)
+            for w in (4, 8):
+                assert cd.paged_decode_warps(w) == 0
                 got = pa.paged_flash_attention(q, kp[0], vp[0], tables, ln, *sc)
                 again = pa.paged_flash_attention(q, kp[0], vp[0], tables, ln, *sc)
                 torch.cuda.synchronize()
-                same = all(torch.equal(a, b) for a, b in zip(got, again))
-                c.check_partials(f"variant fused={fused} rule={rule} "
-                                 f"int8={int8} B={B}", got, ref, ln)
-                print(f"  repeat bit-identical: {same}", flush=True)
-                if not same:
+                c.check_partials(f"warps={w} int8={int8} B={B}", got, ref, ln)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
                     raise AssertionError("repeat differs")
-            del inputs, q, kp, vp, ks, vs
+            del q, kp, vp, ks, vs
             torch.cuda.empty_cache()
-    set_variant(1, "256x264")
-
-    # timing of the decode variants, in turns
     for int8 in (False, True):
         for B, MB, lens, iters in ((8, ab.DECODE_MB, ab.DECODE_LENGTHS, 20),
                                    (16, ab.LONG_MB, (S,) * 16, 10)):
@@ -86,54 +63,16 @@ def main() -> int:
                                                 4 if int8 else 0))
             inputs = ab.decode_inputs(B, MB, lens, int8, n, dev)
             times = {}
-            for rep in range(2):
-                order = variants if rep == 0 else variants[::-1]
-                for fused, rule in order:
-                    set_variant(fused, rule)
-                    ms = ab.time_ms(ab.cycling(pa.paged_flash_attention, inputs),
-                                    iters, dev)
-                    times.setdefault(f"fused={fused},rule={rule}", []).append(ms)
+            for w in (4, 8, 8, 4):
+                assert cd.paged_decode_warps(w) == 0
+                times.setdefault(w, []).append(ab.time_ms(
+                    ab.cycling(pa.paged_flash_attention, inputs), iters, dev))
             print("VARIANT " + json.dumps(dict(
                 kernel="decode", pool="int8" if int8 else "bf16", B=B,
-                layers=n, lengths=list(lens)[:8], ms=times, card=card)),
-                flush=True)
+                layers=n, ms=times, card=card)), flush=True)
             del inputs
             torch.cuda.empty_cache()
-    set_variant(1, "256x264")
-
-    # the forward's warpgroups per block: correctness on every layout, then timing
-    for keys in (1, 2):
-        assert fcd.flash_attention_fwd_wgs(keys) == 0
-        for name, B, T, rows in c.FLASH_LAYOUTS:
-            q, k, v, _, seg = c.flash_inputs(B, T, rows, dev)
-            out, lse = fa.flash_attention_with_lse(q, k, v, seg)
-            ref_out, ref_lse, _ = c.plain_flash(q, k, v, seg)
-            real = seg != 0
-            d = (out.float() - ref_out)[real]
-            err = float(d.norm() / ref_out[real].norm())
-            tok = float((d.flatten(1).norm(dim=1)
-                         / ref_out[real].flatten(1).norm(dim=1)).max())
-            el = float((lse - ref_lse).transpose(1, 2)[real].abs().max())
-            pad = bool((out[~real] == 0).all()) and bool(
-                torch.isposinf(lse.transpose(1, 2)[~real]).all())
-            print(f"fwd warpgroups={keys} {name}: out rel {err:.3e} token {tok:.3e} "
-                  f"lse {el:.3e} padding {pad}", flush=True)
-            if not (err <= c.TOL_FA_OUT and tok <= c.TOL_FA_OUT_TOKEN
-                    and el <= c.TOL_FA_LSE and pad):
-                raise AssertionError(f"forward warpgroups={keys} {name} disagrees")
-    for name, B, T, rows in ab.FLASH_LAYOUTS:
-        times = {}
-        for keys in (1, 2, 2, 1):
-            assert fcd.flash_attention_fwd_wgs(keys) == 0
-            times.setdefault(keys, []).append(ab.flash_fwd_ms(B, T, rows, dev))
-        qt, kt, vt, _, seg = c.flash_inputs(B, T, rows, dev)
-        mask = fa.attention_mask(seg)[:, None]
-        times["sdpa"] = ab.time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True), 10, dev)
-        print("VARIANT " + json.dumps(dict(kernel="flash_fwd", layout=name,
-                                           ms=times, card=card)), flush=True)
-    assert fcd.flash_attention_fwd_wgs(1) == 0
+    assert cd.paged_decode_warps(4) == 0
     print("variants done", flush=True)
     return 0
 

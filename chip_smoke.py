@@ -5,6 +5,14 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
+or, to also time the paged kernel's decode entry and the flash-attention
+forward of a parent tree against this one in the same run, with a tree
+unpacked from ``git archive`` of the parent commit (each side runs
+``areal_tpu_torch/tools/kernel_ab.py`` in its own process, in turns
+parent, change, change, parent)::
+
+    python3 chip_smoke.py --parent PATH
+
 It builds the port's CUDA kernels from ``areal_tpu_torch/csrc`` (into
 ``areal_tpu_torch/_build/``, one nvcc per source, in parallel), then, at
 the full width and depth of the Qwen2.5-1.5B architecture (random weights
@@ -17,9 +25,13 @@ from a seed, float32 master weights and their bf16 serving copy):
    31000-token prefix), the deep kernel on both
    pools at the prefill-chunk shape and at decode over 16 rows of up to
    32768 tokens (lengths 0, 1, BS-1, BS, BS+1, full and between), and
-   ``flash_decode`` over a contiguous 16 x 32768 cache; times the standard
-   and deep kernels at decode for contexts 4096-32768 and prints the
-   dispatch threshold those times support;
+   ``flash_decode`` over a contiguous 16 x 32768 cache; repeats every call
+   (a decode call with key splits among them) and requires the repeat
+   bit-identical; times the decode entry L2-cold (cycling over enough pool
+   layers that the bytes it reads between two calls on one layer exceed
+   twice the L2); times the standard and deep kernels at decode for
+   contexts 4096-32768 and at the 8-row shape, and prints the dispatch
+   threshold those times support;
 2. serves requests through ``ContinuousBatchingEngine`` (a greedy wave of
    8 requests, resubmission, weight swaps, a sampled wave at two pipeline
    depths, chunked prefill, and profiles of one decode chunk and of one
@@ -101,10 +113,6 @@ DISPATCH_CONTEXTS = (4096, 8192, 16384, 32768)
 #: the cached prefix of the long prefill-chunk shape (the long wave's
 #: largest prompt is 31000 tokens)
 LONG_PREFILL_PREFIX = 31000
-
-#: GPU clock cycles the timing loop holds the stream for (~0.1 s at the
-#: H100's ~1.98 GHz boost clock; the timed calls enqueue in far less)
-SLEEP_CYCLES = 200_000_000
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -201,28 +209,11 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int, device) -> float:
-    """Mean device milliseconds per call of ``fn`` (warmed up; CUDA
-    events).  The stream is first held by a sleep kernel long enough for
-    the host to enqueue every call, so the events time the device work
-    back to back, without the host's launch gaps between calls."""
-    import torch
+    """Mean device milliseconds per call of ``fn``: ``kernel_ab.time_ms``
+    (CUDA events around calls enqueued behind a sleep kernel)."""
+    from areal_tpu_torch.tools import kernel_ab
 
-    fn()
-    if device.type != "cuda":
-        tik = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return (time.perf_counter() - tik) * 1e3 / iters
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return kernel_ab.time_ms(fn, iters, device)
 
 
 # ---------------------------------------------------------------------------
@@ -326,11 +317,13 @@ def check_partials(what, got, ref, lens):
 def kernel_case(name, fn, inputs, device, *, time_lengths=None,
                 timing_iters=20):
     """``fn`` (a paged kernel's wrapper) against the plain version on
-    ``inputs`` from :func:`paged_inputs`, then timed with its plain
-    version at ``time_lengths`` (default: the compared lengths).  Timed
-    launches cycle through the pool's layers, so the cache traffic does
-    not sit in L2 (4 layers of pool exceed the H100's 50 MB L2 at every
-    shape timed here).  Returns the measurements."""
+    ``inputs`` from :func:`paged_inputs`, and again on the same inputs
+    (bit-identical), then timed with its plain version at
+    ``time_lengths`` (default: the compared lengths).  Timed launches
+    cycle through the pool's layers: the callers give the decode shapes
+    enough layers that the bytes read between two calls on one layer
+    exceed twice the L2 (``kernel_ab.cold_layers``).  Returns the
+    measurements."""
     import torch
 
     from areal_tpu_torch.ops import paged_attention as pa
@@ -345,6 +338,7 @@ def kernel_case(name, fn, inputs, device, *, time_lengths=None,
         return f(q, kp[i], vp[i], tables, lengths, *sc)
 
     got = call(fn, 0, lens)
+    again = call(fn, 0, lens)
     ref = call(pa.reference_paged_partials, 0, lens)
     _sync(device)
     pool = "int8" if ks is not None else str(kp.dtype).removeprefix("torch.")
@@ -352,6 +346,10 @@ def kernel_case(name, fn, inputs, device, *, time_lengths=None,
         f"{name}: B={B} Q={Q} Hq={Hq} Hkv={Hkv} hd={hd} BS={BS} "
         f"MB={tables.shape[1]} {pool} pool, lengths={lens.tolist()}",
         got, ref, lens)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: a repeated call differs")
+    log(f"kernel {name}: repeated call bit-identical, {n_layers} pool layers "
+        f"timed in turn")
     tl = lens if time_lengths is None else time_lengths
     layer = [0]
 
@@ -406,6 +404,8 @@ def kernel_phase(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
     prefill-chunk shape."""
     from areal_tpu_torch.ops import paged_attention as pa
 
+    from areal_tpu_torch.tools.kernel_ab import cold_layers, touched_bytes
+
     lengths = [0, 1, BS - 1, BS, BS + 1, MB * BS, (MB * BS) // 3,
                (MB * BS * 3) // 4]
     kw = dict(BS=BS, MB=MB, timing_iters=timing_iters, **shape)
@@ -414,8 +414,13 @@ def kernel_phase(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
     for int8 in (False, True):
         tag = "int8 " if int8 else ""
         key = tag.replace(" ", "_")
+        # L2-cold: a decode call reads ~10 MB (bf16), which the L2 holds
+        cold = cold_layers(touched_bytes(lengths, shape.get("Hkv", 2),
+                                         shape.get("hd", 128), 1 if int8 else 2,
+                                         4 if int8 else 0))
         out[f"{key}decode"] = compare_kernel(
-            f"{tag}decode", len(lengths), 1, lengths, device, int8=int8, **kw)
+            f"{tag}decode", len(lengths), 1, lengths, device, int8=int8,
+            **dict(kw, n_layers=cold))
         # the prefill calls must run the tensor-core entry
         pa.paged_flash_attention.prefill_launches = 0
         out[f"{key}prefill"] = compare_kernel(
@@ -428,10 +433,25 @@ def kernel_phase(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
             raise AssertionError(f"{tag}prefill calls did not run the "
                                  "tensor-core prefill entry")
     for int8 in (False, True):
-        out[f"deep{'_int8' if int8 else ''}_prefill"] = compare_kernel(
+        tag = "_int8" if int8 else ""
+        out[f"deep{tag}_prefill"] = compare_kernel(
             f"deep{' int8' if int8 else ''} prefill", len(lengths), Q_prefill,
             lengths, device, fn=pa.paged_flash_attention_deep, int8=int8,
             **kw)
+        # the deep kernel at the 8-row decode shape, L2-cold as the
+        # standard entry
+        out[f"deep{tag}_decode"] = compare_kernel(
+            f"deep{' int8' if int8 else ''} decode", len(lengths), 1, lengths,
+            device, fn=pa.paged_flash_attention_deep, int8=int8,
+            **dict(kw, n_layers=cold_layers(touched_bytes(
+                lengths, shape.get("Hkv", 2), shape.get("hd", 128),
+                1 if int8 else 2, 4 if int8 else 0))))
+        std = out[f"{'int8_' if int8 else ''}decode"]["ms"]
+        deep = out[f"deep{tag}_decode"]["ms"]
+        log(f"dispatch timing {'int8' if int8 else 'bf16'} pool, the "
+            f"{len(lengths)}-row decode shape (lengths {lengths}): standard "
+            f"{std:.4f} ms, deep {deep:.4f} ms (deep/standard "
+            f"{deep / std:.3f})")
     return out
 
 
@@ -835,7 +855,7 @@ def anatomy(fn, label, top=0):
         fn()
         torch.cuda.synchronize()
     busy, kern = device_seconds(
-        prof, ("paged_partials_kernel", "paged_prefill_kernel",
+        prof, ("paged_decode_kernel", "paged_prefill_kernel",
                "combine_splits_kernel"))
     if busy > 0:
         dev = (f"device busy {busy * 1e3:.2f} ms (idle share "
@@ -1552,7 +1572,36 @@ def long_context_phase(cfg, master, params, device, card, *,
     return results
 
 
+def parent_ab(parent: str):
+    """The decode entry and the flash-attention forward of the parent tree
+    at ``parent`` and of this tree, timed in turns (parent, change, change,
+    parent), each side by ``areal_tpu_torch/tools/kernel_ab.py`` in its
+    own process from its tree's root; prints each side's ``AB`` line."""
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    tool = here / "areal_tpu_torch" / "tools" / "kernel_ab.py"
+    for tag in ("parent", "change", "change", "parent"):
+        tik = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, str(tool), tag],
+            cwd=str(Path(parent).resolve() if tag == "parent" else here),
+            capture_output=True, text=True, timeout=600,
+        )
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("AB ")]
+        if res.returncode != 0 or not lines:
+            raise AssertionError(f"kernel_ab.py ({tag}) failed:\n"
+                                 f"{res.stdout[-2000:]}{res.stderr[-3000:]}")
+        log(f"{lines[-1]} ({time.perf_counter() - tik:.1f} s with its build)")
+
+
 def main() -> int:
+    parent = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--parent":
+        parent = sys.argv[2]
+    elif len(sys.argv) != 1:
+        print("usage: chip_smoke.py [--parent PATH]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -1622,6 +1671,10 @@ def main() -> int:
     log(f"train phase done at {time.perf_counter() - t_start:.1f} s")
 
     entries = kernel_entries(kern, long_kern, eng, long, flash, train)
+    if parent is not None:
+        del eng, long, master, params
+        torch.cuda.empty_cache()
+        parent_ab(parent)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": entries}), flush=True)
@@ -1678,17 +1731,22 @@ def kernel_entries(kern, long_kern, eng, long, flash, train):
                   errs("standard_int8", src=long_kern)),
               long_kern["standard_int8"],
               prefill_entry_launches=arm_launches("prefill", True),
+              decode={k: kern["int8_decode"][k] for k in timed},
               prefill={k: kern["int8_prefill"][k] for k in timed},
               prefill_long={k: kern["int8_prefill_long"][k] for k in timed}),
         entry("paged_flash_attention_deep", deep_src, deep_ref,
               arm_launches("deep", False),
-              max(errs("deep_prefill"), errs("deep_bf16", src=long_kern)),
+              max(errs("deep_prefill", "deep_decode"),
+                  errs("deep_bf16", src=long_kern)),
               long_kern["deep_bf16"],
+              decode={k: kern["deep_decode"][k] for k in timed},
               prefill={k: kern["deep_prefill"][k] for k in timed}),
         entry("paged_flash_attention_deep_int8", deep_src, deep_ref,
               arm_launches("deep", True),
-              max(errs("deep_int8_prefill"), errs("deep_int8", src=long_kern)),
+              max(errs("deep_int8_prefill", "deep_int8_decode"),
+                  errs("deep_int8", src=long_kern)),
               long_kern["deep_int8"],
+              decode={k: kern["deep_int8_decode"][k] for k in timed},
               prefill={k: kern["deep_int8_prefill"][k] for k in timed}),
         entry("flash_decode", deep_src, "areal_tpu/ops/decode_attention.py:150",
               0, long_kern["flash_decode"]["max_abs_err"],
