@@ -116,6 +116,8 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // ---- the decode entry: a shared-memory copy ring ----------------------------
 
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 16;                  // bytes after each staged key row
 constexpr int kRingBudget = 110 * 1024;   // bytes of ring per block
 
@@ -124,7 +126,7 @@ constexpr int kRingBudget = 110 * 1024;   // bytes of ring per block
 // kKeys keys (K rows, V rows, padded by kPad bytes, and for an int8 pool
 // their K and V scales).  The stage count follows a budget that lets two
 // blocks share an SM, between 2 and 4.
-template <typename Tk, int HD, int R, int kWarps>
+template <typename Tk, int HD, int R>
 struct DecLayout {
   static constexpr bool kQuant = std::is_same<Tk, int8_t>::value;
   static constexpr int kRowBytes = HD * static_cast<int>(sizeof(Tk));
@@ -150,7 +152,7 @@ struct DecLayout {
 };
 
 // Write the empty partials (acc = 0, m = -1e30, l = 0) of the block's rows.
-template <int HD, int R, int kThreads>
+template <int HD, int R>
 __device__ __forceinline__ void write_empty(float* acc, float* m, float* l,
                                             int row0, int n_rows_total, int Q,
                                             int Hq, int r, int b, int h) {
@@ -175,8 +177,8 @@ __device__ __forceinline__ void write_empty(float* acc, float* m, float* l,
 // the block writes its partials to the workspace, and the last split of
 // (b, h, query tile) to finish merges them all in split order (a ticket
 // from `counters`, which it resets), so a call is one launch.
-template <typename Tq, typename Tk, int HD, int R, int kWarps>
-__global__ void __launch_bounds__(kWarps * 32, 2)
+template <typename Tq, typename Tk, int HD, int R>
+__global__ void __launch_bounds__(kThreads, 2)
 paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
                     const Tk* __restrict__ v_pool,
                     const float* __restrict__ k_scale,
@@ -189,8 +191,7 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
                     int Q, int Hq, int Hkv, int BS, int MB, int NB,
                     int n_splits, long long sb, long long sh, long long ss,
                     long long ssb, long long ssh, float scale_log2) {
-  using Lay = DecLayout<Tk, HD, R, kWarps>;
-  constexpr int kThreads = kWarps * 32;
+  using Lay = DecLayout<Tk, HD, R>;
   constexpr bool kQuant = Lay::kQuant;
   constexpr int KT = Lay::kKeys, WK = Lay::kWarpKeys, PARTS = Lay::kParts;
   constexpr int NCP = Lay::kChunks / PARTS;  // chunks per lane of a key
@@ -222,7 +223,7 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
   const int n = max(0, min(n_tiles, t_begin + per_split) - t_begin);
   if (n == 0) {  // no live key: split 0 writes a length-0 row's result
     if (n_tiles == 0 && split == 0)
-      write_empty<HD, R, kThreads>(acc_out, m_out, l_out, row0, n_rows_total, Q, Hq, r,
+      write_empty<HD, R>(acc_out, m_out, l_out, row0, n_rows_total, Q, Hq, r,
                          b, h);
     return;
   }
@@ -851,8 +852,6 @@ paged_prefill_kernel(const bf16* __restrict__ q, const Tk* __restrict__ k_pool,
   }
 }
 
-int g_decode_warps = 4;
-
 }  // namespace
 
 extern "C" {
@@ -891,31 +890,24 @@ int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
         using Tk = decltype(tk);
         return paged::dispatch_hd(hd, [&](auto hd_c) {
           constexpr int HD = decltype(hd_c)::value;
-          auto launch = [&](auto r_c, auto w_c) -> cudaError_t {
+          auto launch = [&](auto r_c) -> cudaError_t {
             constexpr int RR = decltype(r_c)::value;
-            constexpr int W = decltype(w_c)::value;
-            constexpr int smem = DecLayout<Tk, HD, RR, W>::kBytes;
-            auto kernel = paged_decode_kernel<Tq, Tk, HD, RR, W>;
+            constexpr int smem = DecLayout<Tk, HD, RR>::kBytes;
+            auto kernel = paged_decode_kernel<Tq, Tk, HD, RR>;
             // above 48 KB a block's shared memory must be asked for, once
             static const cudaError_t attr = cudaFuncSetAttribute(
                 kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
             if (attr != cudaSuccess) return attr;
-            kernel<<<grid, W * 32, smem, st>>>(
+            kernel<<<grid, kThreads, smem, st>>>(
                 static_cast<const Tq*>(q), static_cast<const Tk*>(k_pool),
                 static_cast<const Tk*>(v_pool), k_scale, v_scale, tables,
                 lengths, acc, m, l, acc_ws, m_ws, l_ws, counters, Q, Hq, Hkv,
                 BS, MB, NB, n_splits, sb, sh, ss, ssb, ssh, scale_log2);
             return cudaGetLastError();
           };
-          using W4 = std::integral_constant<int, 4>;
-          if constexpr (HD == 128 && sizeof(Tk) <= 2) {
-            if (g_decode_warps == 8 && R == 6)
-              return launch(std::integral_constant<int, 6>{},
-                            std::integral_constant<int, 8>{});
-          }
-          if (R == 4) return launch(std::integral_constant<int, 4>{}, W4{});
-          if (R == 6) return launch(std::integral_constant<int, 6>{}, W4{});
-          return launch(std::integral_constant<int, 8>{}, W4{});
+          if (R == 4) return launch(std::integral_constant<int, 4>{});
+          if (R == 6) return launch(std::integral_constant<int, 6>{});
+          return launch(std::integral_constant<int, 8>{});
         });
       });
   return static_cast<int>(err);
@@ -968,12 +960,6 @@ int paged_attention_prefill_fwd(
   return static_cast<int>(paged::combine_splits(
       acc_ws, m_ws, l_ws, acc, m, l, static_cast<long long>(B) * Q * Hq, hd,
       n_splits, st));
-}
-
-// Warps per decode block (4 or 8) for the calls that follow.
-int paged_decode_warps(int warps) {
-  g_decode_warps = warps;
-  return 0;
 }
 
 const char* paged_attention_error_string(int code) {

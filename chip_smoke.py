@@ -24,8 +24,9 @@ from a seed, float32 master weights and their bf16 serving copy):
    tensor-core entry: 8 rows of Q=512, and one row of Q=512 after a
    31000-token prefix), the deep kernel on both
    pools at the prefill-chunk shape and at decode over 16 rows of up to
-   32768 tokens (lengths 0, 1, BS-1, BS, BS+1, full and between), and
-   ``flash_decode`` over a contiguous 16 x 32768 cache; repeats every call
+   32768 tokens (lengths 0, 1, BS-1, BS, BS+1, full and between), the
+   decode entry on float32 and float16 q and pools, and ``flash_decode``
+   over a contiguous 16 x 32768 cache; repeats every call
    (a decode call with key splits among them) and requires the repeat
    bit-identical; times the decode entry L2-cold (cycling over enough pool
    layers that the bytes it reads between two calls on one layer exceed
@@ -401,26 +402,26 @@ def kernel_phase(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
     BS-1, BS, BS+1, a full table and two in between, and at one prefill
     chunk after a ``long_prefix``-token prefix; bf16 pools, then the int8
     branch; then the deep kernel (bf16 and int8 pools) at the
-    prefill-chunk shape."""
+    prefill-chunk and decode shapes.  The decode shape is timed L2-cold."""
     from areal_tpu_torch.ops import paged_attention as pa
-
     from areal_tpu_torch.tools.kernel_ab import cold_layers, touched_bytes
 
     lengths = [0, 1, BS - 1, BS, BS + 1, MB * BS, (MB * BS) // 3,
                (MB * BS * 3) // 4]
     kw = dict(BS=BS, MB=MB, timing_iters=timing_iters, **shape)
     long_kw = dict(kw, MB=long_MB)
+    # decode is timed L2-cold: one call reads ~10 MB (bf16), which the L2
+    # holds, so it cycles over enough layers of pool
+    cold = {int8: dict(kw, n_layers=cold_layers(touched_bytes(
+        lengths, shape.get("Hkv", 2), shape.get("hd", 128), 1 if int8 else 2,
+        4 if int8 else 0))) for int8 in (False, True)}
     out = {}
     for int8 in (False, True):
         tag = "int8 " if int8 else ""
         key = tag.replace(" ", "_")
-        # L2-cold: a decode call reads ~10 MB (bf16), which the L2 holds
-        cold = cold_layers(touched_bytes(lengths, shape.get("Hkv", 2),
-                                         shape.get("hd", 128), 1 if int8 else 2,
-                                         4 if int8 else 0))
         out[f"{key}decode"] = compare_kernel(
             f"{tag}decode", len(lengths), 1, lengths, device, int8=int8,
-            **dict(kw, n_layers=cold))
+            **cold[int8])
         # the prefill calls must run the tensor-core entry
         pa.paged_flash_attention.prefill_launches = 0
         out[f"{key}prefill"] = compare_kernel(
@@ -438,14 +439,10 @@ def kernel_phase(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
             f"deep{' int8' if int8 else ''} prefill", len(lengths), Q_prefill,
             lengths, device, fn=pa.paged_flash_attention_deep, int8=int8,
             **kw)
-        # the deep kernel at the 8-row decode shape, L2-cold as the
-        # standard entry
         out[f"deep{tag}_decode"] = compare_kernel(
             f"deep{' int8' if int8 else ''} decode", len(lengths), 1, lengths,
             device, fn=pa.paged_flash_attention_deep, int8=int8,
-            **dict(kw, n_layers=cold_layers(touched_bytes(
-                lengths, shape.get("Hkv", 2), shape.get("hd", 128),
-                1 if int8 else 2, 4 if int8 else 0))))
+            **cold[int8])
         std = out[f"{'int8_' if int8 else ''}decode"]["ms"]
         deep = out[f"deep{tag}_decode"]["ms"]
         log(f"dispatch timing {'int8' if int8 else 'bf16'} pool, the "
@@ -453,6 +450,36 @@ def kernel_phase(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
             f"{std:.4f} ms, deep {deep:.4f} ms (deep/standard "
             f"{deep / std:.3f})")
     return out
+
+
+def decode_dtype_checks(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
+                        Hq=12, Hkv=2, hd=128):
+    """The decode entry on the q/pool types off the main path (float32 and
+    float16, one query token per row, and float32 with four, which takes
+    tiles of 8 grouped rows) against the plain version, with a repeated
+    call bit-identical."""
+    import torch
+
+    from areal_tpu_torch.ops import paged_attention as pa
+
+    lengths = [0, 1, BS - 1, BS, BS + 1, MB * BS, (MB * BS) // 3,
+               (MB * BS * 3) // 4]
+    for dtype, Q in ((torch.float32, 1), (torch.float16, 1),
+                     (torch.float32, 4)):
+        q, kp, vp, _, _, tables, lens = paged_inputs(
+            len(lengths), Q, Hq, Hkv, hd, BS, MB, lengths, device, dtype, 1,
+            SEED + 5)
+        if pa.paged_entry(Q, dtype, dtype) != pa.DECODE_ENTRY:
+            raise AssertionError(f"{dtype} Q={Q} left the decode entry")
+        got = pa.paged_flash_attention(q, kp[0], vp[0], tables, lens)
+        again = pa.paged_flash_attention(q, kp[0], vp[0], tables, lens)
+        ref = pa.reference_paged_partials(q, kp[0], vp[0], tables, lens)
+        _sync(device)
+        check_partials(f"decode entry, {dtype} q and pool, Q={Q}", got, ref,
+                       lens)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"decode entry {dtype} Q={Q}: a repeated "
+                                 "call differs")
 
 
 def long_kernel_phase(device, *, B=16, MB=None, BS=PAGE_SIZE,
@@ -1640,6 +1667,7 @@ def main() -> int:
                 log(f"build: {line.strip()}")
 
     kern = kernel_phase(device)
+    decode_dtype_checks(device)
     long_kern = long_kernel_phase(device)
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
