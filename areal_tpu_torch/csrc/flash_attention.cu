@@ -185,95 +185,6 @@ __device__ __forceinline__ void issue_rows_product(float (&acc)[HD / 2],
 
 // ---- forward ----------------------------------------------------------------
 
-// Mask one 64 x 64 score tile s (unless `full`: no mask needed), scale it
-// to the log2 domain and run the online softmax over it: s becomes P, the
-// state m, l of rows g and g + 8 of the warp is updated, and alpha[hr] is
-// the factor the rows' accumulators take before P's product is added.
-__device__ __forceinline__ void softmax_p(float (&s)[32], float (&m)[2],
-                                          float (&l)[2], float (&alpha)[2],
-                                          bool full, const int* segq,
-                                          const int* segk, int q0, int k0,
-                                          float scale_log2) {
-  constexpr int BN = 64;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = warp * 16 + g + hr * 8;
-    float mx = -INFINITY;
-    if (full) {
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int x = 4 * j + hr * 2 + c;
-          s[x] *= scale_log2;
-          mx = fmaxf(mx, s[x]);
-        }
-      }
-    } else {
-      const int sq = segq[row];
-      const int qi = q0 + row;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = j * 8 + tq * 2 + c;
-          const int x = 4 * j + hr * 2 + c;
-          const bool ok = sq != 0 && segk[col] == sq && k0 + col <= qi;
-          s[x] = ok ? s[x] * scale_log2 : -INFINITY;
-          mx = fmaxf(mx, s[x]);
-        }
-      }
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-    const float m_new = fmaxf(m[hr], mx);
-    float rs = 0.f;
-    alpha[hr] = 1.f;
-    if (m_new != -INFINITY) {
-      alpha[hr] = tc::exp2_approx(m[hr] - m_new);  // 0 when m[hr] is -inf
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int x = 4 * j + hr * 2 + c;
-          s[x] = tc::exp2_approx(s[x] - m_new);  // 0 where masked
-          rs += s[x];
-        }
-      }
-    } else {  // nothing attended yet: this row's probabilities are 0
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) s[4 * j + hr * 2] = s[4 * j + hr * 2 + 1] = 0.f;
-    }
-    m[hr] = m_new;
-    l[hr] = l[hr] * alpha[hr] + rs;  // this thread's columns; summed at the end
-  }
-}
-
-// Scale the accumulator rows g and g + 8 of the warp by alpha[0], alpha[1].
-template <int HD>
-__device__ __forceinline__ void rescale(float (&acc)[HD / 2],
-                                        const float (&alpha)[2]) {
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-#pragma unroll
-    for (int x = 0; x < 4; ++x) acc[4 * j + x] *= alpha[x >> 1];
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
-                                             float (&l)[2],
-                                             float (&acc)[HD / 2], bool full,
-                                             const int* segq, const int* segk,
-                                             int q0, int k0, float scale_log2) {
-  float alpha[2];
-  softmax_p(s, m, l, alpha, full, segq, segk, q0, k0, scale_log2);
-  rescale<HD>(acc, alpha);
-}
-
-
 constexpr int kFwdStages = 2;  // depth of the forward's K/V copy ring
 
 // Shared-memory plan of the forward (byte offsets from a 1024-aligned
@@ -300,7 +211,7 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const int* __restrict__ seg,
               const int* __restrict__ ranges, bf16* __restrict__ out,
               float* __restrict__ lse, int B, int T, int Hq, int Hkv,
-              int n_rt, float scale_log2, int) {
+              int n_rt, float scale_log2) {
   using L = FwdSmem<HD>;
   constexpr int BM = 64, BN = 64, S = kFwdStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -400,7 +311,63 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::wg_wait<0>();
     tc::wg_fence_acc(s);
 
-    softmax_tile<HD>(s, m, l, acc, full, segq, segk, q0, k0, scale_log2);
+    // mask, online softmax (log2 domain)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = warp * 16 + g + hr * 8;
+      float mx = -INFINITY;
+      if (full) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int x = 4 * j + hr * 2 + c;
+            s[x] *= scale_log2;
+            mx = fmaxf(mx, s[x]);
+          }
+        }
+      } else {
+        const int sq = segq[row];
+        const int qi = q0 + row;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = j * 8 + tq * 2 + c;
+            const int x = 4 * j + hr * 2 + c;
+            const bool ok = sq != 0 && segk[col] == sq && k0 + col <= qi;
+            s[x] = ok ? s[x] * scale_log2 : -INFINITY;
+            mx = fmaxf(mx, s[x]);
+          }
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      float alpha = 1.f, rs = 0.f;
+      if (m_new != -INFINITY) {
+        alpha = tc::exp2_approx(m[hr] - m_new);  // 0 when m[hr] is -inf
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int x = 4 * j + hr * 2 + c;
+            s[x] = tc::exp2_approx(s[x] - m_new);  // 0 where masked
+            rs += s[x];
+          }
+        }
+      } else {  // nothing attended yet: this row's probabilities are 0
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) s[4 * j + hr * 2] = s[4 * j + hr * 2 + 1] = 0.f;
+      }
+      m[hr] = m_new;
+      l[hr] = l[hr] * alpha + rs;  // this thread's columns; summed at the end
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        acc[4 * j + hr * 2] *= alpha;
+        acc[4 * j + hr * 2 + 1] *= alpha;
+      }
+    }
     // O += P V: P rounded to bf16 in registers, V read MN-major (its rows
     // are the keys)
     uint32_t a[4][4];
@@ -410,226 +377,6 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::wg_commit();
     tc::wg_wait<0>();
     tc::wg_fence_acc(acc);
-  }
-  tc::cp_async_wait<0>();
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    float lt = l[hr];
-    lt += __shfl_xor_sync(kFull, lt, 1);
-    lt += __shfl_xor_sync(kFull, lt, 2);
-    const int qi = q0 + warp * 16 + g + hr * 8;
-    if (qi >= T) continue;
-    const float inv = lt > 0.f ? 1.f / lt : 0.f;
-    bf16* o = out + ((long long)b * T + qi) * qstride + h * HD;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(o + j * 8 + tq * 2) =
-          __floats2bfloat162_rn(acc[4 * j + hr * 2] * inv,
-                                acc[4 * j + hr * 2 + 1] * inv);
-    }
-    if (tq == 0)
-      lse[((long long)b * Hq + h) * T + qi] =
-          lt > 0.f ? (m[hr] + log2f(lt)) * kLn2 : INFINITY;
-  }
-}
-
-// Shared-memory plan of the overlapped forward: the Q tile and its segment
-// ids, two K slots, two V slots and three slots of the keys' segment ids.
-template <int HD>
-struct FwdOvSmem {
-  static constexpr int kTile = 64 * HD * 2;
-  static constexpr int kQ = 0, kSegQ = kTile;
-  static constexpr int kK = round1k(kSegQ + 64 * 4);
-  static constexpr int kV = kK + 2 * kTile;
-  static constexpr int kSeg = kV + 2 * kTile;
-  static constexpr int kBytes = kSeg + 3 * 64 * 4 + 1024;
-};
-
-// The forward with the next tile's S product in flight while this tile's
-// softmax runs: K and V stream through rings of their own (K two tiles
-// ahead, V one), so S_{i+1} = Q K_{i+1} issues before softmax_i and P_i V_i
-// after it.
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 2)
-fa_fwd_ov_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ seg,
-                 const int* __restrict__ ranges, bf16* __restrict__ out,
-                 float* __restrict__ lse, int B, int T, int Hq, int Hkv,
-                 int n_rt, float scale_log2, int pv_overlap) {
-  using L = FwdOvSmem<HD>;
-  constexpr int BM = 64, BN = 64;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* smem =
-      smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
-  const unsigned char* Qs = smem + L::kQ;
-  const int* segq = reinterpret_cast<const int*>(smem + L::kSegQ);
-
-  const int n_qt = (T + BM - 1) / BM;
-  const int per = Hq * B;
-  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / per;
-  const int h = blockIdx.x % per % Hq, b = blockIdx.x % per / Hq;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int q0 = qt * BM;
-  const int* rng = ranges + (long long)b * n_rt * 2;
-  const int2 qr = tile_range(rng, n_rt, q0 / kRangeTile, BM / kRangeTile);
-  const int kt_last = qt;
-
-  const long long qstride = (long long)Hq * HD;
-  const long long kstride = (long long)Hkv * HD;
-  copy_tile<HD>(smem + L::kQ, q + ((long long)b * T + q0) * qstride + h * HD,
-                qstride, T - q0);
-  copy_words(smem + L::kSegQ, seg + (long long)b * T + q0, BM, T - q0);
-
-  auto next_active = [&](int kt) {
-    for (; kt <= kt_last; ++kt)
-      if (ranges_meet(qr, tile_range(rng, n_rt, kt * BN / kRangeTile,
-                                     BN / kRangeTile)))
-        return kt;
-    return kt_last + 1;
-  };
-  auto k_slot = [&](int i) { return smem + L::kK + (i & 1) * L::kTile; };
-  auto v_slot = [&](int i) { return smem + L::kV + (i & 1) * L::kTile; };
-  auto s_slot = [&](int i) {
-    return reinterpret_cast<int*>(smem + L::kSeg) + (i % 3) * BN;
-  };
-  // tile i's K and segment ids (kt = its key tile), or nothing past the end
-  auto load_k = [&](int kt, int i) {
-    if (kt > kt_last) return;
-    const int k0 = kt * BN;
-    copy_tile<HD>(k_slot(i), k + ((long long)b * T + k0) * kstride + hk * HD,
-                  kstride, T - k0);
-    copy_words(s_slot(i), seg + (long long)b * T + k0, BN, T - k0);
-  };
-  auto load_v = [&](int kt, int i) {
-    if (kt > kt_last) return;
-    const int k0 = kt * BN;
-    copy_tile<HD>(v_slot(i), v + ((long long)b * T + k0) * kstride + hk * HD,
-                  kstride, T - k0);
-  };
-  // every thread checks the segment ids it copied itself
-  auto one_segment = [&](int i) {
-    const int tid = threadIdx.x;
-    return (tid >= BM || segq[tid] == qr.x) &&
-           (tid >= BN || s_slot(i)[tid] == qr.x);
-  };
-  auto scores = [&](float (&sc)[32], int i) {
-#pragma unroll
-    for (int x = 0; x < 32; ++x) sc[x] = 0.f;
-    tc::wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const int off = (kk >> 2) * 64 * 128 + (kk & 3) * 32;
-      tc::wgmma_64x64_ss(sc, tc::wg_desc(Qs + off, 16, 1024),
-                         tc::wg_desc(k_slot(i) + off, 16, 1024));
-    }
-    tc::wg_commit();
-  };
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[HD / 2];
-#pragma unroll
-  for (int x = 0; x < HD / 2; ++x) acc[x] = 0.f;
-
-  // prologue: (Q, K_0), (K_1), (V_0) in three copy groups, then S_0
-  int kt_cur = next_active(0);
-  int kt_n1 = kt_cur <= kt_last ? next_active(kt_cur + 1) : kt_last + 1;
-  load_k(kt_cur, 0);
-  tc::cp_async_commit();
-  load_k(kt_n1, 1);
-  tc::cp_async_commit();
-  load_v(kt_cur, 0);
-  tc::cp_async_commit();
-  float s[32], sn[32];
-  bool full_cur = false;
-  if (kt_cur <= kt_last) {
-    tc::cp_async_wait<2>();
-    tc::fence_proxy_async();
-    full_cur = __syncthreads_and(one_segment(0)) && kt_cur * BN + BN - 1 <= q0;
-    scores(s, 0);
-    tc::wg_wait<0>();
-    tc::wg_fence_acc(s);
-  }
-  if (pv_overlap) {
-    // P_0 before the loop; each step then issues S_{i+1} and P_i V_i
-    // together and runs softmax_{i+1} while P_i V_i is in flight
-    float alpha[2];
-    if (kt_cur <= kt_last)
-      softmax_p(s, m, l, alpha, full_cur, segq, s_slot(0), q0, kt_cur * BN,
-                scale_log2);
-    for (int i = 0; kt_cur <= kt_last; ++i) {
-      const bool has_next = kt_n1 <= kt_last;
-      const int kt_n2 = has_next ? next_active(kt_n1 + 1) : kt_last + 1;
-      // K_{i+1} and V_i landed; every warp is past S_i and P_{i-1} V_{i-1}
-      tc::cp_async_wait<0>();
-      tc::fence_proxy_async();
-      const bool full_next = __syncthreads_and(one_segment(i + 1)) &&
-                             has_next && kt_n1 * BN + BN - 1 <= q0;
-      load_k(kt_n2, i + 2);
-      tc::cp_async_commit();
-      load_v(kt_n1, i + 1);
-      tc::cp_async_commit();
-      uint32_t a[4][4];
-      acc_to_frags(a, s);
-      if (has_next) scores(sn, i + 1);
-      tc::wg_fence();
-      issue_rows_product<HD>(acc, a, v_slot(i));
-      tc::wg_commit();
-      if (has_next) {
-        tc::wg_wait<1>();  // S_{i+1} done; P_i V_i may still run
-        tc::wg_fence_acc(sn);
-        softmax_p(sn, m, l, alpha, full_next, segq, s_slot(i + 1), q0,
-                  kt_n1 * BN, scale_log2);
-      }
-      tc::wg_wait<0>();
-      tc::wg_fence_regs(a);
-      tc::wg_fence_acc(acc);
-      if (has_next) {
-        rescale<HD>(acc, alpha);
-#pragma unroll
-        for (int x = 0; x < 32; ++x) s[x] = sn[x];
-      }
-      kt_cur = kt_n1;
-      kt_n1 = kt_n2;
-    }
-  }
-  for (int i = 0; kt_cur <= kt_last; ++i) {
-    const bool has_next = kt_n1 <= kt_last;
-    const int kt_n2 = has_next ? next_active(kt_n1 + 1) : kt_last + 1;
-    // K_{i+1} landed; every warp is past S_i and P_{i-1} V_{i-1}, so the
-    // slots of K_i and V_{i-1} take K_{i+2} and V_{i+1}
-    tc::cp_async_wait<1>();
-    tc::fence_proxy_async();
-    const bool full_next = __syncthreads_and(one_segment(i + 1)) && has_next &&
-                           kt_n1 * BN + BN - 1 <= q0;
-    load_k(kt_n2, i + 2);
-    tc::cp_async_commit();
-    load_v(kt_n1, i + 1);
-    tc::cp_async_commit();
-    if (has_next) scores(sn, i + 1);  // runs while this tile's softmax does
-    softmax_tile<HD>(s, m, l, acc, full_cur, segq, s_slot(i), q0, kt_cur * BN,
-                     scale_log2);
-    uint32_t a[4][4];
-    acc_to_frags(a, s);
-    // V_i landed for all
-    tc::cp_async_wait<2>();
-    tc::fence_proxy_async();
-    __syncthreads();
-    tc::wg_fence();
-    issue_rows_product<HD>(acc, a, v_slot(i));
-    tc::wg_commit();
-    tc::wg_wait<0>();
-    tc::wg_fence_acc(acc);
-    if (has_next) {
-      tc::wg_fence_acc(sn);
-#pragma unroll
-      for (int x = 0; x < 32; ++x) s[x] = sn[x];
-    }
-    full_cur = full_next;
-    kt_cur = kt_n1;
-    kt_n1 = kt_n2;
   }
   tc::cp_async_wait<0>();
 
@@ -1079,10 +826,6 @@ cudaError_t launch_ranges(const int* seg, int* ranges, int B, int T,
   return cudaGetLastError();
 }
 
-// the forward's design for the calls that follow: 0 the copy ring, 1 the
-// overlapped S product
-int g_fwd_overlap = 0;
-
 template <int HD>
 cudaError_t fwd_typed(const void* q, const void* k, const void* v,
                       const int* seg, int* ranges, void* out, float* lse,
@@ -1091,20 +834,17 @@ cudaError_t fwd_typed(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const int n_rt = (T + kRangeTile - 1) / kRangeTile;
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  constexpr int smem = FwdSmem<HD>::kBytes;
+  // above 48 KB a block's shared memory must be asked for, once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fa_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
   const unsigned n_tiles = static_cast<unsigned>((T + 63) / 64);
-  auto run = [&](auto kernel, int smem) -> cudaError_t {
-    // above 48 KB a block's shared memory must be asked for
-    cudaError_t attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (attr != cudaSuccess) return attr;
-    kernel<<<n_tiles * Hq * B, kThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), seg, ranges, static_cast<bf16*>(out),
-        lse, B, T, Hq, Hkv, n_rt, scale * kLog2e, g_fwd_overlap == 2);
-    return cudaGetLastError();
-  };
-  return g_fwd_overlap ? run(fa_fwd_ov_kernel<HD>, FwdOvSmem<HD>::kBytes)
-                       : run(fa_fwd_kernel<HD>, FwdSmem<HD>::kBytes);
+  fa_fwd_kernel<HD><<<n_tiles * Hq * B, kThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), seg, ranges, static_cast<bf16*>(out), lse,
+      B, T, Hq, Hkv, n_rt, scale * kLog2e);
+  return cudaGetLastError();
 }
 
 // the backward's kernels, as bits of flash_attention_bwd's `parts`
@@ -1227,12 +967,6 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// The forward's design (0 ring, 1 overlapped) for the calls that follow.
-int flash_attention_fwd_overlap(int on) {
-  g_fwd_overlap = on;
-  return 0;
 }
 
 const char* flash_attention_error_string(int code) {

@@ -115,15 +115,6 @@ __device__ __forceinline__ void wg_fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-// Keep A-fragment registers that an in-flight wgmma reads alive (and
-// unchanged) up to this point for the compiler.
-template <int N, int M>
-__device__ __forceinline__ void wg_fence_regs(uint32_t (&a)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
 // Make this thread's generic-proxy shared-memory writes (st.shared,
 // cp.async) visible to wgmma's reads; then a block barrier.
 __device__ __forceinline__ void fence_proxy_async() {
