@@ -1,7 +1,10 @@
 // Tensor-core and async-copy helpers shared by the kernels that multiply
-// bf16 tiles on Hopper's tensor cores (flash_attention.cu and the prefill
-// entry of paged_attention.cu): warpgroup `wgmma` products with f32
-// accumulation, and `cp.async` copies with zero fill.
+// bf16 tiles on Hopper's tensor cores (flash_attention.cu, the prefill
+// entry of paged_attention.cu and the tensor-core body of
+// paged_attention_deep.cu): warpgroup `wgmma` and warp `mma.sync` products
+// with f32 accumulation, `ldmatrix`/`movmatrix` fragment moves, exact int8
+// -> bf16 widening, `cp.async` copies with zero fill, and TMA tensor and
+// bulk copies that complete on `mbarrier`s.
 //
 // Register fragments (PTX ISA, the m16n8k16 .bf16 layouts that wgmma's
 // register operands and accumulators follow per warp): lane = 4 g + tq
@@ -34,6 +37,39 @@ __device__ __forceinline__ float exp2_approx(float x) {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four int8 values (a 32-bit word, lowest byte first) -> float32, exactly:
+// e + 128 goes into the low mantissa byte of the float 2^23, and
+// subtracting 2^23 + 128 leaves e.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+  constexpr float kBias = 8388736.f;  // 2^23 + 128
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - kBias;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - kBias;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - kBias;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - kBias;
+}
+
+// Four int8 values -> bf16 pairs (e0, e1) and (e2, e3), exactly (|e| <=
+// 128 fits bf16's 8-bit significand).
+__device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo,
+                                               uint32_t& hi) {
+  float f[4];
+  i8x4_to_f32(w, f);
+  lo = pack_bf16(f[0], f[1]);
+  hi = pack_bf16(f[2], f[3]);
+}
+
+// Four int8 values -> bf16 pairs (e0, e2) and (e1, e3), exactly: the word
+// `ldmatrix.trans` gives from int8 rows holds two bytes of each of two
+// rows, and a pair takes one byte of each.
+__device__ __forceinline__ void i8x4_to_bf16x4_cross(uint32_t w, uint32_t& lo,
+                                                     uint32_t& hi) {
+  float f[4];
+  i8x4_to_f32(w, f);
+  lo = pack_bf16(f[0], f[2]);
+  hi = pack_bf16(f[1], f[3]);
 }
 
 // 16 bytes global -> shared; with `valid` false the 16 bytes are zeroed
@@ -213,6 +249,112 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
     wgmma_64x128_rs(d, a, db);
   else
     wgmma_64x64_rs(d, a, db);
+}
+
+// ---- warp-level tensor-core products (mma.sync) -----------------------------
+//
+// D[16 x 8] += A[16 x 16] B[16 x 8], bf16 operands, f32 accumulation; the
+// fragments are the m16n8k16 layouts at the top of this file (B: lane 4 g
+// + tq holds B[2tq..2tq+1][g] and B[2tq+8..2tq+9][g]).
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8j..8j+7 give the row
+// addresses (16 bytes each) of matrix j, and r[j] is lane 4 g + tq's
+// fragment of it: row g, elements 2tq and 2tq+1 (with `.trans`, of the
+// transposed matrix).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// The transpose of an 8x8 b16 matrix held as a fragment (row g, elements
+// 2tq..2tq+1 in lane 4 g + tq), as the same kind of fragment.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
+// ---- mbarriers, TMA and bulk copies -------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Arrive once and expect `bytes` more of asynchronous copies.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// An arrival on the barrier when this thread's earlier cp.async copies
+// have landed (counted in the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// One box of a 4-D tensor map (a __grid_constant__ kernel parameter) at
+// coordinates (c0, c1, c2, c3), innermost first, into shared memory;
+// completes on `bar`'s transaction count.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, int c0,
+                                            int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) global -> shared, completing on `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 }  // namespace tc

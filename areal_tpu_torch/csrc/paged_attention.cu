@@ -111,8 +111,7 @@ using paged::kFull;
 using paged::kNegInf;
 using paged::load_f32;
 using paged::to_f32;
-
-constexpr float kLn2 = 0.6931471805599453f;
+using paged::kLn2;
 
 // ---- the decode entry: a shared-memory copy ring ----------------------------
 
@@ -150,24 +149,6 @@ struct DecLayout {
   static_assert(kChunks % kParts == 0, "a key's lanes split its row evenly");
   static_assert(kBytes <= 227 * 1024, "decode stage too large");
 };
-
-// Write the empty partials (acc = 0, m = -1e30, l = 0) of the block's rows.
-template <int HD, int R>
-__device__ __forceinline__ void write_empty(float* acc, float* m, float* l,
-                                            int row0, int n_rows_total, int Q,
-                                            int Hq, int r, int b, int h) {
-  for (int idx = threadIdx.x; idx < R * HD; idx += kThreads) {
-    const int i = idx / HD, d = idx % HD, gr = row0 + i;
-    if (gr >= n_rows_total) continue;
-    const int t = gr / r, j = gr % r;
-    const long long row = ((long long)b * Q + t) * Hq + h * r + j;
-    acc[row * HD + d] = 0.f;
-    if (d == 0) {
-      m[row] = kNegInf;
-      l[row] = 0.f;
-    }
-  }
-}
 
 // One block: (tile of R grouped query rows, KV split) of (KV head h, row
 // b).  The split owns tiles [t_begin, t_begin + n) of the row's live keys
@@ -223,8 +204,8 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
   const int n = max(0, min(n_tiles, t_begin + per_split) - t_begin);
   if (n == 0) {  // no live key: split 0 writes a length-0 row's result
     if (n_tiles == 0 && split == 0)
-      write_empty<HD, R>(acc_out, m_out, l_out, row0, n_rows_total, Q, Hq, r,
-                         b, h);
+      paged::write_empty<kThreads, HD, R>(acc_out, m_out, l_out, row0,
+                                          n_rows_total, Q, Hq, r, b, h);
     return;
   }
   // where this block's partials go: the outputs when it is the row's only
@@ -446,76 +427,11 @@ paged_decode_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
   if (direct) return;
 
   // the last live split of (b, h, query tile) to get here merges them all
-  __shared__ int s_last;
-  __threadfence();  // this block's partials are visible device-wide
-  __syncthreads();
-  int* ticket = counters + ((long long)b * Hkv + h) * n_qtiles + qtile;
-  if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1) == n_live - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  // every split's m and l -> shared memory (the ring is free), then each
-  // row's maximum, the splits' weights exp(m - M) and the merged l; all
-  // loads of the workspace are issued before their first use
-  float* wm = reinterpret_cast<float*>(ring);  // [n_live][R]: m, then weight
-  float* wl = wm + n_live * R;                 // [n_live][R]
-  for (int idx = threadIdx.x; idx < n_live * R; idx += kThreads) {
-    const int sp = idx / R, i = idx % R, gr = row0 + i;
-    float mv = kNegInf, lv = 0.f;
-    if (gr < n_rows_total) {
-      const long long row =
-          sp * R_all + ((long long)b * Q + gr / r) * Hq + h * r + gr % r;
-      mv = __ldcg(m_ws + row);
-      lv = __ldcg(l_ws + row);
-    }
-    wm[idx] = mv;
-    wl[idx] = lv;
-  }
-  __syncthreads();
-  if (threadIdx.x < R) {
-    const int i = threadIdx.x, gr = row0 + i;
-    float M = kNegInf;
-    for (int sp = 0; sp < n_live; ++sp) M = fmaxf(M, wm[sp * R + i]);
-    float L = 0.f;
-    for (int sp = 0; sp < n_live; ++sp) {
-      const float e = expf(wm[sp * R + i] - M);
-      wm[sp * R + i] = e;
-      L += wl[sp * R + i] * e;
-    }
-    if (gr < n_rows_total) {
-      const long long row = ((long long)b * Q + gr / r) * Hq + h * r + gr % r;
-      m_out[row] = M;
-      l_out[row] = L;
-    }
-  }
-  __syncthreads();
-  // acc: each thread sums its R * HD / kThreads elements over the splits
-  // in split order
-  constexpr int kPer = (R * HD + kThreads - 1) / kThreads;
-  float a[kPer];
-  long long rows[kPer];
-#pragma unroll
-  for (int e = 0; e < kPer; ++e) {
-    a[e] = 0.f;
-    const int idx = threadIdx.x + e * kThreads, i = idx / HD, gr = row0 + i;
-    rows[e] = idx < R * HD && gr < n_rows_total
-                  ? (((long long)b * Q + gr / r) * Hq + h * r + gr % r) * HD +
-                        idx % HD
-                  : -1;
-  }
-#pragma unroll 4
-  for (int sp = 0; sp < n_live; ++sp) {
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      if (rows[e] < 0) continue;
-      const int i = (threadIdx.x + e * kThreads) / HD;
-      a[e] += __ldcg(acc_ws + sp * R_all * HD + rows[e]) * wm[sp * R + i];
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < kPer; ++e)
-    if (rows[e] >= 0) acc_out[rows[e]] = a[e];
-  if (threadIdx.x == 0) *ticket = 0;  // ready for the next call
+  // (the ring is free)
+  paged::merge_live_splits<kThreads, R, HD>(
+      reinterpret_cast<float*>(ring), acc_ws, m_ws, l_ws, acc_out, m_out,
+      l_out, counters + ((long long)b * Hkv + h) * n_qtiles + qtile, n_live,
+      row0, n_rows_total, b, Q, Hq, h, r, R_all);
 }
 
 // ---- the prefill entry: tensor cores ----------------------------------------
@@ -525,21 +441,6 @@ constexpr int kPfRows = 64;      // grouped query rows per block (wgmma M)
 constexpr int kPfKeys = 64;      // keys per ring stage
 constexpr int kPfStages = 2;
 typedef __nv_bfloat16 bf16;
-
-// Four int8 values (a 32-bit word, lowest byte first) -> bf16 pairs
-// (e0, e1) and (e2, e3), exactly: e + 128 goes into the low mantissa byte
-// of the float 2^23, and subtracting 2^23 + 128 leaves e.
-__device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo,
-                                               uint32_t& hi) {
-  const uint32_t u = w ^ 0x80808080u;
-  constexpr float kBias = 8388736.f;  // 2^23 + 128
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - kBias;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - kBias;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - kBias;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - kBias;
-  lo = tc::pack_bf16(f0, f1);
-  hi = tc::pack_bf16(f2, f3);
-}
 
 // Shared-memory plan (byte offsets from a 1024-aligned base): the Q tile
 // and, per ring stage, the K and V rows (bf16 pools: the swizzled bf16
@@ -706,10 +607,10 @@ paged_prefill_kernel(const bf16* __restrict__ q, const Tk* __restrict__ k_pool,
         const uint4 raw = *reinterpret_cast<const uint4*>(
             st + which * Lay::kRawTile + key * HD + c * 16);
         uint32_t o[8];
-        i8x4_to_bf16x4(raw.x, o[0], o[1]);
-        i8x4_to_bf16x4(raw.y, o[2], o[3]);
-        i8x4_to_bf16x4(raw.z, o[4], o[5]);
-        i8x4_to_bf16x4(raw.w, o[6], o[7]);
+        tc::i8x4_to_bf16x4(raw.x, o[0], o[1]);
+        tc::i8x4_to_bf16x4(raw.y, o[2], o[3]);
+        tc::i8x4_to_bf16x4(raw.z, o[4], o[5]);
+        tc::i8x4_to_bf16x4(raw.w, o[6], o[7]);
         unsigned char* dst = work + which * Lay::kTile;
         *reinterpret_cast<uint4*>(dst + tc::swz_offset(kPfKeys, key, c * 16)) =
             make_uint4(o[0], o[1], o[2], o[3]);

@@ -13,7 +13,8 @@ deep paged kernel through its ``flash_decode_fwd`` entry point
 (``csrc/paged_attention_deep.cu``, which replaces the Pallas TPU kernel
 ``flash_decode`` at ``areal_tpu/ops/decode_attention.py:150``) with the
 cache's strides, or raises; that kernel walks only each row's valid keys,
-whatever S is.  On CPU tensors it runs the plain version,
+whatever S is.  A bf16 cache runs its tensor-core body, copied by TMA
+when S is a multiple of 64 (the tensor map (hd, S, Hkv, B)).  On CPU tensors it runs the plain version,
 :func:`reference_decode_partials`.  No path of the engine calls it yet:
 the reference's dense decode, which would, is not ported.
 """
@@ -60,7 +61,7 @@ def _kernel():
     cdll = _build.load_library("paged_attention_deep").cdll
     fn = cdll.flash_decode_fwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 11  # q, k, v, tables, lengths, acc, m, l, 3 ws
+        [ctypes.c_void_p] * 12  # q, k, v, tables, lengths, acc, m, l, 3 ws, tickets
         + [ctypes.c_int] * 6  # B, Hq, Hkv, hd, S, n_splits
         + [ctypes.c_longlong] * 3  # cache row/head/slot strides
         + [ctypes.c_int, ctypes.c_void_p]  # dtype code, stream
@@ -98,12 +99,14 @@ def _launch(q, k, v, lengths):
     n = pa.n_splits(B, 1, Hq, Hkv, S, entry=pa.DEEP_ENTRY)
     ws, ws_ptrs = pa.split_workspace(n, (B, Hq, hd), q.device)
     sb, sh, ss, _ = k.stride()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets = pa.ticket_counters(
+        q.device, stream, pa.n_tickets(pa.DEEP_ENTRY, B, 1, Hq, Hkv))
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), tables.data_ptr(),
         lengths.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        *ws_ptrs, B, Hq, Hkv, hd, S, n, sb, sh, ss,
-        pa.DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        *ws_ptrs, tickets.data_ptr(), B, Hq, Hkv, hd, S, n, sb, sh, ss,
+        pa.DTYPE_CODES[q.dtype], stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode launch failed: {err_str(rc).decode()}")

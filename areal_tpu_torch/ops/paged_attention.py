@@ -11,8 +11,9 @@ same function with a kernel that keeps several key tiles in flight; the
 engine picks it for long contexts.
 
 An int8 pool comes with float32 scales ``k_scale``/``v_scale`` ``[NB,
-Hkv, BS]`` (one per block, head and slot); both functions dequantize
-right after the load, so the attention arithmetic is float32 either way.
+Hkv, BS]`` (one per block, head and slot): a key's K scale multiplies its
+scores and its V scale its values, so the result is the float32
+attention over the dequantized pool either way.
 
 On CUDA tensors each function launches its hand-written Hopper kernel
 (``csrc/paged_attention.cu``, which replaces the Pallas TPU kernel
@@ -23,6 +24,10 @@ and ``csrc/paged_attention_deep.cu``, which replaces
 :func:`paged_entry` from shapes and dtypes alone: a prefill chunk (more
 than one query token per row, bf16 q over a bf16 or int8 pool) runs on
 the tensor cores, everything else (decode, fp32/fp16) on CUDA cores.
+:func:`paged_flash_attention_deep` has two bodies, picked by
+:func:`deep_body` from dtypes alone: bf16 q over a bf16 or int8 pool on
+the tensor cores (its copies by TMA or per-key ``cp.async``,
+:func:`deep_copy_route`), float32 and float16 q on CUDA cores.
 On CPU tensors both run the plain version,
 :func:`reference_paged_partials`, a straight port of the reference's jnp
 ``reference_paged_partials``.  What bounds each kernel on an H100 and
@@ -55,15 +60,27 @@ DEEP_ENTRY = "paged_attention_deep_fwd"
 #: grid must stay within the blocks that fit on the card at once).  An
 #: H100 SXM has 132 SMs.  The decode and deep kernels' shared memory allows
 #: two blocks per SM, so a grid one block larger than 264 would run a
-#: second wave for that block; the decode entry's splits own at least four
-#: 64-key tiles (a ring of three or four stages keeps them all in flight),
-#: the deep kernel's eight.  The prefill entry aims for two waves of two
-#: blocks per SM, so unequal splits even out, of at least 16 tiles each.
+#: second wave for that block.  The decode entry's splits own at least four
+#: 64-key tiles (a ring of three or four stages keeps them all in flight).
+#: The deep kernel's tensor-core body keeps 3 (bf16) or 6 (int8) 64-key
+#: stages of its 8-row tiles in flight (about 100 KB of ring per block,
+#: two blocks per SM), and its splits merge in the last one with no second
+#: launch, as the decode entry's do: the same four tiles per split fill
+#: its bf16 ring, and more splits only lengthen the merge.  The prefill
+#: entry aims for two waves of two blocks per SM, so unequal splits even
+#: out, of at least 16 tiles each.
 _SPLIT_RULES = {
     DECODE_ENTRY: (8, 2 * 132, 256, True),
     PREFILL_ENTRY: (64, 4 * 132, 1024, False),
-    DEEP_ENTRY: (8, 2 * 132, 512, True),
+    DEEP_ENTRY: (8, 2 * 132, 256, True),
 }
+#: the entries whose split merge takes a ticket per (row, KV head, query
+#: tile) from ``ticket_counters``
+TICKET_ENTRIES = (DECODE_ENTRY, DEEP_ENTRY)
+#: keys per stage of the deep kernel's tensor-core body, and the bytes of
+#: one TMA box's row
+DEEP_TILE_KEYS = 64
+TMA_BOX_BYTES = 128
 
 def gather_paged_kv(
     k_pool: torch.Tensor,  # [NB, Hkv, BS, hd]
@@ -124,12 +141,12 @@ def kernel_entry(library: str, symbol: str):
     """The C entry point ``symbol`` of ``csrc/<library>.cu`` (the library is
     built at the first call) and its error-string function.  Every paged
     entry point takes the arguments of ``paged_attention_fwd``; the decode
-    entry also its ticket counters, after the workspace."""
+    and deep entries also their ticket counters, after the workspace."""
     cdll = _build.load_library(library).cdll
     fn = getattr(cdll, symbol)
     fn.argtypes = (
         [ctypes.c_void_p] * 13  # q, k, v, k/v scale, tables, lengths, acc, m, l, 3 ws
-        + [ctypes.c_void_p] * (symbol == DECODE_ENTRY)  # ticket counters
+        + [ctypes.c_void_p] * (symbol in TICKET_ENTRIES)  # ticket counters
         + [ctypes.c_int] * 9  # B, Q, Hq, Hkv, hd, BS, MB, NB, n_splits
         + [ctypes.c_longlong] * 5  # pool block/head/slot, scale block/head strides
         + [ctypes.c_int] * 2  # q dtype, pool dtype codes
@@ -152,6 +169,38 @@ def paged_entry(Q: int, q_dtype: torch.dtype, pool_dtype: torch.dtype) -> str:
     ):
         return PREFILL_ENTRY
     return DECODE_ENTRY
+
+
+def deep_body(q_dtype: torch.dtype, pool_dtype: torch.dtype) -> str:
+    """Which body of ``csrc/paged_attention_deep.cu`` a deep call runs:
+    ``"tensor_cores"`` for bf16 q over a bf16 or int8 pool (``mma.sync``
+    products), else ``"cuda_cores"`` (float32 and float16 q).  Decided
+    from the dtypes only, as the C entry's ``deep_fwd`` does; no failure
+    ever leads to the CUDA-core body."""
+    if q_dtype == torch.bfloat16 and pool_dtype in (torch.bfloat16,
+                                                    torch.int8):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def deep_copy_route(BS: int, hd: int, pool_dtype: torch.dtype,
+                    k_scale: Optional[torch.Tensor] = None) -> str:
+    """How the deep kernel's tensor-core body copies a call's tiles into
+    shared memory (``tma_route`` in ``csrc/paged_attention_deep.cu`` states
+    the same rule): ``"tma"`` (box copies of 64 keys x 128 bytes through a
+    tensor map, and bulk copies of the scales) when a page holds whole
+    64-key tiles, a row is a whole number of 128-byte boxes and an int8
+    pool's scale tiles are 16-byte aligned; else ``"cp.async"`` (one
+    16-byte copy per piece of each key row, its page looked up per key
+    unless a page holds whole tiles).  Shapes and strides only."""
+    item = torch.empty((), dtype=pool_dtype).element_size()
+    if BS % DEEP_TILE_KEYS or (hd * item) % TMA_BOX_BYTES:
+        return "cp.async"
+    if k_scale is not None and (
+        k_scale.data_ptr() % 16 or any(st % 4 for st in k_scale.stride()[:2])
+    ):
+        return "cp.async"
+    return "tma"
 
 
 def n_splits(B: int, Q: int, Hq: int, Hkv: int, capacity: int,
@@ -250,15 +299,16 @@ def check_args(q, k_pool, v_pool, tables, lengths, k_scale, v_scale):
         raise ValueError("q and pool rows must be 16-byte aligned")
 
 
-#: the decode entry's ticket counters, one int32 per (row, KV head, query
-#: tile), by (device, stream): zero between calls (the kernel resets the
-#: ones it uses), grown when a call needs more
+#: the ticket counters of the decode and deep entries, one int32 per (row,
+#: KV head, query tile), by (device, stream): zero between calls (the
+#: kernels reset the ones they use), grown when a call needs more; calls
+#: on one stream run in turn, so the two entries share them
 _TICKETS: dict = {}
 
 
 def ticket_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 ticket counters for the decode entry's
-    calls on ``stream`` of ``device``, kept from call to call.  A larger
+    """At least ``n`` zeroed int32 ticket counters for the decode and deep
+    entries' calls on ``stream`` of ``device``, kept from call to call.  A larger
     set replaces a smaller one; the kernels still queued on the stream
     finish with the old set before the allocator hands its memory out
     again."""
@@ -267,6 +317,13 @@ def ticket_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
         t = torch.zeros(n, dtype=torch.int32, device=device)
         _TICKETS[(device, stream)] = t
     return t
+
+
+def n_tickets(symbol: str, B: int, Q: int, Hq: int, Hkv: int) -> int:
+    """Ticket counters a call of the entry ``symbol`` uses: one per (row,
+    KV head, query tile of the entry's grouped rows)."""
+    rows = _SPLIT_RULES[symbol][0]
+    return B * Hkv * -(-(Q * (Hq // Hkv)) // rows)
 
 
 def launch_paged(library, symbol, counter, q, k_pool, v_pool, tables,
@@ -296,11 +353,9 @@ def launch_paged(library, symbol, counter, q, k_pool, v_pool, tables,
     ssb, ssh = k_scale.stride()[:2] if quant else (0, 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tickets = ()
-    if symbol == DECODE_ENTRY:
-        rows = _SPLIT_RULES[DECODE_ENTRY][0]
-        n_qtiles = -(-(Q * (Hq // Hkv)) // rows)
-        tickets = (ticket_counters(q.device, stream,
-                                   B * Hkv * n_qtiles).data_ptr(),)
+    if symbol in TICKET_ENTRIES:
+        tickets = (ticket_counters(
+            q.device, stream, n_tickets(symbol, B, Q, Hq, Hkv)).data_ptr(),)
     sb, sh, ss, _ = k_pool.stride()
     rc = fn(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -358,9 +413,10 @@ def paged_flash_attention_deep(
     contract, from a kernel that streams each block's key range through a
     ring of tiles in flight (``csrc/paged_attention_deep.cu``, which
     replaces ``paged_flash_attention_deep`` at
-    ``areal_tpu/ops/paged_attention.py:463``).  The engine picks it by
-    its dispatch table's ``deep_min_context``.  CPU tensors take the plain
-    version, :func:`reference_paged_partials`."""
+    ``areal_tpu/ops/paged_attention.py:463``; its body by
+    :func:`deep_body`).  The engine picks it by its dispatch table's
+    ``deep_min_context``.  CPU tensors take the plain version,
+    :func:`reference_paged_partials`."""
     if q.device.type == "cpu":
         return reference_paged_partials(
             q, k_pool, v_pool, tables, lengths, k_scale, v_scale

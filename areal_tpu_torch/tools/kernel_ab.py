@@ -1,5 +1,6 @@
-"""One side of a parent-vs-change comparison of the paged kernel's decode
-entry and the flash-attention forward on one CUDA card.
+"""One side of a parent-vs-change comparison of the paged kernels' decode
+calls (the standard kernel's decode entry, the deep kernel and
+``flash_decode``) and the flash-attention forward on one CUDA card.
 
 Run it from the root of the tree under test, which supplies
 ``areal_tpu_torch``; the script itself may come from another checkout
@@ -14,12 +15,15 @@ parent).  It prints one ``AB {...}`` JSON line of device milliseconds per
 call (CUDA events):
 
 * the decode entry (``paged_flash_attention`` with one query token per
-  row) at ``chip_smoke.py``'s 8-row shape (lengths 0, 1, 255, 256, 257,
-  4096, 1365, 3072 over a 16-page table of 256-token pages; Hq 12, Hkv 2,
-  hd 128) and at 16 full rows of 32768 tokens, bf16 and int8 pools.  The
-  timed calls cycle over enough pool layers that the bytes they read
-  between two calls on one layer exceed twice the card's L2, so every
-  call finds its cache traffic in device memory, as a decode step does;
+  row) and the deep kernel (``paged_flash_attention_deep``) at
+  ``chip_smoke.py``'s 8-row shape (lengths 0, 1, 255, 256, 257, 4096,
+  1365, 3072 over a 16-page table of 256-token pages; Hq 12, Hkv 2, hd
+  128) and at 16 full rows of 32768 tokens, bf16 and int8 pools, and
+  ``flash_decode`` over a contiguous bf16 cache of 16 full rows of 32768
+  tokens.  The timed calls cycle over enough pool layers that the bytes
+  they read between two calls on one layer exceed twice the card's L2, so
+  every call finds its cache traffic in device memory, as a decode step
+  does;
 * the flash-attention forward at ``chip_smoke.py``'s packed (B=2,
   T=4096) and long (T=16384) layouts.
 
@@ -135,19 +139,47 @@ def cycling(fn, inputs):
     return run
 
 
-def decode_ms(B, MB, lengths, int8, device, iters=20):
-    """The decode entry's L2-cold milliseconds per call at one shape."""
+def decode_ms(B, MB, lengths, int8, device, iters=20, deep=False):
+    """L2-cold milliseconds per call at one decode shape of the standard
+    kernel (its decode entry) or, with ``deep``, the deep kernel."""
     import torch
 
-    from areal_tpu_torch.ops.paged_attention import paged_flash_attention
+    from areal_tpu_torch.ops import paged_attention as pa
 
+    fn = pa.paged_flash_attention_deep if deep else pa.paged_flash_attention
     n = cold_layers(touched_bytes(lengths, 2, 128, 1 if int8 else 2,
                                   4 if int8 else 0))
     inputs = decode_inputs(B, MB, lengths, int8, n, device)
-    ms = time_ms(cycling(paged_flash_attention, inputs), iters, device)
+    ms = time_ms(cycling(fn, inputs), iters, device)
     del inputs
     torch.cuda.empty_cache()
     return ms, n
+
+
+def flash_decode_ms(B, S, device, iters=10, Hq=12, Hkv=2, hd=128):
+    """``flash_decode``'s L2-cold milliseconds per call over B full rows of
+    a contiguous bf16 cache [B, Hkv, S, hd]."""
+    import torch
+
+    from areal_tpu_torch.ops.decode_attention import flash_decode
+
+    n = cold_layers(touched_bytes((S,) * B, Hkv, hd, 2))
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    q = torch.randn((B, Hq, hd), generator=g, device=device).to(torch.bfloat16)
+    k, v = (torch.randn((n, B, Hkv, S, hd), generator=g, device=device)
+            .to(torch.bfloat16) for _ in range(2))
+    lens = torch.full((B,), S, dtype=torch.int32, device=device)
+    layer = [0]
+
+    def run():
+        i = layer[0] = (layer[0] + 1) % n
+        return flash_decode(q, k[i], v[i], lens)
+
+    ms = time_ms(run, iters, device)
+    del k, v
+    torch.cuda.empty_cache()
+    return ms
 
 
 def flash_fwd_ms(B, T, rows, device, iters=10, Hq=12, Hkv=2, hd=128):
@@ -193,10 +225,15 @@ def main(tag: str) -> int:
     long_lens = (LONG_MB * PAGE_SIZE,) * LONG_ROWS
     for int8 in (False, True):
         pool = "int8" if int8 else "bf16"
-        res[f"decode_{pool}_ms"], res[f"decode_{pool}_layers"] = decode_ms(
-            len(DECODE_LENGTHS), DECODE_MB, DECODE_LENGTHS, int8, dev)
-        res[f"decode_16x32768_{pool}_ms"], _ = decode_ms(
-            LONG_ROWS, LONG_MB, long_lens, int8, dev, iters=10)
+        for kind in ("decode", "deep"):
+            res[f"{kind}_{pool}_ms"], res[f"{kind}_{pool}_layers"] = decode_ms(
+                len(DECODE_LENGTHS), DECODE_MB, DECODE_LENGTHS, int8, dev,
+                deep=kind == "deep")
+            res[f"{kind}_16x32768_{pool}_ms"], _ = decode_ms(
+                LONG_ROWS, LONG_MB, long_lens, int8, dev, iters=10,
+                deep=kind == "deep")
+    res["flash_decode_16x32768_ms"] = flash_decode_ms(
+        LONG_ROWS, LONG_MB * PAGE_SIZE, dev)
     for name, B, T, rows in FLASH_LAYOUTS:
         res[f"flash_fwd_{name}_ms"] = flash_fwd_ms(B, T, rows, dev)
     print("AB " + json.dumps(res), flush=True)

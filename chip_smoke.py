@@ -5,7 +5,8 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-or, to also time the paged kernel's decode entry and the flash-attention
+or, to also time the paged kernels' decode calls (the standard decode
+entry, the deep kernel and ``flash_decode``) and the flash-attention
 forward of a parent tree against this one in the same run, with a tree
 unpacked from ``git archive`` of the parent commit (each side runs
 ``areal_tpu_torch/tools/kernel_ab.py`` in its own process, in turns
@@ -24,9 +25,12 @@ from a seed, float32 master weights and their bf16 serving copy):
    tensor-core entry: 8 rows of Q=512, and one row of Q=512 after a
    31000-token prefix), the deep kernel on both
    pools at the prefill-chunk shape and at decode over 16 rows of up to
-   32768 tokens (lengths 0, 1, BS-1, BS, BS+1, full and between), the
-   decode entry on float32 and float16 q and pools, and ``flash_decode``
-   over a contiguous 16 x 32768 cache; repeats every call
+   32768 tokens (lengths 0, 1, BS-1, BS, BS+1, full and between; each
+   deep call logs the body it runs, tensor cores or CUDA cores, and its
+   copy route), the decode entry and the deep kernel on float32 and
+   float16 q and pools, and ``flash_decode`` over a contiguous 16 x 32768
+   cache beside ``scaled_dot_product_attention`` on the same rows (its
+   backend logged); repeats every call
    (a decode call with key splits among them) and requires the repeat
    bit-identical; times the decode entry L2-cold (cycling over enough pool
    layers that the bytes it reads between two calls on one layer exceed
@@ -351,6 +355,8 @@ def kernel_case(name, fn, inputs, device, *, time_lengths=None,
         raise AssertionError(f"{name}: a repeated call differs")
     log(f"kernel {name}: repeated call bit-identical, {n_layers} pool layers "
         f"timed in turn")
+    if fn is pa.paged_flash_attention_deep:
+        log(f"kernel {name}: {deep_route(q, kp, ks)}")
     tl = lens if time_lengths is None else time_lengths
     layer = [0]
 
@@ -375,6 +381,21 @@ def kernel_case(name, fn, inputs, device, *, time_lengths=None,
                 bound_ms=bound_ms, bound_by=bound_by,
                 shape=f"B={B} Q={Q} Hq={Hq} Hkv={Hkv} hd={hd} {pool} pool, "
                       f"{int(tl.sum())} cached tokens")
+
+
+def deep_route(q, k_pool, k_scale=None):
+    """Which body of the deep kernel a call on these tensors runs, and its
+    copy route (``deep_body``, ``deep_copy_route``: dtypes and shapes
+    only), as a phrase for the log."""
+    from areal_tpu_torch.ops import paged_attention as pa
+
+    body = pa.deep_body(q.dtype, k_pool.dtype)
+    if body == "cuda_cores":
+        return "deep kernel body cuda_cores"
+    BS, hd = k_pool.shape[-2:]
+    route = pa.deep_copy_route(
+        BS, hd, k_pool.dtype, None if k_scale is None else k_scale[0])
+    return f"deep kernel body tensor_cores, {route} copies"
 
 
 def compare_kernel(name, B, Q, lengths, device, *, fn=None, int8=False,
@@ -454,10 +475,10 @@ def kernel_phase(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
 
 def decode_dtype_checks(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
                         Hq=12, Hkv=2, hd=128):
-    """The decode entry on the q/pool types off the main path (float32 and
-    float16, one query token per row, and float32 with four, which takes
-    tiles of 8 grouped rows) against the plain version, with a repeated
-    call bit-identical."""
+    """The decode entry and the deep kernel (its CUDA-core body) on the
+    q/pool types off the main path (float32 and float16, one query token
+    per row, and float32 with four, which takes tiles of 8 grouped rows)
+    against the plain version, with a repeated call bit-identical."""
     import torch
 
     from areal_tpu_torch.ops import paged_attention as pa
@@ -471,15 +492,21 @@ def decode_dtype_checks(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
             SEED + 5)
         if pa.paged_entry(Q, dtype, dtype) != pa.DECODE_ENTRY:
             raise AssertionError(f"{dtype} Q={Q} left the decode entry")
-        got = pa.paged_flash_attention(q, kp[0], vp[0], tables, lens)
-        again = pa.paged_flash_attention(q, kp[0], vp[0], tables, lens)
+        if pa.deep_body(dtype, dtype) != "cuda_cores":
+            raise AssertionError(f"{dtype} left the deep CUDA-core body")
         ref = pa.reference_paged_partials(q, kp[0], vp[0], tables, lens)
-        _sync(device)
-        check_partials(f"decode entry, {dtype} q and pool, Q={Q}", got, ref,
-                       lens)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"decode entry {dtype} Q={Q}: a repeated "
-                                 "call differs")
+        for what, fn in (("decode entry", pa.paged_flash_attention),
+                         ("deep kernel", pa.paged_flash_attention_deep)):
+            got = fn(q, kp[0], vp[0], tables, lens)
+            again = fn(q, kp[0], vp[0], tables, lens)
+            _sync(device)
+            check_partials(f"{what}, {dtype} q and pool, Q={Q}", got, ref,
+                           lens)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{what} {dtype} Q={Q}: a repeated "
+                                     "call differs")
+        log(f"kernel deep kernel, {dtype} q and pool: "
+            f"{deep_route(q, kp)}")
 
 
 def long_kernel_phase(device, *, B=16, MB=None, BS=PAGE_SIZE,
@@ -558,7 +585,9 @@ def long_kernel_phase(device, *, B=16, MB=None, BS=PAGE_SIZE,
 def flash_decode_case(device, *, B, S, lengths, timing_iters, n_layers,
                       Hq=12, Hkv=2, hd=128):
     """``flash_decode`` against its plain version over a contiguous bf16
-    cache [B, Hkv, S, hd] at ``lengths``, then timed on full rows."""
+    cache [B, Hkv, S, hd] at ``lengths``, then timed on full rows beside
+    ``scaled_dot_product_attention`` of the same query over the same rows
+    (a normalised output in place of the partials; the yardstick only)."""
     import torch
 
     from areal_tpu_torch.ops import decode_attention as da
@@ -593,17 +622,46 @@ def flash_decode_case(device, *, B, S, lengths, timing_iters, n_layers,
     ms = time_ms(timed(da.flash_decode), timing_iters, device)
     plain_ms = time_ms(timed(da.reference_decode_partials),
                        max(2, timing_iters // 10), device)
+    qs = q[:, :, None]  # [B, Hq, 1, hd]
+
+    def sdpa(q_, k_, v_, _):
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, k_, v_, enable_gqa=True)
+
+    library_ms = time_ms(timed(sdpa), timing_iters, device)
+    log(f"kernel flash_decode: SDPA's device kernels for one call: "
+        f"{sdpa_kernels(lambda: sdpa(q, k[0], v[0], full), device)}")
     t_bytes, t_ops = bound(q[:, None], full, Hkv, hd)
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"kernel flash_decode: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.5f} ms by {bound_by} ({B} full rows of {S} tokens)")
+    log(f"kernel flash_decode: {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} ({B} "
+        f"full rows of {S} tokens); "
+        f"{deep_route(q, k[0])} (the cache is a pool of {B} pages of {S})")
     del caches, k, v
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by,
+                bound_by=bound_by, library_ms=library_ms,
                 shape=f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} bf16 cache, "
                       f"{B * S} cached tokens")
+
+
+def sdpa_kernels(fn, device) -> str:
+    """The device kernels one call of ``fn`` launches (``torch.profiler``
+    device rows; the backend SDPA chose shows in their names)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return "not measured (no card)"
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if getattr(e, "device_time_total", 0) > 0})
+    return ", ".join(names) if names else "not measured (no device rows)"
 
 
 # ---------------------------------------------------------------------------
@@ -1531,6 +1589,10 @@ def long_context_phase(cfg, master, params, device, card, *,
         if (deep_chunks > 0) != (deep_min is not None):
             raise AssertionError(f"long {name}: {deep_chunks} deep decode "
                                  "chunks")
+        if deep_chunks:
+            q_like = torch.empty((), dtype=getattr(torch, cfg.dtype))
+            log(f"long {name}: its {deep_chunks} deep decode chunks ran the "
+                f"{deep_route(q_like, eng.k_pool[0], eng.k_scale)}")
         leaked = eng.close()
         if leaked or eng.free_pool_blocks != eng.n_blocks:
             raise AssertionError(f"long {name}: leaked pool blocks {leaked}")
@@ -1600,10 +1662,12 @@ def long_context_phase(cfg, master, params, device, card, *,
 
 
 def parent_ab(parent: str):
-    """The decode entry and the flash-attention forward of the parent tree
-    at ``parent`` and of this tree, timed in turns (parent, change, change,
-    parent), each side by ``areal_tpu_torch/tools/kernel_ab.py`` in its
-    own process from its tree's root; prints each side's ``AB`` line."""
+    """The paged kernels' decode calls (the decode entry, the deep kernel
+    on both pools, ``flash_decode``) and the flash-attention forward of the
+    parent tree at ``parent`` and of this tree, timed in turns (parent,
+    change, change, parent), each side by
+    ``areal_tpu_torch/tools/kernel_ab.py`` in its own process from its
+    tree's root; prints each side's ``AB`` line."""
     from pathlib import Path
 
     here = Path(__file__).resolve().parent
@@ -1725,7 +1789,8 @@ def kernel_entries(kern, long_kern, eng, long, flash, train):
     def entry(name, source, replaces, launches, err, main, **extra):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches, max_abs_err=err,
-                    library_ms=None, **{k: main[k] for k in timed}, **extra)
+                    library_ms=main.get("library_ms"),
+                    **{k: main[k] for k in timed}, **extra)
 
     paged_src = "areal_tpu_torch/csrc/paged_attention.cu"
     deep_src = "areal_tpu_torch/csrc/paged_attention_deep.cu"
@@ -1779,7 +1844,8 @@ def kernel_entries(kern, long_kern, eng, long, flash, train):
         entry("flash_decode", deep_src, "areal_tpu/ops/decode_attention.py:150",
               0, long_kern["flash_decode"]["max_abs_err"],
               long_kern["flash_decode"],
-              note="on no path: compared and timed only"),
+              note="on no path: compared and timed only; library_ms is "
+                   "scaled_dot_product_attention on the same full rows"),
     ]
     for kind in ("fwd", "bwd"):
         main_shape, long_shape = flash["packed"][kind], flash["long"][kind]
