@@ -14,8 +14,9 @@ tolerances; repeated calls bit-identical): bf16 and int8 pools at the
 BS + 1 and full, pages of 48, a Q = 64 chunk, float32 and float16 q.
 Then it times the variants L2-cold in turns (TMA, cp.async, cp.async,
 TMA) at the 8-row shape and at 16 full rows of 32768 tokens, beside the
-standard decode entry, and prints one ``VARIANTS {...}`` JSON line of
-milliseconds per call.
+standard decode entry, and the TMA variant under two split rules (at
+least 256 keys per split, and 512, in turns), and prints one
+``VARIANTS {...}`` JSON line of milliseconds per call.
 """
 
 import ctypes
@@ -167,6 +168,14 @@ def main() -> int:
                 res.setdefault(f"{label}_{pool}_{vname}_ms", []).append(ms)
             res[f"{label}_{pool}_standard_ms"] = kab.time_ms(
                 kab.cycling(pa.paged_flash_attention, inputs), iters, dev)
+            # the split rule: splits of at least 256 keys (this tree)
+            # against 512 (the parent's), TMA copies
+            rule = pa._SPLIT_RULES[pa.DEEP_ENTRY]
+            for min_keys in (256, 512, 512, 256):
+                pa._SPLIT_RULES[pa.DEEP_ENTRY] = rule[:2] + (min_keys,) + rule[3:]
+                res.setdefault(f"{label}_{pool}_split{min_keys}_ms", []).append(
+                    kab.time_ms(kab.cycling(variants["tma"], inputs), iters, dev))
+            pa._SPLIT_RULES[pa.DEEP_ENTRY] = rule
             del inputs
             torch.cuda.empty_cache()
     print("VARIANTS " + json.dumps(res), flush=True)
