@@ -64,8 +64,9 @@
 //   equal share of the row's live tiles; a split past the live length
 //   exits at once.  The last live split of (row, KV head) to finish, found
 //   by a ticket from a per-(row, KV head) counter that it resets, merges
-//   every split's partials in split order: one launch per call, and the
-//   result is bit-identical on repeat.  A device value is never read on
+//   every split's partials in split order (`paged::merge_live_splits`,
+//   which the deep kernel's tensor-core body shares): one launch per
+//   call, and the result is bit-identical on repeat.  A device value is never read on
 //   the host and nothing is allocated by length.
 // * The scores and P.V stay f32, as the reference's HIGHEST-precision
 //   dots.

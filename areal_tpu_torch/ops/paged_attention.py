@@ -65,14 +65,16 @@ DEEP_ENTRY = "paged_attention_deep_fwd"
 #: The deep kernel's tensor-core body keeps 3 (bf16) or 6 (int8) 64-key
 #: stages of its 8-row tiles in flight (about 100 KB of ring per block,
 #: two blocks per SM), and its splits merge in the last one with no second
-#: launch, as the decode entry's do: the same four tiles per split fill
-#: its bf16 ring, and more splits only lengthen the merge.  The prefill
-#: entry aims for two waves of two blocks per SM, so unequal splits even
-#: out, of at least 16 tiles each.
+#: launch; its splits own at least eight tiles: on an H100, 8 splits of
+#: 512 keys took 0.0150 / 0.0152 ms (bf16 / int8) at the 8-row decode
+#: shape against 0.0155-0.0157 / 0.0154-0.0155 ms for 16 splits of 256
+#: keys, timed in turns (`tools/variant_ab.py`; equal at 16 x 32768, where
+#: both rules give 8 splits).  The prefill entry aims for two waves of two
+#: blocks per SM, so unequal splits even out, of at least 16 tiles each.
 _SPLIT_RULES = {
     DECODE_ENTRY: (8, 2 * 132, 256, True),
     PREFILL_ENTRY: (64, 4 * 132, 1024, False),
-    DEEP_ENTRY: (8, 2 * 132, 256, True),
+    DEEP_ENTRY: (8, 2 * 132, 512, True),
 }
 #: the entries whose split merge takes a ticket per (row, KV head, query
 #: tile) from ``ticket_counters``

@@ -15,7 +15,9 @@ BS + 1 and full, pages of 48, a Q = 64 chunk, float32 and float16 q.
 Then it times the variants L2-cold in turns (TMA, cp.async, cp.async,
 TMA) at the 8-row shape and at 16 full rows of 32768 tokens, beside the
 standard decode entry, and the TMA variant under two split rules (at
-least 256 keys per split, and 512, in turns), and prints one
+least 512 keys per split, and 1024, in turns), and ``flash_decode``
+against ``scaled_dot_product_attention`` on 16 full rows of 32768 tokens
+in turns, and prints one
 ``VARIANTS {...}`` JSON line of milliseconds per call.
 """
 
@@ -168,16 +170,38 @@ def main() -> int:
                 res.setdefault(f"{label}_{pool}_{vname}_ms", []).append(ms)
             res[f"{label}_{pool}_standard_ms"] = kab.time_ms(
                 kab.cycling(pa.paged_flash_attention, inputs), iters, dev)
-            # the split rule: splits of at least 256 keys (this tree)
-            # against 512 (the parent's), TMA copies
+            # the split rule: splits of at least 512 keys (this tree)
+            # against 1024, TMA copies
             rule = pa._SPLIT_RULES[pa.DEEP_ENTRY]
-            for min_keys in (256, 512, 512, 256):
+            for min_keys in (512, 1024, 1024, 512):
                 pa._SPLIT_RULES[pa.DEEP_ENTRY] = rule[:2] + (min_keys,) + rule[3:]
                 res.setdefault(f"{label}_{pool}_split{min_keys}_ms", []).append(
                     kab.time_ms(kab.cycling(variants["tma"], inputs), iters, dev))
             pa._SPLIT_RULES[pa.DEEP_ENTRY] = rule
             del inputs
             torch.cuda.empty_cache()
+    # flash_decode against scaled_dot_product_attention on the same full
+    # rows, in turns
+    B, S = kab.LONG_ROWS, kab.LONG_MB * kab.PAGE_SIZE
+    n = kab.cold_layers(kab.touched_bytes((S,) * B, 2, 128, 2))
+    qd = torch.randn((B, 12, 128), generator=g, device=dev).to(torch.bfloat16)
+    kd, vd = (torch.randn((n, B, 2, S, 128), generator=g, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    full = torch.full((B,), S, dtype=torch.int32, device=dev)
+    layer = [0]
+
+    def cyc(f):
+        def run():
+            i = layer[0] = (layer[0] + 1) % n
+            return f(kd[i], vd[i])
+        return run
+
+    fns = {"flash_decode": lambda k_, v_: da.flash_decode(qd, k_, v_, full),
+           "sdpa": lambda k_, v_: torch.nn.functional.scaled_dot_product_attention(
+               qd[:, :, None], k_, v_, enable_gqa=True)}
+    for name in ("flash_decode", "sdpa", "sdpa", "flash_decode"):
+        res.setdefault(f"16x32768_{name}_ms", []).append(
+            kab.time_ms(cyc(fns[name]), 10, dev))
     print("VARIANTS " + json.dumps(res), flush=True)
     return 0
 

@@ -588,8 +588,8 @@ def test_split_rule_at_the_main_path_shapes():
     # the recipe's 16 rows of 32768 tokens: 8 splits of 4096 keys, 256
     # blocks (two per SM on 132 SMs)
     assert tpa.n_splits(16, 1, 12, 2, 32768, entry=rule) == 8
-    # the 8-row decode shape over a 4096-token table: 16 splits of 256 keys
-    assert tpa.n_splits(8, 1, 12, 2, 4096, entry=rule) == 16
+    # the 8-row decode shape over a 4096-token table: 8 splits of 512 keys
+    assert tpa.n_splits(8, 1, 12, 2, 4096, entry=rule) == 8
     # a prefill-shaped call fills the card with its query tiles alone
     assert tpa.n_splits(8, 512, 12, 2, 4096, entry=rule) == 1
     # one ticket per (row, KV head, 8-row query tile)
@@ -599,10 +599,10 @@ def test_split_rule_at_the_main_path_shapes():
 
 @pytest.mark.parametrize("B", [1, 2, 8, 16, 64, 300])
 @pytest.mark.parametrize("capacity", [256, 4096, 32768])
-def test_split_rule_is_one_wave_of_four_tile_splits(B, capacity):
+def test_split_rule_is_one_wave_of_eight_tile_splits(B, capacity):
     S = tpa.n_splits(B, 1, 12, 2, capacity, entry=tpa.DEEP_ENTRY)
     blocks = S * 2 * B
     assert S >= 1
     if S > 1:
-        assert blocks <= 264 and capacity // S >= 4 * KT
-        assert (S + 1) * 2 * B > 264 or capacity // (S + 1) < 4 * KT
+        assert blocks <= 264 and capacity // S >= 8 * KT
+        assert (S + 1) * 2 * B > 264 or capacity // (S + 1) < 8 * KT
