@@ -147,33 +147,16 @@ constexpr int kMaxStages = 8;
 constexpr int kStageBudget = 110 * 1024;    // bytes of ring per block
 constexpr int kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 // wait until at most n of this thread's copy groups are pending
 __device__ __forceinline__ void cp_async_wait_dyn(int n) {
   switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    default: cp_async_wait<6>(); break;
+    case 0: tc::cp_async_wait<0>(); break;
+    case 1: tc::cp_async_wait<1>(); break;
+    case 2: tc::cp_async_wait<2>(); break;
+    case 3: tc::cp_async_wait<3>(); break;
+    case 4: tc::cp_async_wait<4>(); break;
+    case 5: tc::cp_async_wait<5>(); break;
+    default: tc::cp_async_wait<6>(); break;
   }
 }
 
@@ -259,9 +242,12 @@ paged_deep_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
       const int page = min(max(table[pos / BS], 0), NB - 1);
       const long long off = page * sb + h * sh + (long long)(pos % BS) * ss;
       const int dst = key * Lay::kRowStride + c * 16;
-      cp_async16(st + dst, reinterpret_cast<const unsigned char*>(k_pool + off) + c * 16);
-      cp_async16(st + Lay::kKBytes + dst,
-                 reinterpret_cast<const unsigned char*>(v_pool + off) + c * 16);
+      tc::cp_async16(st + dst,
+                     reinterpret_cast<const unsigned char*>(k_pool + off) + c * 16,
+                     true);
+      tc::cp_async16(st + Lay::kKBytes + dst,
+                     reinterpret_cast<const unsigned char*>(v_pool + off) + c * 16,
+                     true);
     }
     if constexpr (kQuant) {
       float* ks_s = reinterpret_cast<float*>(st + 2 * Lay::kKBytes);
@@ -271,8 +257,8 @@ paged_deep_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
         if (pos >= length) continue;
         const int page = min(max(table[pos / BS], 0), NB - 1);
         const long long so = page * ssb + h * ssh + pos % BS;
-        cp_async4(ks_s + key, k_scale + so);
-        cp_async4(ks_s + kKeys + key, v_scale + so);
+        tc::cp_async4(ks_s + key, k_scale + so, true);
+        tc::cp_async4(ks_s + kKeys + key, v_scale + so, true);
       }
     }
   };
@@ -290,14 +276,14 @@ paged_deep_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
   // groups included, so the group count stays uniform)
   for (int s = 0; s < nstage - 1; ++s) {
     if (s < n) load_stage(t_begin + s, s);
-    cp_async_commit();
+    tc::cp_async_commit();
   }
   for (int i = 0; i < n; ++i) {
     cp_async_wait_dyn(nstage - 2);  // this thread's copies of tile i landed
     __syncthreads();  // everyone's did; the stage of tile i-1 is free
     const int nxt = i + nstage - 1;
     if (nxt < n) load_stage(t_begin + nxt, nxt % nstage);
-    cp_async_commit();
+    tc::cp_async_commit();
 
     const unsigned char* st = ring + (i % nstage) * Lay::kStageBytes;
     const int tile_base = (t_begin + i) * kKeys;
@@ -387,7 +373,7 @@ paged_deep_kernel(const Tq* __restrict__ q, const Tk* __restrict__ k_pool,
       }
     }
   }
-  cp_async_wait<0>();
+  tc::cp_async_wait<0>();
   __syncthreads();  // the ring is free: the warps' partials merge there
 
   float* red_m = reinterpret_cast<float*>(ring);  // [kWarps][kRows]
@@ -921,8 +907,7 @@ bool tma_route(int BS, int hd, int item, const float* k_scale,
 }
 
 template <typename Tk, int HD>
-cudaError_t launch_tc(dim3 grid, cudaStream_t st, bool allow_tma,
-                      const void* q, const void* k_pool, const void* v_pool,
+cudaError_t launch_tc(dim3 grid, cudaStream_t st, const void* q, const void* k_pool, const void* v_pool,
                       const float* k_scale, const float* v_scale,
                       const int* tables, const int* lengths, float* acc,
                       float* m, float* l, float* acc_ws, float* m_ws,
@@ -935,8 +920,7 @@ cudaError_t launch_tc(dim3 grid, cudaStream_t st, bool allow_tma,
   CUtensorMap k_map, v_map;
   memset(&k_map, 0, sizeof(k_map));
   memset(&v_map, 0, sizeof(v_map));
-  const bool use_tma =
-      allow_tma && tma_route(BS, HD, item, k_scale, v_scale, ssb, ssh);
+  const bool use_tma = tma_route(BS, HD, item, k_scale, v_scale, ssb, ssh);
   if (use_tma) {
     cudaError_t err = pool_map(&k_map, k_pool, item, HD, BS, Hkv, NB, sb, sh, ss);
     if (err == cudaSuccess)
@@ -957,8 +941,7 @@ cudaError_t launch_tc(dim3 grid, cudaStream_t st, bool allow_tma,
 }
 
 // Both bodies behind one C entry: bf16 q (pool bf16 or int8) runs the
-// tensor-core body (`allow_tma` false forces its per-key copies), float32
-// and float16 q the CUDA-core body.
+// tensor-core body, float32 and float16 q the CUDA-core body.
 cudaError_t deep_fwd(const void* q, const void* k_pool, const void* v_pool,
                      const float* k_scale, const float* v_scale,
                      const int* tables, const int* lengths, float* acc,
@@ -966,8 +949,7 @@ cudaError_t deep_fwd(const void* q, const void* k_pool, const void* v_pool,
                      float* l_ws, int* counters, int B, int Q, int Hq, int Hkv,
                      int hd, int BS, int MB, int NB, int n_splits, long long sb,
                      long long sh, long long ss, long long ssb, long long ssh,
-                     int q_dtype, int pool_dtype, cudaStream_t st,
-                     bool allow_tma) {
+                     int q_dtype, int pool_dtype, cudaStream_t st) {
   const int r = Hq / Hkv;
   if (q_dtype == 1) {
     if (pool_dtype != 1 && pool_dtype != 3) return cudaErrorInvalidValue;
@@ -979,7 +961,7 @@ cudaError_t deep_fwd(const void* q, const void* k_pool, const void* v_pool,
       using Tk = decltype(tk);
       return paged::dispatch_hd(hd, [&](auto hd_c) -> cudaError_t {
         constexpr int HD = decltype(hd_c)::value;
-        return launch_tc<Tk, HD>(grid, st, allow_tma, q, k_pool, v_pool,
+        return launch_tc<Tk, HD>(grid, st, q, k_pool, v_pool,
                                  k_scale, v_scale, tables, lengths, acc, m, l,
                                  acc_ws, m_ws, l_ws, counters, Q, Hq, Hkv, BS,
                                  MB, NB, n_splits, sb, sh, ss, ssb, ssh,
@@ -1050,25 +1032,7 @@ int paged_attention_deep_fwd(
   return static_cast<int>(deep_fwd(
       q, k_pool, v_pool, k_scale, v_scale, tables, lengths, acc, m, l, acc_ws,
       m_ws, l_ws, counters, B, Q, Hq, Hkv, hd, BS, MB, NB, n_splits, sb, sh,
-      ss, ssb, ssh, q_dtype, pool_dtype, static_cast<cudaStream_t>(stream),
-      true));
-}
-
-// The same with the tensor-core body's copies forced onto per-key cp.async
-// (the copy-method A/B of areal_tpu_torch/tools/variant_ab.py).
-int paged_attention_deep_fwd_cp_async(
-    const void* q, const void* k_pool, const void* v_pool,
-    const float* k_scale, const float* v_scale, const int* tables,
-    const int* lengths, float* acc, float* m, float* l, float* acc_ws,
-    float* m_ws, float* l_ws, int* counters, int B, int Q, int Hq, int Hkv,
-    int hd, int BS, int MB, int NB, int n_splits, long long sb, long long sh,
-    long long ss, long long ssb, long long ssh, int q_dtype, int pool_dtype,
-    void* stream) {
-  return static_cast<int>(deep_fwd(
-      q, k_pool, v_pool, k_scale, v_scale, tables, lengths, acc, m, l, acc_ws,
-      m_ws, l_ws, counters, B, Q, Hq, Hkv, hd, BS, MB, NB, n_splits, sb, sh,
-      ss, ssb, ssh, q_dtype, pool_dtype, static_cast<cudaStream_t>(stream),
-      false));
+      ss, ssb, ssh, q_dtype, pool_dtype, static_cast<cudaStream_t>(stream)));
 }
 
 // flash_decode over a contiguous head-major cache k/v [B, Hkv, S, hd]

@@ -73,22 +73,6 @@ def _kernel():
     return fn, err
 
 
-#: the tables ``[[0], [1], ..., [B - 1]]`` by (device, B), made once: a
-#: call launches no kernel but its own
-_ROW_TABLES: dict = {}
-
-
-def row_tables(B: int, device: torch.device) -> torch.Tensor:
-    """The block table that reads a contiguous cache of B rows as a pool
-    of B pages, page b holding row b: int32 ``[B, 1]``, kept from call to
-    call (read only)."""
-    t = _ROW_TABLES.get((device, B))
-    if t is None:
-        t = torch.arange(B, dtype=torch.int32, device=device)[:, None]
-        _ROW_TABLES[(device, B)] = t
-    return t
-
-
 def _launch(q, k, v, lengths):
     if q.device.type != "cuda":
         raise RuntimeError(
@@ -105,7 +89,7 @@ def _launch(q, k, v, lengths):
     if k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"q {tuple(q.shape)} does not fit k {tuple(k.shape)}")
     # the cache as a pool of B pages of S tokens, page b holding row b
-    tables = row_tables(B, q.device)
+    tables = torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
     pa.check_args(q[:, None], k, v, tables, lengths, None, None)
     fn, err_str = _kernel()
     f32 = dict(dtype=torch.float32, device=q.device)

@@ -64,13 +64,16 @@ DEEP_ENTRY = "paged_attention_deep_fwd"
 #: 64-key tiles (a ring of three or four stages keeps them all in flight).
 #: The deep kernel's tensor-core body keeps 3 (bf16) or 6 (int8) 64-key
 #: stages of its 8-row tiles in flight (about 100 KB of ring per block,
-#: two blocks per SM), and its splits merge in the last one with no second
-#: launch; its splits own at least eight tiles: on an H100, 8 splits of
-#: 512 keys took 0.0150 / 0.0152 ms (bf16 / int8) at the 8-row decode
-#: shape against 0.0155-0.0157 / 0.0154-0.0155 ms for 16 splits of 256
-#: keys, timed in turns (`tools/variant_ab.py`; equal at 16 x 32768, where
-#: both rules give 8 splits).  The prefill entry aims for two waves of two
-#: blocks per SM, so unequal splits even out, of at least 16 tiles each.
+#: two blocks per SM) and merges its splits in the last one, with no
+#: second launch.  Its splits own at least eight tiles: at the 8-row
+#: decode shape on an H100, 8 splits of 512 keys took 0.0150 / 0.0152 ms
+#: (bf16 / int8) against 0.0155-0.0157 / 0.0154-0.0155 ms for 16 splits
+#: of 256 keys in one call, and 0.0148 / 0.0151 ms against 0.0174 /
+#: 0.0196 ms for 4 splits of 1024 keys in another, timed in turns
+#: (`areal_tpu_torch/tools/variant_ab.py` at commits 47325d5 and eafb37d;
+#: at 16 x 32768 all three rules give 8 splits).  The prefill entry aims
+#: for two waves of two blocks per SM, so unequal splits even out, of at
+#: least 16 tiles each.
 _SPLIT_RULES = {
     DECODE_ENTRY: (8, 2 * 132, 256, True),
     PREFILL_ENTRY: (64, 4 * 132, 1024, False),
