@@ -12,7 +12,8 @@ keep their interface), so one copy measures both trees::
 
 Run the sides in turns in one run on one card (parent, change, change,
 parent).  It prints one ``AB {...}`` JSON line of device milliseconds per
-call (CUDA events):
+call (CUDA events), and a digest of one call's result at the 8-row
+decode shape per kernel and pool (equal digests: bit-identical results):
 
 * the decode entry (``paged_flash_attention`` with one query token per
   row) and the deep kernel (``paged_flash_attention_deep``) at
@@ -139,9 +140,24 @@ def cycling(fn, inputs):
     return run
 
 
+def digest(tensors) -> str:
+    """A short hash of the tensors' bytes: equal digests from two trees
+    mean bit-identical results."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def decode_ms(B, MB, lengths, int8, device, iters=20, deep=False):
     """L2-cold milliseconds per call at one decode shape of the standard
-    kernel (its decode entry) or, with ``deep``, the deep kernel."""
+    kernel (its decode entry) or, with ``deep``, the deep kernel, and the
+    digest of one call's (acc, m, l)."""
     import torch
 
     from areal_tpu_torch.ops import paged_attention as pa
@@ -150,10 +166,12 @@ def decode_ms(B, MB, lengths, int8, device, iters=20, deep=False):
     n = cold_layers(touched_bytes(lengths, 2, 128, 1 if int8 else 2,
                                   4 if int8 else 0))
     inputs = decode_inputs(B, MB, lengths, int8, n, device)
-    ms = time_ms(cycling(fn, inputs), iters, device)
+    run = cycling(fn, inputs)
+    ms = time_ms(run, iters, device)
+    out = digest(run())
     del inputs
     torch.cuda.empty_cache()
-    return ms, n
+    return ms, n, out
 
 
 def flash_decode_ms(B, S, device, iters=10, Hq=12, Hkv=2, hd=128):
@@ -226,10 +244,11 @@ def main(tag: str) -> int:
     for int8 in (False, True):
         pool = "int8" if int8 else "bf16"
         for kind in ("decode", "deep"):
-            res[f"{kind}_{pool}_ms"], res[f"{kind}_{pool}_layers"] = decode_ms(
+            (res[f"{kind}_{pool}_ms"], res[f"{kind}_{pool}_layers"],
+             res[f"{kind}_{pool}_digest"]) = decode_ms(
                 len(DECODE_LENGTHS), DECODE_MB, DECODE_LENGTHS, int8, dev,
                 deep=kind == "deep")
-            res[f"{kind}_16x32768_{pool}_ms"], _ = decode_ms(
+            res[f"{kind}_16x32768_{pool}_ms"], _, _ = decode_ms(
                 LONG_ROWS, LONG_MB, long_lens, int8, dev, iters=10,
                 deep=kind == "deep")
     res["flash_decode_16x32768_ms"] = flash_decode_ms(
