@@ -112,9 +112,9 @@
 //
 // Plain C interface, bound from Python with ctypes
 // (areal_tpu_torch/ops/paged_attention.py, areal_tpu_torch/ops/
-// decode_attention.py); no PyTorch headers.  The tensor map's encoder is
-// the driver's, reached through the runtime (`cudaGetDriverEntryPoint`),
-// so nothing links libcuda.
+// decode_attention.py); no PyTorch headers.  The tensor map's encoder,
+// `cuTensorMapEncodeTiled`, is looked up through the runtime
+// (`cudaGetDriverEntryPoint`), so nothing links libcuda.
 
 #include <cuda.h>  // CUtensorMap and the encoder's types
 
