@@ -5,7 +5,8 @@ interruptible weight update (port of the paged path of
 Design, as in the reference:
 
 * One shared block pool ``[L, NB, Hkv, BS, hd]`` and per-row block tables;
-  capacity is allocated in ``page_size``-token pages as rows grow.
+  capacity is allocated in ``page_size``-token pages as rows grow, and a
+  host allocator keeps a refcount per block.
 * Each :meth:`ContinuousBatchingEngine.step` admits pending requests into
   free rows, prefills prompts in ``prefill_chunk_tokens`` chunks
   (:func:`~areal_tpu_torch.models.paged.paged_fill_chunk`), dispatches a
@@ -16,26 +17,40 @@ Design, as in the reference:
   non-blocking copy to pinned host memory at dispatch, with a CUDA event
   recorded behind it; the harvest waits on that event only, so the host
   never synchronises the stream inside a chunk.
+* A sampling group's prompt is prefilled once: members that arrive while
+  it fills join the fill, share its full blocks by reference and get a
+  copy of its partial tail block.
+* A radix prefix cache (:mod:`~areal_tpu_torch.engine.prefix_cache`)
+  indexes the blocks of completed prompts and finished or parked
+  sequences, so any request whose prefix is cached (a retry, the next
+  turn of a conversation, a group member arriving late) pins that prefix
+  and prefills only its suffix.
+* A row that stops at its token budget without EOS PARKS: its KV stays
+  resident, and a continuation under the same qid whose prompt is the
+  row's tokens resumes decoding with no prefill.
+* Under pool pressure, allocation reclaims in tiers: prefix-cache entries,
+  then parked rows (longest parked first), then it preempts the youngest
+  decoding row, which re-admits later through a fill (recomputing the
+  part of its prefix the cache no longer holds).
 * ``update_weights(params)`` takes effect between chunks: the ring is
-  drained, the weights swap, and every in-flight row's KV is recomputed
-  under the new weights.
+  drained, parked rows are released, the cache is flushed, the weights
+  swap, and every in-flight row's KV is recomputed under the new weights.
 * Sampling is keyed on (engine seed, request seed, absolute position), so
-  token streams do not depend on chunk size or pipeline depth.
+  token streams do not depend on chunk size, pipeline depth, row
+  placement, sharing or preemption.
 * A :class:`~areal_tpu_torch.engine.dispatch.PagedDispatchTable` resolves
   ``cache_mode="auto"`` and routes a decode chunk to the deep paged
   kernel once the batch's longest live context reaches its
   ``deep_min_context``.
 * ``kv_cache_dtype="int8"`` stores the pool as int8 with float32 scales
-  per (block, head, slot); fill and decode chunks quantize at the scatter
-  and both kernels dequantize at the read.
+  per (block, head, slot); fill and decode chunks quantize at the scatter,
+  both kernels dequantize at the read, and block copies carry the scales.
 
 Left out of this slice, each rejected explicitly where a caller could ask
-for it: the radix prefix cache and group-prompt block sharing, parking
-and preemption (a finished row always releases its blocks, and the pool
-is sized so that every row fits), speculative decode, int8 weights, P/D
-handoff and fleet prefix pulls, SLO records and token streams,
-tensor-parallel meshes, the dense cache mode, MoE models, and staged
-weight swaps.
+for it: the prefix cache's host spill tier, speculative decode, int8
+weights, P/D handoff and fleet prefix pulls, SLO records and token
+streams, tensor-parallel meshes, the dense cache mode, MoE models, and
+staged weight swaps.
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ import torch
 from areal_tpu_torch.api import model_api
 from areal_tpu_torch.base.device import DeviceLike, resolve_device
 from areal_tpu_torch.engine.dispatch import PagedDispatchTable
+from areal_tpu_torch.engine.prefix_cache import PrefixMatch, RadixPrefixCache
 from areal_tpu_torch.engine.sampling import SamplingParams, sample_logits_keyed
 from areal_tpu_torch.models import paged
 from areal_tpu_torch.models.config import TransformerConfig
@@ -83,25 +99,44 @@ class _Row:
     logprobs: List[float]
     version_start: int
     no_eos: bool = False
+    cur_token: int = -1  # pending token (its KV is not in the pool yet)
     budget_left: int = 0  # host-side view of remaining new-token budget
     # row reserved while its prompt prefills chunk by chunk
     filling: bool = False
-    # bumped on every admission: a pipelined chunk's harvest touches only
-    # the occupant its dispatch snapshotted
+    # a PARKED row finished its budget without EOS and keeps its KV
+    # resident, so a continuation under its qid resumes with no prefill;
+    # the parking clock counts engine steps
+    parked: bool = False
+    park_step: int = 0
+    # bumped on every admission and resume: a pipelined chunk's harvest
+    # touches only the occupant its dispatch snapshotted
     epoch: int = 0
 
 
 @dataclasses.dataclass
-class _Fill:
-    """An in-progress chunked prefill of one row's token sequence into its
-    ``blocks``.  ``req`` is None for a weight-swap recompute, which
-    samples nothing."""
+class _FillTarget:
+    """One consumer of an in-progress fill: a fresh request (its first
+    token is sampled when the fill completes) or a preempted row resuming
+    after its re-prefill (``resume`` carries its host state)."""
 
     row_id: int
     req: Optional[model_api.APIGenerateInput]
     max_new: int
+    resume: Optional[_Row] = None
+
+
+@dataclasses.dataclass
+class _Fill:
+    """An in-progress chunked prefill of ONE token sequence into the
+    canonical ``blocks``.  Requests arriving with the same prompt while it
+    fills become extra ``targets`` and share its blocks when it completes.
+    ``fill_pos`` starts past a cached prefix.  A weight-swap recompute has
+    no targets and samples nothing."""
+
+    key: Tuple[int, ...]
     tokens: List[int]
     blocks: List[int]
+    targets: List[_FillTarget]
     fill_pos: int = 0
 
 
@@ -139,7 +174,10 @@ class ContinuousBatchingEngine:
         prefill_chunk_tokens: int = 1024,
         pipeline_depth: int = 2,
         dispatch_table: Optional[PagedDispatchTable] = None,
-        prefix_cache: bool = False,
+        prefix_cache: bool = True,
+        prefix_cache_capacity_frac: float = 0.5,
+        prefix_cache_min_tokens: int = 1,
+        prefix_cache_host_bytes: int = 0,
         spec_decode_params=None,
         slo_tracking: bool = False,
         handoff_streaming: bool = False,
@@ -157,15 +195,28 @@ class ContinuousBatchingEngine:
         chunk's output copy with the next chunk's device time.  Token
         streams are identical across K.
 
-        ``kv_pool_tokens`` may only grow the pool beyond the dense
-        equivalent ``max_batch * kv_cache_len``: a smaller pool needs
-        preemption, which is not ported.
+        ``kv_pool_tokens`` sizes the pool (default: the dense equivalent
+        ``max_batch * kv_cache_len``; at least one full-length row).  A
+        smaller pool serves by reclaiming cache entries and parked rows and
+        by preempting decoding rows.
+
+        ``prefix_cache`` keeps the radix index over completed prompts and
+        finished or parked sequences; it may hold references to
+        ``prefix_cache_capacity_frac`` of the pool, and matches shorter
+        than ``prefix_cache_min_tokens`` are not used.  Its entries are the
+        first thing reclaimed for a live row, and a weight swap flushes it.
+        ``prefix_cache_host_bytes > 0`` (the host spill tier) is refused.
 
         ``dispatch_table`` (default: paged from 2048 tokens, deep kernel
         never) resolves ``cache_mode="auto"`` by ``kv_cache_len`` and picks
         the deep paged kernel for a decode chunk by the batch's longest
         live context.  ``kv_cache_dtype`` is ``"auto"`` (model-dtype pool)
-        or ``"int8"`` (int8 pool with float32 scales)."""
+        or ``"int8"`` (int8 pool with float32 scales).
+
+        Refused with ``NotImplementedError``: ``prefix_cache_host_bytes >
+        0``, ``serving_weight_dtype="int8"``, ``spec_decode_params``,
+        ``slo_tracking=True``, ``handoff_streaming=True``, ``mesh`` and the
+        dense cache mode."""
         if cache_mode not in ("auto", "dense", "paged"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
         self.dispatch_table = dispatch_table or PagedDispatchTable()
@@ -194,8 +245,11 @@ class ContinuousBatchingEngine:
             raise _not_ported(
                 f"serving_weight_dtype={serving_weight_dtype!r} (int8 weights)"
             )
-        if prefix_cache:
-            raise _not_ported("the radix prefix cache (prefix_cache=True)")
+        if prefix_cache_host_bytes > 0:
+            raise _not_ported(
+                "the prefix cache's host spill tier (prefix_cache_host_bytes="
+                f"{prefix_cache_host_bytes})"
+            )
         if spec_decode_params is not None:
             raise _not_ported("speculative decoding (spec_decode_params)")
         if slo_tracking:
@@ -225,6 +279,15 @@ class ContinuousBatchingEngine:
         self.kv_quant_divergence_diverged_total = 0
 
         self._init_paged_state(page_size, kv_pool_tokens, prefill_chunk_tokens)
+        self._prefix_cache: Optional[RadixPrefixCache] = None
+        if prefix_cache:
+            self._prefix_cache = RadixPrefixCache(
+                page_size=self.page_size,
+                capacity_blocks=int(prefix_cache_capacity_frac * self.n_blocks),
+                acquire=self._incref_blocks,
+                release=self._free_block_list,
+                min_match_tokens=prefix_cache_min_tokens,
+            )
 
         self.rows: List[Optional[_Row]] = [None] * max_batch
         self._pending: List[model_api.APIGenerateInput] = []
@@ -233,17 +296,30 @@ class ContinuousBatchingEngine:
         self._lock = threading.Lock()
         # pending swap: (params, target_version | None)
         self._new_params: Optional[Tuple[Any, Optional[int]]] = None
+        self.park_ttl_steps = 512  # engine steps a parked row may idle
+        # True: decode only, admit nothing (drain-before-update servers)
+        self.hold_admissions = False
+        self._step_seq = 0  # deterministic clock, one tick per step()
         self._epoch_counter = 0
         self._ring: Deque[_InflightChunk] = deque()
-        # work counters: fill chunks and decode chunks dispatched (each
-        # runs the paged kernel once per layer, decode chunks once per
-        # layer and step; deep chunks through the deep kernel), tokens
-        # prefilled and generated
+        # work counters: fill chunks (each runs the paged kernel once per
+        # layer: its prefill entry, or its decode entry when the chunk's
+        # widest row is one token), decode chunks (once per layer and
+        # step; deep chunks through the deep kernel), tokens prefilled and
+        # generated, blocks copied, continuations resumed, rows preempted
         self.prefill_calls = 0
+        self.one_token_fill_calls = 0
         self.prefill_tokens_total = 0
         self.decode_chunks_total = 0
         self.deep_decode_chunks_total = 0
         self.decode_tokens_total = 0  # tokens folded in from decode chunks
+        self.block_copies_total = 0
+        self.resumed_total = 0
+        self.preempted_total = 0
+        # fills given back to free blocks for a decoding row
+        self.aborted_fills_total = 0
+        # preemptions by the victim's priority class
+        self.preempted_by_class: Dict[str, int] = {}
 
     # -- paged-cache state ----------------------------------------------------
 
@@ -257,13 +333,9 @@ class ContinuousBatchingEngine:
         BS = page_size
         self.page_size = BS
         self.blocks_per_row = -(-self.kv_cache_len // BS)  # MB
-        dense_blocks = max_batch * self.blocks_per_row
-        if kv_pool_tokens is not None and -(-kv_pool_tokens // BS) < dense_blocks:
-            raise _not_ported(
-                f"a pool smaller than max_batch * kv_cache_len (kv_pool_tokens="
-                f"{kv_pool_tokens}) needs preemption, which"
-            )
-        self.n_blocks = max(dense_blocks, -(-(kv_pool_tokens or 0) // BS))
+        pool_tokens = kv_pool_tokens or max_batch * self.kv_cache_len
+        # one full-length row always fits
+        self.n_blocks = max(-(-pool_tokens // BS), self.blocks_per_row)
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self.k_pool, self.v_pool, self.k_scale, self.v_scale = (
             paged.alloc_kv_pool(
@@ -282,11 +354,13 @@ class ContinuousBatchingEngine:
         self._tables_np = np.zeros((max_batch, self.blocks_per_row), np.int32)
         self._tables = self._to_device(self._tables_np)
         self._tables_dirty = False
-        # host allocator: LIFO free stack + refcounts
+        # host allocator: LIFO free stack + refcounts (shared prompt
+        # blocks, cache references)
         self._free_blocks = list(range(self.n_blocks - 1, -1, -1))
         self._block_ref = np.zeros((self.n_blocks,), np.int32)
         self._row_blocks: List[List[int]] = [[] for _ in range(max_batch)]
         self._filling: List[_Fill] = []
+        self._preempted: List[_Row] = []
 
     # -- host <-> device ------------------------------------------------------
 
@@ -298,7 +372,7 @@ class ContinuousBatchingEngine:
             return t.clone()
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _set_rows(self, name: str, ids: np.ndarray, vals: np.ndarray):
+    def _set_rows(self, name: str, ids, vals):
         """``self.<name>[ids] = vals`` on the device state."""
         t = getattr(self, name)
         t[self._to_device(np.asarray(ids, np.int64))] = self._to_device(
@@ -315,6 +389,10 @@ class ContinuousBatchingEngine:
             self._block_ref[b] = 1
         return out
 
+    def _incref_blocks(self, blocks: List[int]):
+        for b in blocks:
+            self._block_ref[b] += 1
+
     def _free_block_list(self, blocks: List[int]):
         for b in blocks:
             self._block_ref[b] -= 1
@@ -322,6 +400,24 @@ class ContinuousBatchingEngine:
                 raise RuntimeError(f"double free of pool block {b}")
             if self._block_ref[b] == 0:
                 self._free_blocks.append(b)
+
+    def _alloc_blocks_reclaiming(self, n: int, keep_qids=()) -> Optional[List[int]]:
+        """``_alloc_blocks`` with tiered reclamation: prefix-cache entries
+        first (recompute insurance: the cache always yields to live rows),
+        then parked rows, except those whose continuation is queued
+        (``keep_qids``).  None when both tiers are exhausted (the caller
+        may then preempt or requeue)."""
+        blocks = self._alloc_blocks(n)
+        while blocks is None:
+            deficit = n - len(self._free_blocks)
+            if self._prefix_cache is not None and self._prefix_cache.evict(
+                deficit
+            ):
+                pass
+            elif self._evict_parked(keep_qids=keep_qids) is None:
+                return None
+            blocks = self._alloc_blocks(n)
+        return blocks
 
     def _set_row_blocks(self, row_id: int, blocks: List[int]):
         self._row_blocks[row_id] = blocks
@@ -336,6 +432,18 @@ class ContinuousBatchingEngine:
         if self._row_blocks[row_id]:
             self._free_block_list(self._row_blocks[row_id])
             self._set_row_blocks(row_id, [])
+
+    def _copy_pool_blocks(self, src: List[int], dst: List[int]):
+        """Copy-on-write block copies (group tails, prefix-cache tail
+        matches); an int8 pool carries the scale slices with the bytes.
+        Enqueued on the stream before any fill that reads the copies."""
+        paged.copy_blocks(
+            self.k_pool, self.v_pool,
+            self._to_device(np.asarray(src, np.int64)),
+            self._to_device(np.asarray(dst, np.int64)),
+            self.k_scale, self.v_scale,
+        )
+        self.block_copies_total += len(src)
 
     @property
     def free_pool_blocks(self) -> int:
@@ -361,14 +469,65 @@ class ContinuousBatchingEngine:
             ),
         }
 
-    def _new_fill(self, row_id: int, req, max_new: int, seq: List[int]):
-        """A fill of ``seq`` into freshly allocated blocks (None when the
-        pool cannot provide them)."""
-        blocks = self._alloc_blocks(max(1, -(-len(seq) // self.page_size)))
+    # -- cross-request prefix cache ---------------------------------------------
+
+    def _cache_insert(self, seq: List[int], blocks: List[int]):
+        """Register ``seq``'s KV-bearing blocks in the radix cache (full
+        blocks by reference, the partial tail by value)."""
+        if self._prefix_cache is None or not seq or not blocks:
+            return
+        self._prefix_cache.insert(
+            seq, blocks, step=self._step_seq, version=self.version
+        )
+
+    def _match_prefix(self, seq: List[int]) -> PrefixMatch:
+        # record=False: a requeued admission re-matches every step until the
+        # pool can serve it; _new_fill counts the match once, when used
+        if self._prefix_cache is None or len(seq) < 2:
+            return PrefixMatch()
+        return self._prefix_cache.match(seq, step=self._step_seq, record=False)
+
+    def _new_fill(self, seq: List[int], keep_qids=()) -> Optional[_Fill]:
+        """A ``_Fill`` for ``seq`` reusing the longest cached prefix: the
+        matched full blocks are PINNED (shared by reference), a matched
+        partial tail is copied into an owned block (the donor may still
+        append to it), and ``fill_pos`` starts past the cached prefix.
+        None when the pool cannot provide the other blocks even after
+        reclamation (the caller requeues)."""
+        n_blocks = max(1, -(-len(seq) // self.page_size))
+        m = self._match_prefix(seq)
+        # pin what the match returned BEFORE allocating: the allocation may
+        # evict cache entries, and an unpinned matched block could be
+        # recycled into this very allocation
+        pinned = list(m.blocks)
+        if m.tail_block is not None:
+            pinned.append(m.tail_block)
+        self._incref_blocks(pinned)
+        blocks = self._alloc_blocks_reclaiming(
+            n_blocks - len(m.blocks), keep_qids=keep_qids
+        )
         if blocks is None:
+            self._free_block_list(pinned)
             return None
-        return _Fill(row_id=row_id, req=req, max_new=max_new,
-                     tokens=list(seq), blocks=blocks)
+        if self._prefix_cache is not None and len(seq) >= 2:
+            self._prefix_cache.record(m)
+        if m.tail_block is not None:
+            # the tail's first tail_tokens slots are valid; the whole block
+            # is copied and the suffix fill overwrites the rest
+            self._copy_pool_blocks([m.tail_block], [blocks[0]])
+            self._free_block_list([m.tail_block])  # copy taken: unpin
+        return _Fill(
+            key=tuple(seq),
+            tokens=list(seq),
+            blocks=list(m.blocks) + blocks,
+            targets=[],
+            fill_pos=m.n_tokens,
+        )
+
+    def prefix_cache_stats(self) -> Dict[str, int]:
+        if self._prefix_cache is None:
+            return RadixPrefixCache.zero_stats()
+        return self._prefix_cache.stats()
 
     # -- public API --------------------------------------------------------------
 
@@ -431,22 +590,43 @@ class ContinuousBatchingEngine:
         raise _not_ported("staged weight swaps (commit_staged)")
 
     def close(self) -> Dict[str, int]:
-        """Leak audit: pool blocks held by no live row or fill
-        (``{"kv_blocks": n}``; ``{}`` when the pool is whole).  Idempotent."""
-        # a fill's blocks are its row's block list (the same object)
-        owned = sum(len(b) for b in self._row_blocks)
-        leaked = self.n_blocks - len(self._free_blocks) - owned
-        return {"kv_blocks": leaked} if leaked else {}
+        """Leak audit by refcount: every pool block's refcount must equal
+        the references held to it by the rows (decoding, filling and
+        parked; a fill's blocks are its first target's row blocks) and the
+        prefix cache, and the free stack must hold exactly the blocks
+        nobody references, once each.  Returns ``{"kv_blocks": n}`` for
+        the n blocks that disagree, ``{}`` when none does.  With no parked
+        rows and a flushed cache, a whole pool is free.  Idempotent."""
+        want = np.zeros(self.n_blocks, np.int64)
+        for blocks in self._row_blocks:
+            np.add.at(want, np.asarray(blocks, np.int64), 1)
+        if self._prefix_cache is not None:
+            np.add.at(
+                want, np.asarray(self._prefix_cache.held_blocks(), np.int64), 1
+            )
+        free = np.zeros(self.n_blocks, np.int64)
+        np.add.at(free, np.asarray(self._free_blocks, np.int64), 1)
+        bad = (want != self._block_ref) | (free != (want == 0))
+        n = int(bad.sum())
+        return {"kv_blocks": n} if n else {}
 
     @property
     def n_inflight(self) -> int:
-        """In-flight rows: decoding or chunk-filling."""
-        return sum(r is not None for r in self.rows)
+        """In-flight rows: decoding or chunk-filling (parked rows are idle
+        KV residents)."""
+        return sum(r is not None and not r.parked for r in self.rows)
 
     @property
     def n_decoding(self) -> int:
-        """Rows with a pending token to decode (excludes filling rows)."""
-        return sum(r is not None and not r.filling for r in self.rows)
+        """Rows with a pending token to decode (excludes filling and parked
+        rows)."""
+        return sum(
+            r is not None and not r.parked and not r.filling for r in self.rows
+        )
+
+    @property
+    def n_parked(self) -> int:
+        return sum(r is not None and r.parked for r in self.rows)
 
     @property
     def n_pending(self) -> int:
@@ -454,11 +634,12 @@ class ContinuousBatchingEngine:
 
     @property
     def has_work(self) -> bool:
+        # parked rows are idle and do not keep the loop going
         return (
             self.n_pending > 0
             or self.n_inflight > 0
             or bool(self._ring)
-            or bool(self._filling)
+            or bool(self._filling or self._preempted)
         )
 
     # -- engine loop (owner thread) ------------------------------------------------
@@ -477,8 +658,18 @@ class ContinuousBatchingEngine:
         self.version = (
             target_version if target_version is not None else self.version + 1
         )
+        # parked rows hold KV of the old weights: release them (their
+        # continuations prefill under the new weights)
+        for row_id, row in enumerate(self.rows):
+            if row is not None and row.parked:
+                self._release_row(row_id)
+        # cached KV is of the old weights too: drop it, and reject inserts
+        # tagged with the old version
+        if self._prefix_cache is not None:
+            self._prefix_cache.flush(new_version=self.version)
         # filling rows restart from scratch under the new weights (their
-        # rows and blocks stay)
+        # rows and blocks stay; a cache-matched fill_pos resets too: its
+        # prefix blocks are rewritten like any others)
         for f in self._filling:
             f.fill_pos = 0
         # decoding rows recompute their cached KV (all but the pending
@@ -488,20 +679,104 @@ class ContinuousBatchingEngine:
             for rid, row in enumerate(self.rows)
             if row is not None and not row.filling
         ]
-        fills = [
-            _Fill(row_id=rid, req=None, max_new=0, tokens=seq,
-                  blocks=self._row_blocks[rid])
-            for rid, seq in entries
-            if seq
-        ]
-        while fills:
-            self._run_fill_batch(fills, self.prefill_chunk_tokens)
-            fills = [f for f in fills if f.fill_pos < len(f.tokens)]
+        if entries:
+            self._refill_rows_paged(entries)
 
-    def _run_fill_batch(self, fills: List[_Fill], budget: int):
+    def _try_resume(self, req: model_api.APIGenerateInput) -> bool:
+        """Resume a parked row whose resident KV matches this continuation:
+        the same qid AND a prompt equal to the row's tokens (a client that
+        edited the context falls through to a fresh fill)."""
+        prompt = list(req.input_ids or req.prompt_ids)
+        for row_id, row in enumerate(self.rows):
+            if (
+                row is None
+                or not row.parked
+                or row.req.qid != req.qid
+                or row.prompt + row.generated != prompt
+            ):
+                continue
+            if len(prompt) + 1 >= self.kv_cache_len:
+                # no room to continue: report empty so the client stops
+                self._release_row(row_id)
+                done = _Row(
+                    req=req, prompt=prompt, generated=[], logprobs=[],
+                    version_start=self.version, no_eos=True,
+                )
+                self._finish(-1, done, started=False)
+                return True
+            max_new = req.gconfig.max_new_tokens
+            if len(prompt) + max_new > self.kv_cache_len:
+                max_new = max(1, self.kv_cache_len - len(prompt))
+            # the pool holds KV for prompt[:-1]; prompt[-1] is the pending
+            # cur_token, so decoding picks up where the last chunk stopped
+            row.req = req
+            row.prompt = prompt
+            row.generated = []
+            row.logprobs = []
+            row.version_start = self.version
+            row.no_eos = False
+            row.parked = False
+            row.budget_left = max_new
+            self._epoch_counter += 1
+            row.epoch = self._epoch_counter
+            ids = [row_id]
+            self._set_rows("cur_tokens", ids, [row.cur_token])
+            self._set_rows("active", ids, [True])
+            self._set_rows("budgets", ids, [max_new])
+            self._set_rows("row_seeds", ids, [_qid_seed(req.qid)])
+            self.resumed_total += 1
+            return True
+        return False
+
+    def _evict_parked(self, keep_qids=()) -> Optional[int]:
+        """Free the longest-parked row (its continuation will prefill);
+        oldest by (park_step, row_id)."""
+        oldest, oldest_id = None, None
+        for row_id, row in enumerate(self.rows):
+            if row is not None and row.parked and row.req.qid not in keep_qids:
+                if oldest is None or row.park_step < oldest:
+                    oldest, oldest_id = row.park_step, row_id
+        if oldest_id is not None:
+            self._release_row(oldest_id)
+        return oldest_id
+
+    def _store_mask(self, batch, written=None) -> Optional[np.ndarray]:
+        """None when the chunk's rows write distinct pool slots that
+        ``written`` (a bool per pool slot, or None) does not mark; else the
+        ``[n, C]`` positions to store: each slot from its first writer in
+        batch order only, and none already marked.  The slots stored are
+        then marked.  Rows share a slot only inside shared full blocks (a
+        sampling group, a cached prefix), where they write the KV of the
+        same tokens at the same position, as every sharer does when a
+        weight swap recomputes them; which of several writes of one slot
+        in one scatter lands is unspecified on CUDA."""
+        BS = self.page_size
+        slots = []
+        for f, take in batch:
+            pos = np.arange(f.fill_pos, f.fill_pos + take)
+            blk = np.asarray(f.blocks, np.int64)[pos // BS]
+            slots.append(blk * BS + pos % BS)
+        flat = np.concatenate(slots)
+        _, first = np.unique(flat, return_index=True)
+        keep = np.zeros(len(flat), bool)
+        keep[first] = True
+        if written is not None:
+            keep &= ~written[flat]
+            written[flat[keep]] = True
+        if keep.all():
+            return None
+        C = max(take for _, take in batch)
+        store = np.zeros((len(batch), C), bool)
+        at = 0
+        for i, (_, take) in enumerate(batch):
+            store[i, :take] = keep[at : at + take]
+            at += take
+        return store
+
+    def _run_fill_batch(self, fills: List[_Fill], budget: int, written=None):
         """Run ONE batched prefill chunk over ``fills`` (FIFO, total tokens
-        <= budget).  Advances fill_pos; returns (completed fills, their
-        logits rows, logits)."""
+        <= budget), storing no slot twice (:meth:`_store_mask`).  Advances
+        fill_pos; returns (completed fills, their logits rows, logits)."""
         batch: List[Tuple[_Fill, int]] = []
         left = budget
         for f in fills:
@@ -528,6 +803,7 @@ class ContinuousBatchingEngine:
             starts[i] = f.fill_pos
             cls[i] = take
             tables[i, : len(f.blocks)] = f.blocks
+        store = self._store_mask(batch, written)
         logits = paged.paged_fill_chunk(
             self.params,
             self.k_pool,
@@ -539,8 +815,10 @@ class ContinuousBatchingEngine:
             self._to_device(tables),
             self.k_scale,
             self.v_scale,
+            None if store is None else self._to_device(store),
         )
         self.prefill_calls += 1
+        self.one_token_fill_calls += int(C == 1)
         self.prefill_tokens_total += int(cls.sum())
         completed, idxs = [], []
         for i, (f, take) in enumerate(batch):
@@ -549,6 +827,24 @@ class ContinuousBatchingEngine:
                 completed.append(f)
                 idxs.append(i)
         return completed, idxs, logits
+
+    def _refill_rows_paged(self, entries: List[Tuple[int, List[int]]]):
+        """Recompute rows' cached KV into their EXISTING blocks (the weight
+        swap's recompute; no sampling: the pending cur_tokens stay).  A
+        slot of a block shared by several rows is stored once, by the first
+        sharer in row order, whose chunks read nothing another sharer
+        wrote: the shared blocks' bytes are those of one row's recompute,
+        the same at every swap to the same weights while that row's first
+        chunks are."""
+        pending = [
+            _Fill(key=(), tokens=seq, blocks=self._row_blocks[rid], targets=[])
+            for rid, seq in entries
+            if seq
+        ]
+        written = np.zeros(self.n_blocks * self.page_size, bool)
+        while pending:
+            self._run_fill_batch(pending, self.prefill_chunk_tokens, written)
+            pending = [f for f in pending if f.fill_pos < len(f.tokens)]
 
     def _advance_fill(self):
         """Advance in-flight chunked prefills: one ``prefill_chunk_tokens``
@@ -568,73 +864,198 @@ class ContinuousBatchingEngine:
                 return
 
     def _distribute_fills(self, fills: List[_Fill], idxs, logits):
-        """Hand completed fills' blocks to their rows and sample each row's
-        first token from the fill's final logits."""
-        src = torch.as_tensor(idxs, dtype=torch.long, device=self.device)
-        seeds = torch.as_tensor(
-            [_qid_seed(f.req.qid) for f in fills], dtype=torch.int64
-        ).to(self.device)
-        pos = torch.as_tensor(
-            [len(f.tokens) for f in fills], dtype=torch.int64
-        ).to(self.device)
-        toks, logps = sample_logits_keyed(
-            logits[src].float(), self.seed, seeds, pos, self.sampling
-        )
-        toks = toks.cpu().tolist()
-        logps = logps.cpu().tolist()
-        activation: List[Tuple[int, int, int, int, int]] = []
-        for f, tok, logp in zip(fills, toks, logps):
-            row = self.rows[f.row_id]
-            row.generated = [int(tok)]
-            row.logprobs = [float(logp)]
-            row.filling = False
-            if tok in self.stop_tokens or f.max_new <= 1:
-                row.no_eos = tok not in self.stop_tokens
-                self._finish(f.row_id, row)
-                continue
-            row.budget_left = f.max_new - 1
-            self._epoch_counter += 1
-            row.epoch = self._epoch_counter
-            activation.append(
-                (f.row_id, int(tok), f.max_new - 1, len(f.tokens),
-                 _qid_seed(f.req.qid))
+        """Hand completed fills' blocks to their targets: target 0 owns the
+        canonical blocks; later targets share the FULL blocks (refcount)
+        and get a COPY of the partial tail block (their generated tokens
+        diverge inside it).  Fresh targets sample their first token from
+        the fill's final logits; preempted targets restore their saved
+        decode state and sample nothing.  The completed prompt enters the
+        radix cache."""
+        copy_src: List[int] = []
+        copy_dst: List[int] = []
+        sample_targets: List[Tuple[_Fill, _FillTarget, int]] = []
+        activation: List[Tuple[int, int, int, int, _Row]] = []
+        for f, li in zip(fills, idxs):
+            plen = len(f.tokens)
+            n_full = plen // self.page_size
+            has_tail = plen % self.page_size != 0
+            # a retried or sibling request arriving next step already hits
+            self._cache_insert(f.tokens, f.blocks)
+            for t_i, tgt in enumerate(f.targets):
+                if t_i == 0:
+                    self._set_row_blocks(tgt.row_id, list(f.blocks))
+                else:
+                    shared = f.blocks[:n_full]
+                    self._incref_blocks(shared)
+                    own = list(shared)
+                    if has_tail:
+                        tail = self._alloc_blocks(1)
+                        while tail is None:
+                            if (
+                                self._prefix_cache is not None
+                                and self._prefix_cache.evict_one()
+                            ):
+                                pass
+                            elif self._evict_parked() is None:
+                                victim = self._pick_preemption_victim(
+                                    exclude=-1
+                                )
+                                if victim is not None:
+                                    self._preempt_row(victim)
+                                elif not self._abort_youngest_fill():
+                                    raise RuntimeError(
+                                        "KV pool exhausted distributing a "
+                                        "group fill"
+                                    )
+                            tail = self._alloc_blocks(1)
+                        copy_src.append(f.blocks[n_full])
+                        copy_dst.append(tail[0])
+                        own += tail
+                    self._set_row_blocks(tgt.row_id, own)
+                if tgt.resume is not None:
+                    row = tgt.resume
+                    self._epoch_counter += 1
+                    row.epoch = self._epoch_counter
+                    row.filling = False
+                    self.rows[tgt.row_id] = row
+                    activation.append(
+                        (tgt.row_id, row.cur_token, row.budget_left, plen, row)
+                    )
+                else:
+                    sample_targets.append((f, tgt, li))
+        if copy_src:
+            self._copy_pool_blocks(copy_src, copy_dst)
+        if sample_targets:
+            src = torch.as_tensor(
+                [li for _, _, li in sample_targets], dtype=torch.long
+            ).to(self.device)
+            seeds = torch.as_tensor(
+                [_qid_seed(t.req.qid) for _, t, _ in sample_targets],
+                dtype=torch.int64,
+            ).to(self.device)
+            pos = torch.as_tensor(
+                [len(f.tokens) for f, _, _ in sample_targets], dtype=torch.int64
+            ).to(self.device)
+            toks, logps = sample_logits_keyed(
+                logits[src].float(), self.seed, seeds, pos, self.sampling
             )
+            for (f, tgt, _), tok, logp in zip(
+                sample_targets, toks.cpu().tolist(), logps.cpu().tolist()
+            ):
+                row = self.rows[tgt.row_id]
+                row.generated = [int(tok)]
+                row.logprobs = [float(logp)]
+                row.filling = False
+                if tok in self.stop_tokens or tgt.max_new <= 1:
+                    row.no_eos = tok not in self.stop_tokens
+                    self._finish(tgt.row_id, row, started=False)
+                    self._release_row(tgt.row_id)
+                    continue
+                row.cur_token = int(tok)
+                row.budget_left = tgt.max_new - 1
+                self._epoch_counter += 1
+                row.epoch = self._epoch_counter
+                activation.append(
+                    (tgt.row_id, int(tok), tgt.max_new - 1, len(f.tokens), row)
+                )
+        # a resume target activated earlier in this loop may have been
+        # preempted by a later target's tail allocation (its slot is free
+        # again, its table zeroed): activate only rows still in their slot
+        activation = [a for a in activation if self.rows[a[0]] is a[4]]
         if activation:
-            a = np.array(activation, np.int64)
-            ids = a[:, 0]
-            self._set_rows("cur_tokens", ids, a[:, 1])
-            self._set_rows("active", ids, np.ones(len(ids), bool))
-            self._set_rows("budgets", ids, a[:, 2])
-            self._set_rows("kv_lengths", ids, a[:, 3])
-            self._set_rows("row_seeds", ids, a[:, 4])
+            ids = [a[0] for a in activation]
+            self._set_rows("cur_tokens", ids, [a[1] for a in activation])
+            self._set_rows("active", ids, [True] * len(ids))
+            self._set_rows("budgets", ids, [a[2] for a in activation])
+            self._set_rows("kv_lengths", ids, [a[3] for a in activation])
+            self._set_rows(
+                "row_seeds", ids, [_qid_seed(a[4].req.qid) for a in activation]
+            )
 
     def _admit_paged(self):
+        if self.hold_admissions:
+            return
+        for row_id, row in enumerate(self.rows):
+            if row is not None and row.parked and (
+                self._step_seq - row.park_step > self.park_ttl_steps
+            ):
+                self._release_row(row_id)
         free = [i for i, r in enumerate(self.rows) if r is None]
-        while free:
+
+        def queued_qids():
+            with self._lock:
+                return {r.qid for r in self._pending}
+
+        def take_row():
+            if free:
+                return free.pop(0)
+            return self._evict_parked(keep_qids=queued_qids())
+
+        # preempted rows first (their blocks were taken mid-decode; FIFO so
+        # none starves).  Their re-prefill walks the radix cache like any
+        # admission: only the prefix the cache lost is recomputed
+        while self._preempted:
+            row = self._preempted[0]
+            seq = (row.prompt + row.generated)[:-1]
+            rid = take_row()
+            if rid is None:
+                break
+            fill = self._new_fill(seq, keep_qids=queued_qids())
+            if fill is None:
+                free.insert(0, rid)
+                break
+            self._preempted.pop(0)
+            self._set_row_blocks(rid, fill.blocks)
+            row.filling = True
+            self.rows[rid] = row
+            fill.targets.append(
+                _FillTarget(
+                    row_id=rid, req=row.req, max_new=row.budget_left,
+                    resume=row,
+                )
+            )
+            self._filling.append(fill)
+        while True:
             with self._lock:
                 if not self._pending:
                     break
                 req = self._pending.pop(0)
+            if self._try_resume(req):
+                continue
             prompt = list(req.input_ids or req.prompt_ids)
             if len(prompt) + 1 >= self.kv_cache_len:
                 row = _Row(
                     req=req, prompt=prompt, generated=[], logprobs=[],
                     version_start=self.version, no_eos=True,
                 )
-                self._finish(-1, row)
+                self._finish(-1, row, started=False)
                 continue
             max_new = req.gconfig.max_new_tokens
             if len(prompt) + max_new > self.kv_cache_len:
                 max_new = max(1, self.kv_cache_len - len(prompt))
-            rid = free.pop(0)
-            fill = self._new_fill(rid, req, max_new, prompt)
+            key = tuple(prompt)
+            fill = next((f for f in self._filling if f.key == key), None)
+            rid = take_row()
+            if rid is None:
+                with self._lock:
+                    self._pending.insert(0, req)
+                break
             if fill is None:
-                raise RuntimeError(
-                    f"KV pool exhausted admitting {req.qid}: the pool is "
-                    "sized for every row at full length, so this is a leak"
-                )
-            self._filling.append(fill)
-            self._set_row_blocks(rid, fill.blocks)
+                # radix walk first: a cached prefix is pinned and skipped.
+                # Reclamation spares parked rows whose continuation is
+                # queued behind this request
+                fill = self._new_fill(prompt, keep_qids=queued_qids())
+                if fill is None:
+                    free.insert(0, rid)
+                    with self._lock:
+                        self._pending.insert(0, req)
+                    break
+                self._filling.append(fill)
+                # the canonical blocks live in target 0's table
+                self._set_row_blocks(rid, fill.blocks)
+            # else: a group member joins the in-flight fill, with no
+            # prefill of its own
+            fill.targets.append(_FillTarget(row_id=rid, req=req, max_new=max_new))
             self.rows[rid] = _Row(
                 req=req, prompt=prompt, generated=[], logprobs=[],
                 version_start=self.version, filling=True,
@@ -643,28 +1064,115 @@ class ContinuousBatchingEngine:
     def _ensure_decode_blocks(self):
         """Every decoding row's table must cover ``length + chunk`` slots
         before a decode dispatch (the chunk allocates nothing on the
-        device), counting the tokens of chunks still in the ring."""
+        device), counting the tokens of chunks still in the ring.  Under
+        pool pressure: reclaim cache entries, then parked rows, then
+        preempt the youngest decoding rows."""
         W = self.chunk_size
+        # every un-harvested chunk that snapshot a row may have advanced it
+        # by W tokens the host has not folded in yet
         pend_counts: Dict[int, int] = {}
         for ch in self._ring:
             for rid, _ in ch.snapshot:
                 pend_counts[rid] = pend_counts.get(rid, 0) + 1
-        for row_id, row in enumerate(self.rows):
-            if row is None or row.filling:
+        for row_id in range(self.max_batch):
+            row = self.rows[row_id]
+            if row is None or row.parked or row.filling:
                 continue
-            n_pend = pend_counts.get(row_id, 0)
-            host_len = len(row.prompt) + len(row.generated) + 1 + n_pend * W
+            host_len = (len(row.prompt) + len(row.generated) + 1
+                        + pend_counts.get(row_id, 0) * W)
             need = min(-(-(host_len + W) // self.page_size), self.blocks_per_row)
-            deficit = need - len(self._row_blocks[row_id])
-            if deficit > 0:
-                blocks = self._alloc_blocks(deficit)
-                if blocks is None:
+            while need > len(self._row_blocks[row_id]):
+                blocks = self._alloc_blocks(need - len(self._row_blocks[row_id]))
+                if blocks is not None:
+                    self._set_row_blocks(row_id, self._row_blocks[row_id] + blocks)
+                    break
+                # reclamation tiers: cache entries (recompute insurance:
+                # they always yield to a live row), parked rows, preemption
+                if self._prefix_cache is not None and self._prefix_cache.evict_one():
+                    continue
+                if self._evict_parked() is not None:
+                    continue
+                victim = self._pick_preemption_victim(exclude=row_id)
+                if victim is None:
+                    # no other row decodes: the rest of the pool is held by
+                    # fills, of which the youngest gives its blocks back
+                    # (the reference engine raises here); with no fill
+                    # either, this row is alone and fits by construction
+                    if self._abort_youngest_fill():
+                        continue
                     raise RuntimeError(
-                        "KV pool exhausted growing a decoding row: the pool "
-                        "is sized for every row at full length, so this is "
-                        "a leak"
+                        "KV pool exhausted with no evictable rows; pool="
+                        f"{self.n_blocks} blocks is too small for "
+                        f"kv_cache_len={self.kv_cache_len}"
                     )
-                self._set_row_blocks(row_id, self._row_blocks[row_id] + blocks)
+                self._preempt_row(victim)
+                # the preemption DRAINED the ring: its chunks are now in
+                # every row's generated tokens, so the counts taken above
+                # would charge them twice; recount this row and zero the
+                # counts of the rows that follow
+                pend_counts.clear()
+                if self.rows[row_id] is not row or row.parked:
+                    break  # this very row finished or parked in the drain
+                host_len = len(row.prompt) + len(row.generated) + 1
+                need = min(
+                    -(-(host_len + W) // self.page_size), self.blocks_per_row
+                )
+
+    def _row_priority(self, row: _Row) -> str:
+        """The request's priority class (``metadata["priority_class"]``);
+        unlabelled traffic is bulk."""
+        return str((row.req.metadata or {}).get("priority_class", "bulk"))
+
+    def _pick_preemption_victim(self, exclude: int) -> Optional[int]:
+        """The youngest (highest-epoch) bulk decoding row, else the youngest
+        interactive one: the youngest has the least cached work to throw
+        away."""
+        best, best_key = None, (-1, -1)
+        for row_id, row in enumerate(self.rows):
+            if row is None or row.parked or row.filling or row_id == exclude:
+                continue
+            is_bulk = 0 if self._row_priority(row) == "interactive" else 1
+            key = (is_bulk, row.epoch)
+            if key > best_key:
+                best, best_key = row_id, key
+        return best
+
+    def _preempt_row(self, row_id: int):
+        """Stop decoding a row and release its blocks; it re-admits through
+        the fill queue when space frees up.  The ring is drained first: the
+        victim's chunks must reach the host before its blocks can be
+        handed to anyone else."""
+        self._drain_ring()
+        row = self.rows[row_id]
+        if row is None or row.parked or row.filling:
+            return  # the drain finished or parked the victim
+        self._set_rows("active", [row_id], [False])
+        self._release_row(row_id)
+        self._preempted.append(row)
+        self.preempted_total += 1
+        cls = self._row_priority(row)
+        self.preempted_by_class[cls] = self.preempted_by_class.get(cls, 0) + 1
+
+    def _abort_youngest_fill(self) -> bool:
+        """Give back the blocks of the most recently admitted fill: its
+        fresh requests return to the head of the queue and its preempted
+        rows to the head of the preempted list, to be admitted again when
+        space frees up.  False when nothing is filling.  Only a decoding
+        row that needs a block no other tier can free calls this (a fill's
+        blocks are allocated whole at admission, so fills can hold the
+        rest of the pool)."""
+        if not self._filling:
+            return False
+        f = self._filling.pop()
+        # the fill's blocks are its first target's row blocks
+        self._release_row(f.targets[0].row_id)
+        for tgt in f.targets[1:]:
+            self.rows[tgt.row_id] = None
+        self._preempted[:0] = [t.resume for t in f.targets if t.resume]
+        with self._lock:
+            self._pending[:0] = [t.req for t in f.targets if not t.resume]
+        self.aborted_fills_total += 1
+        return True
 
     def _stop_fn(self, tok: torch.Tensor) -> torch.Tensor:
         stop = torch.zeros_like(tok, dtype=torch.bool)
@@ -686,9 +1194,9 @@ class ContinuousBatchingEngine:
         decision changes nothing there."""
         longest = 0
         for row in self.rows:
-            # filling rows are not in the decode batch: a long prompt
-            # mid-prefill must not route the decoding rows' chunk
-            if row is not None and not row.filling:
+            # filling and parked rows are not in the decode batch: a long
+            # prompt mid-prefill must not route the decoding rows' chunk
+            if row is not None and not row.parked and not row.filling:
                 longest = max(longest, len(row.prompt) + len(row.generated) + 1)
         thr = self.dispatch_table.deep_min_context
         return longest + len(self._ring) * self.chunk_size >= thr
@@ -696,7 +1204,7 @@ class ContinuousBatchingEngine:
     def _dispatch_chunk_paged(self):
         snapshot = [
             (i, r.epoch) for i, r in enumerate(self.rows)
-            if r is not None and not r.filling
+            if r is not None and not r.parked and not r.filling
         ]
         if self._tables_dirty:
             self._tables = self._to_device(self._tables_np)
@@ -763,7 +1271,7 @@ class ContinuousBatchingEngine:
         n_tokens = 0
         for row_id, epoch in chunk.snapshot:
             row = self.rows[row_id]
-            if row is None or row.epoch != epoch:
+            if row is None or row.parked or row.epoch != epoch:
                 continue  # slot freed (and maybe reused) since the dispatch
             cols = emitted[row_id]
             toks = out_t[row_id][cols].tolist()
@@ -774,20 +1282,46 @@ class ContinuousBatchingEngine:
             if not active[row_id]:
                 last = row.generated[-1] if row.generated else -1
                 row.no_eos = last not in self.stop_tokens
-                self._finish(row_id, row)
+                # a budget-exhausted row with cache headroom stays resident
+                # so its continuation resumes without a prefill
+                park = (
+                    row.no_eos
+                    and len(row.prompt) + len(row.generated) + 1
+                    < self.kv_cache_len
+                )
+                self._finish(row_id, row, park=park)
+            elif toks:
+                row.cur_token = toks[-1]
         self.decode_tokens_total += n_tokens
         return n_tokens
 
-    def _finish(self, row_id: int, row: _Row):
+    def _finish(
+        self, row_id: int, row: _Row, started: bool = True, park: bool = False
+    ):
+        """Publish ``row``'s result.  A ``started`` row (one that decoded in
+        slot ``row_id``) enters the radix cache with its KV-bearing tokens
+        and then parks (``park``) or releases its slot."""
         out = model_api.APIGenerateOutput.from_input(row.req)
         out.output_ids = list(row.generated)
         out.output_logprobs = list(row.logprobs)
         out.no_eos = row.no_eos
         out.version_start = row.version_start
         out.version_end = self.version
-        if row_id >= 0:
-            self._release_row(row_id)
-            self._set_rows("active", np.array([row_id]), np.zeros(1, bool))
+        if started and row_id >= 0:
+            # the pool holds KV for prompt + generated[:-1] (the last token
+            # is the pending one); inserting on park AND release lets the
+            # next turn of a conversation, under any qid, prefill only its
+            # new suffix
+            self._cache_insert(
+                (row.prompt + row.generated)[:-1], self._row_blocks[row_id]
+            )
+            if park:
+                row.parked = True
+                row.park_step = self._step_seq
+                row.cur_token = row.generated[-1]
+            else:
+                self._release_row(row_id)
+            self._set_rows("active", [row_id], [False])
         with self._lock:
             self._results[row.req.qid] = out
             ev = self._result_events.get(row.req.qid)
@@ -804,7 +1338,7 @@ class ContinuousBatchingEngine:
             for key in ch.snapshot:
                 counts[key] = counts.get(key, 0) + 1
         for row_id, row in enumerate(self.rows):
-            if row is None or row.filling:
+            if row is None or row.parked or row.filling:
                 continue
             c = counts.get((row_id, row.epoch), 0)
             if row.budget_left > c * self.chunk_size:
@@ -815,7 +1349,9 @@ class ContinuousBatchingEngine:
         """One engine iteration: weight swap (if requested), admit, advance
         fills, dispatch decode chunk N+K-1, then harvest chunk N, the
         oldest of up to ``pipeline_depth`` in-flight chunks.  Returns the
-        number of tokens harvested in this step."""
+        number of tokens harvested in this step, mid-step ring drains
+        (weight swaps, preemptions) included."""
+        self._step_seq += 1
         h0 = self.decode_tokens_total
         self._apply_pending_weights()
         self._admit_paged()
@@ -834,4 +1370,3 @@ class ContinuousBatchingEngine:
         ):
             self._harvest_oldest()
         return self.decode_tokens_total - h0
-

@@ -28,9 +28,11 @@ arguments and return new ones, these functions update the pools IN PLACE
 The reference's layer ``scan`` is a Python loop over
 ``params["layers"]``, and each layer's prefix attention passes the
 layer's pool slice ``k_pool[l]`` (a view, no copy) to the kernel.
+:func:`copy_blocks` copies whole blocks inside the pool (the prefix
+cache's and a sampling group's copy-on-write tails), scales included.
 Not ported: the host-tier block spill and restore
-(``gather_blocks``/``restore_blocks``) and block copies for the prefix
-cache, whose engine features are not ported either.
+(``gather_blocks``/``restore_blocks``), whose engine feature is not
+ported either.
 """
 
 from __future__ import annotations
@@ -116,6 +118,26 @@ def kv_pool_layout_bytes(
         return 2 * n, 2 * (n // cfg.head_dim) * 4
     itemsize = (dtype or torch_dtype(cfg.dtype)).itemsize
     return 2 * n * itemsize, 0
+
+
+@torch.no_grad()
+def copy_blocks(
+    k_pool: torch.Tensor,  # [L, NB, Hkv, BS, hd], updated in place
+    v_pool: torch.Tensor,
+    src: torch.Tensor,  # [n] pool block ids to copy from
+    dst: torch.Tensor,  # [n] distinct pool block ids to copy into
+    k_scale: Optional[torch.Tensor] = None,  # [L, NB, Hkv, BS] (int8 pool)
+    v_scale: Optional[torch.Tensor] = None,
+):
+    """Copy whole blocks ``[:, src] -> [:, dst]`` over every layer: a
+    sampling group's tail block (its members' generated tokens diverge
+    inside it) and a prefix-cache tail match (the donor may still append
+    to it) are copied, not shared.  An int8 pool copies the scale slices
+    with the bytes, so a copied tail carries its donor's exact
+    quantization.  Plain indexed copies, as the reference's."""
+    for pool in (k_pool, v_pool, k_scale, v_scale):
+        if pool is not None:
+            pool[:, dst] = pool[:, src]
 
 
 def quantize_kv(vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -206,11 +228,13 @@ def paged_window_forward(
     tables: torch.Tensor,  # [F, MB] int32 pool block ids
     k_scale: Optional[torch.Tensor] = None,  # [L, NB, Hkv, BS] (int8 pool)
     v_scale: Optional[torch.Tensor] = None,
+    store: Optional[torch.Tensor] = None,  # [F, C] bool, default ``valid``
 ) -> torch.Tensor:
     """Forward a token window for F rows over their cached paged prefixes:
     in-window causal self-attention merged online with the paged
     kernel's partials over ``[0, start)``; the window KV is scattered into
-    the rows' pool blocks (invalid positions dropped).  On an int8 pool
+    the rows' pool blocks at the positions of ``store`` (a subset of
+    ``valid``; the others are computed but dropped).  On an int8 pool
     the window KV is computed in model dtype and quantized at the
     scatter.  Returns the final hidden states ``x [F, C, D]``
     (pre-head)."""
@@ -268,7 +292,7 @@ def paged_window_forward(
             k_pool[l], v_pool[l],
             None if k_scale is None else k_scale[l],
             None if v_scale is None else v_scale[l],
-            pid, off, k, v, valid,
+            pid, off, k, v, valid if store is None else store,
         )
     return x
 
@@ -285,20 +309,25 @@ def paged_fill_chunk(
     tables: torch.Tensor,  # [F, MB] int32 pool block ids
     k_scale: Optional[torch.Tensor] = None,  # [L, NB, Hkv, BS] (int8 pool)
     v_scale: Optional[torch.Tensor] = None,
+    store: Optional[torch.Tensor] = None,  # [F, C] bool
 ) -> torch.Tensor:
     """One prefill chunk for F filling rows: each row's chunk tokens attend
     causally within the chunk and over the row's cached prefix
     ``[0, start)``; the chunk KV is scattered into the rows' pool blocks
     (the engine allocated blocks covering ``start + chunk_len``); an int8
-    pool quantizes at the scatter and lands the scales beside it.  Returns
-    the logits ``[F, V]`` at each row's last valid chunk position."""
+    pool quantizes at the scatter and lands the scales beside it.
+    ``store`` (default: every valid position) drops the scatter of the
+    other positions: rows that share a block write each of its slots from
+    one row only, since which of several writes of one slot lands is
+    unspecified on CUDA.  Returns the logits ``[F, V]`` at each row's
+    last valid chunk position."""
     F, C = tokens.shape
     valid = (
         torch.arange(C, device=tokens.device)[None, :] < chunk_lens[:, None]
     )
     x = paged_window_forward(
         params, k_pool, v_pool, cfg, tokens, starts, valid, tables,
-        k_scale, v_scale,
+        k_scale, v_scale, store,
     )
     last_idx = torch.clamp(chunk_lens - 1, min=0).long()
     x_last = x[torch.arange(F, device=x.device), last_idx][:, None]

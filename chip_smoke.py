@@ -23,7 +23,8 @@ from a seed, float32 master weights and their bf16 serving copy):
    at the serving paths' shapes: the standard kernel on bf16 and int8
    pools at decode and prefill-chunk shapes (a prefill chunk runs its
    tensor-core entry: 8 rows of Q=512, and one row of Q=512 after a
-   31000-token prefix), the deep kernel on both
+   31000-token prefix, and 4 rows of Q=512 after prefixes of 1000, 1255,
+   257 and 0 tokens, ending mid-page), the deep kernel on both
    pools at the prefill-chunk shape and at decode over 16 rows of up to
    32768 tokens (lengths 0, 1, BS-1, BS, BS+1, full and between; each
    deep call logs the body it runs, tensor cores or CUDA cores, and its
@@ -55,7 +56,18 @@ from a seed, float32 master weights and their bf16 serving copy):
    backward, and times them on the packed and long rows beside
    ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick,
    the backward also by part (D, dq, dk/dv with its reduction);
-5. runs one async-PPO trainer iteration on the greedy wave's rollout
+5. serves the recipe's group traffic through the radix prefix cache, on a
+   bf16 pool and on an int8 pool, with keyed sampling at temperature 1
+   (16 rows, 32768-token KV): a group of 16 over one 1000-token prompt
+   (one prefill, 15 copied tail blocks), two rounds of continuations that
+   resume parked rows (no prefill), a second group over the first prompt
+   plus 500 tokens (only the suffix prefilled) through two weight swaps
+   (the cache flushed, the shared blocks recomputed, bit-identical from
+   one swap to the next), and a pressure arm with a quarter of the dense
+   pool (16384 tokens for 16 x 4096) that preempts and completes every
+   request; launches against the dispatched work, logprobs against the
+   trainer forward, and the leak audit on every path;
+6. runs one async-PPO trainer iteration on the greedy wave's rollout
    through ``PPOActorInterface`` (actor_inf, then three actor_train steps
    with AdamW), with the recipe's settings but ``max_tokens_per_mb=2048``
    (so a minibatch accumulates over micro-batches), lr 1e-4 and no
@@ -64,6 +76,8 @@ from a seed, float32 master weights and their bf16 serving copy):
    the trainer's.  Deliberately broken trainer forwards (controls) show
    that the logprob gate would fail them.
 
+The engines of phases 2, 3 and 6 run without the prefix cache, so their
+work counts and times stay comparable with an engine that has none.
 Every phase raises on failure, so the script exits non-zero.  It exits
 non-zero without printing a result when no CUDA card is present, or when
 the ``areal_tpu_torch`` package is not beside it.
@@ -115,6 +129,32 @@ LONG_ARMS = (("A", "auto", None), ("B", "auto", DEEP_MIN_CONTEXT),
 LONG_CONTROL_LENS = (1024,) * 4 + (8000, 16000)
 #: contexts at which the standard and deep kernels are timed at decode
 DISPATCH_CONTEXTS = (4096, 8192, 16384, 32768)
+#: the prefix-cache phase, at the recipe's serving shape (max_batch 16,
+#: kv_cache_len 32768, group_size 16: training/configs/async_ppo.yaml:24):
+#: a group of 16 over one prompt of 1000 tokens (not a page multiple, so
+#: its tail block is copied per member), 64 new tokens each, then two
+#: rounds of continuations; a second group whose 1500-token prompt starts
+#: with the first prompt (a shared system prompt), through two weight
+#: swaps once its rows have generated PREFIX_SWAP_AFTER tokens
+PREFIX_GROUP = 16
+PREFIX_PROMPT = 1000
+PREFIX_SUFFIX = 500
+PREFIX_NEW_TOKENS = 64
+PREFIX_ROUNDS = 2
+PREFIX_SHARED_NEW_TOKENS = 96
+#: the first sharer's recompute covers the shared blocks in full 512-token
+#: chunks of its own once it holds 1500 + 36 tokens
+PREFIX_SWAP_AFTER = 40
+#: the pressure arm: a quarter of the dense pool (64 pages of 256 against
+#: 16 x 4096 tokens) under 16 prompts of 1024-3000 tokens
+PRESSURE_KV_CACHE_LEN = 4096
+PRESSURE_POOL_TOKENS = 16384
+PRESSURE_PROMPT_LENS = (1024, 3000, 1500, 2048, 1100, 2900, 1777, 2500,
+                        1300, 2222, 1024, 2800, 1600, 2000, 1234, 2700)
+PRESSURE_NEW_TOKENS = 256
+#: cached prefixes of the mid-page prefill-entry case: a cache hit leaves
+#: a fill's start anywhere in a page
+MID_PAGE_PREFIXES = (1000, 1255, 257, 0)
 #: the cached prefix of the long prefill-chunk shape (the long wave's
 #: largest prompt is 31000 tokens)
 LONG_PREFILL_PREFIX = 31000
@@ -417,11 +457,13 @@ def compare_kernel(name, B, Q, lengths, device, *, fn=None, int8=False,
 def kernel_phase(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
                  Q_prefill=PREFILL_CHUNK, long_prefix=LONG_PREFILL_PREFIX,
                  long_MB=LONG_KV_CACHE_LEN // PAGE_SIZE, timing_iters=20,
-                 **shape):
+                 mid_page=MID_PAGE_PREFIXES, **shape):
     """The standard paged kernel at decode (Q=1, B=8) and prefill-chunk
     (Q=prefill chunk, its tensor-core entry) shapes, with lengths 0, 1,
-    BS-1, BS, BS+1, a full table and two in between, and at one prefill
-    chunk after a ``long_prefix``-token prefix; bf16 pools, then the int8
+    BS-1, BS, BS+1, a full table and two in between, at one prefill chunk
+    after a ``long_prefix``-token prefix, and at prefill chunks after the
+    prefixes of ``mid_page`` (ending inside a page, as a prefix-cache hit
+    leaves them); bf16 pools, then the int8
     branch; then the deep kernel (bf16 and int8 pools) at the
     prefill-chunk and decode shapes.  The decode shape is timed L2-cold."""
     from areal_tpu_torch.ops import paged_attention as pa
@@ -451,6 +493,9 @@ def kernel_phase(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
         out[f"{key}prefill_long"] = compare_kernel(
             f"{tag}prefill after {long_prefix} tokens", 1, Q_prefill,
             [long_prefix], device, int8=int8, **long_kw)
+        out[f"{key}prefill_mid_page"] = compare_kernel(
+            f"{tag}prefill after prefixes ending mid-page", len(mid_page),
+            Q_prefill, list(mid_page), device, int8=int8, **kw)
         if pa.paged_flash_attention.prefill_launches == 0:
             raise AssertionError(f"{tag}prefill calls did not run the "
                                  "tensor-core prefill entry")
@@ -732,16 +777,43 @@ def build_engine(cfg, params, device, sampling, **kw):
         ContinuousBatchingEngine,
     )
 
+    # the prefix cache is off unless asked for: the earlier phases resubmit
+    # their prompts, and their work counts and times stay comparable with
+    # those of an engine without it
     settings = dict(
         max_batch=MAX_BATCH, kv_cache_len=KV_CACHE_LEN,
         chunk_size=CHUNK_SIZE, cache_mode="paged", page_size=PAGE_SIZE,
         prefill_chunk_tokens=PREFILL_CHUNK, pipeline_depth=PIPELINE_DEPTH,
-        seed=SEED,
+        seed=SEED, prefix_cache=False,
     )
     settings.update(kw)
     return ContinuousBatchingEngine(
         cfg, params, sampling=sampling, device=device, **settings
     )
+
+
+def audit_pool(eng, what):
+    """The engine's leak audit: ``close()`` accounts for every held pool
+    block by refcount (rows, parked rows and the prefix cache); then, with
+    the parked rows released and the cache flushed, the pool is whole."""
+    import numpy as np
+
+    leaked = eng.close()
+    held = eng.n_blocks - eng.free_pool_blocks
+    eng.park_ttl_steps = 0
+    eng.step()  # releases the parked rows
+    if eng._prefix_cache is not None:
+        eng._prefix_cache.flush()
+    after = eng.close()
+    if (leaked or after or eng.n_parked
+            or eng.free_pool_blocks != eng.n_blocks
+            or (np.asarray(eng._block_ref) != 0).any()):
+        raise AssertionError(
+            f"{what}: leak audit {leaked} (then {after}), {eng.n_parked} "
+            f"parked, free {eng.free_pool_blocks}/{eng.n_blocks}")
+    log(f"{what}: the refcount audit accounts for the {held} held blocks; "
+        f"with the parked rows released and the cache flushed the pool is "
+        f"whole ({eng.n_blocks} blocks)")
 
 
 def engine_phase(cfg, params, device, *, prompt_lens=PROMPT_LENS,
@@ -814,11 +886,7 @@ def engine_phase(cfg, params, device, *, prompt_lens=PROMPT_LENS,
         raise AssertionError("restoring the weights did not restore output")
     log("engine check: update_weights changes the output, stamps the "
         "version, and restoring the weights restores it")
-    leaked = eng.close()
-    if leaked or eng.free_pool_blocks != eng.n_blocks:
-        raise AssertionError(f"leaked pool blocks: {leaked}, free "
-                             f"{eng.free_pool_blocks}/{eng.n_blocks}")
-    log("engine check: close() reports no leaked blocks")
+    audit_pool(eng, "engine check")
     return dict(launches=launches, prefill_launches=prefill_launches,
                 prefill_tps=prefill_tps, decode_tps=decode_tps, outs=outs)
 
@@ -1465,10 +1533,10 @@ def train_phase(cfg, master, serving0, device, outs, card, *, lr=TRAIN_LR,
                 peak_gib=timed["peak"], steps=step_stats)
 
 
-def _gap_gate(what, gap, tol_mean, tol_max):
+def _gap_gate(what, gap, tol_mean, tol_max, phase="long"):
     mean, mx = gap
     ok = mean <= tol_mean and mx <= tol_max
-    log(f"long check: {what}: |trainer logprobs - serving logprobs| over "
+    log(f"{phase} check: {what}: |trainer logprobs - serving logprobs| over "
         f"response tokens: mean {mean:.3e} (tol {tol_mean}), max {mx:.3e} "
         f"(tol {tol_max}){'' if ok else ' FAILS'}")
     return ok
@@ -1593,9 +1661,7 @@ def long_context_phase(cfg, master, params, device, card, *,
             q_like = torch.empty((), dtype=getattr(torch, cfg.dtype))
             log(f"long {name}: its {deep_chunks} deep decode chunks ran the "
                 f"{deep_route(q_like, eng.k_pool[0], eng.k_scale)}")
-        leaked = eng.close()
-        if leaked or eng.free_pool_blocks != eng.n_blocks:
-            raise AssertionError(f"long {name}: leaked pool blocks {leaked}")
+        audit_pool(eng, f"long {name}")
         del eng
         torch.cuda.empty_cache()
         gap = gap_of(outs)
@@ -1659,6 +1725,284 @@ def long_context_phase(cfg, master, params, device, card, *,
                 f"request {firsts}")
             results[name]["agree"] = (agree, total, firsts)
     return results
+
+
+class LaunchGate:
+    """The paged kernels' launch counts on one engine path: set to 0 just
+    before the path (:meth:`start`), read just after (:meth:`check`), and
+    held against the work the engine dispatched in between, from its own
+    counters: every fill chunk and every decode step runs the kernel once
+    per layer; a fill chunk on the prefill entry unless its widest row is
+    one token; decode chunks on the deep kernel when routed there."""
+
+    def __init__(self, eng, L, int8):
+        self.eng, self.L, self.int8 = eng, L, int8
+        self.total = dict(std=0, deep=0, prefill=0)
+
+    def _work(self):
+        e = self.eng
+        return (e.prefill_calls, e.one_token_fill_calls,
+                e.decode_chunks_total, e.deep_decode_chunks_total)
+
+    def start(self):
+        from areal_tpu_torch.ops import paged_attention as pa
+
+        for fn in (pa.paged_flash_attention, pa.paged_flash_attention_deep):
+            fn.launches = fn.int8_launches = 0
+        pa.paged_flash_attention.prefill_launches = 0
+        self.w0 = self._work()
+
+    def check(self, what):
+        from areal_tpu_torch.ops import paged_attention as pa
+
+        std, deep = pa.paged_flash_attention, pa.paged_flash_attention_deep
+        fills, one, chunks, deep_chunks = (
+            b - a for a, b in zip(self.w0, self._work()))
+        L, W = self.L, self.eng.chunk_size
+        key, other = (("int8_launches", "launches") if self.int8
+                      else ("launches", "int8_launches"))
+        got = dict(std=getattr(std, key), deep=getattr(deep, key),
+                   prefill=std.prefill_launches)
+        want = dict(std=L * (fills + W * (chunks - deep_chunks)),
+                    deep=L * W * deep_chunks, prefill=L * (fills - one))
+        log(f"{what}: {fills} fill chunks ({one} of one token), {chunks} "
+            f"decode chunks ({deep_chunks} deep); paged launches {got}, "
+            f"expected {want}")
+        if (got != want or getattr(std, other) or getattr(deep, other)
+                or got["std"] == 0):
+            raise AssertionError(f"{what}: kernel launches {got} do not match "
+                                 f"the dispatched work {want}")
+        for k in self.total:
+            self.total[k] += got[k]
+        return dict(fills=fills, chunks=chunks)
+
+
+def prefix_phase(cfg, master, params, device, card, *, kv_dtype="auto",
+                 group=PREFIX_GROUP, prompt_len=PREFIX_PROMPT,
+                 suffix_len=PREFIX_SUFFIX, new_tokens=PREFIX_NEW_TOKENS,
+                 rounds=PREFIX_ROUNDS, shared_new=PREFIX_SHARED_NEW_TOKENS,
+                 swap_after=PREFIX_SWAP_AFTER, max_batch=LONG_MAX_BATCH,
+                 kv_cache_len=LONG_KV_CACHE_LEN,
+                 pressure_lens=PRESSURE_PROMPT_LENS,
+                 pressure_kv=PRESSURE_KV_CACHE_LEN,
+                 pressure_pool=PRESSURE_POOL_TOKENS,
+                 pressure_new=PRESSURE_NEW_TOKENS, mb_tokens=None,
+                 **engine_kw):
+    """The radix prefix cache, group-prompt block sharing, parking and
+    preemption at the recipe's serving shape, on a ``kv_dtype`` pool, with
+    keyed sampling at temperature 1:
+
+    1. a group wave: ``group`` requests over one ``prompt_len``-token
+       prompt prefill it once and copy its tail block per member;
+    2. ``rounds`` rounds of continuations (each answer resubmitted under
+       its qid) resume parked rows with no prefill;
+    3. a second group whose prompt extends the first by ``suffix_len``
+       tokens evicts the parked rows and prefills only the suffix; two
+       weight swaps to the same perturbed weights while it decodes flush
+       the cache, recompute the shared blocks, and leave their bytes
+       bit-identical from one swap to the next;
+    4. a pressure arm: ``pressure_pool`` tokens of pool (a quarter of the
+       dense ``group x pressure_kv``) under prompts of ``pressure_lens``
+       preempts and completes every request.
+
+    Each path checks its launches against the dispatched work
+    (:class:`LaunchGate`) and its logprobs against the trainer forward;
+    each engine ends with the leak audit (:func:`audit_pool`)."""
+    import dataclasses
+
+    import torch
+
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.engine.sampling import SamplingParams
+    from areal_tpu_torch.engine.train_engine import TrainEngine
+    from areal_tpu_torch.interfaces.ppo_interface import model_logprobs_fwd
+
+    L = cfg.n_layers
+    int8 = kv_dtype == "int8"
+    tol = (TOL_INT8_MEAN, TOL_INT8_MAX) if int8 else (TOL_PROX_MEAN,
+                                                       TOL_PROX_MAX)
+    tag = f"prefix {kv_dtype} pool"
+    mb_spec = MicroBatchSpec(max_tokens_per_mb=mb_tokens or kv_cache_len)
+    sampling = SamplingParams(temperature=1.0)
+
+    trainers = {}
+
+    def gate(what, outs, weights=master):
+        # forward only: no optimizer state; the tree is shared, not copied
+        if id(weights) not in trainers:
+            trainers[id(weights)] = TrainEngine(cfg, None, weights,
+                                                device=device)
+        trainer = trainers[id(weights)]
+        sample = rollout_sample(outs, SEED)
+        gap = _response_gap(sample, trainer.forward_batch(
+            sample, model_logprobs_fwd(), mb_spec, output_shift=1))
+        if not _gap_gate(f"{tag}, {what}", gap, *tol, phase="prefix"):
+            raise AssertionError(f"{tag}, {what}: serving and trainer "
+                                 "logprobs disagree")
+        return gap
+
+    def stats(eng):
+        st = eng.prefix_cache_stats()
+        return dict(prefill=eng.prefill_tokens_total, calls=eng.prefill_calls,
+                    copies=eng.block_copies_total, resumed=eng.resumed_total,
+                    preempted=eng.preempted_total, hits=st["hits_total"],
+                    cached=st["cached_tokens_total"],
+                    flushes=st["flushes_total"])
+
+    def delta(a, b):
+        return {k: b[k] - a[k] for k in a}
+
+    eng = build_engine(cfg, params, device, sampling, max_batch=max_batch,
+                       kv_cache_len=kv_cache_len, kv_cache_dtype=kv_dtype,
+                       prefix_cache=True, **engine_kw)
+    launches = LaunchGate(eng, L, int8)
+    res = {}
+    p1 = make_prompts(cfg.vocab_size, [prompt_len], SEED + 31)[0]
+
+    # 1. the group wave
+    s0 = stats(eng)
+    launches.start()
+    outs, secs = serve(eng, requests([p1] * group, new_tokens, "g"))
+    launches.check(f"{tag}, group wave")
+    check_outputs(outs, cfg, new_tokens, f"{tag} group")
+    d = delta(s0, stats(eng))
+    log(f"{tag}, group wave: {group} requests over one {prompt_len}-token "
+        f"prompt: {d['prefill']} prompt tokens prefilled of "
+        f"{group * prompt_len} submitted, {d['copies']} tail blocks copied, "
+        f"{sum(len(o.output_ids) for o in outs)} new tokens, wall "
+        f"{secs:.2f} s on {card}")
+    if d["prefill"] != prompt_len or d["copies"] != group - 1:
+        raise AssertionError(f"{tag}, group wave: {d}")
+    res["group"] = dict(secs=secs, prefilled=d["prefill"],
+                        submitted=group * prompt_len, copies=d["copies"],
+                        gap=gate("group wave", outs))
+
+    # 2. continuations resume the parked rows
+    for r in range(rounds):
+        s0 = stats(eng)
+        launches.start()
+        outs, secs = serve(eng, requests(
+            [list(o.prompt_ids) + list(o.output_ids) for o in outs],
+            new_tokens, "g"))
+        launches.check(f"{tag}, continuation round {r + 1}")
+        check_outputs(outs, cfg, new_tokens, f"{tag} continuation")
+        d = delta(s0, stats(eng))
+        log(f"{tag}, continuation round {r + 1}: {d['resumed']} resumed, "
+            f"{d['prefill']} tokens prefilled in {d['calls']} fill chunks, "
+            f"wall {secs:.2f} s")
+        if d["resumed"] != group or d["prefill"] or d["calls"]:
+            raise AssertionError(f"{tag}, continuation round {r + 1}: {d}")
+    res["continuation_gap"] = gate(f"continuation round {rounds}", outs)
+    if eng.n_parked != group:
+        raise AssertionError(f"{tag}: {eng.n_parked} parked rows")
+
+    # 3. a shared system prompt: a second group over p1 + a suffix
+    p2 = p1 + make_prompts(cfg.vocab_size, [suffix_len], SEED + 32)[0]
+    reqs = requests([p2] * group, shared_new, "s")
+    s0 = stats(eng)
+    launches.start()
+    tik = time.perf_counter()
+    for q in reqs:
+        eng.submit(q)
+    while eng.n_decoding < group:
+        eng.step()
+    d = delta(s0, stats(eng))
+    log(f"{tag}, shared-prefix group: {d['prefill']} tokens prefilled of a "
+        f"{len(p2)}-token prompt, {d['cached']} served from the cache, "
+        f"{eng.n_parked} parked rows left")
+    if (d["prefill"] != suffix_len or d["cached"] != prompt_len
+            or d["hits"] != 1 or eng.n_parked):
+        raise AssertionError(f"{tag}, shared-prefix group: {d}")
+    rids = [i for i, r in enumerate(eng.rows)
+            if r is not None and r.req.qid.startswith("s-")]
+    rows = [eng.rows[i] for i in rids]
+    while min(len(r.generated) for r in rows) < swap_after:
+        eng.step()
+    n_full = len(p2) // eng.page_size
+    shared = sorted({b for i in rids for b in eng._row_blocks[i][:n_full]})
+    if any(eng._block_ref[b] < group for b in shared):
+        raise AssertionError(f"{tag}: the group's full blocks are not shared")
+
+    def shared_bytes():
+        return [t[:, shared].clone() for t in
+                (eng.k_pool, eng.v_pool, eng.k_scale, eng.v_scale)
+                if t is not None]
+
+    before = shared_bytes()
+    w1 = _perturbed(master, SEED + 33)
+    copies = []
+    for version in (1, 2):
+        eng.update_weights(w1, version=version)
+        eng.step()  # the swap applies between chunks
+        if version == 1:
+            at_swap = {r.req.qid: len(r.generated) for r in rows}
+        copies.append(shared_bytes())
+    if eng.prefix_cache_stats()["flushes_total"] != s0["flushes"] + 2:
+        raise AssertionError(f"{tag}: the swaps did not flush the cache")
+    moved = not all(torch.equal(a, b) for a, b in zip(before, copies[0]))
+    same = all(torch.equal(a, b) for a, b in zip(*copies))
+    log(f"{tag}, weight swaps while the group decodes ({len(shared)} shared "
+        f"blocks, {min(at_swap.values())}-{max(at_swap.values())} tokens "
+        f"generated at the first): the first recomputed the shared blocks "
+        f"({moved}); the second left their bytes bit-identical ({same})")
+    if not (moved and same):
+        raise AssertionError(f"{tag}: shared blocks after the swaps: "
+                             f"recomputed {moved}, repeat identical {same}")
+    while eng.has_work:
+        eng.step()
+    _sync(device)
+    secs = time.perf_counter() - tik
+    res_outs = eng.drain_results()
+    outs = [res_outs.pop(q.qid) for q in reqs]
+    launches.check(f"{tag}, shared-prefix group with two weight swaps")
+    check_outputs(outs, cfg, shared_new, f"{tag} shared")
+    if any(o.version_end != 2 for o in outs):
+        raise AssertionError(f"{tag}: the shared group missed the swaps")
+    # the tokens sampled after the first swap, against the trainer forward
+    # of the swapped-in weights
+    post = [dataclasses.replace(
+        o, prompt_ids=list(o.prompt_ids) + o.output_ids[:at_swap[o.qid]],
+        output_ids=o.output_ids[at_swap[o.qid]:],
+        output_logprobs=o.output_logprobs[at_swap[o.qid]:]) for o in outs]
+    res["shared"] = dict(secs=secs, prefilled=d["prefill"],
+                         cached=d["cached"],
+                         gap=gate("shared group after the swaps", post, w1))
+    res["launches"] = dict(launches.total)
+    audit_pool(eng, tag)
+    del eng
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 4. the pressure arm
+    eng = build_engine(cfg, params, device, sampling, max_batch=max_batch,
+                       kv_cache_len=pressure_kv, kv_pool_tokens=pressure_pool,
+                       kv_cache_dtype=kv_dtype, prefix_cache=True, **engine_kw)
+    gate_p = LaunchGate(eng, L, int8)
+    prompts = make_prompts(cfg.vocab_size, pressure_lens, SEED + 34)
+    gate_p.start()
+    outs, secs = serve(eng, requests(prompts, pressure_new, "pressure"))
+    work = gate_p.check(f"{tag}, pressure arm")
+    check_outputs(outs, cfg, pressure_new, f"{tag} pressure")
+    n_tok = sum(len(o.output_ids) for o in outs)
+    log(f"{tag}, pressure arm ({eng.n_blocks} blocks of {eng.page_size} for "
+        f"{max_batch} rows x {pressure_kv}): {len(outs)} requests, prompts "
+        f"{sum(pressure_lens)} tokens, {n_tok} new tokens in {secs:.2f} s; "
+        f"{eng.preempted_total} preemptions, {eng.prefill_tokens_total} "
+        f"tokens prefilled in {work['fills']} fill chunks, "
+        f"{eng.prefix_cache_stats()['evictions_total']} cache evictions")
+    if eng.preempted_total < 1 or n_tok != len(outs) * pressure_new:
+        raise AssertionError(f"{tag}, pressure arm: {eng.preempted_total} "
+                             f"preemptions, {n_tok} tokens")
+    res["pressure"] = dict(secs=secs, preempted=eng.preempted_total,
+                           prefilled=eng.prefill_tokens_total,
+                           gap=gate("pressure arm", outs))
+    for k in launches.total:
+        res["launches"][k] += gate_p.total[k]
+    audit_pool(eng, f"{tag}, pressure arm")
+    del eng
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
 
 
 def parent_ab(parent: str):
@@ -1759,10 +2103,16 @@ def main() -> int:
 
     flash = flash_phase(device)
     log(f"flash phase done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    prefix = {kv: prefix_phase(cfg, master, params, device, card,
+                               kv_dtype=kv) for kv in ("auto", "int8")}
+    log(f"prefix-cache phase done at {time.perf_counter() - t_start:.1f} s; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     train = train_phase(cfg, master, params, device, eng["outs"], card)
     log(f"train phase done at {time.perf_counter() - t_start:.1f} s")
 
-    entries = kernel_entries(kern, long_kern, eng, long, flash, train)
+    entries = kernel_entries(kern, long_kern, eng, long, flash, train, prefix)
     if parent is not None:
         del eng, long, master, params
         torch.cuda.empty_cache()
@@ -1778,10 +2128,11 @@ def main() -> int:
     return 0
 
 
-def kernel_entries(kern, long_kern, eng, long, flash, train):
+def kernel_entries(kern, long_kern, eng, long, flash, train, prefix):
     """The ``{"kernels": [...]}`` line's entries: every kernel, with its
-    launches on the main paths (the engine's greedy wave and the
-    long-context arms; the trainer's steps for the flash kernels), its
+    launches on the main paths (the engine's greedy wave, the long-context
+    arms and the prefix-cache phase; the trainer's steps for the flash
+    kernels), its
     comparison's largest absolute error, and its time, plain time and
     bound at its main-path shape."""
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "shape")
@@ -1804,29 +2155,41 @@ def kernel_entries(kern, long_kern, eng, long, flash, train):
     def errs(*keys, src=kern):
         return max(src[k]["max_abs_err"] for k in keys)
 
+    fp_prefix, int8_prefix = (prefix[k]["launches"] for k in ("auto", "int8"))
     entries = [
         entry("paged_flash_attention", paged_src, paged_ref,
-              eng["launches"] + arm_launches("std", False),
-              max(errs("decode", "prefill", "prefill_long"),
+              eng["launches"] + arm_launches("std", False) + fp_prefix["std"],
+              max(errs("decode", "prefill", "prefill_long",
+                       "prefill_mid_page"),
                   errs("standard_bf16", src=long_kern)),
               kern["decode"],
               launches_by_path=dict(engine_wave=eng["launches"],
-                                    long_context=arm_launches("std", False)),
+                                    long_context=arm_launches("std", False),
+                                    prefix_cache=fp_prefix["std"]),
               prefill_entry_launches=(eng["prefill_launches"]
-                                      + arm_launches("prefill", False)),
+                                      + arm_launches("prefill", False)
+                                      + fp_prefix["prefill"]),
               prefill={k: kern["prefill"][k] for k in timed},
               prefill_long={k: kern["prefill_long"][k] for k in timed},
+              prefill_mid_page={k: kern["prefill_mid_page"][k]
+                                for k in timed},
               long_decode={k: long_kern["standard_bf16"][k] for k in timed}),
         entry("paged_flash_attention_int8", paged_src,
               "areal_tpu/ops/paged_attention.py:116",
-              arm_launches("std", True),
-              max(errs("int8_decode", "int8_prefill", "int8_prefill_long"),
+              arm_launches("std", True) + int8_prefix["std"],
+              max(errs("int8_decode", "int8_prefill", "int8_prefill_long",
+                       "int8_prefill_mid_page"),
                   errs("standard_int8", src=long_kern)),
               long_kern["standard_int8"],
-              prefill_entry_launches=arm_launches("prefill", True),
+              launches_by_path=dict(long_context=arm_launches("std", True),
+                                    prefix_cache=int8_prefix["std"]),
+              prefill_entry_launches=(arm_launches("prefill", True)
+                                      + int8_prefix["prefill"]),
               decode={k: kern["int8_decode"][k] for k in timed},
               prefill={k: kern["int8_prefill"][k] for k in timed},
-              prefill_long={k: kern["int8_prefill_long"][k] for k in timed}),
+              prefill_long={k: kern["int8_prefill_long"][k] for k in timed},
+              prefill_mid_page={k: kern["int8_prefill_mid_page"][k]
+                                for k in timed}),
         entry("paged_flash_attention_deep", deep_src, deep_ref,
               arm_launches("deep", False),
               max(errs("deep_prefill", "deep_decode"),

@@ -148,6 +148,7 @@ class _Row:
         self.prompt = list(range(n))
         self.generated = []
         self.filling = filling
+        self.parked = False
 
 
 def test_deep_kernel_threshold_is_context_driven():

@@ -1,9 +1,11 @@
 """The torch port's paged ``ContinuousBatchingEngine`` against the JAX
 package's, on the same converted weights and the same requests: exact
 greedy tokens, logprobs within 1e-4 (fp32), the same ``no_eos`` and
-version stamps, zero leaked pool blocks at ``close()``, outputs that
-follow ``update_weights``, and identical streams at pipeline depths 1
-and 2."""
+version stamps, a refcount audit at ``close()`` that accounts for every
+held pool block, a whole pool once the parked rows are released, outputs
+that follow ``update_weights``, and identical streams at pipeline depths
+1 and 2.  Both engines run without the prefix cache here; its parity is
+held in ``tests/test_torch_prefix_cache.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -99,8 +101,17 @@ def _port_engine(cfg, tree, **kw):
     return ContinuousBatchingEngine(
         cfg, params_from_jax(tree, cfg, "cpu"),
         sampling=SamplingParams(greedy=True), device="cpu",
-        **dict(ENGINE, **kw),
+        **dict(ENGINE, prefix_cache=False, **kw),
     )
+
+
+def _release_idle(eng):
+    """Release the parked rows (at TTL 0 the next step releases them) and
+    flush the prefix cache: afterwards nothing holds a pool block."""
+    eng.park_ttl_steps = 0
+    eng.step()
+    if eng._prefix_cache is not None:
+        eng._prefix_cache.flush()
 
 
 def _assert_same(port, ref):
@@ -140,6 +151,10 @@ def test_engine_matches_jax_and_follows_weights(model, reference):
     _assert_same(got2, second)
     assert [o.output_ids for o in got2] != [o.output_ids for o in got]
     assert eng.close() == {}
+    # budget-exhausted rows parked, holding their blocks
+    assert eng.n_parked > 0 and eng.free_pool_blocks < eng.n_blocks
+    _release_idle(eng)
+    assert eng.n_parked == 0 and eng.close() == {}
     assert eng.free_pool_blocks == eng.n_blocks
 
 

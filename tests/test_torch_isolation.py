@@ -161,14 +161,13 @@ def test_kernel_source_targets_hopper():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(prefix_cache=True),
+        dict(prefix_cache=True, prefix_cache_host_bytes=1 << 20),
         dict(serving_weight_dtype="int8"),
         dict(spec_decode_params=object()),
         dict(slo_tracking=True),
         dict(handoff_streaming=True),
         dict(mesh=object()),
         dict(cache_mode="dense"),
-        dict(kv_pool_tokens=64),
     ],
     ids=lambda kw: next(iter(kw)),
 )
@@ -184,3 +183,17 @@ def test_out_of_slice_options_are_refused(kw):
 def test_moe_config_is_refused():
     with pytest.raises(NotImplementedError):
         tiny_config(n_experts=4)
+
+
+def test_small_pool_and_prefix_cache_are_served():
+    """A pool below ``max_batch * kv_cache_len`` builds (the engine
+    reclaims and preempts under pressure), and the radix prefix cache is
+    on by default, as in the reference engine."""
+    cfg, params = _tiny_engine_args()
+    eng = ContinuousBatchingEngine(
+        cfg, params, max_batch=2, kv_cache_len=128, page_size=16,
+        device="cpu", cache_mode="paged", kv_pool_tokens=64,
+    )
+    # 64 tokens are 4 blocks of 16; one full-length row (8 blocks) fits
+    assert eng.n_blocks == 8 and eng.free_pool_blocks == 8
+    assert eng.prefix_cache_stats()["capacity_blocks"] == 4

@@ -24,6 +24,7 @@ from tests.test_torch_engine import (
     _port_engine,
     _port_input,
     _prompts,
+    _release_idle,
     _run,
 )
 from tests.test_torch_model import port_config
@@ -207,7 +208,11 @@ def test_int8_engine_wave_matches_jax(model):
     st = eng.kv_quant_stats()
     assert st["divergence_checks_total"] == checked
     assert st["divergence_diverged_total"] == diverged
-    assert st["quantized_blocks_held"] == 0
+    # the parked rows hold quantized blocks until they are released
+    assert st["quantized_blocks_held"] == eng.n_blocks - eng.free_pool_blocks
+    assert eng.close() == {}
+    _release_idle(eng)
+    assert eng.kv_quant_stats()["quantized_blocks_held"] == 0
     assert eng.close() == {}
     assert eng.free_pool_blocks == eng.n_blocks
 

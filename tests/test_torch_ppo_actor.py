@@ -232,7 +232,7 @@ def test_serving_vs_training_logprob_gap_bf16():
     # float32 master weights (cast to bf16 at use)
     teng = ContinuousBatchingEngine(
         cfg, params_from_jax(tree, cfg, "cpu"), device="cpu",
-        sampling=SamplingParams(greedy=True), **kw,
+        sampling=SamplingParams(greedy=True), prefix_cache=False, **kw,
     )
     touts = serve(teng, [
         APIGenerateInput(
