@@ -1,5 +1,6 @@
-"""One side of a parent-vs-change comparison of chunked prefill on one
-CUDA card, at the full Qwen2.5-1.5B width and depth (random weights).
+"""One side of a parent-vs-change comparison of chunked prefill and of the
+serving engine on one CUDA card, at the full Qwen2.5-1.5B width and depth
+(random weights).
 
 Run it from the root of the tree under test, which supplies
 ``areal_tpu_torch`` and ``chip_smoke.py``; the script itself may come
@@ -12,9 +13,12 @@ Run the sides in turns in one run on one card (parent, change,
 change, parent).  It prints one ``AB {...}`` JSON line: the wall times of
 three 512-token prefill chunks of one row after a 31000-token cached
 prefix, the device busy time of a fourth and its paged kernel's share
-(``torch.profiler``), and the first-token prefill rate of the async-PPO
+(``torch.profiler``), the first-token prefill rate of the async-PPO
 recipe's long wave (16 rows of 32768-token KV; ``chip_smoke``'s
-``LONG_PROMPT_LENS``, arm A's settings).
+``LONG_PROMPT_LENS``, arm A's settings), and the engine wave's prefill
+and decode rates as ``chip_smoke``'s ``engine_phase`` measures them (8
+rows, ``PROMPT_LENS``, ``NEW_TOKENS``; a first-token wave, then a greedy
+wave whose decode time is its wall time less the first-token wave's).
 """
 
 import json
@@ -87,10 +91,25 @@ def main(tag: str) -> int:
     _, secs = c.serve(eng, c.requests(prompts, 1, "first"))
     tps = (eng.prefill_tokens_total - p0) / secs
     eng.close()
+    del eng
+    torch.cuda.empty_cache()
+
+    # the engine wave (chip_smoke's engine_phase)
+    eng = c.build_engine(cfg, params, dev, SamplingParams(greedy=True))
+    prompts = c.make_prompts(cfg.vocab_size, c.PROMPT_LENS, c.SEED)
+    c.serve(eng, c.requests([p[:64] for p in prompts[:2]], 4, "warm"))
+    p0 = eng.prefill_tokens_total
+    _, first_s = c.serve(eng, c.requests(prompts, 1, "prefill"))
+    wave_prefill = (eng.prefill_tokens_total - p0) / first_s
+    t0 = eng.decode_tokens_total
+    _, wave_s = c.serve(eng, c.requests(prompts, c.NEW_TOKENS, "greedy"))
+    wave_decode = (eng.decode_tokens_total - t0) / (wave_s - first_s)
     print("AB " + json.dumps(dict(
         tree=tag, card=c.card_line(), fill_wall_ms=walls,
         fill_device_busy_ms=busy * 1e3, fill_paged_kernel_ms=kern * 1e3,
-        long_first_token_wave_s=secs, long_prefill_tok_s=tps)), flush=True)
+        long_first_token_wave_s=secs, long_prefill_tok_s=tps,
+        engine_prefill_tok_s=wave_prefill,
+        engine_decode_tok_s=wave_decode)), flush=True)
     return 0
 
 
