@@ -51,6 +51,10 @@ class APIGenerateOutput:
     version_start: int = -1
     version_end: int = -1
     latency: float = 0.0
+    # the weight version each output token was sampled under (one entry
+    # per ``output_ids`` entry; the JAX package reports only the first
+    # and last, ``version_start`` and ``version_end``)
+    output_versions: List[int] = dataclasses.field(default_factory=list)
 
     @classmethod
     def from_input(cls, inp: APIGenerateInput) -> "APIGenerateOutput":
@@ -108,6 +112,11 @@ class Model:
         default_factory=ModelVersionSteps
     )
     ft_spec: Optional[FinetuneSpec] = None
+    backend_name: str = ""
+    # set by engine.backend.make_model: the model's config and its
+    # parameters before an engine takes them
+    model_cfg: Any = None
+    init_params: Any = None
 
 
 class ModelInterface(abc.ABC):

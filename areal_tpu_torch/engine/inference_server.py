@@ -35,6 +35,18 @@ Design, as in the reference:
 * ``update_weights(params)`` takes effect between chunks: the ring is
   drained, parked rows are released, the cache is flushed, the weights
   swap, and every in-flight row's KV is recomputed under the new weights.
+* A staged swap splits that in two: ``stage_weights`` makes the serving
+  copy on the device (on a side CUDA stream, from any thread) while decode
+  goes on, and ``commit_staged`` hands it to the next step's apply, which
+  is then a pointer flip.  A stage whose version is not newer than the
+  served one is dropped.  Every output token carries the version it was
+  sampled under.
+* ``pause``/``resume`` quiesce the loop (a paused step only drains the
+  ring); ``cancel`` releases a request wherever it lives.
+* With ``slo_tracking`` (the default) each request gets a latency record:
+  admission wait, time to first token, time per output token and the
+  time it stalled in weight swaps and preemptions, folded into
+  mergeable percentile digests (:mod:`areal_tpu_torch.observability.latency`).
 * Sampling is keyed on (engine seed, request seed, absolute position), so
   token streams do not depend on chunk size, pipeline depth, row
   placement, sharing or preemption.
@@ -46,17 +58,18 @@ Design, as in the reference:
   per (block, head, slot); fill and decode chunks quantize at the scatter,
   both kernels dequantize at the read, and block copies carry the scales.
 
-Left out of this slice, each rejected explicitly where a caller could ask
-for it: the prefix cache's host spill tier, speculative decode, int8
-weights, P/D handoff and fleet prefix pulls, SLO records and token
-streams, tensor-parallel meshes, the dense cache mode, MoE models, and
-staged weight swaps.
+Left out so far, each rejected explicitly where a caller could ask for it:
+the prefix cache's host spill tier, speculative decode, int8 weights, P/D
+handoff and fleet prefix pulls, token streams, tensor-parallel meshes, the
+dense cache mode, MoE models, and the HBM ledger.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
+import time
 import zlib
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
@@ -65,6 +78,7 @@ import numpy as np
 import torch
 
 from areal_tpu_torch.api import model_api
+from areal_tpu_torch.base import logging_
 from areal_tpu_torch.base.device import DeviceLike, resolve_device
 from areal_tpu_torch.engine.dispatch import PagedDispatchTable
 from areal_tpu_torch.engine.prefix_cache import PrefixMatch, RadixPrefixCache
@@ -72,6 +86,10 @@ from areal_tpu_torch.engine.sampling import SamplingParams, sample_logits_keyed
 from areal_tpu_torch.models import paged
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.convert import serving_params
+from areal_tpu_torch.observability.latency import LatencyDigest, LatencyRecord
+from areal_tpu_torch.observability.tracing import get_tracer
+
+logger = logging_.getLogger("inference_server")
 
 #: numpy types of the engine's device state tensors
 _NP = {torch.int32: np.int32, torch.bool: np.bool_}
@@ -83,9 +101,12 @@ def _qid_seed(qid: str) -> int:
     return zlib.crc32(qid.encode()) & 0x7FFFFFFF
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: Optional[int] = None) -> NotImplementedError:
+    """The error for what the port does not do yet; ``item`` names the
+    entry of ROADMAP.md's queue 1 that will port it."""
+    where = f"ROADMAP.md queue 1, item {item}" if item else "ROADMAP.md"
     return NotImplementedError(
-        f"{what} is not ported to the torch engine yet (see ROADMAP.md)"
+        f"{what} is not ported to areal_tpu_torch yet (see {where})"
     )
 
 
@@ -111,6 +132,18 @@ class _Row:
     # bumped on every admission and resume: a pipelined chunk's harvest
     # touches only the occupant its dispatch snapshotted
     epoch: int = 0
+    # the weight version each generated token was sampled under
+    versions: List[int] = dataclasses.field(default_factory=list)
+    # SLO stamps (monotonic clock; telemetry only, no dispatch decision
+    # reads them): submit -> admit is the admission wait, submit -> first
+    # token the TTFT, (last - first) / (tokens - 1) the TPOT; stall_s sums
+    # weight-swap pauses and time spent preempted while in flight
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_first: float = 0.0
+    t_last: float = 0.0
+    slo_stall_s: float = 0.0
+    t_preempt: float = 0.0
 
 
 @dataclasses.dataclass
@@ -179,9 +212,11 @@ class ContinuousBatchingEngine:
         prefix_cache_min_tokens: int = 1,
         prefix_cache_host_bytes: int = 0,
         spec_decode_params=None,
-        slo_tracking: bool = False,
+        slo_tracking: bool = True,
         handoff_streaming: bool = False,
         mesh=None,
+        server_name: str = "",
+        tokenizer=None,
     ):
         """Arguments mirror the reference engine's.  ``device`` defaults to
         ``cuda``; pass ``"cpu"`` to run on the CPU.  ``params`` is the port's
@@ -213,10 +248,13 @@ class ContinuousBatchingEngine:
         live context.  ``kv_cache_dtype`` is ``"auto"`` (model-dtype pool)
         or ``"int8"`` (int8 pool with float32 scales).
 
+        ``slo_tracking`` keeps a latency record per request (see
+        :meth:`slo_stats`); ``server_name`` labels them.  A ``tokenizer``'s
+        EOS token joins ``stop_tokens``.
+
         Refused with ``NotImplementedError``: ``prefix_cache_host_bytes >
         0``, ``serving_weight_dtype="int8"``, ``spec_decode_params``,
-        ``slo_tracking=True``, ``handoff_streaming=True``, ``mesh`` and the
-        dense cache mode."""
+        ``handoff_streaming=True``, ``mesh`` and the dense cache mode."""
         if cache_mode not in ("auto", "dense", "paged"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
         self.dispatch_table = dispatch_table or PagedDispatchTable()
@@ -230,7 +268,7 @@ class ContinuousBatchingEngine:
                 f"the dense cache mode (cache_mode={cache_mode!r}, "
                 f"kv_cache_len={kv_cache_len}, paged from "
                 f"{self.dispatch_table.paged_min_cache_len}; pass "
-                "cache_mode='paged')"
+                "cache_mode='paged')", item=8,
             )
         if cfg.sliding_window is not None:
             raise ValueError(
@@ -243,21 +281,21 @@ class ContinuousBatchingEngine:
             )
         if serving_weight_dtype != "auto":
             raise _not_ported(
-                f"serving_weight_dtype={serving_weight_dtype!r} (int8 weights)"
+                f"serving_weight_dtype={serving_weight_dtype!r} (int8 weights)",
+                item=8,
             )
         if prefix_cache_host_bytes > 0:
             raise _not_ported(
                 "the prefix cache's host spill tier (prefix_cache_host_bytes="
-                f"{prefix_cache_host_bytes})"
+                f"{prefix_cache_host_bytes})", item=8,
             )
         if spec_decode_params is not None:
-            raise _not_ported("speculative decoding (spec_decode_params)")
-        if slo_tracking:
-            raise _not_ported("SLO latency records (slo_tracking=True)")
+            raise _not_ported("speculative decoding (spec_decode_params)", item=8)
         if handoff_streaming:
-            raise _not_ported("streamed P/D KV handoff (handoff_streaming=True)")
+            raise _not_ported("streamed P/D KV handoff (handoff_streaming=True)",
+                              item=8)
         if mesh is not None:
-            raise _not_ported("tensor-parallel serving (mesh)")
+            raise _not_ported("tensor-parallel serving (mesh)", item=10)
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         self.cfg = cfg
@@ -268,7 +306,10 @@ class ContinuousBatchingEngine:
         self.chunk_size = chunk_size
         self.pipeline_depth = pipeline_depth
         self.sampling = sampling or SamplingParams()
-        self.stop_tokens = tuple(sorted(set(stop_tokens)))
+        stop = set(stop_tokens)
+        if tokenizer is not None and tokenizer.eos_token_id is not None:
+            stop.add(int(tokenizer.eos_token_id))
+        self.stop_tokens = tuple(sorted(stop))
         self.seed = seed
         self.version = 0
         self.kv_cache_dtype = kv_cache_dtype
@@ -294,8 +335,40 @@ class ContinuousBatchingEngine:
         self._results: Dict[str, model_api.APIGenerateOutput] = {}
         self._result_events: Dict[str, threading.Event] = {}
         self._lock = threading.Lock()
-        # pending swap: (params, target_version | None)
-        self._new_params: Optional[Tuple[Any, Optional[int]]] = None
+        # pending swap, one atomic cell: (params, target_version | None,
+        # pre_sharded).  pre_sharded marks a staged tree, already the
+        # engine's serving copy on its device: the apply is a pointer flip
+        self._new_params: Optional[Tuple[Any, Optional[int], bool]] = None
+        self._staged_params = None
+        self._staged_version: Optional[int] = None
+        self._stage_stream = None  # side CUDA stream of the staged copies
+        self._paused = threading.Event()
+        # weight-swap time (cumulative seconds): stage = making a staged
+        # copy while decode went on; pause = the apply, which does
+        # interrupt decode (ring drain, flip or copy, cache flush, recompute)
+        self.swap_stage_s = 0.0
+        self.swap_pause_s = 0.0
+        self.swaps_total = 0
+        self.swaps_staged_total = 0
+        self.tracer = get_tracer()
+        self.mesh_devices = 1
+        # request-level SLO plane: records and digests (host telemetry:
+        # a few clock stamps per request, nothing on the per-token path)
+        self._slo_enabled = bool(slo_tracking)
+        self.server_name = server_name
+        self.slo_records_total = 0
+        self._submit_ts: Dict[str, float] = {}
+        self._slo_records: Deque[LatencyRecord] = deque(maxlen=4096)
+        self._slo_digests: Dict[str, LatencyDigest] = {
+            "admission_wait_s": LatencyDigest(),
+            "ttft_s": LatencyDigest(),
+            "tpot_s": LatencyDigest(),
+            "stall_s": LatencyDigest(),
+        }
+        self.cancelled_total = 0
+        # cancels of rows caught mid-fill, retried after each step's fills
+        self._cancel_wanted: set = set()
+        self.gen_tokens_total = 0
         self.park_ttl_steps = 512  # engine steps a parked row may idle
         # True: decode only, admit nothing (drain-before-update servers)
         self.hold_admissions = False
@@ -313,6 +386,7 @@ class ContinuousBatchingEngine:
         self.decode_chunks_total = 0
         self.deep_decode_chunks_total = 0
         self.decode_tokens_total = 0  # tokens folded in from decode chunks
+        self.decode_steps_total = 0  # decode steps enqueued (chunk x steps)
         self.block_copies_total = 0
         self.resumed_total = 0
         self.preempted_total = 0
@@ -533,13 +607,95 @@ class ContinuousBatchingEngine:
 
     def submit(self, req: model_api.APIGenerateInput) -> str:
         if (req.metadata or {}).get("stream"):
-            raise _not_ported("token streaming (metadata['stream'])")
+            raise _not_ported("token streaming (metadata['stream'])", item=11)
         if (req.metadata or {}).get("handoff_to"):
-            raise _not_ported("P/D KV handoff (metadata['handoff_to'])")
+            raise _not_ported("P/D KV handoff (metadata['handoff_to'])", item=8)
         with self._lock:
             self._pending.append(req)
             self._result_events[req.qid] = threading.Event()
+            if self._slo_enabled:
+                self._submit_ts[req.qid] = time.monotonic()
         return req.qid
+
+    # -- request-level SLO plane ----------------------------------------------
+
+    def _slo_admitted(self, row: _Row, now: Optional[float] = None):
+        """Stamp a row's submit and admit times, wherever a request binds
+        to a row: a fill admission or a park-resume."""
+        if not self._slo_enabled:
+            return
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            t0 = self._submit_ts.pop(row.req.qid, now)
+        row.t_submit = t0
+        row.t_admit = now
+        row.t_first = row.t_last = 0.0
+        row.slo_stall_s = 0.0
+        row.t_preempt = 0.0
+
+    def _slo_first_token(self, row: _Row, now: Optional[float] = None):
+        if not self._slo_enabled or row.t_first:
+            return
+        row.t_first = row.t_last = time.monotonic() if now is None else now
+
+    def _slo_finish(self, row: _Row):
+        """Fold a finished (or parked: each answer is a completed request
+        for its client) row into the records and digests."""
+        if not self._slo_enabled:
+            return
+        with self._lock:
+            self._submit_ts.pop(row.req.qid, None)
+        tokens = len(row.generated)
+        if row.t_admit == 0.0 or row.t_first == 0.0 or tokens == 0:
+            return  # never admitted, or produced nothing
+        md = row.req.metadata or {}
+        ttft = max(0.0, row.t_first - row.t_submit)
+        tpot = (
+            max(0.0, row.t_last - row.t_first) / (tokens - 1)
+            if tokens >= 2
+            else None
+        )
+        sched = md.get("slo_schedule_wait_s")
+        rec = LatencyRecord(
+            qid=row.req.qid,
+            workload=str(md.get("workload", "rollout")),
+            server=self.server_name,
+            mesh_devices=self.mesh_devices,
+            schedule_wait_s=(
+                float(sched) if isinstance(sched, (int, float)) else None
+            ),
+            admission_wait_s=max(0.0, row.t_admit - row.t_submit),
+            ttft_s=ttft,
+            tpot_s=tpot,
+            stall_s=row.slo_stall_s,
+            tokens=tokens,
+        )
+        self._slo_records.append(rec)
+        self.slo_records_total += 1
+        d = self._slo_digests
+        d["admission_wait_s"].observe(rec.admission_wait_s)
+        d["ttft_s"].observe(ttft)
+        d["stall_s"].observe(rec.stall_s)
+        if tpot is not None:
+            d["tpot_s"].observe(tpot)
+
+    def drain_slo_records(self) -> List[LatencyRecord]:
+        """Pop the recent per-request latency records (the server feeds
+        them into the ``areal_slo_*`` registry histograms)."""
+        out = list(self._slo_records)
+        self._slo_records.clear()
+        return out
+
+    def slo_stats(self) -> Dict[str, Any]:
+        """Percentile summary of the engine's digests."""
+        return {
+            "records_total": self.slo_records_total,
+            **{k: d.percentiles() for k, d in self._slo_digests.items()},
+        }
+
+    def slo_digests(self) -> Dict[str, Dict[str, Any]]:
+        """The digests' raw, mergeable state."""
+        return {k: d.to_dict() for k, d in self._slo_digests.items()}
 
     def wait_result(
         self, qid: str, timeout: float = 600.0
@@ -570,24 +726,214 @@ class ContinuousBatchingEngine:
                 self._result_events.pop(qid, None)
         return out
 
-    def update_weights(self, params, version: Optional[int] = None) -> int:
+    # -- cancellation ------------------------------------------------------------
+
+    def _finalize_cancel(self, qid: str):
+        with self._lock:
+            self._results.pop(qid, None)
+            self._result_events.pop(qid, None)
+            self._submit_ts.pop(qid, None)
+        self._cancel_wanted.discard(qid)
+        self.cancelled_total += 1
+        self.tracer.event(qid, "engine.cancel", step=self._step_seq)
+
+    def cancel(self, qid: str) -> bool:
+        """Cancel a request wherever it lives (pending, preempted,
+        decoding, parked, or finished but not collected), releasing every
+        block it holds.  Call it from the thread that steps the engine.  A
+        row caught mid-fill is cancelled once its fill completes (retried
+        after each step's fills).  False for an unknown qid."""
+        with self._lock:
+            for i, req in enumerate(self._pending):
+                if req.qid == qid:
+                    self._pending.pop(i)
+                    break
+            else:
+                req = None
+        if req is not None:
+            self._finalize_cancel(qid)
+            return True
+        for i, row in enumerate(self._preempted):
+            if row.req.qid == qid:
+                self._preempted.pop(i)
+                self._finalize_cancel(qid)
+                return True
+        for row_id, row in enumerate(self.rows):
+            if row is None or row.req.qid != qid:
+                continue
+            if row.filling:
+                # the fill owns this row's blocks until it completes
+                self._cancel_wanted.add(qid)
+                return True
+            if not row.parked:
+                # the ring's snapshots name this row: fold them in first
+                self._drain_ring()
+                row = self.rows[row_id]
+                if row is None or row.req.qid != qid:
+                    # finished (or its slot reused) during the drain
+                    self._finalize_cancel(qid)
+                    return True
+                if row.filling:
+                    self._cancel_wanted.add(qid)
+                    return True
+            if not row.parked:
+                self._set_rows("active", [row_id], [False])
+            self._release_row(row_id)
+            self._finalize_cancel(qid)
+            return True
+        with self._lock:
+            known = qid in self._results or qid in self._result_events
+        if known:
+            self._finalize_cancel(qid)
+            return True
+        return False
+
+    def _process_deferred_cancels(self):
+        for qid in list(self._cancel_wanted):
+            self._cancel_wanted.discard(qid)
+            self.cancel(qid)  # defers itself again while still mid-fill
+
+    # -- weight swaps ----------------------------------------------------------------
+
+    def update_weights(
+        self,
+        params,
+        version: Optional[int] = None,
+        pre_sharded: bool = False,
+    ) -> int:
         """Swap weights between chunks; in-flight rows' KV is recomputed
         under the new weights at the next step.  ``params`` may be the
         trainer's float32 master weights: they are copied in the serving
-        types here.  Returns the number of interrupted (in-flight)
-        requests."""
-        # the copy is made now: the trainer goes on updating its weights in
-        # place, and the swap applies the version of this call
-        new_params = serving_params(params, self.cfg, self.device)
+        types here.  ``pre_sharded`` marks a tree that already is this
+        engine's serving copy on its device (a staged tree), which the
+        swap takes as it is.  Returns the number of interrupted
+        (in-flight) requests."""
+        if not pre_sharded:
+            # the copy is made now: the trainer goes on updating its
+            # weights in place, and the swap applies the version of this
+            # call
+            params = serving_params(params, self.cfg, self.device)
         with self._lock:
-            self._new_params = (new_params, version)
+            self._new_params = (params, version, pre_sharded)
             return self.n_inflight
 
+    def weight_restore_template(self, fmt: str):
+        """The template an incoming published tree in ``fmt`` restores
+        onto: the resident serving tree for ``"full"``.  The engine holds
+        no other format (``"int8"`` serving weights are not ported)."""
+        if fmt == "full":
+            return self.params
+        if fmt == "int8":
+            raise _not_ported("int8 serving weights", item=8)
+        raise ValueError(f"unknown weight format {fmt!r}")
+
+    def prepare_weights(self, params):
+        """An incoming tree in the engine's resident format (the only
+        format the port serves, so a pass-through)."""
+        return params
+
+    def stage_context(self):
+        """The CUDA stream staged copies run on (a side stream, so they
+        overlap the decode chunks on the default stream); a no-op context
+        on the CPU.  A caller that restores a snapshot for
+        :meth:`stage_weights` on another thread restores inside it."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        if self._stage_stream is None:
+            self._stage_stream = torch.cuda.Stream(self.device)
+        return torch.cuda.stream(self._stage_stream)
+
     def stage_weights(self, params, version: int) -> int:
-        raise _not_ported("staged weight swaps (stage_weights)")
+        """Make ``params``' serving copy on the engine's device while
+        decode continues, and keep it as the STAGED tree for a later
+        :meth:`commit_staged`: the copy is complete on the device when
+        this returns, so the commit moves no bytes.  Safe to call from a
+        thread other than the engine's; only the staged slot is touched.
+        A stage whose version is not newer than the served one is dropped
+        (the round already converged, e.g. by a full reload), not kept."""
+        tik = time.perf_counter()
+        with self.stage_context():
+            if self.device.type == "cuda":
+                # the source may still be written by work queued on the
+                # caller's stream (a trainer's step)
+                torch.cuda.current_stream(self.device).wait_stream(
+                    torch.cuda.default_stream(self.device)
+                )
+            params = serving_params(params, self.cfg, self.device)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        with self._lock:
+            self.swap_stage_s += time.perf_counter() - tik
+            if version is not None and version <= self.version:
+                logger.info(
+                    "discarding stale staged weights v%s (engine already at "
+                    "v%d)", version, self.version,
+                )
+                return version
+            self._staged_params = params
+            self._staged_version = version
+        logger.info(
+            "staged weights v%s in %.3fs (decode uninterrupted)",
+            version, time.perf_counter() - tik,
+        )
+        return version
+
+    @property
+    def staged_version(self) -> Optional[int]:
+        """Version of the staged (uncommitted) tree, if any."""
+        return self._staged_version
+
+    @property
+    def pending_version(self) -> Optional[int]:
+        """Target version of a committed swap not applied yet (the next
+        unpaused step applies it), so a retried commit whose first reply
+        was lost can be acknowledged."""
+        with self._lock:
+            return self._new_params[1] if self._new_params else None
 
     def commit_staged(self, expected_version: Optional[int] = None) -> int:
-        raise _not_ported("staged weight swaps (commit_staged)")
+        """Commit the staged tree: the next step drains the ring and swaps
+        by reference.  ``expected_version`` is the fleet's
+        version-consistent barrier: a different staged version fails with
+        nothing flipped.  Returns the interrupted-request count, like
+        :meth:`update_weights`."""
+        with self._lock:
+            if self._staged_params is None:
+                raise RuntimeError("no staged weights to commit")
+            if (
+                expected_version is not None
+                and self._staged_version != expected_version
+            ):
+                raise RuntimeError(
+                    f"staged weights are v{self._staged_version}, commit "
+                    f"asked for v{expected_version}"
+                )
+            self._new_params = (self._staged_params, self._staged_version, True)
+            self._staged_params = None
+            self._staged_version = None
+            return self.n_inflight
+
+    def discard_staged(self):
+        """Drop an uncommitted staged tree (an aborted round)."""
+        with self._lock:
+            self._staged_params = None
+            self._staged_version = None
+
+    def swap_stats(self) -> Dict[str, float]:
+        """Cumulative weight-swap counters."""
+        return {
+            "stage_s": self.swap_stage_s,
+            "pause_s": self.swap_pause_s,
+            "swaps_total": self.swaps_total,
+            "swaps_staged_total": self.swaps_staged_total,
+        }
+
+    def pause(self):
+        """Quiesce: from the next step on, steps only drain the ring."""
+        self._paused.set()
+
+    def resume(self):
+        self._paused.clear()
 
     def close(self) -> Dict[str, int]:
         """Leak audit by refcount: every pool block's refcount must equal
@@ -633,6 +979,20 @@ class ContinuousBatchingEngine:
         return len(self._pending)
 
     @property
+    def inflight_chunks(self) -> int:
+        """Decode chunks dispatched but not yet harvested."""
+        return len(self._ring)
+
+    def prefill_backlog_tokens(self) -> int:
+        """Prompt tokens admitted to fills but not filled yet, plus the
+        queued prompts."""
+        backlog = sum(max(0, len(f.tokens) - f.fill_pos) for f in self._filling)
+        with self._lock:
+            for r in self._pending:
+                backlog += len(r.input_ids or r.prompt_ids)
+        return backlog
+
+    @property
     def has_work(self) -> bool:
         # parked rows are idle and do not keep the loop going
         return (
@@ -648,16 +1008,48 @@ class ContinuousBatchingEngine:
         with self._lock:
             if self._new_params is None:
                 return
+            peek_version = self._new_params[1]
+        # the apply window as a flight-recorder span beside the decode
+        # chunks it interrupts (a swap is a fleet event: force-sampled)
+        swap_root = (
+            f"swap-v{peek_version}" if peek_version is not None
+            else f"swap-v{self.version + 1}"
+        )
+        self.tracer.force(swap_root)
+        self.tracer.span_begin(
+            swap_root, "swap.commit", root=swap_root, version=peek_version
+        )
+        tik = time.perf_counter()
         # every dispatched chunk was computed under the old weights and is
         # folded in before the swap
         self._drain_ring()
         with self._lock:
-            new_params, target_version = self._new_params
+            new_params, target_version, pre_sharded = self._new_params
             self._new_params = None
+        if pre_sharded and self.device.type == "cuda":
+            # a staged tree was made on the stage stream and is read on
+            # this one from now on: its memory must not be handed back to
+            # the stage stream before this stream's reads are done
+            stream = torch.cuda.current_stream(self.device)
+            for leaf in _leaves(new_params):
+                leaf.record_stream(stream)
         self.params = new_params
         self.version = (
             target_version if target_version is not None else self.version + 1
         )
+        with self._lock:
+            # an uncommitted staged tree at or below the version just
+            # applied is dead weight: free it now
+            if (
+                self._staged_version is not None
+                and self._staged_version <= self.version
+            ):
+                logger.info(
+                    "dropping stale staged weights v%d (applied v%d)",
+                    self._staged_version, self.version,
+                )
+                self._staged_params = None
+                self._staged_version = None
         # parked rows hold KV of the old weights: release them (their
         # continuations prefill under the new weights)
         for row_id, row in enumerate(self.rows):
@@ -679,8 +1071,32 @@ class ContinuousBatchingEngine:
             for rid, row in enumerate(self.rows)
             if row is not None and not row.filling
         ]
+        for rid, _ in entries:
+            self.tracer.event(
+                self.rows[rid].req.qid, "engine.recompute", version=self.version
+            )
         if entries:
             self._refill_rows_paged(entries)
+        dt = time.perf_counter() - tik
+        self.swap_pause_s += dt
+        self.swaps_total += 1
+        self.swaps_staged_total += int(pre_sharded)
+        if self._slo_enabled:
+            # every in-flight request waited the window out; rows out of
+            # service for a preemption count that whole span at their
+            # re-activation instead
+            for row in self.rows:
+                if row is not None and not row.parked and not row.t_preempt:
+                    row.slo_stall_s += dt
+        self.tracer.span_end(
+            swap_root, "swap.commit", root=swap_root, version=self.version,
+            pre_sharded=pre_sharded, interrupted=self.n_inflight,
+        )
+        logger.info(
+            "weights updated to v%d (%d in-flight recomputed, %s, %.3fs "
+            "interrupted)", self.version, self.n_inflight,
+            "pointer-flip" if pre_sharded else "full reload", dt,
+        )
 
     def _try_resume(self, req: model_api.APIGenerateInput) -> bool:
         """Resume a parked row whose resident KV matches this continuation:
@@ -717,6 +1133,8 @@ class ContinuousBatchingEngine:
             row.no_eos = False
             row.parked = False
             row.budget_left = max_new
+            row.versions = []
+            self._slo_admitted(row)
             self._epoch_counter += 1
             row.epoch = self._epoch_counter
             ids = [row_id]
@@ -725,6 +1143,7 @@ class ContinuousBatchingEngine:
             self._set_rows("budgets", ids, [max_new])
             self._set_rows("row_seeds", ids, [_qid_seed(req.qid)])
             self.resumed_total += 1
+            self.tracer.event(req.qid, "engine.resume", row=row_id)
             return True
         return False
 
@@ -914,6 +1333,10 @@ class ContinuousBatchingEngine:
                     self._set_row_blocks(tgt.row_id, own)
                 if tgt.resume is not None:
                     row = tgt.resume
+                    if self._slo_enabled and row.t_preempt:
+                        # back in service: the preempted span was stall
+                        row.slo_stall_s += time.monotonic() - row.t_preempt
+                        row.t_preempt = 0.0
                     self._epoch_counter += 1
                     row.epoch = self._epoch_counter
                     row.filling = False
@@ -939,13 +1362,16 @@ class ContinuousBatchingEngine:
             toks, logps = sample_logits_keyed(
                 logits[src].float(), self.seed, seeds, pos, self.sampling
             )
+            t_first = time.monotonic()  # the fill's first tokens on the host
             for (f, tgt, _), tok, logp in zip(
                 sample_targets, toks.cpu().tolist(), logps.cpu().tolist()
             ):
                 row = self.rows[tgt.row_id]
                 row.generated = [int(tok)]
                 row.logprobs = [float(logp)]
+                row.versions = [self.version]
                 row.filling = False
+                self._slo_first_token(row, now=t_first)
                 if tok in self.stop_tokens or tgt.max_new <= 1:
                     row.no_eos = tok not in self.stop_tokens
                     self._finish(tgt.row_id, row, started=False)
@@ -1056,10 +1482,12 @@ class ContinuousBatchingEngine:
             # else: a group member joins the in-flight fill, with no
             # prefill of its own
             fill.targets.append(_FillTarget(row_id=rid, req=req, max_new=max_new))
-            self.rows[rid] = _Row(
+            row = _Row(
                 req=req, prompt=prompt, generated=[], logprobs=[],
                 version_start=self.version, filling=True,
             )
+            self._slo_admitted(row)
+            self.rows[rid] = row
 
     def _ensure_decode_blocks(self):
         """Every decoding row's table must cover ``length + chunk`` slots
@@ -1148,6 +1576,8 @@ class ContinuousBatchingEngine:
             return  # the drain finished or parked the victim
         self._set_rows("active", [row_id], [False])
         self._release_row(row_id)
+        if self._slo_enabled:
+            row.t_preempt = time.monotonic()  # stalled until re-activation
         self._preempted.append(row)
         self.preempted_total += 1
         cls = self._row_priority(row)
@@ -1181,6 +1611,8 @@ class ContinuousBatchingEngine:
         return stop
 
     def _sample_fn(self, logits, positions, seeds):
+        # called once per decode step a chunk enqueues
+        self.decode_steps_total += 1
         return sample_logits_keyed(
             logits, self.seed, seeds, positions, self.sampling
         )
@@ -1269,6 +1701,7 @@ class ContinuousBatchingEngine:
             chunk.ready.synchronize()
         out_t, out_l, emitted, active = (x.numpy() for x in chunk.host)
         n_tokens = 0
+        t_harvest = time.monotonic()  # the chunk's tokens reach the host
         for row_id, epoch in chunk.snapshot:
             row = self.rows[row_id]
             if row is None or row.parked or row.epoch != epoch:
@@ -1277,8 +1710,14 @@ class ContinuousBatchingEngine:
             toks = out_t[row_id][cols].tolist()
             row.generated.extend(toks)
             row.logprobs.extend(out_l[row_id][cols].tolist())
+            # the chunk ran under the served weights: a swap drains the
+            # ring before it changes them
+            row.versions.extend([self.version] * len(toks))
             row.budget_left -= len(toks)
             n_tokens += len(toks)
+            if toks and self._slo_enabled:
+                self._slo_first_token(row, now=t_harvest)
+                row.t_last = t_harvest
             if not active[row_id]:
                 last = row.generated[-1] if row.generated else -1
                 row.no_eos = last not in self.stop_tokens
@@ -1301,12 +1740,15 @@ class ContinuousBatchingEngine:
         """Publish ``row``'s result.  A ``started`` row (one that decoded in
         slot ``row_id``) enters the radix cache with its KV-bearing tokens
         and then parks (``park``) or releases its slot."""
+        self._slo_finish(row)
         out = model_api.APIGenerateOutput.from_input(row.req)
         out.output_ids = list(row.generated)
         out.output_logprobs = list(row.logprobs)
+        out.output_versions = list(row.versions)
         out.no_eos = row.no_eos
         out.version_start = row.version_start
         out.version_end = self.version
+        self.gen_tokens_total += len(row.generated)
         if started and row_id >= 0:
             # the pool holds KV for prompt + generated[:-1] (the last token
             # is the pending one); inserting on park AND release lets the
@@ -1348,14 +1790,22 @@ class ContinuousBatchingEngine:
     def step(self) -> int:
         """One engine iteration: weight swap (if requested), admit, advance
         fills, dispatch decode chunk N+K-1, then harvest chunk N, the
-        oldest of up to ``pipeline_depth`` in-flight chunks.  Returns the
+        oldest of up to ``pipeline_depth`` in-flight chunks.  A paused
+        engine's step only drains the ring.  Returns the
         number of tokens harvested in this step, mid-step ring drains
         (weight swaps, preemptions) included."""
         self._step_seq += 1
         h0 = self.decode_tokens_total
+        if self._paused.is_set():
+            # paused means quiesced: fold in the whole ring, admit nothing
+            n = self._drain_ring()
+            if n == 0:
+                time.sleep(0.01)
+            return self.decode_tokens_total - h0
         self._apply_pending_weights()
         self._admit_paged()
         self._advance_fill()
+        self._process_deferred_cancels()
         self._ensure_decode_blocks()
         dispatched = False
         if (
@@ -1370,3 +1820,14 @@ class ContinuousBatchingEngine:
         ):
             self._harvest_oldest()
         return self.decode_tokens_total - h0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -1,10 +1,11 @@
-"""Rehearse ``chip_smoke.py``'s prefix-cache phase on the CPU, at tiny
-widths, before a chip call.
+"""Rehearse ``chip_smoke.py``'s prefix-cache and generation-server phases
+on the CPU, at tiny widths, before a chip call.
 
 Run from the repository root::
 
     python areal_tpu_torch/tools/prefix_rehearsal.py phase
     python areal_tpu_torch/tools/prefix_rehearsal.py pressure
+    python areal_tpu_torch/tools/prefix_rehearsal.py server
 
 ``phase`` runs ``chip_smoke.prefix_phase`` on both pools at tiny sizes
 (groups of 4, pages of 16), with the paged kernels replaced by wrappers
@@ -15,7 +16,11 @@ arm's geometry (16 rows, 4096-token KV, a 64-page pool of 256, the
 phase's prompt lengths and budget) through a bf16 tiny model and prints
 its work counts (preemptions, fills given back, tokens prefilled, fill
 and decode chunks); scheduling depends on token counts only, not on the
-model's widths.
+model's widths.  ``server`` runs ``chip_smoke.server_phase`` (publish,
+the generation server in a thread, a group of 4 staged-swapped to
+perturbed weights while it decodes, continuations, the bad-manifest
+control) with the same counting wrappers, pages of 16 and decode chunks of
+4.
 """
 
 from __future__ import annotations
@@ -65,11 +70,18 @@ def main() -> int:
     master = init_params(cfg, cs.SEED, dev, dtype=torch.float32)
     params = serving_params(master, cfg)
     tik = time.perf_counter()
-    if mode == "phase":
+    if mode in ("phase", "server"):
         pa.paged_flash_attention = paged.paged_flash_attention = counting(
             pa.paged_flash_attention, True)
         pa.paged_flash_attention_deep = paged.paged_flash_attention_deep = (
             counting(pa.paged_flash_attention_deep, False))
+    if mode == "server":
+        cs.server_phase(
+            cfg, cs._perturbed(master, cs.SEED + 7), dev, "cpu", group=4,
+            prompt_len=37, new_tokens=40, cont_new=6, max_batch=4,
+            kv_cache_len=256, page_size=16, chunk_size=4, cache_mode="paged",
+            prefill_chunk_tokens=32, stage_chunk_bytes=4096)
+    elif mode == "phase":
         cs.TOL_INT8_MEAN = cs.TOL_INT8_MAX = 1.0
         for kv in ("auto", "int8"):
             cs.prefix_phase(
@@ -97,7 +109,8 @@ def main() -> int:
               f"decode chunks, "
               f"{eng.prefix_cache_stats()['evictions_total']} cache evictions")
     else:
-        print(f"unknown mode {mode!r} (phase | pressure)", file=sys.stderr)
+        print(f"unknown mode {mode!r} (phase | pressure | server)",
+              file=sys.stderr)
         return 2
     print(f"done in {time.perf_counter() - tik:.1f} s")
     return 0

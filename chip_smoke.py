@@ -74,7 +74,23 @@ from a seed, float32 master weights and their bf16 serving copy):
    warm-up (so three steps move the bf16-cast weights), then swaps the
    trained weights into a serving engine and checks its logprobs against
    the trainer's.  Deliberately broken trainer forwards (controls) show
-   that the logprob gate would fail them.
+   that the logprob gate would fail them;
+7. publishes phase 6's trained weights as version 1 (a bf16 snapshot
+   written on a background thread, then its manifest) and serves the
+   recipe's group traffic (16 requests over one 1000-token prompt,
+   temperature 1, 256 new tokens) through ``GenerationServerWorker`` over
+   ZMQ at the GenServerConfig defaults with the recipe's 16 rows and
+   32768-token KV, its engine at version 0 from the same seed: it stages
+   v1 while the group decodes (decode steps must run between the stage
+   request and its reply; the staged tree must be bit-identical to the
+   serving copy of the published weights), then pauses, commits and
+   resumes as the gserver manager does, acknowledges a repeated commit,
+   continues every answer under v1, and refuses a snapshot whose manifest
+   alters one leaf's shape before reading any tensor.  Every token's
+   version, the logprobs of v0 and v1 tokens against the trainer forward
+   of each version, the paged launches against the engine's work, the
+   SLO digests and swap counters of the metrics reply, and the leak audit
+   are checked; it prints the publish, stage and pause seconds.
 
 The engines of phases 2, 3 and 6 run without the prefix cache, so their
 work counts and times stay comparable with an engine that has none.
@@ -152,6 +168,17 @@ PRESSURE_POOL_TOKENS = 16384
 PRESSURE_PROMPT_LENS = (1024, 3000, 1500, 2048, 1100, 2900, 1777, 2500,
                         1300, 2222, 1024, 2800, 1600, 2000, 1234, 2700)
 PRESSURE_NEW_TOKENS = 256
+#: the generation-server phase: the recipe's group traffic (group_size 16
+#: over one 1000-token prompt, temperature 1) with 256 new tokens (the
+#: recipe allows 16384), then one continuation round of 64 under the new
+#: weights, served by GenerationServerWorker at the GenServerConfig
+#: defaults with the recipe's max_concurrent_batch 16 and kv_cache_len
+#: 32768 (pages of 1024, decode chunks of 64, prefix cache and SLO
+#: records on)
+SERVER_NEW_TOKENS = 256
+SERVER_CONT_NEW_TOKENS = 64
+#: the leaf whose shape the bad-manifest control alters
+SERVER_BAD_LEAF = "layers/0/mlp/down/w"
 #: cached prefixes of the mid-page prefill-entry case: a cache hit leaves
 #: a fill's start anywhere in a page
 MID_PAGE_PREFIXES = (1000, 1255, 257, 0)
@@ -2005,6 +2032,372 @@ def prefix_phase(cfg, master, params, device, card, *, kv_dtype="auto",
     return res
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
+                 prompt_len=PREFIX_PROMPT, new_tokens=SERVER_NEW_TOKENS,
+                 cont_new=SERVER_CONT_NEW_TOKENS, max_batch=LONG_MAX_BATCH,
+                 kv_cache_len=LONG_KV_CACHE_LEN, mb_tokens=None,
+                 **server_kw):
+    """The train-to-serve weight path through the generation server, as the
+    gserver manager drives it (stage on every server, pause, commit,
+    resume):
+
+    1. publish the trained float32 ``master`` as version 1
+       (``checkpoint.save_params`` cast to bf16 with ``wait=False``, then
+       ``wait_for_saves`` and ``write_manifest``) into a temporary
+       directory, and its version under ``names.model_version``;
+    2. start ``GenerationServerWorker`` in a thread (memory name_resolve,
+       the GenServerConfig defaults with ``max_concurrent_batch`` and
+       ``kv_cache_len`` of the recipe), its engine at version 0 from
+       ``SEED``, the same weights as the earlier phases';
+    3. send ``group`` requests over one ``prompt_len``-token prompt through
+       ``GenServerClient`` (temperature 1, ``new_tokens`` each), stage v1
+       while they decode (decode steps must run between the stage request
+       and its reply), check the staged tree bit-identical to the serving
+       copy of the published weights, then pause, commit, resume and time
+       the first token under v1; a second commit must be acknowledged;
+    4. continue every answer under v1 (``cont_new`` tokens); stage a
+       snapshot whose manifest alters one leaf's shape, which must fail
+       before any tensor is read, name the leaf, and leave v1 serving.
+
+    Gates: every token's version; logprobs of v0 tokens against the trainer
+    forward of the v0 weights and of v1 tokens against that of ``master``;
+    the paged launches against the engine's dispatched work
+    (:class:`LaunchGate`); the metrics reply's SLO digests and swap
+    counters; the leak audit once the server has stopped.  ``server_kw``
+    overrides GenServerConfig fields (CPU rehearsals)."""
+    import dataclasses
+    import os
+    import pickle
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from areal_tpu_torch.api.config import ModelAbstraction
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.api.model_api import (
+        APIGenerateInput,
+        GenerationHyperparameters,
+    )
+    from areal_tpu_torch.api.system_api import GenServerConfig
+    from areal_tpu_torch.base import constants, name_resolve, names
+    from areal_tpu_torch.engine import checkpoint
+    from areal_tpu_torch.engine.train_engine import TrainEngine
+    from areal_tpu_torch.interfaces.ppo_interface import model_logprobs_fwd
+    from areal_tpu_torch.models.convert import serving_params
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.ops import paged_attention as pa
+    from areal_tpu_torch.system.generation_server import (
+        GenerationServerWorker,
+        GenServerClient,
+        parse_server_registration,
+    )
+
+    tag = "server"
+    t_phase = time.perf_counter()
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_publish_")
+    worker = client = thread = None
+    try:
+        # 1. publish v1
+        snap = os.path.join(tmp, "v1")
+        _sync(device)
+        tik = time.perf_counter()
+        checkpoint.save_params(master, snap, cast_dtype=torch.bfloat16,
+                               wait=False)
+        t_snapshot = time.perf_counter() - tik
+        checkpoint.wait_for_saves()
+        published_meta = _tree_map(
+            lambda x: torch.empty(x.shape, dtype=torch.bfloat16,
+                                  device="meta"), master)
+        checkpoint.write_manifest(published_meta, snap, version=1)
+        t_publish = time.perf_counter() - tik
+        nbytes = os.path.getsize(os.path.join(snap, checkpoint.TENSORS_NAME))
+        name_resolve.reconfigure("memory")
+        constants.set_experiment_trial_names("chipsmoke", "server")
+        name_resolve.add(
+            names.model_version("chipsmoke", "server", "actor"),
+            pickle.dumps({"version": 1, "path": snap,
+                          "format": "params"}).hex(), replace=True)
+        log(f"{tag}: published v1 ({nbytes / 1e9:.3f} GB of bf16) in "
+            f"{t_publish:.3f} s (save_params returned after "
+            f"{t_snapshot:.3f} s, the write ran on a background thread) on "
+            f"{card}")
+
+        # 2. the server
+        config = GenServerConfig(
+            worker_name="gen_server_0",
+            model=ModelAbstraction("random", {"config": cfg, "seed": SEED}),
+            max_concurrent_batch=max_batch, kv_cache_len=kv_cache_len,
+            device=None if device.type == "cuda" else str(device),
+            **server_kw)
+        tik = time.perf_counter()
+        worker = GenerationServerWorker()
+        failed = []
+
+        def run_server():
+            try:
+                worker.run(config)
+            except Exception as e:  # noqa: BLE001 - raised below
+                failed.append(e)
+
+        thread = threading.Thread(target=run_server, daemon=True,
+                                  name="gen-server")
+        thread.start()
+        key = names.gen_server("chipsmoke", "server", "gen_server_0")
+        while True:
+            try:
+                addr = parse_server_registration(name_resolve.get(key))[0]
+                break
+            except name_resolve.NameEntryNotFoundError:
+                if not thread.is_alive() or time.perf_counter() - tik > 300:
+                    raise AssertionError(
+                        f"{tag}: the server did not start: {failed}")
+                time.sleep(0.01)
+        client = GenServerClient(addr, timeout=600)
+        eng = worker.engine
+        log(f"{tag}: GenerationServerWorker at {addr} in "
+            f"{time.perf_counter() - tik:.1f} s: {eng.max_batch} rows x "
+            f"{eng.kv_cache_len} tokens, pages of {eng.page_size}, decode "
+            f"chunks of {eng.chunk_size}, {eng.n_blocks} pool blocks, prefix "
+            f"cache {eng._prefix_cache is not None}, SLO records "
+            f"{eng._slo_enabled}, temperature {eng.sampling.temperature}")
+        if eng.version != 0 or eng.device.type != device.type:
+            raise AssertionError(f"{tag}: engine at v{eng.version} on "
+                                 f"{eng.device}")
+
+        def generate_all(prompts, budget, qtag):
+            outs = [None] * len(prompts)
+            errs = []
+
+            def one(i):
+                try:
+                    outs[i] = client.generate(APIGenerateInput(
+                        qid=f"{qtag}-{i}", prompt_ids=prompts[i],
+                        input_ids=prompts[i],
+                        gconfig=GenerationHyperparameters(
+                            max_new_tokens=budget)))
+                except Exception as e:  # noqa: BLE001 - raised below
+                    errs.append(e)
+
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            return outs, threads, errs
+
+        def collect(outs, threads, errs, what):
+            for t in threads:
+                t.join(600)
+            if errs or any(o is None for o in outs):
+                raise AssertionError(f"{tag}, {what}: {errs or 'lost replies'}")
+            return outs
+
+        # 3. the group, the stage while it decodes, pause/commit/resume
+        prompt = make_prompts(cfg.vocab_size, [prompt_len], SEED + 41)[0]
+        launches = LaunchGate(eng, cfg.n_layers, False)
+        launches.start()
+        tik = time.perf_counter()
+        pending = generate_all([prompt] * group, new_tokens, "group")
+        while eng.decode_chunks_total == 0:
+            if not thread.is_alive():
+                raise AssertionError(f"{tag}: the server died: {failed}")
+            time.sleep(0.001)
+        w0 = (eng.decode_steps_total, eng.decode_chunks_total,
+              eng.decode_tokens_total, eng.prefill_calls,
+              pa.paged_flash_attention.launches)
+        t_stage0 = time.perf_counter()
+        reply = client.call("update_weights", {
+            "path": snap, "version": 1, "format": "params", "mode": "stage"})
+        t_stage = time.perf_counter() - t_stage0
+        w1 = (eng.decode_steps_total, eng.decode_chunks_total,
+              eng.decode_tokens_total, eng.prefill_calls,
+              pa.paged_flash_attention.launches)
+        steps, chunks, toks, fills, calls = (b - a for a, b in zip(w0, w1))
+        log(f"{tag}: stage v1: {t_stage:.3f} s request to reply (server "
+            f"{reply['stage_seconds']} s), meanwhile {steps} decode steps "
+            f"enqueued ({chunks} decode chunks dispatched, {toks} tokens "
+            f"harvested, {fills} fill chunks; {calls} paged kernel calls), "
+            f"on {card}")
+        if reply.get("staged") != 1 or eng.staged_version != 1:
+            raise AssertionError(f"{tag}: stage reply {reply}")
+        if steps < 1 or calls != cfg.n_layers * (steps + fills):
+            raise AssertionError(f"{tag}: decoding did not go on during the "
+                                 f"stage ({steps} steps, {calls} calls)")
+        # the staged tree is the serving copy of what was published
+        want = serving_params(_tree_map(lambda x: x.to(torch.bfloat16),
+                                        master), cfg)
+        staged = list(_leaves(eng._staged_params))
+        same = all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(staged, _leaves(want)))
+        n_leaves = len(staged)
+        del want, staged
+        log(f"{tag}: the staged tree is bit-identical to serving_params of "
+            f"the published weights ({n_leaves} leaves): {same}")
+        if not same:
+            raise AssertionError(f"{tag}: the staged tree differs")
+        if client.call("pause", {}) != "paused":
+            raise AssertionError(f"{tag}: pause")
+        t_commit0 = time.perf_counter()
+        reply = client.call("update_weights", {
+            "path": snap, "version": 1, "format": "params", "mode": "commit"})
+        if client.call("resume", {}) != "resumed":
+            raise AssertionError(f"{tag}: resume")
+        interrupted = reply["num_interrupted"]
+        t_first_v1 = None
+        while t_first_v1 is None and any(t.is_alive() for t in pending[1]):
+            if any(r is not None and r.versions and r.versions[-1] == 1
+                   for r in list(eng.rows)):
+                t_first_v1 = time.perf_counter() - t_commit0
+            else:
+                time.sleep(0.0005)
+        outs = collect(*pending, "group")
+        t_group = time.perf_counter() - tik
+        again = client.call("update_weights", {
+            "path": snap, "version": 1, "format": "params", "mode": "commit"})
+        if again != {"num_interrupted": 0, "version": 1}:
+            raise AssertionError(f"{tag}: the repeated commit gave {again}")
+        check_outputs(outs, cfg, new_tokens, f"{tag} group")
+        splits = []
+        for o in outs:
+            k = sum(v == 0 for v in o.output_versions)
+            if (o.output_versions != [0] * k + [1] * (len(o.output_ids) - k)
+                    or o.version_start != 0 or o.version_end != 1):
+                raise AssertionError(f"{tag} {o.qid}: versions {o.version_start}"
+                                     f"-{o.version_end} {o.output_versions}")
+            splits.append(k)
+        log(f"{tag}: the commit interrupted {interrupted} rows; the first "
+            f"token under v1 came "
+            + (f"{t_first_v1:.3f} s after the commit request"
+               if t_first_v1 is not None else "in the continuation round")
+            + f"; v0 tokens per answer {min(splits)}-{max(splits)} of "
+            f"{new_tokens}; the repeated commit was acknowledged ({again}); "
+            f"group wall {t_group:.2f} s")
+
+        # 4. continuations under v1, the bad-manifest control
+        t_cont0 = time.perf_counter()
+        pending = generate_all([list(o.prompt_ids) + list(o.output_ids)
+                                for o in outs], cont_new, "group")
+        if t_first_v1 is None:
+            while t_first_v1 is None and any(t.is_alive() for t in pending[1]):
+                if any(r is not None and r.versions and r.versions[-1] == 1
+                       for r in list(eng.rows)):
+                    t_first_v1 = time.perf_counter() - t_commit0
+                else:
+                    time.sleep(0.0005)
+        conts = collect(*pending, "continuations")
+        t_cont = time.perf_counter() - t_cont0
+        check_outputs(conts, cfg, cont_new, f"{tag} continuation")
+        if any(o.output_versions != [1] * len(o.output_ids) for o in conts):
+            raise AssertionError(f"{tag}: a continuation token is not of v1")
+        bad = os.path.join(tmp, "bad")
+        bad_meta = dict(published_meta, layers=list(published_meta["layers"]))
+        layer0 = bad_meta["layers"][0]
+        down = layer0["mlp"]["down"]["w"]
+        bad_meta["layers"][0] = dict(layer0, mlp=dict(
+            layer0["mlp"], down=dict(layer0["mlp"]["down"], w=torch.empty(
+                (down.shape[0] + 1, down.shape[1]), dtype=down.dtype,
+                device="meta"))))
+        checkpoint.write_manifest(bad_meta, bad, version=2)
+        stage_s = eng.swap_stage_s
+        try:
+            client.call("update_weights", {
+                "path": bad, "version": 2, "format": "params",
+                "mode": "stage"})
+            error = ""
+        except RuntimeError as e:
+            error = str(e)
+        (probe,) = collect(*generate_all([prompt], 8, "probe"), "probe")
+        log(f"{tag}: bad-manifest control: the stage failed with "
+            f"{error[:160]!r}; then serving v{probe.version_end}")
+        if (SERVER_BAD_LEAF not in error or "layout" not in error
+                or eng.swap_stage_s != stage_s or eng.staged_version is not None
+                or probe.output_versions != [1] * len(probe.output_ids)):
+            raise AssertionError(f"{tag}: the bad-manifest control: {error!r}")
+        launches.check(f"{tag}, group, continuations and probe")
+        metrics = client.call("metrics", {})
+        log(f"{tag}: metrics: version {metrics['version']}, swaps "
+            f"{metrics['swap_swaps_total']} ({metrics['swap_swaps_staged_total']}"
+            f" staged), stage {metrics['swap_stage_s']:.3f} s, pause "
+            f"{metrics['swap_pause_s']:.3f} s, SLO records "
+            f"{metrics['slo']['records_total']}: TTFT p50/p99 "
+            f"{metrics['slo']['ttft_s']['p50']}/{metrics['slo']['ttft_s']['p99']}"
+            f" s, TPOT p50 {metrics['slo']['tpot_s']['p50']} s, stall p99 "
+            f"{metrics['slo']['stall_s']['p99']} s")
+        if (metrics["version"] != 1 or metrics["swap_swaps_total"] != 1
+                or metrics["swap_swaps_staged_total"] != 1
+                or metrics["swap_stage_s"] <= 0
+                or metrics["slo"]["records_total"] < 2 * group + 1
+                or set(metrics["slo_digests"]) != {
+                    "admission_wait_s", "ttft_s", "tpot_s", "stall_s"}):
+            raise AssertionError(f"{tag}: metrics {metrics}")
+    finally:
+        if client is not None:
+            client.close()
+        if worker is not None:
+            worker.exit()
+        if thread is not None:
+            thread.join(120)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if thread.is_alive():
+        raise AssertionError(f"{tag}: the server did not stop")
+    audit_pool(eng, tag)
+    del eng, worker
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # logprobs: v0 tokens against the v0 trainer forward, v1 tokens against
+    # the trained master's
+    mb_spec = MicroBatchSpec(max_tokens_per_mb=mb_tokens or kv_cache_len)
+
+    def gap(what, outs, weights):
+        outs = [dataclasses.replace(o, qid=f"{o.qid}/{i}")
+                for i, o in enumerate(outs) if o.output_ids]
+        trainer = TrainEngine(cfg, None, weights, device=device)
+        sample = rollout_sample(outs, SEED)
+        g = _response_gap(sample, trainer.forward_batch(
+            sample, model_logprobs_fwd(), mb_spec, output_shift=1))
+        if not _gap_gate(f"{tag}, {what}", g, TOL_PROX_MEAN, TOL_PROX_MAX,
+                         phase="server"):
+            raise AssertionError(f"{tag}, {what}: serving and trainer "
+                                 "logprobs disagree")
+        return g
+
+    def part(o, lo, hi):
+        return dataclasses.replace(
+            o, prompt_ids=list(o.prompt_ids) + o.output_ids[:lo],
+            output_ids=o.output_ids[lo:hi],
+            output_logprobs=o.output_logprobs[lo:hi])
+
+    master0 = init_params(cfg, SEED, device, dtype=torch.float32)
+    res["gap_v0"] = gap("v0 tokens", [part(o, 0, k)
+                                      for o, k in zip(outs, splits)], master0)
+    del master0
+    res["gap_v1"] = gap("v1 tokens", [part(o, k, len(o.output_ids))
+                                      for o, k in zip(outs, splits)]
+                        + conts, master)
+    secs = time.perf_counter() - t_phase
+    res.update(launches=dict(launches.total), publish_s=t_publish,
+               stage_s=t_stage, pause_s=t_first_v1, phase_s=secs)
+    log(f"{tag}: publish {t_publish:.3f} s, stage {t_stage:.3f} s, pause "
+        f"(commit to the first token under v1) "
+        + (f"{t_first_v1:.3f} s" if t_first_v1 is not None else "not seen")
+        + f", apply window {metrics['swap_pause_s']:.3f} s, phase "
+        f"{secs:.1f} s, on {card}")
+    if t_first_v1 is None:
+        raise AssertionError(f"{tag}: no token under v1 was seen")
+    return res
+
+
 def parent_ab(parent: str):
     """The paged kernels' decode calls (the decode entry, the deep kernel
     on both pools, ``flash_decode``) and the flash-attention forward of the
@@ -2111,10 +2504,17 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     train = train_phase(cfg, master, params, device, eng["outs"], card)
     log(f"train phase done at {time.perf_counter() - t_start:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = server_phase(cfg, master, device, card)
+    log(f"server phase done at {time.perf_counter() - t_start:.1f} s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    entries = kernel_entries(kern, long_kern, eng, long, flash, train, prefix)
+    entries = kernel_entries(kern, long_kern, eng, long, flash, train, prefix,
+                             server)
     if parent is not None:
-        del eng, long, master, params
+        del eng, long, master
         torch.cuda.empty_cache()
         parent_ab(parent)
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2128,11 +2528,11 @@ def main() -> int:
     return 0
 
 
-def kernel_entries(kern, long_kern, eng, long, flash, train, prefix):
+def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server):
     """The ``{"kernels": [...]}`` line's entries: every kernel, with its
     launches on the main paths (the engine's greedy wave, the long-context
-    arms and the prefix-cache phase; the trainer's steps for the flash
-    kernels), its
+    arms, the prefix-cache phase and the generation server; the trainer's
+    steps for the flash kernels), its
     comparison's largest absolute error, and its time, plain time and
     bound at its main-path shape."""
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "shape")
@@ -2158,17 +2558,21 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix):
     fp_prefix, int8_prefix = (prefix[k]["launches"] for k in ("auto", "int8"))
     entries = [
         entry("paged_flash_attention", paged_src, paged_ref,
-              eng["launches"] + arm_launches("std", False) + fp_prefix["std"],
+              eng["launches"] + arm_launches("std", False) + fp_prefix["std"]
+              + server["launches"]["std"],
               max(errs("decode", "prefill", "prefill_long",
                        "prefill_mid_page"),
                   errs("standard_bf16", src=long_kern)),
               kern["decode"],
-              launches_by_path=dict(engine_wave=eng["launches"],
-                                    long_context=arm_launches("std", False),
-                                    prefix_cache=fp_prefix["std"]),
+              launches_by_path=dict(
+                  engine_wave=eng["launches"],
+                  long_context=arm_launches("std", False),
+                  prefix_cache=fp_prefix["std"],
+                  generation_server=server["launches"]["std"]),
               prefill_entry_launches=(eng["prefill_launches"]
                                       + arm_launches("prefill", False)
-                                      + fp_prefix["prefill"]),
+                                      + fp_prefix["prefill"]
+                                      + server["launches"]["prefill"]),
               prefill={k: kern["prefill"][k] for k in timed},
               prefill_long={k: kern["prefill_long"][k] for k in timed},
               prefill_mid_page={k: kern["prefill_mid_page"][k]

@@ -23,6 +23,18 @@ from areal_tpu_torch.ops import paged_attention as tpa
 
 REPO = Path(__file__).resolve().parents[1]
 
+#: the modules of the weight-publication and generation-server slice
+SERVING_MODULES = [
+    f"areal_tpu_torch.{m}" for m in (
+        "base.constants", "base.logging_", "base.names", "base.name_resolve",
+        "base.network", "api.config", "api.system_api", "api.dataset_api",
+        "observability", "observability.registry", "observability.latency",
+        "observability.tracing", "engine.checkpoint", "engine.backend",
+        "engine.inference_server", "system.worker_base",
+        "system.generation_server",
+    )
+]
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -44,6 +56,8 @@ def test_no_jax_and_no_reference_package_imported():
         "or k.startswith(('jax.', 'jaxlib', 'areal_tpu.')) or k == 'areal_tpu')\n"
         "assert not bad, bad\n"
         "assert len(mods) >= 12, mods\n"
+        f"missing = sorted(set({sorted(SERVING_MODULES)!r}) - set(mods))\n"
+        "assert not missing, missing\n"
         "print(len(mods))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -164,7 +178,6 @@ def test_kernel_source_targets_hopper():
         dict(prefix_cache=True, prefix_cache_host_bytes=1 << 20),
         dict(serving_weight_dtype="int8"),
         dict(spec_decode_params=object()),
-        dict(slo_tracking=True),
         dict(handoff_streaming=True),
         dict(mesh=object()),
         dict(cache_mode="dense"),
@@ -197,3 +210,37 @@ def test_small_pool_and_prefix_cache_are_served():
     # 64 tokens are 4 blocks of 16; one full-length row (8 blocks) fits
     assert eng.n_blocks == 8 and eng.free_pool_blocks == 8
     assert eng.prefix_cache_stats()["capacity_blocks"] == 4
+
+
+def test_slo_tracking_is_accepted_and_default():
+    """The SLO plane is ported: ``slo_tracking=True`` is the default, as in
+    the reference engine, and an engine built with it keeps records."""
+    import inspect
+
+    sig = inspect.signature(ContinuousBatchingEngine.__init__)
+    assert sig.parameters["slo_tracking"].default is True
+    cfg, params = _tiny_engine_args()
+    eng = ContinuousBatchingEngine(
+        cfg, params, max_batch=2, kv_cache_len=128, page_size=16,
+        device="cpu", cache_mode="paged", slo_tracking=True)
+    assert eng.slo_stats()["records_total"] == 0
+
+
+def test_server_entry_points_default_to_cuda(monkeypatch):
+    """The model factory and the server's engine run on ``cuda`` unless the
+    config asks for the CPU."""
+    from areal_tpu_torch.api.config import ModelAbstraction
+    from areal_tpu_torch.api.system_api import GenServerConfig
+    from areal_tpu_torch.engine.backend import make_model
+    from areal_tpu_torch.system.generation_server import GenerationServerWorker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    abs_ = ModelAbstraction("random", {"vocab_size": 32})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_model(abs_, None)
+    assert make_model(abs_, None, device="cpu").init_params[
+        "embed"]["weight"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GenerationServerWorker().configure(GenServerConfig(
+            worker_name="gs", model=abs_, kv_cache_len=128,
+            cache_mode="paged", page_size=16))
