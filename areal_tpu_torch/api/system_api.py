@@ -71,8 +71,9 @@ class GenServerConfig:
     deep_kernel_min_context: Optional[int] = None
     # 0 only: the compile watch is not ported yet
     compile_quiet_after_steps: int = 0
-    # staged weight sync: the snapshot restores in chunks of at most this
-    # many bytes straight onto the engine's device; None = one-shot restore
+    # staged weight sync: the snapshot restores through at most this many
+    # bytes of host buffers straight onto the engine's device; None =
+    # one-shot restore
     stage_chunk_bytes: Optional[int] = 256 * 1024 * 1024
     # which local CUDA device hosts the engine (None = the current one)
     device_idx: Optional[int] = None

@@ -1,27 +1,16 @@
-"""Process-global experiment context (copy of
-``areal_tpu/base/constants.py``).
+"""Process-global experiment context (copy of the experiment and trial
+names of ``areal_tpu/base/constants.py``).
 
-Holds experiment/trial names, the per-model mesh registry, and the
-``model_scope`` context manager that switches "the current model".  The
-path helpers default under the process's temporary directory
-(``tempfile.gettempdir()``, which honours ``TMPDIR``) unless the
-``AREAL_*_ROOT`` variables name a root.
+The reference's mesh registry, ``model_scope`` and path helpers are not
+copied: the port serves on one card and nothing in it calls them yet.
 """
 
 from __future__ import annotations
 
-import contextlib
-import getpass
-import os
-import tempfile
-from typing import Dict, Optional
+from typing import Optional
 
 _experiment_name: Optional[str] = None
 _trial_name: Optional[str] = None
-
-_model_scope_stack = []
-_meshes: Dict[str, object] = {}  # model_name -> device mesh
-_mesh_specs: Dict[str, object] = {}  # model_name -> MeshSpec
 
 
 def set_experiment_trial_names(experiment_name: str, trial_name: str):
@@ -42,88 +31,3 @@ def trial_name() -> str:
     if _trial_name is None:
         raise RuntimeError("trial name not set")
     return _trial_name
-
-
-def set_mesh(model_name: str, mesh, spec=None):
-    _meshes[model_name] = mesh
-    if spec is not None:
-        _mesh_specs[model_name] = spec
-
-
-@contextlib.contextmanager
-def model_scope(model_name: str):
-    """Make ``model_name`` the current model within the block."""
-    _model_scope_stack.append(model_name)
-    try:
-        yield
-    finally:
-        _model_scope_stack.pop()
-
-
-def has_model_scope() -> bool:
-    return bool(_model_scope_stack)
-
-
-def current_model_name() -> str:
-    if not _model_scope_stack:
-        raise RuntimeError("not inside a model_scope")
-    return _model_scope_stack[-1]
-
-
-def current_mesh():
-    return _meshes[current_model_name()]
-
-
-def current_mesh_spec():
-    return _mesh_specs[current_model_name()]
-
-
-def get_mesh(model_name: str):
-    return _meshes.get(model_name)
-
-
-# ---------------------------------------------------------------------------
-# Path helpers.
-# ---------------------------------------------------------------------------
-
-def _default_root(*sub) -> str:
-    return os.path.join(tempfile.gettempdir(), "areal_tpu_torch", *sub)
-
-
-def get_cache_path() -> str:
-    root = os.environ.get("AREAL_CACHE_ROOT", _default_root("cache"))
-    os.makedirs(root, exist_ok=True)
-    return root
-
-
-def _trial_path(root_env: str, default_root: str, *sub) -> str:
-    root = os.environ.get(root_env, default_root)
-    p = os.path.join(root, getpass.getuser(), experiment_name(), trial_name(), *sub)
-    os.makedirs(p, exist_ok=True)
-    return p
-
-
-def get_log_path() -> str:
-    return _trial_path("AREAL_LOG_ROOT", _default_root("logs"))
-
-
-def get_save_path() -> str:
-    return _trial_path("AREAL_SAVE_ROOT", _default_root("checkpoints"))
-
-
-def get_param_realloc_path() -> str:
-    """Staging dir for train->generation weight sync (disk fallback path)."""
-    return _trial_path("AREAL_SAVE_ROOT", _default_root("checkpoints"), "param_realloc")
-
-
-def get_recover_path() -> str:
-    return _trial_path("AREAL_SAVE_ROOT", _default_root("checkpoints"), "recover")
-
-
-def reset():  # for tests
-    global _experiment_name, _trial_name
-    _experiment_name = None
-    _trial_name = None
-    _model_scope_stack.clear()
-    _meshes.clear()
-    _mesh_specs.clear()

@@ -2,12 +2,9 @@
 lockfile-coordinated free-port finder whose ports are registered in
 name_resolve ``used_ports``.
 
-One difference: :func:`gethostip` reads the address from the
-``AREAL_HOST_IP`` variable and otherwise answers the loopback address.
-The port serves on one host (multi-host serving waits for ROADMAP.md
-queue 1, item 10), and finding a routable address would mean opening a
-socket toward an outside address, which a machine without a network must
-not do.
+One difference: :func:`gethostip` answers the loopback address. The
+port serves on one host; multi-host serving, and with it a routable
+address, waits for ROADMAP.md queue 1, item 10.
 """
 
 from __future__ import annotations
@@ -20,16 +17,12 @@ from typing import List, Optional
 
 from areal_tpu_torch.base import name_resolve, names
 
-#: environment variable naming the address this host's servers register
-HOST_IP_ENV = "AREAL_HOST_IP"
-
-
 def gethostname() -> str:
     return socket.gethostname()
 
 
 def gethostip() -> str:
-    return os.environ.get(HOST_IP_ENV) or "127.0.0.1"
+    return "127.0.0.1"
 
 
 def _lockfile() -> str:

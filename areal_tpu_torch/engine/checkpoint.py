@@ -172,32 +172,92 @@ def load_params_like(template, path: str):
     return _rebuild(template, lookup)
 
 
+#: safetensors' dtype codes
+_ST_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool,
+}
+#: the least size of each of a staged restore's two host buffers
+_MIN_STAGE_BUFFER = 1 << 20
+
+
 def load_params_staged(template, path: str, chunk_bytes: Optional[int] = None):
-    """Restore a snapshot onto ``template``'s devices and dtypes in CHUNKS
-    of at most ``chunk_bytes`` (by the template's leaf sizes; a larger leaf
-    is a chunk of its own), straight onto the template's device: each chunk
-    is read from the file, moved, and its host buffers dropped before the
-    next is read, so the restore's transient host memory is one chunk, not
-    the model.  ``chunk_bytes=None`` (or <= 0) restores in one shot
-    (:func:`load_params_like`), with the same result."""
+    """Restore a snapshot onto ``template``'s devices and dtypes with at
+    most ``chunk_bytes`` of host memory (two buffers of half of it, at
+    least 1 MiB each), straight onto the template's device.
+    ``chunk_bytes=None`` (or <= 0) restores in one shot
+    (:func:`load_params_like`), with the same result.
+
+    The restore runs beside a serving loop on another thread, so it holds
+    Python's lock and the card's copy queue as little as it can: each
+    buffer is filled by ``readinto`` (which releases the lock) and, on a
+    CUDA template, is page-locked and copied to the card asynchronously on
+    the current stream while the next buffer fills.  Every leaf's shape is
+    checked before any tensor is read; a float snapshot casts to the
+    template's float width on the device."""
     if chunk_bytes is None or chunk_bytes <= 0:
         return load_params_like(template, path)
-    chunks: List[List[Tuple[str, Any]]] = [[]]
-    used = 0
-    for kp, leaf in _flatten(template):
-        n = _nbytes(leaf)
-        if chunks[-1] and used + n > chunk_bytes:
-            chunks.append([])
-            used = 0
-        chunks[-1].append(("/".join(kp), leaf))
-        used += n
-    lookup: Dict[str, torch.Tensor] = {}
-    with _open(path) as f:
-        for chunk in chunks:
-            host = [(key, f.get_tensor(key), leaf) for key, leaf in chunk]
-            for key, t, leaf in host:
-                lookup[key] = _restore_leaf(key, t, leaf)
-            del host
+    leaves = [("/".join(kp), leaf) for kp, leaf in _flatten(template)]
+    fname = os.path.join(os.path.abspath(path), TENSORS_NAME)
+    with open(fname, "rb", buffering=0) as f:
+        n_header = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n_header))
+        base = 8 + n_header
+        jobs = []  # (file offset, key, template leaf, meta)
+        for key, like in leaves:
+            meta = header.get(key)
+            if meta is None:
+                raise KeyError(f"{key} is not in the snapshot {fname}")
+            if tuple(meta["shape"]) != tuple(like.shape):
+                raise ValueError(
+                    f"shape mismatch at {key}: template {list(like.shape)} "
+                    f"vs snapshot {list(meta['shape'])}"
+                )
+            jobs.append((base + meta["data_offsets"][0], key, like, meta))
+        jobs.sort(key=lambda j: j[0])
+        cuda = any(like.device.type == "cuda" for _, like in leaves)
+        size = max(chunk_bytes // 2, _MIN_STAGE_BUFFER)
+        bufs = [torch.empty(size, dtype=torch.uint8, pin_memory=cuda)
+                for _ in range(2)]
+        views = [memoryview(b.numpy()) for b in bufs]
+        done = [None, None]  # per buffer: the event of its last copies
+        cur, used = 0, 0
+        raws: Dict[str, torch.Tensor] = {}
+        for off, key, like, meta in jobs:
+            lo, hi = meta["data_offsets"]
+            raw = torch.empty(hi - lo, dtype=torch.uint8, device=like.device)
+            raws[key] = raw
+            f.seek(off)
+            pos = 0
+            while pos < hi - lo:
+                if used == size:
+                    if cuda:
+                        done[cur] = torch.cuda.Event()
+                        done[cur].record()
+                    cur, used = 1 - cur, 0
+                    if done[cur] is not None:
+                        done[cur].synchronize()  # its copies have landed
+                n = min(hi - lo - pos, size - used)
+                view = views[cur][used:used + n]
+                got = 0
+                while got < n:
+                    k = f.readinto(view[got:])
+                    if not k:
+                        raise EOFError(f"{fname} ends inside {key}")
+                    got += k
+                raw[pos:pos + n].copy_(bufs[cur][used:used + n],
+                                       non_blocking=cuda)
+                pos += n
+                used += n
+        if cuda:
+            # the buffers are freed on return: their last copies land first
+            torch.cuda.current_stream().synchronize()
+    lookup = {}
+    for _, key, like, meta in jobs:
+        t = raws.pop(key).view(_ST_DTYPES[meta["dtype"]]).view(like.shape)
+        lookup[key] = t if t.dtype == like.dtype else t.to(like.dtype)
     return _rebuild(template, lookup)
 
 

@@ -843,14 +843,18 @@ class ContinuousBatchingEngine:
             self._stage_stream = torch.cuda.Stream(self.device)
         return torch.cuda.stream(self._stage_stream)
 
-    def stage_weights(self, params, version: int) -> int:
+    def stage_weights(self, params, version: int, owned: bool = False) -> int:
         """Make ``params``' serving copy on the engine's device while
         decode continues, and keep it as the STAGED tree for a later
         :meth:`commit_staged`: the copy is complete on the device when
-        this returns, so the commit moves no bytes.  Safe to call from a
-        thread other than the engine's; only the staged slot is touched.
-        A stage whose version is not newer than the served one is dropped
-        (the round already converged, e.g. by a full reload), not kept."""
+        this returns, so the commit moves no bytes.  ``owned`` marks a
+        tree that already is a serving copy on this device and belongs to
+        nobody else (a snapshot restored onto
+        :meth:`weight_restore_template`): it is kept as it is, not copied
+        again.  Safe to call from a thread other than the engine's; only
+        the staged slot is touched.  A stage whose version is not newer
+        than the served one is dropped (the round already converged, e.g.
+        by a full reload), not kept."""
         tik = time.perf_counter()
         with self.stage_context():
             if self.device.type == "cuda":
@@ -859,7 +863,8 @@ class ContinuousBatchingEngine:
                 torch.cuda.current_stream(self.device).wait_stream(
                     torch.cuda.default_stream(self.device)
                 )
-            params = serving_params(params, self.cfg, self.device)
+            if not owned:
+                params = serving_params(params, self.cfg, self.device)
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
         with self._lock:

@@ -429,8 +429,9 @@ class GenerationServerWorker(worker_base.Worker):
         """Restore the snapshot named by an update payload.  The staged
         path first checks the publisher's layout manifest against the
         engine's tree, so a layout mismatch fails as one readable error
-        before any tensor is read, then restores in chunks of at most
-        ``stage_chunk_bytes`` straight onto the engine's device."""
+        before any tensor is read, then restores through at most
+        ``stage_chunk_bytes`` of host buffers straight onto the engine's
+        device."""
         path = payload.get("path")
         if payload.get("format") != "params":
             raise _not_ported("weight swaps from an HF checkpoint dir", item=6)
@@ -502,12 +503,22 @@ class GenerationServerWorker(worker_base.Worker):
             swap_root, "swap.stage", root=swap_root,
             version=payload.get("version"),
         )
+        eng = self.engine
+        work0 = (eng.decode_steps_total, eng.decode_tokens_total)
         try:
             params = self._load_update_params(payload, staged=True)
-            self.engine.stage_weights(params, payload.get("version"))
+            # the restored tree is a fresh serving copy nobody else holds
+            eng.stage_weights(params, payload.get("version"), owned=True)
             rec["result"] = {
                 "staged": payload.get("version"),
                 "stage_seconds": round(time.monotonic() - rec["t0"], 4),
+                # the decode work the poll loop did while this thread
+                # restored: steps enqueued and tokens harvested.  A stage
+                # that held the poll loop would show none
+                "decode_steps_during_stage": eng.decode_steps_total - work0[0],
+                "decode_tokens_during_stage": (
+                    eng.decode_tokens_total - work0[1]
+                ),
             }
             tracer.span_end(swap_root, "swap.stage", root=swap_root, ok=True)
         except Exception as e:  # noqa: BLE001 - reported to the manager

@@ -198,7 +198,11 @@ class Worker:
         self._configure(config)
         self._configured = True
         if self._server:
-            self._server.set_status(WorkerServerStatus.IDLE)
+            # a "start" served while the config waited in the queue stands
+            self._server.set_status(
+                WorkerServerStatus.RUNNING if self.__running
+                else WorkerServerStatus.IDLE
+            )
         self.logger.debug("%s configured", self.worker_name)
 
     @property
@@ -212,8 +216,8 @@ class Worker:
 
     def run(self, config=None) -> WorkerServerStatus:
         if config is not None:
-            self.configure(config)
             self.__running = True
+            self.configure(config)
         try:
             while not self.__exiting:
                 if self._server:

@@ -20,7 +20,8 @@ model's widths.  ``server`` runs ``chip_smoke.server_phase`` (publish,
 the generation server in a thread, a group of 4 staged-swapped to
 perturbed weights while it decodes, continuations, the bad-manifest
 control) with the same counting wrappers, pages of 16 and decode chunks of
-4.
+4; its restore is held 0.2 s, as long as several decode steps, so the
+stage's check that decoding went on during the restore can pass.
 """
 
 from __future__ import annotations
@@ -76,9 +77,20 @@ def main() -> int:
         pa.paged_flash_attention_deep = paged.paged_flash_attention_deep = (
             counting(pa.paged_flash_attention_deep, False))
     if mode == "server":
+        from areal_tpu_torch.engine import checkpoint
+
+        real_restore = checkpoint.load_params_staged
+
+        def restore(*args, **kwargs):
+            # a tiny snapshot restores within one decode step; at full
+            # width the restore spans many steps
+            time.sleep(0.2)
+            return real_restore(*args, **kwargs)
+
+        checkpoint.load_params_staged = restore
         cs.server_phase(
             cfg, cs._perturbed(master, cs.SEED + 7), dev, "cpu", group=4,
-            prompt_len=37, new_tokens=40, cont_new=6, max_batch=4,
+            prompt_len=37, new_tokens=120, cont_new=6, max_batch=4,
             kv_cache_len=256, page_size=16, chunk_size=4, cache_mode="paged",
             prefill_chunk_tokens=32, stage_chunk_bytes=4096)
     elif mode == "phase":

@@ -78,22 +78,24 @@ from a seed, float32 master weights and their bf16 serving copy):
 7. publishes phase 6's trained weights as version 1 (a bf16 snapshot
    written on a background thread, then its manifest) and serves the
    recipe's group traffic (16 requests over one 1000-token prompt,
-   temperature 1, 256 new tokens) through ``GenerationServerWorker`` over
+   temperature 1, 512 new tokens) through ``GenerationServerWorker`` over
    ZMQ at the GenServerConfig defaults with the recipe's 16 rows and
    32768-token KV, its engine at version 0 from the same seed: it stages
-   v1 while the group decodes (decode steps must run between the stage
-   request and its reply; the staged tree must be bit-identical to the
-   serving copy of the published weights), then pauses, commits and
-   resumes as the gserver manager does, acknowledges a repeated commit,
-   continues every answer under v1, and refuses a snapshot whose manifest
-   alters one leaf's shape before reading any tensor.  Every token's
+   v1 while the group decodes (the server's poll loop must enqueue decode
+   steps while its stage thread restores; the staged tree must be
+   bit-identical to the serving copy of the published weights), then
+   pauses, commits and resumes as the gserver manager does, acknowledges
+   a repeated commit, continues every answer under v1, and refuses a
+   snapshot whose manifest alters one leaf's shape before reading any
+   tensor.  Every token's
    version, the logprobs of v0 and v1 tokens against the trainer forward
    of each version, the paged launches against the engine's work, the
    SLO digests and swap counters of the metrics reply, and the leak audit
    are checked; it prints the publish, stage and pause seconds.
 
-The engines of phases 2, 3 and 6 run without the prefix cache, so their
-work counts and times stay comparable with an engine that has none.
+The engines of phases 2-6 run without the SLO records, and those of
+phases 2, 3 and 6 without the prefix cache, so their work counts and
+times stay comparable with an engine that has neither.
 Every phase raises on failure, so the script exits non-zero.  It exits
 non-zero without printing a result when no CUDA card is present, or when
 the ``areal_tpu_torch`` package is not beside it.
@@ -169,13 +171,16 @@ PRESSURE_PROMPT_LENS = (1024, 3000, 1500, 2048, 1100, 2900, 1777, 2500,
                         1300, 2222, 1024, 2800, 1600, 2000, 1234, 2700)
 PRESSURE_NEW_TOKENS = 256
 #: the generation-server phase: the recipe's group traffic (group_size 16
-#: over one 1000-token prompt, temperature 1) with 256 new tokens (the
+#: over one 1000-token prompt, temperature 1) with 512 new tokens (the
 #: recipe allows 16384), then one continuation round of 64 under the new
 #: weights, served by GenerationServerWorker at the GenServerConfig
 #: defaults with the recipe's max_concurrent_batch 16 and kv_cache_len
 #: 32768 (pages of 1024, decode chunks of 64, prefix cache and SLO
-#: records on)
-SERVER_NEW_TOKENS = 256
+#: records on).  The server reads a command only between steps, and each
+#: of the stage, pause and commit RPCs may wait out a 64-step chunk; a
+#: group member may run a chunk ahead of the others; so every member
+#: needs more than 5 chunks of budget to be in flight when v1 applies
+SERVER_NEW_TOKENS = 512
 SERVER_CONT_NEW_TOKENS = 64
 #: the leaf whose shape the bad-manifest control alters
 SERVER_BAD_LEAF = "layers/0/mlp/down/w"
@@ -804,14 +809,15 @@ def build_engine(cfg, params, device, sampling, **kw):
         ContinuousBatchingEngine,
     )
 
-    # the prefix cache is off unless asked for: the earlier phases resubmit
-    # their prompts, and their work counts and times stay comparable with
-    # those of an engine without it
+    # the prefix cache and the SLO records are off unless asked for: the
+    # earlier phases resubmit their prompts, and their work counts and
+    # times stay comparable with those of an engine without either (the
+    # generation server's engine has both, as its config's defaults say)
     settings = dict(
         max_batch=MAX_BATCH, kv_cache_len=KV_CACHE_LEN,
         chunk_size=CHUNK_SIZE, cache_mode="paged", page_size=PAGE_SIZE,
         prefill_chunk_tokens=PREFILL_CHUNK, pipeline_depth=PIPELINE_DEPTH,
-        seed=SEED, prefix_cache=False,
+        seed=SEED, prefix_cache=False, slo_tracking=False,
     )
     settings.update(kw)
     return ContinuousBatchingEngine(
@@ -2059,8 +2065,9 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
        ``SEED``, the same weights as the earlier phases';
     3. send ``group`` requests over one ``prompt_len``-token prompt through
        ``GenServerClient`` (temperature 1, ``new_tokens`` each), stage v1
-       while they decode (decode steps must run between the stage request
-       and its reply), check the staged tree bit-identical to the serving
+       while they decode (the server counts the decode steps its poll loop
+       enqueued while the stage thread restored, and there must be some),
+       check the staged tree bit-identical to the serving
        copy of the published weights, then pause, commit, resume and time
        the first token under v1; a second commit must be acknowledged;
     4. continue every answer under v1 (``cont_new`` tokens); stage a
@@ -2226,13 +2233,21 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
         log(f"{tag}: stage v1: {t_stage:.3f} s request to reply (server "
             f"{reply['stage_seconds']} s), meanwhile {steps} decode steps "
             f"enqueued ({chunks} decode chunks dispatched, {toks} tokens "
-            f"harvested, {fills} fill chunks; {calls} paged kernel calls), "
-            f"on {card}")
+            f"harvested, {fills} fill chunks; {calls} paged kernel calls); "
+            f"while the stage thread restored: "
+            f"{reply['decode_steps_during_stage']} decode steps enqueued, "
+            f"{reply['decode_tokens_during_stage']} tokens harvested, on "
+            f"{card}")
         if reply.get("staged") != 1 or eng.staged_version != 1:
             raise AssertionError(f"{tag}: stage reply {reply}")
-        if steps < 1 or calls != cfg.n_layers * (steps + fills):
+        # read by the server from its stage thread's start to its end: a
+        # stage that held the poll loop would show no step
+        if reply["decode_steps_during_stage"] < 1:
             raise AssertionError(f"{tag}: decoding did not go on during the "
-                                 f"stage ({steps} steps, {calls} calls)")
+                                 f"restore ({reply})")
+        if calls != cfg.n_layers * (steps + fills):
+            raise AssertionError(f"{tag}: {calls} paged calls around the stage "
+                                 f"for {steps} decode steps and {fills} fills")
         # the staged tree is the serving copy of what was published
         want = serving_params(_tree_map(lambda x: x.to(torch.bfloat16),
                                         master), cfg)

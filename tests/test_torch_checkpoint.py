@@ -105,6 +105,19 @@ def test_staged_restore_equals_one_shot(tmp_path, trees, chunk_bytes):
     _assert_trees_equal(staged, one_shot)
 
 
+@pytest.mark.parametrize("chunk_bytes", [2, 300, 4096])
+def test_staged_restore_through_small_buffers(tmp_path, trees, monkeypatch,
+                                              chunk_bytes):
+    """Host buffers far smaller than the leaves: each leaf is read in
+    pieces across many buffer swaps, with the same result."""
+    _, _, params = trees
+    monkeypatch.setattr(tck, "_MIN_STAGE_BUFFER", 1)
+    snap = str(tmp_path / "v1")
+    tck.save_params(params, snap)
+    staged = tck.load_params_staged(params, snap, chunk_bytes=chunk_bytes)
+    _assert_trees_equal(staged, tck.load_params_like(params, snap))
+
+
 def test_staged_restore_onto_a_bf16_template(tmp_path, trees):
     """A serving template (bf16 matrices, f32 norm scales) takes each
     leaf's own dtype from the template."""

@@ -16,7 +16,6 @@ its own package's client.
 * What the port does not serve is refused with ``NotImplementedError``.
 """
 
-import os
 import threading
 import time
 
@@ -438,6 +437,28 @@ def test_worker_server_control_and_status():
         sock.close(linger=0)
 
 
+def test_start_served_before_the_config_is_applied_stands():
+    """The run loop applies a config from its queue after serving the
+    commands that came with it: a "start" among them stands."""
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.system import worker_base
+
+    name_resolve.reconfigure("memory")
+    server = worker_base.make_server("w1", "ctl", "t1")
+
+    class Idle(worker_base.Worker):
+        def _configure(self, config):
+            self.config = config
+
+    worker = Idle(server)
+    try:
+        assert worker._on_start() == "started"
+        worker.configure({"k": 1})
+        assert server.status == worker_base.WorkerServerStatus.RUNNING
+    finally:
+        server.close()
+
+
 def test_free_ports_are_distinct_and_registered():
     from areal_tpu.base import network as jnet
     from areal_tpu_torch.base import name_resolve, names, network
@@ -454,5 +475,95 @@ def test_free_ports_are_distinct_and_registered():
                                    trial_name="t0")
     assert not set(more) & set(ports)
     assert network.gethostname() == jnet.gethostname()
-    assert network.gethostip() == (
-        os.environ.get(network.HOST_IP_ENV) or "127.0.0.1")
+    assert network.gethostip() == "127.0.0.1"
+
+
+@pytest.mark.parametrize("restore_on", ["stage_thread", "poll_thread"])
+def test_stage_reply_counts_the_decode_work_of_its_restore(
+        tmp_path, monkeypatch, restore_on):
+    """The stage reply counts the decode steps the poll loop enqueued while
+    the stage thread restored.  The control holds the poll loop for the
+    restore (the poll thread waits the stage thread out): it shows none.
+    The restore lasts until a decode step was enqueued, or 2 s."""
+    from areal_tpu_torch.api.config import ModelAbstraction
+    from areal_tpu_torch.api.model_api import (
+        APIGenerateInput,
+        GenerationHyperparameters,
+    )
+    from areal_tpu_torch.api.system_api import GenServerConfig
+    from areal_tpu_torch.base import constants, name_resolve, names
+    from areal_tpu_torch.engine import checkpoint
+    from areal_tpu_torch.system.generation_server import (
+        GenerationServerWorker,
+        GenServerClient,
+        parse_server_registration,
+    )
+
+    name_resolve.reconfigure("memory")
+    constants.set_experiment_trial_names("gsstage", restore_on.replace("_", ""))
+    worker = GenerationServerWorker()
+    cfg = GenServerConfig(
+        model=ModelAbstraction("random", dict(MODEL_ARGS,
+                                              max_position_embeddings=1024)),
+        device="cpu", **dict(SERVER, kv_cache_len=512))
+    t = threading.Thread(target=worker.run, args=(cfg,), daemon=True)
+    t.start()
+    client = None
+    try:
+        addr = parse_server_registration(name_resolve.wait(
+            names.gen_server(constants.experiment_name(),
+                             constants.trial_name(), SERVER["worker_name"]),
+            timeout=60))[0]
+        client = GenServerClient(addr, timeout=60)
+        eng = worker.engine
+        snap = str(tmp_path / "v1")
+        checkpoint.save_params(eng.params, snap)
+        checkpoint.write_manifest(eng.params, snap, version=1)
+
+        real = checkpoint.load_params_staged
+
+        def slow_restore(*args, **kwargs):
+            s0 = eng.decode_steps_total
+            deadline = time.monotonic() + 2
+            while (eng.decode_steps_total == s0
+                   and time.monotonic() < deadline):
+                time.sleep(0.002)
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(checkpoint, "load_params_staged", slow_restore)
+        if restore_on == "poll_thread":
+            begin = worker._begin_stage
+
+            def held(payload):
+                begin(payload)
+                worker._staging["thread"].join()
+
+            monkeypatch.setattr(worker, "_begin_stage", held)
+        outs = []
+        gen = [threading.Thread(target=lambda i=i: outs.append(client.generate(
+            APIGenerateInput(qid=f"s{i}", prompt_ids=[7, 8, 9 + i],
+                             input_ids=[7, 8, 9 + i],
+                             gconfig=GenerationHyperparameters(
+                                 max_new_tokens=400, greedy=True)))))
+            for i in range(4)]
+        for g in gen:
+            g.start()
+        while eng.n_decoding == 0:
+            time.sleep(0.001)
+        reply = client.call("update_weights", dict(
+            path=snap, version=1, format="params", mode="stage"))
+        assert reply["staged"] == 1 and eng.staged_version == 1
+        if restore_on == "stage_thread":
+            assert reply["decode_steps_during_stage"] >= 1, reply
+        else:
+            assert reply["decode_steps_during_stage"] == 0, reply
+            assert reply["decode_tokens_during_stage"] == 0, reply
+        for g in gen:
+            g.join(60)
+        assert len(outs) == 4 and all(o.version_end == 0 for o in outs)
+    finally:
+        if client is not None:
+            client.close()
+        worker.exit()
+        t.join(30)
+    assert not t.is_alive()

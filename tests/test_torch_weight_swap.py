@@ -311,11 +311,34 @@ def test_stage_from_published_snapshot_chunked(tmp_path, trees):
         assert ck.validate_manifest(eng.params, manifest) == []
         restored = ck.load_params_staged(eng.params, snap,
                                          chunk_bytes=16 * 1024)
-        eng.stage_weights(restored, version=1)
+        # the port's server stages a restored tree as its own (no copy)
+        eng.stage_weights(restored, version=1,
+                          **({"owned": True} if eng is p.port else {}))
     assert p.both(lambda e, w, _: e.commit_staged(expected_version=1)) == (1, 1)
     p.run_until_done()
     out = p.result("q0")
     assert out.version_end == 1 and _split(out) < len(out.output_ids)
+
+
+def test_stage_keeps_an_owned_tree_and_copies_a_borrowed_one(tmp_path, trees):
+    """An owned tree (a restored snapshot) is staged as it is; a tree the
+    caller still holds is copied, so the caller's in-place updates (a
+    trainer's AdamW) never reach the staged version."""
+    p = Pair(trees)
+    eng = p.port
+    tck.save_params(p.tw[1], str(tmp_path / "v1"))
+    owned = tck.load_params_like(eng.params, str(tmp_path / "v1"))
+    eng.stage_weights(owned, version=1, owned=True)
+    for (_, a), (_, b) in zip(tck._flatten(eng._staged_params),
+                              tck._flatten(owned)):
+        assert a is b
+    borrowed = params_from_jax(trees[1], _cfg, "cpu")
+    eng.stage_weights(borrowed, version=2)
+    before = [t.clone() for _, t in tck._flatten(borrowed)]
+    for _, t in tck._flatten(borrowed):
+        t.add_(1.0)
+    for (_, a), want in zip(tck._flatten(eng._staged_params), before):
+        assert torch.equal(a, want)
 
 
 def test_manifest_mismatch_detected_before_restore(tmp_path, trees):
