@@ -1,9 +1,9 @@
-"""Core named abstractions (the ``ModelName`` and ``ModelAbstraction``
-parts of ``areal_tpu/api/config.py``).
+"""Core named abstractions (copy of ``areal_tpu/api/config.py``).
 
-``ModelName`` identifies a model role and replica; ``ModelAbstraction`` is
-a ``(type_, args)`` factory reference that
-:func:`areal_tpu_torch.engine.backend.make_model` resolves.
+``ModelName`` identifies a model role and replica.  The ``*Abstraction``
+dataclasses are ``(type_, args)`` factory references resolved through the
+port's registries (``api/model_api``, ``api/dataset_api``,
+``api/agent_api``, ``api/env_api``).
 """
 
 from __future__ import annotations
@@ -26,7 +26,20 @@ class ModelName:
         return cls(role=role, replica_id=int(rid or 0))
 
 
-@dataclasses.dataclass
-class ModelAbstraction:
-    type_: str
-    args: Dict[str, Any] = dataclasses.field(default_factory=dict)
+def _abstraction(name: str):
+    @dataclasses.dataclass
+    class _Abstraction:
+        type_: str
+        args: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    _Abstraction.__name__ = name
+    _Abstraction.__qualname__ = name
+    return _Abstraction
+
+
+DatasetAbstraction = _abstraction("DatasetAbstraction")
+ModelAbstraction = _abstraction("ModelAbstraction")
+ModelInterfaceAbstraction = _abstraction("ModelInterfaceAbstraction")
+ModelBackendAbstraction = _abstraction("ModelBackendAbstraction")
+AgentAbstraction = _abstraction("AgentAbstraction")
+EnvServiceAbstraction = _abstraction("EnvServiceAbstraction")

@@ -1,21 +1,27 @@
-"""SequenceSample, the packed-batch currency of the trainer (port of the
-parts of ``areal_tpu/api/data.py`` that the train path calls).
+"""SequenceSample, the packed-batch currency of the system (copy of
+``areal_tpu/api/data.py``).
 
 Data lives on the host as numpy arrays, packed 1-D varlen per key; padding
 to ``[B, T]`` happens only at the engine boundary
 (:mod:`areal_tpu_torch.engine.batching`).  Each id may own several
-sequences per key, hence ``seqlens[key]`` is a list (per id) of lists
-(per sequence).  The reference's JSON wire codec is not ported.
+sequences per key, hence ``seqlens[key]`` is a list (per id) of lists (per
+sequence).  The JSON codec (base64 raw bytes) is the wire format of the
+rollout-to-trainer push stream.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 from typing import Any, Dict, Hashable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
 from areal_tpu_torch.base import datapack
+
+# ---------------------------------------------------------------------------
+# Micro-batch splitting spec.
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
@@ -25,6 +31,14 @@ class MicroBatchSpec:
 
     n_mbs: int = 1
     max_tokens_per_mb: int = int(1e12)
+
+    @classmethod
+    def new(cls, mb_spec: "MicroBatchSpec", **kwargs) -> "MicroBatchSpec":
+        fields = dict(
+            n_mbs=mb_spec.n_mbs, max_tokens_per_mb=mb_spec.max_tokens_per_mb
+        )
+        fields.update(kwargs)
+        return cls(**fields)
 
 
 @dataclasses.dataclass
@@ -145,6 +159,8 @@ class SequenceSample:
                         f"total seqlen {total}"
                     )
 
+    # -- construction -------------------------------------------------------
+
     @classmethod
     def from_default(
         cls,
@@ -153,8 +169,8 @@ class SequenceSample:
         data: Dict[str, Optional[np.ndarray]],
         metadata: Optional[Dict[str, List[Any]]] = None,
     ) -> "SequenceSample":
-        """A sample where every id has a single sequence of the given main
-        length; per-key lengths come from the key-name registry."""
+        """Build a sample where every id has a single sequence of the given
+        main length; per-key lengths are derived from the key-name registry."""
         metadata = dict(metadata or {})
         for k, v in metadata.items():
             if not isinstance(v, list) or len(v) != len(seqlens):
@@ -184,6 +200,8 @@ class SequenceSample:
             metadata=metadata,
         )
 
+    # -- basic properties ---------------------------------------------------
+
     @property
     def bs(self) -> int:
         return len(self.ids)
@@ -193,6 +211,8 @@ class SequenceSample:
 
     def _get_split_key(self) -> str:
         return max(self.keys, key=lambda k: self.total_seqlen(k))
+
+    # -- gather / split -----------------------------------------------------
 
     @classmethod
     def gather(
@@ -266,9 +286,9 @@ class SequenceSample:
     def split_with_lengths(
         self, mb_spec: MicroBatchSpec, lens: List[int]
     ) -> Tuple[List["SequenceSample"], np.ndarray, np.ndarray]:
-        """Micro-batches bounded by ``max_tokens_per_mb``, at least
-        ``n_mbs`` of them.  Returns (micro_batches, forward_indices,
-        backward_indices); :meth:`reorder_output` restores the original
+        """Split into micro-batches bounded by ``max_tokens_per_mb`` with at
+        least ``n_mbs`` groups.  Returns (micro_batches, forward_indices,
+        backward_indices); use :meth:`reorder_output` to restore original
         order of per-token outputs."""
         groups = datapack.ffd_allocate(
             lens, mb_spec.max_tokens_per_mb, min_groups=mb_spec.n_mbs
@@ -320,6 +340,42 @@ class SequenceSample:
             SequenceSplitSpec(partitions=[(i, i + 1) for i in range(self.bs)])
         )
 
+    @staticmethod
+    def shuffled(
+        sample: "SequenceSample", seed: Optional[int] = None
+    ) -> "SequenceSample":
+        rng = np.random.RandomState(seed)
+        indices = np.arange(sample.bs)
+        rng.shuffle(indices)
+        return SequenceSample.reorder(sample, indices)
+
+    # -- mutation -----------------------------------------------------------
+
+    def meta(self) -> "SequenceSample":
+        return SequenceSample(
+            keys=self.keys,
+            trailing_shapes=self.trailing_shapes,
+            dtypes=self.dtypes,
+            ids=self.ids,
+            data=None,
+            seqlens=self.seqlens,
+            metadata=self.metadata,
+        )
+
+    def select(self, keys: Sequence[str]) -> "SequenceSample":
+        keys = set(keys)
+        return SequenceSample(
+            keys=keys,
+            dtypes={k: self.dtypes[k] for k in keys},
+            trailing_shapes={k: self.trailing_shapes[k] for k in keys},
+            ids=self.ids,
+            seqlens={k: self.seqlens[k] for k in keys},
+            data=(
+                None if self.data is None else {k: self.data[k] for k in keys}
+            ),
+            metadata=self.metadata,
+        )
+
     def update_(self, other: "SequenceSample"):
         """Merge ``other``'s keys into self (ids must match)."""
         assert self.ids == other.ids, (self.ids, other.ids)
@@ -330,6 +386,79 @@ class SequenceSample:
         if self.data is not None and other.data is not None:
             self.data.update(other.data)
         self.metadata.update(other.metadata)
+
+    def remap_keys_(self, remap: Dict[str, str]):
+        for k in list(self.keys):
+            if k in remap:
+                nk = remap[k]
+                self.seqlens[nk] = self.seqlens.pop(k)
+                self.trailing_shapes[nk] = self.trailing_shapes.pop(k)
+                self.dtypes[nk] = self.dtypes.pop(k)
+                if self.data is not None:
+                    self.data[nk] = self.data.pop(k)
+        self.keys = set(remap.get(k, k) for k in self.keys)
+
+    # -- wire format --------------------------------------------------------
+
+    def as_json_compatible(self) -> Dict:
+        data = None
+        if self.data is not None:
+            data = {}
+            for k, v in self.data.items():
+                if v is None:
+                    data[k] = None
+                else:
+                    v = np.ascontiguousarray(v)
+                    data[k] = {
+                        "b64": base64.b64encode(v.tobytes()).decode("ascii"),
+                        "dtype": str(v.dtype),
+                        "shape": list(v.shape),
+                    }
+        return dict(
+            ids=self.ids,
+            keys=sorted(self.keys),
+            trailing_shapes={
+                k: (list(v) if v is not None else None)
+                for k, v in self.trailing_shapes.items()
+            },
+            dtypes={
+                k: (str(v) if v is not None else None)
+                for k, v in self.dtypes.items()
+            },
+            seqlens=self.seqlens,
+            data=data,
+            metadata=self.metadata,
+        )
+
+    @classmethod
+    def from_json_compatible(cls, d: Dict) -> "SequenceSample":
+        dtypes = {
+            k: (np.dtype(v) if v is not None else None)
+            for k, v in d["dtypes"].items()
+        }
+        data = None
+        if d["data"] is not None:
+            data = {}
+            for k, v in d["data"].items():
+                if v is None:
+                    data[k] = None
+                else:
+                    arr = np.frombuffer(
+                        base64.b64decode(v["b64"]), dtype=np.dtype(v["dtype"])
+                    ).reshape(v["shape"])
+                    data[k] = arr.copy()  # writable
+        return cls(
+            ids=d["ids"],
+            keys=set(d["keys"]),
+            trailing_shapes={
+                k: (tuple(v) if v is not None else None)
+                for k, v in d["trailing_shapes"].items()
+            },
+            dtypes=dtypes,
+            seqlens=d["seqlens"],
+            data=data,
+            metadata=d.get("metadata", {}),
+        )
 
     def __repr__(self):
         return (

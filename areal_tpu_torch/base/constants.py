@@ -1,12 +1,16 @@
-"""Process-global experiment context (copy of the experiment and trial
-names of ``areal_tpu/base/constants.py``).
+"""Process-global experiment context (copy of ``areal_tpu/base/constants.py``).
 
-The reference's mesh registry, ``model_scope`` and path helpers are not
-copied: the port serves on one card and nothing in it calls them yet.
+Holds the experiment and trial names and the path helpers.  Default roots
+sit under the process's temporary directory; ``AREAL_LOG_ROOT`` and
+``AREAL_SAVE_ROOT`` override them.  The JAX package's mesh registry and
+``model_scope`` are not copied: the port runs each model on one device.
 """
 
 from __future__ import annotations
 
+import getpass
+import os
+import tempfile
 from typing import Optional
 
 _experiment_name: Optional[str] = None
@@ -31,3 +35,43 @@ def trial_name() -> str:
     if _trial_name is None:
         raise RuntimeError("trial name not set")
     return _trial_name
+
+
+# ---------------------------------------------------------------------------
+# Path helpers (reference :82-118).
+# ---------------------------------------------------------------------------
+
+def _tmp_root() -> str:
+    return os.path.join(tempfile.gettempdir(), "areal_tpu_torch")
+
+
+def _trial_path(root_env: str, default_root: str, *sub) -> str:
+    root = os.environ.get(root_env, default_root)
+    p = os.path.join(root, getpass.getuser(), experiment_name(), trial_name(), *sub)
+    os.makedirs(p, exist_ok=True)
+    return p
+
+
+def get_log_path() -> str:
+    return _trial_path("AREAL_LOG_ROOT", os.path.join(_tmp_root(), "logs"))
+
+
+def get_save_path() -> str:
+    return _trial_path(
+        "AREAL_SAVE_ROOT", os.path.join(_tmp_root(), "checkpoints")
+    )
+
+
+def get_param_realloc_path() -> str:
+    """Staging dir for train->generation weight sync (disk fallback path)."""
+    return _trial_path(
+        "AREAL_SAVE_ROOT",
+        os.path.join(_tmp_root(), "checkpoints"),
+        "param_realloc",
+    )
+
+
+def get_recover_path() -> str:
+    return _trial_path(
+        "AREAL_SAVE_ROOT", os.path.join(_tmp_root(), "checkpoints"), "recover"
+    )

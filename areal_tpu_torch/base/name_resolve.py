@@ -6,7 +6,7 @@ goes through this module.  The default backend is in-memory (single
 process); the file backend supports multi-process / multi-host via a shared
 filesystem, rooted under ``AREAL_NAME_RESOLVE_ROOT`` or the process's
 temporary directory.  The ``server`` backend (the JAX package's ZMQ KV
-service) is not ported yet (ROADMAP.md queue 1, item 5).
+service) is not ported yet (ROADMAP.md queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -292,7 +292,7 @@ def reconfigure(backend: str = "memory", **kwargs) -> NameRecordRepository:
     elif backend == "server":
         raise NotImplementedError(
             "the name_resolve server backend is not ported to areal_tpu_torch "
-            "yet (see ROADMAP.md queue 1, item 5)"
+            "yet (see ROADMAP.md queue 1, item 13)"
         )
     else:
         raise NotImplementedError(f"name_resolve backend {backend}")

@@ -10,9 +10,15 @@ template against before they read any tensor.  Both files land by
 one.  The JAX package writes orbax trees instead; a snapshot written by
 the port is read only by the port.
 
-Not ported yet: the quantized sibling tree of int8 serving weights
-(ROADMAP.md queue 1, item 8) and train-state checkpoints (the trainer's
-params, optimizer state and version).
+Beside each full-precision snapshot a publisher may write the int8
+serving tree (:func:`save_quantized_params`, ``models/quantize.py``) into
+a sibling directory (:func:`quant_snapshot_path`) and advertise it in the
+manifest (``serving_quant``, :func:`quant_manifest_entry`).  Serving from
+it is not ported yet (ROADMAP.md queue 1, item 8).
+
+Train-state checkpoints (:func:`save_train_state`) hold the trainer's
+float32 master parameters, its AdamW moments and step count, and the
+version, in one safetensors file with a manifest.
 """
 
 from __future__ import annotations
@@ -25,18 +31,35 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from areal_tpu_torch.engine.inference_server import _not_ported
+from areal_tpu_torch.base import logging_
+
+logger = logging_.getLogger("checkpoint")
 
 #: filename of the layout/dtype manifest published inside a snapshot dir
 MANIFEST_NAME = "areal_manifest.json"
 #: filename of the snapshot's tensors inside a snapshot dir
 TENSORS_NAME = "params.safetensors"
+#: filename of a train-state checkpoint's tensors inside its dir
+TRAIN_STATE_NAME = "train_state.safetensors"
+#: suffix of the sibling snapshot dir holding a version's int8 serving
+#: tree (``v7`` -> ``v7-int8``): a sibling, not a subdir, so the base
+#: snapshot stays as it is for consumers that ignore the quantized format;
+#: the publisher's keep-last-2 GC reaps the pair together
+QUANT_DIR_SUFFIX = "-int8"
 
 _INT_DTYPE = re.compile(r"u?int\d+$")
 
 #: background writes of ``save_params(..., wait=False)``: (thread, error box)
 _pending_saves: List[Tuple[threading.Thread, List[Exception]]] = []
+#: the same for the optional int8 trees of ``save_quantized_params``, kept
+#: apart so a failed int8 write never holds back the full-precision publish
+_pending_quant_saves: List[Tuple[threading.Thread, List[Exception]]] = []
 _pending_lock = threading.Lock()
+
+
+def quant_snapshot_path(path: str) -> str:
+    """The sibling dir a snapshot's int8 serving tree publishes to."""
+    return os.path.abspath(path) + QUANT_DIR_SUFFIX
 
 
 def _flatten(tree, prefix=()) -> List[Tuple[Tuple[str, ...], Any]]:
@@ -96,6 +119,34 @@ def _write_tensors(flat: Dict[str, torch.Tensor], path: str):
     os.replace(tmp, os.path.join(path, TENSORS_NAME))
 
 
+def _write_in_background(flat, path: str, pending) -> None:
+    errors: List[Exception] = []
+
+    def write():
+        try:
+            _write_tensors(flat, path)
+        except Exception as e:  # noqa: BLE001 - raised by the waiter
+            errors.append(e)
+
+    t = threading.Thread(target=write, daemon=True, name="save-params")
+    t.start()
+    with _pending_lock:
+        pending.append((t, errors))
+
+
+def _wait(pending) -> None:
+    with _pending_lock:
+        waiting = list(pending)
+        pending.clear()
+    failed = None
+    for t, errors in waiting:
+        t.join()
+        if errors and failed is None:
+            failed = errors[0]
+    if failed is not None:
+        raise failed
+
+
 def save_params(params, path: str, cast_dtype=None, wait: bool = True):
     """Publish a parameter tree as a snapshot in the directory ``path``.
     ``cast_dtype`` (e.g. ``torch.bfloat16``) casts every leaf, which halves
@@ -111,33 +162,64 @@ def save_params(params, path: str, cast_dtype=None, wait: bool = True):
     if wait:
         _write_tensors(flat, path)
         return
-    errors: List[Exception] = []
+    _write_in_background(flat, path, _pending_saves)
 
-    def write():
-        try:
-            _write_tensors(flat, path)
-        except Exception as e:  # noqa: BLE001 - raised by wait_for_saves
-            errors.append(e)
 
-    t = threading.Thread(target=write, daemon=True, name="save-params")
-    t.start()
-    with _pending_lock:
-        _pending_saves.append((t, errors))
+def save_quantized_params(params, path: str, cast_dtype=None,
+                          wait: bool = True):
+    """Publish a snapshot's int8 serving tree (matmul weights as int8 plus
+    per-output-channel float32 absmax scales, everything else cast to
+    ``cast_dtype``; ``models/quantize.py``) as its own snapshot at
+    ``path``, conventionally :func:`quant_snapshot_path` of the
+    full-precision one.
+
+    The quantization runs on the parameters' device before this returns,
+    and the host copies are taken then, so the caller may go on updating
+    ``params``; ``wait=False`` writes the file on a background thread
+    (:func:`wait_for_quant_saves`).  Returns the int8 tree's layout (the
+    manifest's ``serving_quant`` leaves, :func:`quant_manifest_entry`), or
+    None when nothing in the tree is quantizable."""
+    from areal_tpu_torch.models import quantize
+
+    path = os.path.abspath(path)
+    with torch.no_grad():
+        if cast_dtype is not None:
+            params = _tree_map(lambda t: t.detach().to(cast_dtype), params)
+        qtree = quantize.quantize_param_tree(params)
+    if not quantize.quantized_leaf_count(qtree):
+        return None
+    os.makedirs(path, exist_ok=True)
+    flat = _snapshot(qtree, None)
+    if wait:
+        _write_tensors(flat, path)
+    else:
+        _write_in_background(flat, path, _pending_quant_saves)
+    return _rebuild(qtree, {
+        k: torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
+        for k, t in flat.items()
+    })
 
 
 def wait_for_saves():
     """Block until every pending background save has landed; raises the
     first one's failure."""
-    with _pending_lock:
-        pending = list(_pending_saves)
-        _pending_saves.clear()
-    failed = None
-    for t, errors in pending:
-        t.join()
-        if errors and failed is None:
-            failed = errors[0]
-    if failed is not None:
-        raise failed
+    _wait(_pending_saves)
+
+
+def wait_for_quant_saves():
+    """Block until every pending int8-tree save has landed; raises the
+    first one's failure.  Kept apart from :func:`wait_for_saves` so the
+    optional int8 publish can fail without taking the full-precision
+    advertisement with it."""
+    _wait(_pending_quant_saves)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
 
 
 def _open(path: str):
@@ -279,10 +361,13 @@ def write_manifest(params, path: str, version: Optional[int] = None,
     path, shape and dtype, plus the version.  Consumers validate their
     restore template against it before reading any tensor, so a layout
     mismatch fails as one readable error.  The manifest lands by
-    ``os.replace`` of a per-process temporary file."""
-    if serving_quant:
-        raise _not_ported("quantized serving trees (serving_quant)", item=8)
+    ``os.replace`` of a per-process temporary file.
+
+    ``serving_quant`` advertises the quantized serving trees the publisher
+    also wrote: ``{"int8": quant_manifest_entry(...)}``."""
     manifest = {"version": version, "leaves": _leaves_meta(params)}
+    if serving_quant:
+        manifest["serving_quant"] = serving_quant
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, f"{MANIFEST_NAME}.tmp.{os.getpid()}")
@@ -340,15 +425,109 @@ def validate_manifest(template, manifest: Dict) -> List[str]:
     return problems
 
 
+def quant_manifest_entry(quant_avals, path: str) -> Dict:
+    """The manifest's ``serving_quant`` advertisement of one quantized
+    tree: the sibling dir's name (resolved against the base snapshot's
+    parent at restore time) and its leaf layout."""
+    return {
+        "dir": os.path.basename(os.path.abspath(path)),
+        "leaves": _leaves_meta(quant_avals),
+    }
+
+
+def _state_tree(engine) -> Dict[str, Any]:
+    """The train state as one tree: float32 master parameters and, with an
+    optimizer, its AdamW moments, each moment under its parameter's key
+    path (the optimizer keeps them in the engine's leaf order)."""
+    tree: Dict[str, Any] = {"params": engine.params}
+    if engine.opt is not None:
+
+        def like_params(moments):
+            it = iter(moments)
+            return _tree_map(lambda _: next(it), engine.params)
+
+        tree["opt_state"] = {
+            "mu": like_params(engine.opt.mu), "nu": like_params(engine.opt.nu)
+        }
+    return tree
+
+
 def save_train_state(engine, path: str):
-    raise _not_ported("train-state checkpoints (save_train_state)")
+    """Write a :class:`~areal_tpu_torch.engine.train_engine.TrainEngine`'s
+    train state into the directory ``path``: its float32 master
+    parameters, AdamW moments and update count, and its version, as one
+    safetensors file (:data:`TRAIN_STATE_NAME`) and a manifest.  Both land
+    by ``os.replace``, the manifest last, so a dir with a manifest is
+    whole."""
+    from safetensors.torch import save_file
+
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    tree = _state_tree(engine)
+    flat = _snapshot(tree, None)
+    count = engine.opt.count if engine.opt is not None else 0
+    tmp = os.path.join(path, f"{TRAIN_STATE_NAME}.tmp.{os.getpid()}")
+    save_file(flat, tmp, metadata={
+        "format": "pt",
+        "version": str(int(engine.version)),
+        "opt_count": str(int(count)),
+    })
+    os.replace(tmp, os.path.join(path, TRAIN_STATE_NAME))
+    write_manifest(tree, path, version=int(engine.version))
+    logger.info("saved train state (v%d) -> %s", engine.version, path)
 
 
 def load_train_state(engine, path: str) -> bool:
-    raise _not_ported("train-state checkpoints (load_train_state)")
+    """Restore a checkpoint written by :func:`save_train_state` into the
+    engine's tensors in place (parameters, moments) and set its version
+    and update count.  Returns False when ``path`` holds no checkpoint;
+    raises when its layout does not match the engine's."""
+    from safetensors import safe_open
+
+    path = os.path.abspath(path)
+    manifest = read_manifest(path)
+    fname = os.path.join(path, TRAIN_STATE_NAME)
+    if manifest is None or not os.path.exists(fname):
+        return False
+    tree = _state_tree(engine)
+    problems = validate_manifest(tree, manifest)
+    if problems:
+        raise ValueError(
+            f"train state at {path} does not match the engine: "
+            + "; ".join(problems[:5])
+        )
+    with safe_open(fname, framework="pt", device="cpu") as f:
+        meta = f.metadata()
+        with torch.no_grad():
+            for kp, leaf in _flatten(tree):
+                leaf.copy_(f.get_tensor("/".join(kp)))
+    engine.version = int(meta["version"])
+    if engine.opt is not None:
+        engine.opt.count = int(meta["opt_count"])
+    logger.info("restored train state (v%d) <- %s", engine.version, path)
+    return True
 
 
-def save_quantized_params(params, path: str, cast_dtype=None,
-                          wait: bool = True):
-    raise _not_ported("quantized serving trees (save_quantized_params)",
-                      item=8)
+def latest_train_state(
+    base_dir: str, max_step: Optional[int] = None
+) -> Optional[str]:
+    """The ``globalstepN`` checkpoint dir under ``base_dir`` with the
+    highest step number, optionally capped at ``max_step``.  Selection is
+    by the step in the name, not by modification time."""
+    if not os.path.isdir(base_dir):
+        return None
+    best: Optional[str] = None
+    best_step = -1
+    for d in os.listdir(base_dir):
+        full = os.path.join(base_dir, d)
+        if not os.path.isdir(full) or "tmp" in d:
+            continue
+        m = re.fullmatch(r"globalstep(\d+)", d)
+        if m is None:
+            continue
+        step = int(m.group(1))
+        if max_step is not None and step > max_step:
+            continue
+        if step > best_step:
+            best, best_step = full, step
+    return best

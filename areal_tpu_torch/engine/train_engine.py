@@ -20,8 +20,9 @@
   over a batch dict of device tensors, as in the reference.
 
 The engine updates its parameters in place (it takes ownership of the
-tensors it is given).  Checkpoints (``save_train_state``,
-``load_train_state``) and ``save_hf`` are not ported.
+tensors it is given).  Train-state checkpoints (``save_train_state``,
+``load_train_state``) go through ``engine/checkpoint.py``; ``save_hf``
+(HF export) is not ported (ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -294,7 +295,13 @@ class TrainEngine:
         raise NotImplementedError("save_hf (HF export) is not ported")
 
     def save_train_state(self, path: str):
-        raise NotImplementedError("train-state checkpoints are not ported")
+        """Float32 master parameters, AdamW moments, update count and
+        version as one snapshot (``checkpoint.save_train_state``)."""
+        from areal_tpu_torch.engine import checkpoint
+
+        checkpoint.save_train_state(self, path)
 
     def load_train_state(self, path: str) -> bool:
-        raise NotImplementedError("train-state checkpoints are not ported")
+        from areal_tpu_torch.engine import checkpoint
+
+        return checkpoint.load_train_state(self, path)

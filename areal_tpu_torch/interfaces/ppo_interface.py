@@ -13,11 +13,12 @@ Data contract (packed SequenceSample keys, lengths per sequence of L tokens):
 
 The advantage preparation (reward shaping, GAE, normalisation) is a
 small whole-batch pass over host data and runs on the CPU; the forwards
-and the train step run on the engine's device.  The reference's
-``stats_tracker`` logging is left out: the statistics come back in the
-returned dict.  Critics (``PPOCriticInterface``, ``critic_values_fwd``)
-and on-device generation (``generate``, the sync-PPO path) are not
-ported.
+and the train step run on the engine's device.  The statistics come back
+in the returned dict and, as in the reference, go to ``stats_tracker``
+under ``ppo_actor``.  Critics (``PPOCriticInterface``,
+``critic_values_fwd``) and on-device generation (``generate``, the
+sync-PPO path) are not ported.  The interfaces register as ``ppo_actor``
+and ``ppo_critic`` (which refuses) in the port's registry.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 
 from areal_tpu_torch.api import model_api
 from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
+from areal_tpu_torch.base import stats_tracker
 from areal_tpu_torch.engine import batching
 from areal_tpu_torch.interfaces import ppo_functional
 from areal_tpu_torch.models.transformer import head_weight, hidden_states
@@ -250,6 +252,14 @@ class PPOActorInterface(model_api.ModelInterface):
         model.version.advance(
             model.ft_spec.steps_per_epoch if model.ft_spec else int(1e9)
         )
+        with stats_tracker.scope("ppo_actor"):
+            stats_tracker.scalar(
+                **{
+                    k: v
+                    for k, v in all_stats.items()
+                    if isinstance(v, (int, float))
+                }
+            )
         return all_stats
 
     def inference(
@@ -351,3 +361,7 @@ def _actor_loss(params, cfg, batch, iface: PPOActorInterface):
     }
     # the engine divides gradients by the summed denominators
     return loss * count, count, stats
+
+
+model_api.register_interface("ppo_actor", PPOActorInterface)
+model_api.register_interface("ppo_critic", PPOCriticInterface)

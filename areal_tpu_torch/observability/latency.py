@@ -17,8 +17,10 @@ Error bound: boundaries grow geometrically by :data:`SLO_BUCKET_RATIO`
 midpoint of its bucket, so an in-range quantile is within
 :data:`SLO_REL_ERROR_BOUND` (sqrt(ratio) - 1, ~9.05%) of the empirical
 one.  Values outside the covered range clamp to the nearest edge bucket.
-The fleet-side merge of scraped digests is not ported yet (ROADMAP.md
-queue 1, item 11).
+:func:`digest_from_bucket_samples` rebuilds a digest from a scraped page
+and :func:`fleet_slo_rows` merges every worker's into fleet percentiles
+(the master's aggregator; the port's workers do not serve ``/metrics``
+yet, ROADMAP.md queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 #: smallest bucket boundary (seconds); waits below this clamp into bucket 0
 SLO_BUCKET_LO = 1e-4
@@ -53,6 +55,12 @@ SLO_FAMILIES: Dict[str, str] = {
     "areal_slo_tpot_seconds": "tpot_s",
     "areal_slo_stall_seconds": "stall_s",
 }
+
+#: the fleet-merged sink-row key the stall watchdog's percentile alarm
+#: reads (see StallWatchdog.check_slo): p99 TTFT merged across every
+#: server and workload
+FLEET_TTFT_P99_KEY = "slo/areal_slo_ttft_seconds/all/p99"
+
 
 @dataclasses.dataclass
 class LatencyRecord:
@@ -181,3 +189,148 @@ class LatencyDigest:
         out.count = int(d["count"])
         out.sum = float(d["sum"])
         return out
+
+
+def digest_from_bucket_samples(
+    pairs: Iterable[Tuple[float, float]], total_sum: float = 0.0
+) -> LatencyDigest:
+    """Rebuild a digest from a scraped Prometheus histogram series:
+    ``pairs`` are ``(le, cumulative_count)`` with ``le = math.inf`` for
+    the ``+Inf`` bucket.  Raises ``ValueError`` when the boundaries are
+    not :data:`SLO_BUCKETS` — a foreign histogram must never silently
+    merge into the SLO plane."""
+    finite = sorted((le, c) for le, c in pairs if math.isfinite(le))
+    inf = [c for le, c in pairs if math.isinf(le)]
+    if len(finite) != SLO_N_BUCKETS or not inf:
+        raise ValueError(
+            f"expected {SLO_N_BUCKETS} finite buckets + Inf, got "
+            f"{len(finite)} (+{len(inf)} inf) — not an SLO digest"
+        )
+    for (le, _), want in zip(finite, SLO_BUCKETS):
+        if abs(le - want) > 1e-9 * max(abs(want), 1e-30):
+            raise ValueError(
+                f"bucket boundary {le!r} != canonical {want!r} — not "
+                "the SLO bucket scheme"
+            )
+    out = LatencyDigest()
+    prev = 0.0
+    for i, (_, cum) in enumerate(finite):
+        out.counts[i] = max(0, int(round(cum - prev)))
+        prev = cum
+    out.counts[SLO_N_BUCKETS] = max(0, int(round(inf[0] - prev)))
+    out.count = sum(out.counts)
+    out.sum = float(total_sum)
+    return out
+
+
+def digests_from_families(
+    fams: Dict[str, Any],
+) -> Dict[Tuple[str, str], LatencyDigest]:
+    """Extract every ``areal_slo_*`` digest from one worker's parsed
+    ``/metrics`` page: ``{(family, workload): digest}``.  ``fams`` is the
+    strict prom parser's output (``{name: Family}``); families or series
+    that do not match the SLO bucket scheme are skipped (a foreign
+    ``areal_slo_``-prefixed histogram must not poison the merge)."""
+    out: Dict[Tuple[str, str], LatencyDigest] = {}
+    for name in SLO_FAMILIES:
+        fam = fams.get(name)
+        if fam is None:
+            continue
+        by_series: Dict[str, List[Tuple[float, float]]] = {}
+        sums: Dict[str, float] = {}
+        for s in fam.samples:
+            workload = s.labels.get("workload", "")
+            if s.name == name + "_bucket":
+                le_raw = s.labels.get("le", "")
+                le = math.inf if le_raw == "+Inf" else float(le_raw)
+                by_series.setdefault(workload, []).append((le, s.value))
+            elif s.name == name + "_sum":
+                sums[workload] = s.value
+        for workload, pairs in by_series.items():
+            try:
+                out[(name, workload)] = digest_from_bucket_samples(
+                    pairs, total_sum=sums.get(workload, 0.0)
+                )
+            except ValueError:
+                continue
+    return out
+
+
+def digest_delta(
+    cur: LatencyDigest, prev: Optional[LatencyDigest]
+) -> LatencyDigest:
+    """The WINDOW between two cumulative snapshots of one series:
+    ``cur - prev`` bucket-wise (exact — the counts are monotone
+    Prometheus-histogram cumulatives).  A negative delta in any bucket
+    means the worker restarted and its counters reset; the current
+    snapshot then IS the window.  ``prev=None`` (first scrape) likewise
+    returns ``cur``."""
+    if prev is None:
+        return LatencyDigest.from_dict(cur.to_dict())
+    out = LatencyDigest()
+    for i, (c, p) in enumerate(zip(cur.counts, prev.counts)):
+        d = c - p
+        if d < 0:  # counter reset: worker restarted mid-run
+            return LatencyDigest.from_dict(cur.to_dict())
+        out.counts[i] = d
+    out.count = cur.count - prev.count
+    out.sum = max(0.0, cur.sum - prev.sum)
+    return out
+
+
+def fleet_rows_from_digests(
+    per_worker: Dict[str, Dict[Tuple[str, str], LatencyDigest]],
+) -> Dict[str, float]:
+    """Merge per-worker digests into fleet percentiles and flatten them
+    for the per-step sink row:
+
+    * ``slo/<family>/<workload>/{p50,p95,p99,count}`` — fleet-merged
+      across all servers per workload, plus ``<workload> = "all"``
+      merged across workloads (the key the watchdog alarm reads);
+    * ``slo/server/<worker>/<family>/<workload>/p99`` — per-server p99
+      so a single slow mesh is attributable from the same row.
+
+    The merge is exact (fixed bucket boundaries), so these percentiles
+    carry the same documented error bound as any single worker's.
+    Empty digests contribute nothing — a family nobody observed this
+    window emits no rows (the watchdog treats the missing key as "no
+    observation", neither breach nor recovery)."""
+    fleet: Dict[Tuple[str, str], LatencyDigest] = {}
+    rows: Dict[str, float] = {}
+    for worker, digs in sorted(per_worker.items()):
+        for (family, workload), digest in sorted(digs.items()):
+            if digest.count <= 0:
+                continue
+            key = (family, workload)
+            fleet.setdefault(key, LatencyDigest()).merge(digest)
+            fleet.setdefault((family, "all"), LatencyDigest()).merge(digest)
+            p99 = digest.quantile(0.99)
+            if p99 is not None:
+                rows[
+                    f"slo/server/{worker}/{family}/{workload}/p99"
+                ] = p99
+    for (family, workload), digest in sorted(fleet.items()):
+        pct = digest.percentiles()
+        base = f"slo/{family}/{workload}"
+        for k in ("p50", "p95", "p99"):
+            if pct[k] is not None:
+                rows[f"{base}/{k}"] = pct[k]
+        rows[f"{base}/count"] = float(pct["count"])
+    return rows
+
+
+def fleet_slo_rows(
+    scraped: Dict[str, Dict[str, Any]],
+) -> Dict[str, float]:
+    """LIFETIME-cumulative fleet rows straight from one scrape
+    (``{worker: {name: Family}}``) — every sample each worker ever
+    observed.  The aggregator's per-step sink rows use the WINDOWED
+    variant instead (``digest_delta`` between consecutive scrapes via
+    ``ClusterMetricsAggregator.merge_slo``), so the watchdog's "p99
+    right now" cannot be diluted by hours of healthy history."""
+    return fleet_rows_from_digests(
+        {
+            worker: digests_from_families(fams)
+            for worker, fams in scraped.items()
+        }
+    )

@@ -14,9 +14,12 @@ Sampling: tracing is default-on but records only a deterministic hash
 slice of trace roots (:attr:`TraceConfig.sample_rate`), so every worker
 samples the same rollouts without coordination; retries are always
 recorded, and :meth:`Tracer.force` records a root explicitly (a weight
-swap's ``swap-v{n}`` root).  The collector that harvests the rings and
-the ``/trace`` HTTP route are not ported yet (ROADMAP.md queue 1, item
-11).
+swap's ``swap-v{n}`` root).  The master's collector
+(:mod:`trace_collector`) harvests rings over each worker's ``/trace``
+HTTP route, which the port's workers do not serve yet (ROADMAP.md queue
+1, item 11): in the port it finds no endpoint and records nothing, and
+:func:`record_train_consumption` feeds this process's own ring and
+registry.
 """
 
 from __future__ import annotations
@@ -319,3 +322,128 @@ def configure(
     if worker is not None:
         t.worker = worker
     return t
+
+
+def record_train_consumption(
+    ids,
+    step: int,
+    version_ends,
+    current_version: int,
+    model: str = "actor",
+    tracer: Optional[Tracer] = None,
+    registry=None,
+) -> None:
+    """Shared train-side attribution: one ``train.consume`` event per
+    trained sample (which step trained which qids) plus the per-sample
+    staleness histogram ``areal_train_sample_staleness`` (current weight
+    version minus the version the sample finished generating under).
+    Used by the model worker's train_step path and the dryrun gate."""
+    from areal_tpu_torch.observability import get_registry
+
+    tracer = tracer or get_tracer()
+    hist = (registry or get_registry()).histogram(
+        "areal_train_sample_staleness",
+        buckets=(0, 1, 2, 3, 4, 6, 8, 12, 16, 32),
+    )
+    for i, sid in enumerate(ids):
+        ve = None
+        if version_ends is not None and i < len(version_ends):
+            try:
+                ve = int(version_ends[i])
+            except (TypeError, ValueError):
+                ve = None
+        staleness = current_version - ve if ve is not None and ve >= 0 else None
+        if staleness is not None:
+            hist.observe(float(staleness), model=model)
+        tracer.event(
+            str(sid),
+            "train.consume",
+            step=step,
+            staleness=staleness,
+            model=model,
+        )
+
+
+# -- Perfetto / Chrome trace_event export -----------------------------------
+
+
+def to_trace_events(events) -> Dict[str, Any]:
+    """Convert flight-recorder event dicts to the Chrome/Perfetto
+    ``trace_event`` JSON object format.
+
+    Mapping: one *process* per trace root (a sampled rollout's whole
+    timeline groups under one process header in the Perfetto UI), one
+    *thread* per (worker, derived id) lane, so spans emitted about
+    different group members / retries by different workers never overlap
+    on one track.  ``ts``/``dur`` are microseconds per the spec."""
+    pids: Dict[str, int] = {}
+    tids: Dict[tuple, int] = {}
+    out: List[Dict[str, Any]] = []
+    meta: List[Dict[str, Any]] = []
+    for e in events:
+        root = e.get("root", e.get("tid", "?"))
+        lane = (root, e.get("w", ""), e.get("tid", "?"))
+        if root not in pids:
+            pids[root] = len(pids) + 1
+            meta.append(
+                {
+                    "name": "process_name", "ph": "M", "pid": pids[root],
+                    "tid": 0, "args": {"name": f"trace:{root}"},
+                }
+            )
+        if lane not in tids:
+            tids[lane] = len(tids) + 1
+            meta.append(
+                {
+                    "name": "thread_name", "ph": "M", "pid": pids[root],
+                    "tid": tids[lane],
+                    "args": {"name": f"{lane[1]}/{lane[2]}"},
+                }
+            )
+        rec = {
+            "name": e.get("name", "?"),
+            "cat": e.get("name", "?").split(".", 1)[0],
+            "ph": "X" if e.get("ph") == "X" else "i",
+            "pid": pids[root],
+            "tid": tids[lane],
+            "ts": float(e.get("ts", 0.0)) * 1e6,
+            "args": dict(e.get("attrs") or {}),
+        }
+        if rec["ph"] == "X":
+            rec["dur"] = max(0.0, float(e.get("dur", 0.0)) * 1e6)
+        else:
+            rec["s"] = "t"  # instant scope: thread
+        out.append(rec)
+    return {"traceEvents": meta + out, "displayTimeUnit": "ms"}
+
+
+def validate_trace_events(obj) -> List[str]:
+    """Schema-check a ``trace_event`` export; returns violation strings
+    (empty == valid).  Used by the tier-1 test AND the multichip dryrun
+    gate, so both check the same contract."""
+    problems: List[str] = []
+    if not isinstance(obj, dict) or "traceEvents" not in obj:
+        return ["top level must be an object with a traceEvents list"]
+    evs = obj["traceEvents"]
+    if not isinstance(evs, list):
+        return ["traceEvents must be a list"]
+    for i, e in enumerate(evs):
+        if not isinstance(e, dict):
+            problems.append(f"[{i}] not an object")
+            continue
+        ph = e.get("ph")
+        if ph not in ("X", "i", "M", "B", "E"):
+            problems.append(f"[{i}] bad ph {ph!r}")
+            continue
+        if "name" not in e or not isinstance(e["name"], str):
+            problems.append(f"[{i}] missing name")
+        if ph == "M":
+            continue
+        for key in ("pid", "tid"):
+            if not isinstance(e.get(key), int):
+                problems.append(f"[{i}] {key} must be an int")
+        if not isinstance(e.get("ts"), (int, float)):
+            problems.append(f"[{i}] ts must be a number")
+        if ph == "X" and not isinstance(e.get("dur"), (int, float)):
+            problems.append(f"[{i}] X event missing dur")
+    return problems

@@ -5,7 +5,8 @@ and heartbeat keys in name_resolve).
 
 Not ported yet: the per-worker ``/metrics`` HTTP server that the JAX
 package's ``WorkerServer`` starts (ROADMAP.md queue 1, item 11), and the
-controller side (``WorkerControlPanel``) and ``AsyncWorker`` (item 5).
+controller side (``WorkerControlPanel``, which the multi-process
+launcher drives; item 13).
 """
 
 from __future__ import annotations
@@ -245,6 +246,57 @@ class Worker:
             if self._server:
                 self._server.set_status(WorkerServerStatus.ERROR)
             self._exit_hook()
+            raise
+        finally:
+            if self._server:
+                self._server.close()
+
+
+class AsyncWorker(Worker):
+    """Worker whose poll is a coroutine (the rollout worker and the
+    master), run by :meth:`run_async`."""
+
+    async def _poll_async(self) -> PollResult:
+        raise NotImplementedError()
+
+    def _poll(self) -> PollResult:  # pragma: no cover - sync fallback
+        raise RuntimeError("AsyncWorker must be run with run_async()")
+
+    def run_async(self, config=None) -> WorkerServerStatus:
+        import asyncio
+
+        async def _main():
+            if config is not None:
+                self._Worker__running = True  # noqa: SLF001
+                self.configure(config)
+            while not self._Worker__exiting:  # noqa: SLF001
+                if self._server:
+                    self._server.handle_requests()
+                if not self._configured:
+                    try:
+                        cfg = self._config_queue.get_nowait()
+                        self.configure(cfg)
+                    except queue.Empty:
+                        await asyncio.sleep(0.05)
+                    continue
+                if not self._Worker__running:  # noqa: SLF001
+                    await asyncio.sleep(0.02)
+                    continue
+                r = await self._poll_async()
+                if r.sample_count == r.batch_count == 0:
+                    await asyncio.sleep(0.002)
+            status = self._exit_status or WorkerServerStatus.COMPLETED
+            if self._server:
+                self._server.set_status(status)
+            self._exit_hook()
+            return status
+
+        try:
+            return asyncio.run(_main())
+        except Exception:
+            logger.exception("worker %s failed", self.worker_name)
+            if self._server:
+                self._server.set_status(WorkerServerStatus.ERROR)
             raise
         finally:
             if self._server:

@@ -79,7 +79,7 @@ def main(tag: str, reverse: bool) -> int:
         _, out["group_wave_s"] = c.serve(eng, c.requests(
             [prompt] * c.PREFIX_GROUP, c.PREFIX_NEW_TOKENS, "g"))
         del eng
-        eng = fresh(keyed, max_batch=c.LONG_MAX_BATCH,
+        eng = fresh(keyed, max_batch=c.PRESSURE_MAX_BATCH,
                     kv_cache_len=c.PRESSURE_KV_CACHE_LEN,
                     kv_pool_tokens=c.PRESSURE_POOL_TOKENS, prefix_cache=True,
                     slo_tracking=slo)

@@ -100,13 +100,15 @@ def main() -> int:
                 cfg, master, params, dev, "cpu", kv_dtype=kv, group=4,
                 prompt_len=37, suffix_len=20, new_tokens=6, shared_new=30,
                 swap_after=10, max_batch=4, kv_cache_len=256,
-                pressure_lens=(30, 90, 50, 70), pressure_kv=128,
+                pressure_lens=(30, 90, 50, 70), pressure_batch=4,
+                pressure_kv=128,
                 pressure_pool=256, pressure_new=32, page_size=16,
                 prefill_chunk_tokens=32, chunk_size=4)
     elif mode == "pressure":
         eng = cs.build_engine(
             cfg, params, dev, SamplingParams(temperature=1.0),
-            max_batch=cs.PREFIX_GROUP, kv_cache_len=cs.PRESSURE_KV_CACHE_LEN,
+            max_batch=cs.PRESSURE_MAX_BATCH,
+            kv_cache_len=cs.PRESSURE_KV_CACHE_LEN,
             kv_pool_tokens=cs.PRESSURE_POOL_TOKENS, prefix_cache=True)
         prompts = cs.make_prompts(cfg.vocab_size, cs.PRESSURE_PROMPT_LENS,
                                   cs.SEED + 34)

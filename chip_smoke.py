@@ -43,7 +43,7 @@ from a seed, float32 master weights and their bf16 serving copy):
    depths, chunked prefill, and profiles of one decode chunk and of one
    prefill chunk after a short and after a 31000-token prefix);
 3. serves the async-PPO recipe's configuration (16 rows, 32768-token KV,
-   a wave of 12 prompts of 1024 tokens and 4 of 8000-31000) in three
+   a wave of 14 prompts of 1024 tokens and 2 of 8000 and 31000) in three
    arms: a bf16 pool on the default dispatch table, a bf16 pool routing
    decode chunks past 8192 tokens to the deep kernel, and an int8 pool
    with that table; checks each arm's kernel launches against the
@@ -64,7 +64,7 @@ from a seed, float32 master weights and their bf16 serving copy):
    plus 500 tokens (only the suffix prefilled) through two weight swaps
    (the cache flushed, the shared blocks recomputed, bit-identical from
    one swap to the next), and a pressure arm with a quarter of the dense
-   pool (16384 tokens for 16 x 4096) that preempts and completes every
+   pool (8192 tokens for 8 x 4096) that preempts and completes every
    request; launches against the dispatched work, logprobs against the
    trainer forward, and the leak audit on every path;
 6. runs one async-PPO trainer iteration on the greedy wave's rollout
@@ -91,7 +91,22 @@ from a seed, float32 master weights and their bf16 serving copy):
    version, the logprobs of v0 and v1 tokens against the trainer forward
    of each version, the paged launches against the engine's work, the
    SLO digests and swap counters of the metrics reply, and the leak audit
-   are checked; it prints the publish, stage and pause seconds.
+   are checked; it prints the publish, stage and pause seconds;
+8. runs the whole async-PPO loop through the port's entry point:
+   ``AsyncPPOMathExperiment`` through ``run_experiment_local`` (a
+   generation server, the gserver manager, two rollout workers running the
+   math single-step agent and environment, the master, and a model worker
+   that hosts the actor, runs actor_inf and actor_train and publishes each
+   version with its int8 sibling, which the manager stages and commits into
+   the server), at the recipe's settings with the ASYNC_* cuts, on a
+   word-level tokenizer of the model's 151936 words and 64 math rows; it
+   prints which of transformers, tokenizers, zmq and safetensors import,
+   and gates the master's steps, the server's version (2 or more, through
+   the manager's swaps), every consumed trajectory's staleness and token
+   versions, every published manifest and its int8 sibling, the served
+   weights against the published snapshot, actor_inf's logprobs against
+   the server's, the paged and flash launches against the dispatched work,
+   and the leak audit.
 
 The engines of phases 2-6 run without the SLO records, and those of
 phases 2, 3 and 6 without the prefix cache, so their work counts and
@@ -112,6 +127,7 @@ versions are exact float32 references.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -126,18 +142,23 @@ PREFILL_CHUNK = 512
 CHUNK_SIZE = 16
 PIPELINE_DEPTH = 2
 NEW_TOKENS = 128
+#: the sampled waves compare their streams at two pipeline depths: 32
+#: tokens a request (8 x 32 positions) keep the script inside its time
+SAMPLED_NEW_TOKENS = 32
 #: prompt lengths of the 8 requests: spread over 300-3000 tokens, crossing
 #: page (256) and prefill-chunk (512) boundaries
 PROMPT_LENS = (300, 3000, 777, 1536, 513, 2049, 1023, 2600)
 
 #: the long-context serving phase: the async-PPO recipe's generation
 #: settings (training/configs/async_ppo.yaml: gen_max_concurrent_batch 16,
-#: gen_kv_cache_len 32768), 12 prompts at the recipe's prompt cap and 4
-#: long ones (91288 prompt tokens), 64 new tokens each
+#: gen_kv_cache_len 32768), 14 prompts at the recipe's prompt cap and 2
+#: long ones (53336 prompt tokens), 32 new tokens each (the prompts of
+#: 16000 and 24000 tokens and half the new tokens were cut for the
+#: script's time)
 LONG_MAX_BATCH = 16
 LONG_KV_CACHE_LEN = 32768
-LONG_PROMPT_LENS = (1024,) * 12 + (8000, 16000, 24000, 31000)
-LONG_NEW_TOKENS = 64
+LONG_PROMPT_LENS = (1024,) * 14 + (8000, 31000)
+LONG_NEW_TOKENS = 32
 #: the deep-kernel threshold of arms B and C
 DEEP_MIN_CONTEXT = 8192
 #: (arm, kv_cache_dtype, deep_min_context); None keeps the default table
@@ -163,13 +184,15 @@ PREFIX_SHARED_NEW_TOKENS = 96
 #: the first sharer's recompute covers the shared blocks in full 512-token
 #: chunks of its own once it holds 1500 + 36 tokens
 PREFIX_SWAP_AFTER = 40
-#: the pressure arm: a quarter of the dense pool (64 pages of 256 against
-#: 16 x 4096 tokens) under 16 prompts of 1024-3000 tokens
+#: the pressure arm: a quarter of the dense pool (32 pages of 256 against
+#: 8 x 4096 tokens) under 8 prompts of 1024-3000 tokens, 128 new tokens
+#: each (16 rows, 16 prompts, a pool of 64 pages and 256 new tokens
+#: before; cut for the script's time, it still preempts)
+PRESSURE_MAX_BATCH = 8
 PRESSURE_KV_CACHE_LEN = 4096
-PRESSURE_POOL_TOKENS = 16384
-PRESSURE_PROMPT_LENS = (1024, 3000, 1500, 2048, 1100, 2900, 1777, 2500,
-                        1300, 2222, 1024, 2800, 1600, 2000, 1234, 2700)
-PRESSURE_NEW_TOKENS = 256
+PRESSURE_POOL_TOKENS = 8192
+PRESSURE_PROMPT_LENS = (1024, 3000, 1500, 2048, 1100, 2900, 1777, 2500)
+PRESSURE_NEW_TOKENS = 128
 #: the generation-server phase: the recipe's group traffic (group_size 16
 #: over one 1000-token prompt, temperature 1) with 512 new tokens (the
 #: recipe allows 16384), then one continuation round of 64 under the new
@@ -184,6 +207,27 @@ SERVER_NEW_TOKENS = 512
 SERVER_CONT_NEW_TOKENS = 64
 #: the leaf whose shape the bad-manifest control alters
 SERVER_BAD_LEAF = "layers/0/mlp/down/w"
+#: the async-PPO phase: AsyncPPOMathExperiment through the port's local
+#: runner at the recipe's settings (training/configs/async_ppo.yaml)
+#: with these cuts: one card for trainer and server, train_bs_n_seqs 32
+#: (recipe 512), max_new_tokens 256 (16384), new_tokens_per_chunk 128
+#: (2048: each answer spans two chunks), max_concurrent_rollouts 4 (64),
+#: max_tokens_per_mb 2048 (32768), lr 1e-4 without warm-up (1e-6), and
+#: benchmark_steps 3; 64 math rows of 200-1000 prompt tokens
+ASYNC_ROWS = 64
+ASYNC_PROMPT_WORDS = (200, 1000)
+ASYNC_MAX_LENGTH = 1024
+ASYNC_TRAIN_BS = 32
+ASYNC_NEW_TOKENS = 256
+ASYNC_CHUNK_TOKENS = 128
+ASYNC_MAX_ROLLOUTS = 4
+ASYNC_STEPS = 3
+ASYNC_OFFPOLICYNESS = 4
+#: words of the phase's tokenizer that spell a right answer
+#: ("\\boxed{84/2}", "\\boxed{126/3}", ...): 256 tokens drawn uniformly
+#: from 151936 hold one with probability 1 - exp(-256 * 300 / 151936) =
+#: 0.40, so groups mix rewards 0 and 1 and the advantages are not all 0
+ASYNC_ANSWER_WORDS = 300
 #: cached prefixes of the mid-page prefill-entry case: a cache hit leaves
 #: a fill's start anywhere in a page
 MID_PAGE_PREFIXES = (1000, 1255, 257, 0)
@@ -925,7 +969,7 @@ def engine_phase(cfg, params, device, *, prompt_lens=PROMPT_LENS,
 
 
 def sampled_phase(cfg, params, device, *, prompt_lens=PROMPT_LENS,
-                  new_tokens=NEW_TOKENS, **engine_kw):
+                  new_tokens=SAMPLED_NEW_TOKENS, **engine_kw):
     """A second wave sampled at temperature 1, twice, at two pipeline
     depths: the position-keyed streams must agree."""
     from areal_tpu_torch.engine.sampling import SamplingParams
@@ -1817,6 +1861,7 @@ def prefix_phase(cfg, master, params, device, card, *, kv_dtype="auto",
                  swap_after=PREFIX_SWAP_AFTER, max_batch=LONG_MAX_BATCH,
                  kv_cache_len=LONG_KV_CACHE_LEN,
                  pressure_lens=PRESSURE_PROMPT_LENS,
+                 pressure_batch=PRESSURE_MAX_BATCH,
                  pressure_kv=PRESSURE_KV_CACHE_LEN,
                  pressure_pool=PRESSURE_POOL_TOKENS,
                  pressure_new=PRESSURE_NEW_TOKENS, mb_tokens=None,
@@ -1835,8 +1880,8 @@ def prefix_phase(cfg, master, params, device, card, *, kv_dtype="auto",
        the cache, recompute the shared blocks, and leave their bytes
        bit-identical from one swap to the next;
     4. a pressure arm: ``pressure_pool`` tokens of pool (a quarter of the
-       dense ``group x pressure_kv``) under prompts of ``pressure_lens``
-       preempts and completes every request.
+       dense ``pressure_batch x pressure_kv``) under prompts of
+       ``pressure_lens`` preempts and completes every request.
 
     Each path checks its launches against the dispatched work
     (:class:`LaunchGate`) and its logprobs against the trainer forward;
@@ -2007,7 +2052,8 @@ def prefix_phase(cfg, master, params, device, card, *, kv_dtype="auto",
         torch.cuda.empty_cache()
 
     # 4. the pressure arm
-    eng = build_engine(cfg, params, device, sampling, max_batch=max_batch,
+    eng = build_engine(cfg, params, device, sampling,
+                       max_batch=pressure_batch,
                        kv_cache_len=pressure_kv, kv_pool_tokens=pressure_pool,
                        kv_cache_dtype=kv_dtype, prefix_cache=True, **engine_kw)
     gate_p = LaunchGate(eng, L, int8)
@@ -2018,7 +2064,7 @@ def prefix_phase(cfg, master, params, device, card, *, kv_dtype="auto",
     check_outputs(outs, cfg, pressure_new, f"{tag} pressure")
     n_tok = sum(len(o.output_ids) for o in outs)
     log(f"{tag}, pressure arm ({eng.n_blocks} blocks of {eng.page_size} for "
-        f"{max_batch} rows x {pressure_kv}): {len(outs)} requests, prompts "
+        f"{pressure_batch} rows x {pressure_kv}): {len(outs)} requests, prompts "
         f"{sum(pressure_lens)} tokens, {n_tok} new tokens in {secs:.2f} s; "
         f"{eng.preempted_total} preemptions, {eng.prefill_tokens_total} "
         f"tokens prefilled in {work['fills']} fill chunks, "
@@ -2413,6 +2459,553 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
     return res
 
 
+def package_line() -> str:
+    """Which of the data path's and the control plane's packages import on
+    this machine, with their versions."""
+    import importlib
+
+    got = []
+    for name in ("transformers", "tokenizers", "zmq", "safetensors"):
+        try:
+            mod = importlib.import_module(name)
+            got.append(f"{name} {getattr(mod, '__version__', '?')}")
+        except ImportError:
+            got.append(f"{name} missing")
+    return ", ".join(got)
+
+
+def async_inputs(tmp, vocab, *, rows=ASYNC_ROWS, words=ASYNC_PROMPT_WORDS,
+                 n_answers=ASYNC_ANSWER_WORDS, seed=SEED):
+    """The async-PPO phase's tokenizer and dataset, in ``tmp``: a word-level
+    tokenizer with ``vocab`` entries (``[UNK]``, ``[PAD]``, ``[EOS]``,
+    ``n_answers`` words that each spell the right answer, then ``w<i>``),
+    so that every id the model samples decodes, saved as a transformers
+    tokenizer directory; and ``rows`` math rows (prompts of ``words``
+    words drawn from numpy seed ``seed``, the solution ``\\\\boxed{42}``)
+    as jsonl.  Returns (tokenizer dir, dataset path)."""
+    import importlib.util
+    import json
+    import os
+
+    import numpy as np
+
+    missing = [n for n in ("transformers", "tokenizers")
+               if importlib.util.find_spec(n) is None]
+    if missing:
+        raise AssertionError(
+            f"async-PPO phase: {', '.join(missing)} not installed here; the "
+            "data path loads its tokenizer through transformers "
+            "(api/dataset_api.py load_hf_tokenizer)")
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import WhitespaceSplit
+    from transformers import PreTrainedTokenizerFast
+
+    special = ["[UNK]", "[PAD]", "[EOS]"]
+    answers = [f"\\boxed{{{42 * k}/{k}}}" for k in range(1, n_answers + 1)]
+    plain = [f"w{i}" for i in range(vocab - len(special) - len(answers))]
+    tok = Tokenizer(WordLevel(
+        {w: i for i, w in enumerate(special + answers + plain)},
+        unk_token="[UNK]"))
+    tok.pre_tokenizer = WhitespaceSplit()
+    tok_dir = os.path.join(tmp, "tokenizer")
+    PreTrainedTokenizerFast(
+        tokenizer_object=tok, unk_token="[UNK]", pad_token="[PAD]",
+        eos_token="[EOS]").save_pretrained(tok_dir)
+    rng = np.random.default_rng(seed)
+    path = os.path.join(tmp, "math.jsonl")
+    with open(path, "w") as f:
+        for i in range(rows):
+            n = int(rng.integers(words[0], words[1] + 1))
+            ids = rng.integers(0, len(plain), n)
+            f.write(json.dumps(dict(
+                query_id=f"q{i}", task="math",
+                prompt=" ".join(plain[j] for j in ids),
+                solutions=["\\boxed{42}"])) + "\n")
+    return tok_dir, path
+
+
+def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
+                    prompt_words=ASYNC_PROMPT_WORDS,
+                    train_bs=ASYNC_TRAIN_BS, new_tokens=ASYNC_NEW_TOKENS,
+                    chunk_tokens=ASYNC_CHUNK_TOKENS,
+                    max_tokens_per_mb=MAX_TOKENS_PER_MB, steps=ASYNC_STEPS,
+                    n_answers=ASYNC_ANSWER_WORDS, timeout=600.0, **exp_kw):
+    """The whole async-PPO loop through the port's entry point:
+    ``AsyncPPOMathExperiment`` at the recipe's settings (with the cuts of
+    the ASYNC_* constants) through ``run_experiment_local``: a generation
+    server, the gserver manager, two rollout workers running the math
+    single-step agent and environment, the master, and a model worker that
+    hosts the actor (float32 master weights, AdamW), runs actor_inf and
+    actor_train and publishes every version, which the manager stages and
+    commits into the server.  Trainer and server draw the same random
+    weights from ``SEED``.
+
+    The phase observes the run through wrappers of the workers' methods
+    (restored afterwards) and gates: at least ``steps`` master steps, each
+    with a finite ``actor_train/loss`` and an ``actor_train/kl``; the
+    server at version 2 or more, through the manager's swaps; every
+    consumed trajectory within ``max_head_offpolicyness`` of its train
+    step, its tokens' versions non-decreasing; every published version's
+    manifest valid against the server's template, with its int8 sibling
+    advertised, written and of the int8 tree's layout; the served weights
+    bit-identical to the published snapshot of their version; actor_inf's
+    logprobs against the server's behaviour logprobs on the tokens sampled
+    under the trainer's version (TOL_PROX_MEAN / TOL_PROX_MAX); the paged
+    and flash launches against the work the engine and the trainer
+    dispatched; the leak audit of the server's pool.  ``exp_kw`` overrides
+    experiment fields (CPU rehearsals)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import threading
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.config import DatasetAbstraction, ModelAbstraction
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters
+    from areal_tpu_torch.api.system_api import ExperimentSaveEvalControl
+    from areal_tpu_torch.apps.local_runner import run_experiment_local
+    from areal_tpu_torch.base import constants, name_resolve
+    from areal_tpu_torch.engine import checkpoint
+    from areal_tpu_torch.engine.optimizer import OptimizerConfig
+    from areal_tpu_torch.experiments.async_ppo_exp import (
+        AsyncPPOMathExperiment,
+    )
+    from areal_tpu_torch.experiments.ppo_math_exp import PPOHyperparameters
+    from areal_tpu_torch.models import quantize
+    from areal_tpu_torch.observability import get_registry
+    from areal_tpu_torch.ops import paged_attention as pa
+    from areal_tpu_torch.ops.flash_attention import flash_attention as fa
+    from areal_tpu_torch.system import gserver_manager as gm
+    from areal_tpu_torch.system import model_worker as mw
+    from areal_tpu_torch.system import partial_rollout as pr
+    from areal_tpu_torch.system.generation_server import GenerationServerWorker
+
+    tag = "async-ppo"
+    log(f"{tag}: packages: {package_line()}")
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    env0 = {k: os.environ.get(k) for k in ("AREAL_LOG_ROOT", "AREAL_SAVE_ROOT")}
+    os.environ["AREAL_LOG_ROOT"] = os.path.join(tmp, "logs")
+    os.environ["AREAL_SAVE_ROOT"] = os.path.join(tmp, "save")
+    name_resolve.reconfigure("memory")
+    reg = get_registry()
+    L = cfg.n_layers
+
+    # -- what the wrappers record -----------------------------------------
+    servers, fetch_s, publishes, manifests, swaps, stage_rpcs = [], [], [], [], [], []
+    members = {}  # member qid -> (per-token versions, start, end)
+    mfcs = []  # one record per actor_inf / actor_train call
+    failures = []  # raised by the wrappers' checks, re-raised here
+    originals = []
+
+    def patch(owner, name, make):
+        orig = getattr(owner, name)
+        originals.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def on_configure(orig):
+        def f(self, config):
+            servers.append(self)
+            return orig(self, config)
+        return f
+
+    def on_gen_one(orig):
+        async def f(self, qid, prompt_ids, root=None, presched=None):
+            out = await orig(self, qid, prompt_ids, root=root,
+                             presched=presched)
+            members[qid] = (list(out.output_versions), out.version_start,
+                            out.version_end)
+            return out
+        return f
+
+    def on_fetch(orig):
+        def f(self, batch_size):
+            tik = time.perf_counter()
+            try:
+                return orig(self, batch_size)
+            finally:
+                fetch_s.append(time.perf_counter() - tik)
+        return f
+
+    def hist_sum(part):
+        return reg.histogram("areal_weight_publish_seconds").snapshot(
+            part=part)[0]
+
+    def on_publish(orig):
+        def f(self, model_name):
+            s0 = {p: hist_sum(p) for p in ("full", "int8")}
+            tik = time.perf_counter()
+            out = orig(self, model_name)
+            publishes.append(dict(
+                version=self._models[model_name].version.global_step,
+                host_s=time.perf_counter() - tik,
+                **{p: hist_sum(p) - s0[p] for p in ("full", "int8")}))
+            return out
+        return f
+
+    def on_manifest(orig):
+        def f(params, path, version=None, serving_quant=None):
+            out = orig(params, path, version=version,
+                       serving_quant=serving_quant)
+            if serving_quant is None:  # not a trainer publish
+                return out
+            try:
+                template = servers[0].engine.weight_restore_template("full")
+                problems = checkpoint.validate_manifest(template, out)
+                entry = serving_quant["int8"]
+                qdir = os.path.join(os.path.dirname(path), entry["dir"])
+                # the int8 tree's layout: leaves and shapes, int8 weights
+                # and float32 scales (other leaves may differ in float
+                # width, which a restore casts)
+                qtemplate = quantize.quant_tree_struct(_tree_map(
+                    lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), template))
+                problems += [f"int8 tree: {p}" for p in
+                             checkpoint.validate_manifest(qtemplate, entry)]
+                problems += [
+                    f"int8 tree: {k} is {v['dtype']}"
+                    for k, v in entry["leaves"].items()
+                    if (k.endswith("/qw") and v["dtype"] != "int8")
+                    or (k.endswith("/scale") and "norm" not in k
+                        and v["dtype"] != "float32")]
+                if not os.path.exists(os.path.join(
+                        qdir, checkpoint.TENSORS_NAME)):
+                    problems.append(f"no int8 tensors in {qdir}")
+                manifests.append(dict(
+                    version=version, problems=problems,
+                    bytes=os.path.getsize(os.path.join(
+                        path, checkpoint.TENSORS_NAME)),
+                    int8_bytes=os.path.getsize(os.path.join(
+                        qdir, checkpoint.TENSORS_NAME)),
+                    n_int8=sum(k.endswith("/qw") for k in entry["leaves"])))
+            except Exception as e:  # noqa: BLE001 - raised below
+                failures.append(f"manifest v{version}: {e!r}")
+            return out
+        return f
+
+    def on_update_one(orig):
+        def f(self, addr, client, payload, timeout=None):
+            tik = time.perf_counter()
+            out = orig(self, addr, client, payload, timeout=timeout)
+            stage_rpcs.append(dict(version=payload["version"],
+                                   mode=payload.get("mode", "full"),
+                                   s=time.perf_counter() - tik))
+            return out
+        return f
+
+    def on_flush(orig):
+        def f(self, info):
+            tik = time.perf_counter()
+            out = orig(self, info)
+            swaps.append(dict(
+                version=info["version"], applied=self._model_version,
+                round_s=time.perf_counter() - tik,
+                pause_s=reg.gauge(
+                    "areal_gserver_weight_update_pause_seconds").value()))
+            return out
+        return f
+
+    def on_rpc(orig):
+        def f(self, req):
+            spec = req.data
+            handle, ids = spec["handle_name"], list(spec["ids"])
+            model = self._models[spec["model_name"]]
+            k = model.version.global_step
+            rec = dict(handle=handle, version=k, ids=ids)
+            try:
+                if handle == "train_step":
+                    v = self._data_manager.get_batch(
+                        ids, ["version_start", "version_end"])
+                    rec["version_start"] = np.asarray(
+                        v.data["version_start"]).reshape(-1).tolist()
+                    rec["version_end"] = np.asarray(
+                        v.data["version_end"]).reshape(-1).tolist()
+            except Exception as e:  # noqa: BLE001 - raised below
+                failures.append(f"train_step record: {e!r}")
+            out = orig(self, req)
+            try:
+                if handle == "inference":
+                    rec["n_mbs"] = model.engine.last_forward_mbs
+                    b = self._data_manager.get_batch(ids, [
+                        "packed_input_ids", "packed_logprobs", "prompt_mask",
+                        "prox_logp"])
+                    rec["lens"] = [l[0] for l in
+                                   b.seqlens["packed_input_ids"]]
+                    rec["prompt_mask"] = np.asarray(b.data["prompt_mask"])
+                    rec["behav"] = np.asarray(b.data["packed_logprobs"])
+                    rec["prox"] = np.asarray(b.data["prox_logp"])
+                elif handle == "train_step":
+                    rec["n_mbs"] = int(out["stats"]["n_mbs"])
+                    rec["stats"] = dict(out["stats"])
+                rec["elapsed"] = out.get("elapsed", 0.0)
+            except Exception as e:  # noqa: BLE001 - raised below
+                failures.append(f"{handle} record: {e!r}")
+            mfcs.append(rec)
+            return out
+        return f
+
+    patch(GenerationServerWorker, "_configure", on_configure)
+    patch(pr.PartialRolloutManager, "_gen_one", on_gen_one)
+    patch(mw.ModelWorker, "_handle_fetch", on_fetch)
+    patch(mw.ModelWorker, "_publish_weights", on_publish)
+    patch(mw.ModelWorker, "_handle_model_rpc", on_rpc)
+    patch(checkpoint, "write_manifest", on_manifest)
+    patch(gm.GserverManager, "_update_one_server", on_update_one)
+    patch(gm.GserverManager, "_flush_and_update", on_flush)
+
+    model_abs = ModelAbstraction(
+        "random", {"config": dataclasses.replace(cfg, remat=True),
+                   "seed": SEED})
+    exp_args = dict(
+        experiment_name="chipsmoke", trial_name="asyncppo",
+        n_model_workers=1, force_cpu_devices=None if cuda else 1,
+        exp_ctrl=ExperimentSaveEvalControl(total_train_epochs=1,
+                                           benchmark_steps=steps),
+        actor=model_abs, train_bs_n_seqs=train_bs, group_size=16,
+        mb_spec=MicroBatchSpec(max_tokens_per_mb=max_tokens_per_mb),
+        actor_optimizer=OptimizerConfig(lr=TRAIN_LR,
+                                        warmup_steps_proportion=0.0),
+        ppo=PPOHyperparameters(
+            gen=GenerationHyperparameters(max_new_tokens=new_tokens,
+                                          temperature=1.0),
+            ppo_n_minibatches=PPO_RECIPE["n_minibatches"],
+            kl_ctl=PPO_RECIPE["kl_ctl"],
+            disable_value=PPO_RECIPE["disable_value"],
+            use_decoupled_loss=PPO_RECIPE["use_decoupled_loss"],
+            behav_imp_weight_cap=PPO_RECIPE["behav_imp_weight_cap"]),
+        n_rollout_workers=2, n_gen_servers=1,
+        max_head_offpolicyness=ASYNC_OFFPOLICYNESS,
+        max_concurrent_rollouts=ASYNC_MAX_ROLLOUTS,
+        new_tokens_per_chunk=chunk_tokens,
+        gen_kv_cache_len=LONG_KV_CACHE_LEN,
+        gen_max_concurrent_batch=LONG_MAX_BATCH,
+    )
+    exp_args.update(exp_kw)
+    for fn in (pa.paged_flash_attention, pa.paged_flash_attention_deep):
+        fn.launches = fn.int8_launches = 0
+    pa.paged_flash_attention.prefill_launches = 0
+    fa.fwd_launches = fa.bwd_launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        tok_dir, data_path = async_inputs(tmp, cfg.vocab_size, rows=rows,
+                                          words=prompt_words,
+                                          n_answers=n_answers)
+        exp = AsyncPPOMathExperiment(
+            tokenizer_path=tok_dir,
+            dataset=DatasetAbstraction("math_code_prompt", {
+                "dataset_path": data_path, "max_length": ASYNC_MAX_LENGTH}),
+            **exp_args)
+        xcfg = exp.initial_setup()
+        log(f"{tag}: AsyncPPOMathExperiment: trainer graph "
+            f"{[r.name for r in xcfg.master.model_rpcs]}, "
+            f"{len(xcfg.gen_servers)} generation server, "
+            f"{len(xcfg.rollout_workers)} rollout workers; train_bs_n_seqs "
+            f"{train_bs}, group_size 16, {new_tokens} new tokens in chunks of "
+            f"{chunk_tokens}, max_concurrent_rollouts {ASYNC_MAX_ROLLOUTS}, "
+            f"max_head_offpolicyness {ASYNC_OFFPOLICYNESS}, "
+            f"max_tokens_per_mb {max_tokens_per_mb}, lr {TRAIN_LR} without "
+            f"warm-up, {steps} steps; {rows} rows, the tokenizer's "
+            f"{cfg.vocab_size} words")
+        tik = time.perf_counter()
+        master = run_experiment_local(xcfg, timeout=timeout)
+        run_s = time.perf_counter() - tik
+        # the last publish's commit may still be writing
+        deadline = time.perf_counter() + 120
+        while (len(manifests) < len(publishes)
+               and time.perf_counter() < deadline and not failures):
+            time.sleep(0.1)
+        trial_save = constants.get_param_realloc_path()
+    finally:
+        for owner, name, orig in reversed(originals):
+            setattr(owner, name, orig)
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if failures:
+        raise AssertionError(f"{tag}: {failures}")
+    (server,) = servers
+    eng = server.engine
+
+    # -- the master's steps ---------------------------------------------
+    hist = master.stats_history
+    for i, st in enumerate(hist):
+        log(f"{tag}: step {i + 1}: wall {st['time_perf/e2e']:.3f} s, "
+            f"actor_train/loss {st['actor_train/loss']:.6e}, grad_norm "
+            f"{st['actor_train/grad_norm']:.6e}, kl {st['actor_train/kl']:.3e}, "
+            f"reward_mean {st['actor_train/reward_mean']:.4f}, n_tokens "
+            f"{st['actor_train/n_tokens']:.0f}, actor_inf "
+            f"{st['actor_inf/elapsed']:.3f} s, actor_train "
+            f"{st['actor_train/elapsed']:.3f} s")
+    if len(hist) < steps or not all(
+            math.isfinite(st["actor_train/loss"]) and "actor_train/kl" in st
+            for st in hist):
+        raise AssertionError(f"{tag}: master stats {hist}")
+
+    # -- swaps: the server's version came through the manager ------------
+    applied = [s["applied"] for s in swaps]
+    log(f"{tag}: publishes {[(p['version'], round(p['full'], 3), round(p['int8'], 3)) for p in publishes]} "
+        f"(version, full, int8 seconds); swap rounds {swaps}; stage/commit "
+        f"RPCs {stage_rpcs}")
+    if eng.version < 2 or not applied or max(applied) != eng.version:
+        raise AssertionError(f"{tag}: the server ended at v{eng.version}; "
+                             f"the manager applied {applied}")
+
+    # -- staleness and versions per token --------------------------------
+    staleness = Counter()
+    consumed = 0
+    for rec in (r for r in mfcs if r["handle"] == "train_step"):
+        k = rec["version"]
+        for sid, vs, ve in zip(rec["ids"], rec["version_start"],
+                               rec["version_end"]):
+            versions, v0, v1 = members[sid]
+            if (versions != sorted(versions) or not versions
+                    or versions[0] != vs or versions[-1] != ve
+                    or (v0, v1) != (vs, ve)):
+                raise AssertionError(f"{tag}: {sid}: token versions "
+                                     f"{versions}, trajectory {vs}-{ve}")
+            if k - vs > ASYNC_OFFPOLICYNESS or vs > k:
+                raise AssertionError(f"{tag}: {sid} (from v{vs}) trained at "
+                                     f"step version {k}")
+            staleness[k - vs] += 1
+            consumed += 1
+    log(f"{tag}: {consumed} trajectories consumed; staleness (train version "
+        f"- first token's version): {dict(sorted(staleness.items()))}; "
+        f"per-token versions non-decreasing in every answer")
+
+    # -- manifests and the int8 siblings ----------------------------------
+    for m in manifests:
+        log(f"{tag}: manifest v{m['version']}: {len(m['problems'])} problems "
+            f"against the server's template; {m['bytes'] / 1e9:.3f} GB full, "
+            f"int8 sibling {m['int8_bytes'] / 1e9:.3f} GB with "
+            f"{m['n_int8']} int8 projections advertised")
+    published = sorted(p["version"] for p in publishes)
+    if (sorted(m["version"] for m in manifests) != published
+            or any(m["problems"] or not m["n_int8"] for m in manifests)):
+        raise AssertionError(f"{tag}: manifests {manifests} for publishes "
+                             f"{published}")
+
+    # -- the served weights are the published weights --------------------
+    snap = os.path.join(trial_save, "actor", f"v{eng.version}")
+    served = checkpoint.load_params_like(eng.params, snap)
+    same = all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(_leaves(served), _leaves(eng.params)))
+    del served
+    log(f"{tag}: the served v{eng.version} tree is bit-identical to the "
+        f"published snapshot: {same}")
+    if not same:
+        raise AssertionError(f"{tag}: the served weights differ from v"
+                             f"{eng.version}'s snapshot")
+
+    # -- logprobs: actor_inf against the behaviour logprobs ---------------
+    diffs = []
+    for rec in (r for r in mfcs if r["handle"] == "inference"):
+        k = rec["version"]
+        starts = np.cumsum([0] + rec["lens"][:-1])
+        # logprobs are [L-1] per sequence, packed
+        lp_starts = np.cumsum([0] + [n - 1 for n in rec["lens"][:-1]])
+        for sid, s0, lp0, n in zip(rec["ids"], starts, lp_starts,
+                                   rec["lens"]):
+            versions = members[sid][0]
+            # transition t predicts token t + 1; the j-th response
+            # transition samples output token j
+            resp = np.flatnonzero(~rec["prompt_mask"][s0 + 1:s0 + n])
+            mine = [t for j, t in enumerate(resp) if versions[j] == k]
+            if mine:
+                idx = lp0 + np.asarray(mine)
+                diffs.append(np.abs(rec["prox"][idx] - rec["behav"][idx]))
+    d = np.concatenate(diffs) if diffs else np.zeros(0)
+    gap = (float(d.mean()) if d.size else float("nan"),
+           float(d.max()) if d.size else float("nan"))
+    log(f"{tag}: actor_inf prox_logp against the server's behaviour "
+        f"logprobs on {d.size} tokens sampled under the trainer's version: "
+        f"mean {gap[0]:.3e} (tol {TOL_PROX_MEAN}), max {gap[1]:.3e} (tol "
+        f"{TOL_PROX_MAX})")
+    if not d.size or not (gap[0] <= TOL_PROX_MEAN and gap[1] <= TOL_PROX_MAX):
+        raise AssertionError(f"{tag}: served and trained logprobs disagree")
+
+    # -- launches -----------------------------------------------------------
+    inf_mbs = sum(r["n_mbs"] for r in mfcs if r["handle"] == "inference")
+    train_mbs = sum(r["n_mbs"] for r in mfcs if r["handle"] == "train_step")
+    want_fa = ((L * inf_mbs + 2 * L * train_mbs, L * train_mbs) if cuda
+               else (0, 0))
+    got_fa = (fa.fwd_launches, fa.bwd_launches)
+    log(f"{tag}: flash launches fwd/bwd {got_fa} for {inf_mbs} actor_inf and "
+        f"{train_mbs} actor_train micro-batches (expected {want_fa})")
+    if got_fa != want_fa:
+        raise AssertionError(f"{tag}: flash launches {got_fa}, expected "
+                             f"{want_fa}")
+    gate = LaunchGate(eng, L, False)
+    gate.w0 = (0, 0, 0, 0)
+    if cuda:
+        work = gate.check(f"{tag}, the server's whole run")
+    else:
+        work = dict(fills=eng.prefill_calls, chunks=eng.decode_chunks_total)
+    decode_toks = eng.decode_tokens_total
+    # every worker thread has stopped before the pool is audited
+    names = {w.worker_name for w in xcfg.model_workers + xcfg.rollout_workers
+             + xcfg.gen_servers} | {xcfg.gserver_manager.worker_name, "master"}
+    for t in threading.enumerate():
+        if t.name in names:
+            t.join(120)
+            if t.is_alive():
+                raise AssertionError(f"{tag}: {t.name} did not stop")
+    # the run ends with requests in flight (the rollout workers stop
+    # mid-answer) and maybe inside a swap round, with the server paused by
+    # the manager: the audit cancels what is left and steps the engine,
+    # which a pause would hold
+    paused = eng._paused.is_set()
+    eng.resume()
+    live = ([r.qid for r in list(eng._pending)]
+            + [r.req.qid for r in eng._preempted]
+            + [r.req.qid for r in eng.rows if r is not None and not r.parked])
+    for qid in live:
+        eng.cancel(qid)
+    for _ in range(10000):
+        if not (eng._cancel_wanted or eng.inflight_chunks):
+            break
+        eng.step()
+    else:
+        raise AssertionError(f"{tag}: cancelling {live} did not settle: "
+                             f"{eng._cancel_wanted}, {eng.inflight_chunks}")
+    log(f"{tag}: the server stopped at v{eng.version}"
+        + (" inside a swap round (paused)" if paused else "")
+        + f" with {len(live)} requests in flight, cancelled for the audit")
+    audit_pool(eng, tag)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    del eng, server, servers
+    shutil.rmtree(tmp, ignore_errors=True)
+    if cuda:
+        torch.cuda.empty_cache()
+
+    walls = [st["time_perf/e2e"] for st in hist]
+    secs = time.perf_counter() - t_phase
+    res = dict(
+        launches=dict(gate.total, fwd=got_fa[0], bwd=got_fa[1]),
+        step_s=walls, fetch_wait_s=sum(fetch_s), run_s=run_s,
+        decode_tok_s=decode_toks / run_s, publishes=publishes, swaps=swaps,
+        staleness=dict(staleness), gap=gap, peak_gib=peak, phase_s=secs,
+        work=work)
+    log(f"{tag}: step walls {[round(w, 3) for w in walls]} s; the trainer "
+        f"waited {sum(fetch_s):.3f} s for data in {len(fetch_s)} fetches; "
+        f"fleet decode {decode_toks} tokens in the {run_s:.1f} s run = "
+        f"{decode_toks / run_s:.1f} tokens/s; publish (host copy, full / "
+        f"int8) {[(p['version'], round(p['full'], 3), round(p['int8'], 3)) for p in publishes]} s; "
+        f"stage RPCs {[(r['version'], r['mode'], round(r['s'], 3)) for r in stage_rpcs]} s; "
+        f"pause {[(w['version'], round(w['pause_s'], 3)) for w in swaps]} s; "
+        f"peak device memory {peak:.2f} GiB; phase {secs:.1f} s, on {card}")
+    return res
+
+
 def parent_ab(parent: str):
     """The paged kernels' decode calls (the decode entry, the deep kernel
     on both pools, ``flash_decode``) and the flash-attention forward of the
@@ -2505,6 +3098,8 @@ def main() -> int:
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats()
     long = long_context_phase(cfg, master, params, device, card)
+    long_launches = {k: dict(launches=r["launches"], int8=r["int8"])
+                     for k, r in long.items() if k in ("A", "B", "C")}
     log(f"long-context phase done at {time.perf_counter() - t_start:.1f} s; "
         f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2525,11 +3120,18 @@ def main() -> int:
     server = server_phase(cfg, master, device, card)
     log(f"server phase done at {time.perf_counter() - t_start:.1f} s; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # the loop's trainer and server take the card to themselves
+    del master, eng["outs"], long
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory before the async-PPO phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    loop = async_ppo_phase(cfg, device, card)
+    log(f"async-PPO phase done at {time.perf_counter() - t_start:.1f} s")
 
-    entries = kernel_entries(kern, long_kern, eng, long, flash, train, prefix,
-                             server)
+    entries = kernel_entries(kern, long_kern, eng, long_launches, flash,
+                             train, prefix, server, loop)
     if parent is not None:
-        del eng, long, master
         torch.cuda.empty_cache()
         parent_ab(parent)
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2543,11 +3145,12 @@ def main() -> int:
     return 0
 
 
-def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server):
+def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
+                   loop):
     """The ``{"kernels": [...]}`` line's entries: every kernel, with its
     launches on the main paths (the engine's greedy wave, the long-context
-    arms, the prefix-cache phase and the generation server; the trainer's
-    steps for the flash kernels), its
+    arms, the prefix-cache phase, the generation server and the async-PPO
+    loop; the trainer's steps and the loop's for the flash kernels), its
     comparison's largest absolute error, and its time, plain time and
     bound at its main-path shape."""
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "shape")
@@ -2564,8 +3167,8 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server):
     deep_ref = "areal_tpu/ops/paged_attention.py:463"
 
     def arm_launches(kind, int8):
-        return sum(r["launches"][kind] for k, r in long.items()
-                   if k in ("A", "B", "C") and r["int8"] == int8)
+        return sum(r["launches"][kind] for r in long.values()
+                   if r["int8"] == int8)
 
     def errs(*keys, src=kern):
         return max(src[k]["max_abs_err"] for k in keys)
@@ -2574,7 +3177,7 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server):
     entries = [
         entry("paged_flash_attention", paged_src, paged_ref,
               eng["launches"] + arm_launches("std", False) + fp_prefix["std"]
-              + server["launches"]["std"],
+              + server["launches"]["std"] + loop["launches"]["std"],
               max(errs("decode", "prefill", "prefill_long",
                        "prefill_mid_page"),
                   errs("standard_bf16", src=long_kern)),
@@ -2583,11 +3186,13 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server):
                   engine_wave=eng["launches"],
                   long_context=arm_launches("std", False),
                   prefix_cache=fp_prefix["std"],
-                  generation_server=server["launches"]["std"]),
+                  generation_server=server["launches"]["std"],
+                  async_ppo=loop["launches"]["std"]),
               prefill_entry_launches=(eng["prefill_launches"]
                                       + arm_launches("prefill", False)
                                       + fp_prefix["prefill"]
-                                      + server["launches"]["prefill"]),
+                                      + server["launches"]["prefill"]
+                                      + loop["launches"]["prefill"]),
               prefill={k: kern["prefill"][k] for k in timed},
               prefill_long={k: kern["prefill_long"][k] for k in timed},
               prefill_mid_page={k: kern["prefill_mid_page"][k]
@@ -2636,7 +3241,9 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server):
             route="cuda",
             source="areal_tpu_torch/csrc/flash_attention.cu",
             replaces="areal_tpu/ops/flash_attention.py:36",
-            launches=train["launches"][kind],
+            launches=train["launches"][kind] + loop["launches"][kind],
+            launches_by_path=dict(train=train["launches"][kind],
+                                  async_ppo=loop["launches"][kind]),
             max_abs_err=max(r[kind]["max_abs_err"] for r in flash.values()),
             **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms", "shape")},

@@ -252,12 +252,32 @@ def test_shape_mismatch_at_restore_names_the_leaf(tmp_path, trees):
 
 
 def test_out_of_slice_parts_are_refused(tmp_path, trees):
-    _, _, params = trees
+    """The int8 sibling tree is published and advertised (its manifest
+    entry names its dir and int8 layout), but serving it is not ported:
+    an engine refuses the int8 format, as does a server asking for it."""
+    from areal_tpu_torch.engine.inference_server import (
+        ContinuousBatchingEngine,
+    )
+
+    _, cfg, params = trees
+    qpath = tck.quant_snapshot_path(str(tmp_path / "v1"))
+    assert qpath.endswith("v1-int8")
+    qavals = tck.save_quantized_params(params, qpath,
+                                       cast_dtype=torch.bfloat16)
+    entry = tck.quant_manifest_entry(qavals, qpath)
+    manifest = tck.write_manifest(params, str(tmp_path / "v1"), version=1,
+                                  serving_quant={"int8": entry})
+    assert tck.read_manifest(str(tmp_path / "v1")) == manifest
+    assert entry["dir"] == "v1-int8"
+    assert entry["leaves"]["layers/0/attn/q/qw"]["dtype"] == "int8"
+    assert entry["leaves"]["layers/0/attn/q/scale"]["dtype"] == "float32"
+    assert os.path.exists(os.path.join(qpath, tck.TENSORS_NAME))
+    eng = ContinuousBatchingEngine(
+        cfg, params, max_batch=2, kv_cache_len=64, cache_mode="paged",
+        page_size=16, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
-        tck.write_manifest(params, str(tmp_path), serving_quant={"int8": {}})
+        eng.weight_restore_template("int8")
     with pytest.raises(NotImplementedError, match="item 8"):
-        tck.save_quantized_params(params, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="train-state"):
-        tck.save_train_state(None, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="train-state"):
-        tck.load_train_state(None, str(tmp_path))
+        ContinuousBatchingEngine(
+            cfg, params, max_batch=2, kv_cache_len=64, cache_mode="paged",
+            page_size=16, device="cpu", serving_weight_dtype="int8")

@@ -35,6 +35,30 @@ SERVING_MODULES = [
     )
 ]
 
+#: the modules of the async-PPO loop's slice (the rollout system, the model
+#: and master workers, the experiments and the local runner)
+LOOP_MODULES = [
+    f"areal_tpu_torch.{m}" for m in (
+        "api.dfg", "api.agent_api", "api.env_api", "api.cli_args",
+        "api.model_api", "api.data", "base.topology", "base.seeding",
+        "base.monitor", "base.metrics", "base.stats_tracker",
+        "base.timeutil", "base.recover", "models.quantize",
+        "system.request_reply_stream", "system.push_pull_stream",
+        "system.stream_dataset", "system.redistributor",
+        "system.data_manager", "system.buffer", "system.function_executor",
+        "system.master_worker", "system.model_worker",
+        "system.gserver_manager", "system.partial_rollout",
+        "system.rollout_worker", "observability.aggregator",
+        "observability.trace_collector", "observability.prom_text",
+        "gateway.admission", "agents.math_single_step_agent",
+        "envs.math_code_single_step_env", "verifiers.dispatch",
+        "verifiers.math_verify", "data.math_parser", "data.math_code_dataset",
+        "experiments.common", "experiments.ppo_math_exp",
+        "experiments.async_ppo_exp", "apps.local_runner",
+        "apps.main_async_ppo",
+    )
+]
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -56,7 +80,8 @@ def test_no_jax_and_no_reference_package_imported():
         "or k.startswith(('jax.', 'jaxlib', 'areal_tpu.')) or k == 'areal_tpu')\n"
         "assert not bad, bad\n"
         "assert len(mods) >= 12, mods\n"
-        f"missing = sorted(set({sorted(SERVING_MODULES)!r}) - set(mods))\n"
+        f"missing = sorted(set({sorted(SERVING_MODULES + LOOP_MODULES)!r}) "
+        "- set(mods))\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"
     )
@@ -66,6 +91,113 @@ def test_no_jax_and_no_reference_package_imported():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
+
+
+def _imports(path: Path):
+    """Every module name a source file imports, at module level or inside
+    a function (the walk above only sees what importing runs)."""
+    import ast
+
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            out.append(node.module)
+    return out
+
+
+@pytest.mark.parametrize("module", LOOP_MODULES + SERVING_MODULES)
+def test_no_module_imports_jax_or_the_reference_anywhere(module):
+    rel = module.replace(".", "/")
+    path = REPO / f"{rel}.py"
+    if not path.exists():
+        path = REPO / rel / "__init__.py"
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "flax",
+                                  "areal_tpu")]
+    assert not bad, (module, bad)
+
+
+def test_loop_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The model worker resolves its device at configure time: ``cuda``
+    unless its config asks for the CPU, and no CUDA device raises."""
+    from areal_tpu_torch.api.system_api import ModelWorkerConfig
+    from areal_tpu_torch.base import constants, name_resolve
+    from areal_tpu_torch.experiments.async_ppo_exp import (
+        AsyncPPOMathExperiment,
+    )
+    from areal_tpu_torch.system.model_worker import ModelWorker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    name_resolve.reconfigure("memory")
+    constants.set_experiment_trial_names("isolation", "loop")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelWorker()._configure(ModelWorkerConfig(worker_name="mw"))
+    exp = AsyncPPOMathExperiment()
+    assert exp.worker_device() is None
+    exp.force_cpu_devices = 1
+    assert exp.worker_device() == "cpu"
+
+
+@pytest.mark.parametrize(
+    "kw,what",
+    [
+        (dict(ppo=dict(disable_value=False, kl_ctl=0.0)), "critic"),
+        (dict(ppo=dict(disable_value=True, kl_ctl=0.1)), "reference model"),
+        (dict(reward_source="model"), "reward model"),
+        (dict(fuse_rew_ref=True), "fused"),
+        (dict(agent_type="math-multi-turn"), "multi-turn"),
+        (dict(allocation_mode="d2m1"), "item 10"),
+        (dict(force_cpu_devices=2), "item 10"),
+        (dict(save_freq_steps=10), "item 6"),
+    ],
+    ids=["critic", "ref", "reward_model", "fused", "multi_turn",
+         "allocation", "cpu_devices", "hf_saves"],
+)
+def test_loop_refuses_what_it_does_not_port(kw, what):
+    from areal_tpu_torch.api.config import ModelAbstraction
+    from areal_tpu_torch.experiments.async_ppo_exp import (
+        AsyncPPOMathExperiment,
+    )
+    from areal_tpu_torch.experiments.ppo_math_exp import PPOHyperparameters
+
+    from areal_tpu_torch.api.system_api import ExperimentSaveEvalControl
+
+    kw = dict(kw)
+    ppo = dict(disable_value=True, kl_ctl=0.0)
+    ppo.update(kw.pop("ppo", {}))
+    if "save_freq_steps" in kw:
+        kw["exp_ctrl"] = ExperimentSaveEvalControl(
+            save_freq_steps=kw.pop("save_freq_steps"))
+    exp = AsyncPPOMathExperiment(
+        actor=ModelAbstraction("random", {}), ppo=PPOHyperparameters(**ppo),
+        **kw)
+    with pytest.raises(NotImplementedError, match=what):
+        exp.initial_setup()
+
+
+@pytest.mark.parametrize(
+    "call,what",
+    [
+        (lambda: __import__("areal_tpu_torch.base.topology",
+                            fromlist=["x"]).MeshSpec(data=2).make_mesh(),
+         "item 10"),
+        (lambda: __import__("areal_tpu_torch.verifiers.dispatch",
+                            fromlist=["x"]).verify_batch(
+            ["code"], ["print(1)"], [{"query_id": "q"}]), "item 15"),
+        (lambda: __import__("areal_tpu_torch.api.system_api",
+                            fromlist=["x"]).ExperimentConfig(
+            "e", "t", master=__import__(
+                "areal_tpu_torch.api.system_api",
+                fromlist=["x"]).MasterWorkerConfig(),
+            gateway=object()).lazy_init(), "item 16"),
+    ],
+    ids=["mesh", "code_verifier", "gateway"],
+)
+def test_loop_parts_out_of_the_slice_are_refused(call, what):
+    with pytest.raises(NotImplementedError, match=what):
+        call()
 
 
 def _tiny_engine_args():
