@@ -10,18 +10,18 @@ each trained version published and swapped into the servers.
 Usage (from the repository root)::
 
     python -m areal_tpu_torch.apps.main_async_ppo \\
-        --config training/configs/async_ppo.yaml actor.type_=random \\
-        mesh_spec=d1 gen_device_start=null exp_ctrl.save_freq_steps=null \\
-        tokenizer_path=/path/to/tok dataset.args.dataset_path=math.jsonl
+        --config training/configs/async_ppo.yaml mesh_spec=d1 \\
+        gen_device_start=null actor.args.path=/path/to/hf_model \\
+        tokenizer_path=/path/to/hf_model dataset.args.dataset_path=math.jsonl
 
-The recipe's ``actor.type_: hf`` and its four-chip trainer mesh
-(``mesh_spec: d1f4m1``, ``gen_device_start: 4``) are not ported yet
-(ROADMAP.md queue 1, items 6 and 10): override them, e.g.
-``actor.type_=random mesh_spec=d1 gen_device_start=null``, to run on one
-card, and ``exp_ctrl.save_freq_steps=null`` (saves write HF checkpoints,
-item 6; the recipe's recover checkpoints are ported);
-``force_cpu_devices=1`` runs every worker on the CPU (the paged cache
-needs ``gen_cache_mode=paged`` below 2048 tokens of KV).
+The recipe's actor is an HF checkpoint directory (``actor.type_: hf``),
+saved every ``save_freq_steps`` as an HF directory under the save root.  Its four-chip trainer mesh
+(``mesh_spec: d1f4m1``, ``gen_device_start: 4``) is not ported yet
+(ROADMAP.md queue 1, item 10): ``mesh_spec=d1 gen_device_start=null``
+runs trainer and server on one card.  ``actor.type_=random`` trains
+random weights instead; ``force_cpu_devices=1`` runs every worker on the
+CPU (the paged cache needs ``gen_cache_mode=paged`` below 2048 tokens of
+KV).
 """
 
 import os

@@ -19,7 +19,7 @@ import torch
 
 from areal_tpu_torch.api import model_api
 from areal_tpu_torch.api.config import ModelAbstraction, ModelName
-from areal_tpu_torch.base.device import DeviceLike
+from areal_tpu_torch.base.device import DeviceLike, resolve_device
 from areal_tpu_torch.engine.inference_server import _not_ported
 from areal_tpu_torch.engine.optimizer import OptimizerConfig
 from areal_tpu_torch.engine.train_engine import TrainEngine
@@ -35,23 +35,31 @@ def make_model(
     dtype: Optional[torch.dtype] = None,
 ) -> model_api.Model:
     """An uninitialised model bundle: ``model_cfg`` and ``init_params``
-    set, no engine.
+    set, no engine.  ``dtype`` is the storage of the parameters:
+    ``torch.float32`` for a trainer's master weights, None for a server's
+    (the model dtype, norm scales in float32; ``convert.serving_params``).
 
     Abstraction types:
 
+    - ``hf``: args ``{path, is_critic?, dtype?}`` plus any
+      :class:`TransformerConfig` field as a post-load override; an HF
+      checkpoint directory read by
+      :func:`areal_tpu_torch.models.hf.load_hf_model` onto ``device``
+      (default ``cuda``).  Unknown keys raise before the checkpoint is
+      read; so does a model whose head_dim the flash kernels do not build
+      (Gemma's 256) when it is loaded for training on a card.
+      ``backend_name`` is the family's name.
     - ``random``: args ``{config: dict | TransformerConfig, seed?}``, or
       ``tiny_config`` keyword arguments: parameters drawn from ``seed``
       (default 0) by :func:`areal_tpu_torch.models.transformer.init_params`
-      in ``dtype`` (default: the model dtype; ``torch.float32`` for a
-      trainer's master weights) on ``device`` (default ``cuda``).  The
-      draws are made in float32 either way, so a server and a trainer
-      built from one seed hold the same weights up to the cast.  The draws
-      are torch's, not JAX's: the same seed gives other weights than the
-      JAX package's factory.
+      in ``dtype`` on ``device`` (default ``cuda``).  The draws are made in
+      float32 either way, so a server and a trainer built from one seed
+      hold the same weights up to the cast.  The draws are torch's, not
+      JAX's: the same seed gives other weights than the JAX package's
+      factory.
     - ``null``: no parameters (a tokenizer-only bundle).
 
-    ``hf`` (an HF checkpoint dir) is not ported yet (item 6), nor are
-    meshes (item 10)."""
+    Meshes are not ported (item 10)."""
     if mesh is not None:
         raise _not_ported("models on a device mesh (mesh)", item=10)
     if cfg.type_ == "null":
@@ -59,26 +67,71 @@ def make_model(
         model.model_cfg = tiny_config()
         return model
     if cfg.type_ == "hf":
-        raise _not_ported("HF checkpoint models (type_='hf')", item=6)
-    if cfg.type_ != "random":
-        raise ValueError(f"unknown model abstraction {cfg.type_}")
-    from areal_tpu_torch.models.transformer import init_params
+        model_cfg, params, backend_name = _load_hf(cfg.args, device, dtype)
+    elif cfg.type_ == "random":
+        from areal_tpu_torch.models.transformer import init_params
 
-    args = dict(cfg.args)
-    seed = args.pop("seed", 0)
-    conf = args.pop("config", None)
-    if isinstance(conf, TransformerConfig):
-        model_cfg = conf
-    elif conf is not None:
-        model_cfg = TransformerConfig(**conf)
+        args = dict(cfg.args)
+        seed = args.pop("seed", 0)
+        conf = args.pop("config", None)
+        if isinstance(conf, TransformerConfig):
+            model_cfg = conf
+        elif conf is not None:
+            model_cfg = TransformerConfig(**conf)
+        else:
+            model_cfg = tiny_config(**args)
+        params = init_params(model_cfg, seed, device, dtype=dtype)
+        backend_name = "llama"
     else:
-        model_cfg = tiny_config(**args)
+        raise ValueError(f"unknown model abstraction {cfg.type_}")
     model = model_api.Model(
-        name=name, engine=None, tokenizer=tokenizer, backend_name="llama"
+        name=name, engine=None, tokenizer=tokenizer, backend_name=backend_name
     )
     model.model_cfg = model_cfg
-    model.init_params = init_params(model_cfg, seed, device, dtype=dtype)
+    model.init_params = params
     return model
+
+
+def _load_hf(args, device: DeviceLike, dtype: Optional[torch.dtype]):
+    """(config, params, family name) of an ``hf`` abstraction."""
+    from areal_tpu_torch.models.convert import serving_params
+    from areal_tpu_torch.models.hf.registry import load_hf_config, load_hf_model
+    from areal_tpu_torch.ops.flash_attention import HEAD_DIMS
+
+    # every TransformerConfig field is a post-load override; unknown keys
+    # are typos and must fail BEFORE the multi-GB checkpoint read
+    cfg_fields = {f.name for f in dataclasses.fields(TransformerConfig)}
+    load_keys = ("path", "is_critic", "dtype")
+    unknown = set(args) - cfg_fields - set(load_keys)
+    if unknown:
+        raise ValueError(
+            f"unknown hf model args {sorted(unknown)}; valid: path, "
+            f"is_critic, dtype, or any TransformerConfig field"
+        )
+    device = resolve_device(device)
+    post = {k: v for k, v in args.items() if k not in load_keys}
+    family, hf_cfg, _ = load_hf_config(args["path"])
+    # the overrides are checked (TransformerConfig.__post_init__) before
+    # the read too
+    hf_cfg = dataclasses.replace(hf_cfg, **post)
+    if (dtype == torch.float32 and device.type == "cuda"
+            and hf_cfg.sliding_window is None
+            and hf_cfg.head_dim not in HEAD_DIMS):
+        # a trainer's first step would fail in the flash kernel
+        raise NotImplementedError(
+            f"training {family.name} (head_dim {hf_cfg.head_dim}) on a card: "
+            f"the flash kernels build head_dim {HEAD_DIMS} (ROADMAP.md "
+            "section 2, 'flash kernels at head_dim 256')"
+        )
+    model_cfg, params = load_hf_model(
+        args["path"], is_critic=args.get("is_critic", False),
+        dtype=args.get("dtype"), device=device,
+    )
+    if post:
+        model_cfg = dataclasses.replace(model_cfg, **post)
+    if dtype != torch.float32:
+        params = serving_params(params, model_cfg)
+    return model_cfg, params, family.name
 
 
 @dataclasses.dataclass

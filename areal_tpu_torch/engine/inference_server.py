@@ -254,14 +254,21 @@ class ContinuousBatchingEngine:
 
         Refused with ``NotImplementedError``: ``prefix_cache_host_bytes >
         0``, ``serving_weight_dtype="int8"``, ``spec_decode_params``,
-        ``handoff_streaming=True``, ``mesh`` and the dense cache mode."""
+        ``handoff_streaming=True``, ``mesh``, the dense cache mode and a
+        sliding-window model (which only the dense cache serves)."""
         if cache_mode not in ("auto", "dense", "paged"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
         self.dispatch_table = dispatch_table or PagedDispatchTable()
+        if cfg.sliding_window is not None:
+            # the reference serves these on its dense cache path only
+            raise _not_ported(
+                f"serving a sliding-window model (sliding_window="
+                f"{cfg.sliding_window}): the paged cache serves global "
+                "attention, and the dense cache path", item=8,
+            )
         paged_mode = cache_mode == "paged" or (
             cache_mode == "auto"
             and kv_cache_len >= self.dispatch_table.paged_min_cache_len
-            and cfg.sliding_window is None
         )
         if not paged_mode:
             raise _not_ported(
@@ -269,11 +276,6 @@ class ContinuousBatchingEngine:
                 f"kv_cache_len={kv_cache_len}, paged from "
                 f"{self.dispatch_table.paged_min_cache_len}; pass "
                 "cache_mode='paged')", item=8,
-            )
-        if cfg.sliding_window is not None:
-            raise ValueError(
-                "the paged cache serves global-attention models; "
-                "sliding-window models need the dense path"
             )
         if kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(

@@ -21,8 +21,8 @@
 
 The engine updates its parameters in place (it takes ownership of the
 tensors it is given).  Train-state checkpoints (``save_train_state``,
-``load_train_state``) go through ``engine/checkpoint.py``; ``save_hf``
-(HF export) is not ported (ROADMAP.md queue 1, item 6).
+``load_train_state``) go through ``engine/checkpoint.py``, the HF export
+(``save_hf``) through ``models/hf``.
 """
 
 from __future__ import annotations
@@ -291,8 +291,13 @@ class TrainEngine:
         for dst, src in zip(self._leaves, tree_leaves(params)):
             dst.copy_(torch.as_tensor(src).to(dst.device, dst.dtype))
 
-    def save_hf(self, *args, **kwargs):
-        raise NotImplementedError("save_hf (HF export) is not ported")
+    def save_hf(self, path: str, family: str, tokenizer=None):
+        """Export the float32 master parameters as an HF checkpoint
+        directory of ``family`` (``models/hf``), one shard at a time
+        through the host."""
+        from areal_tpu_torch.models.hf import save_hf_model
+
+        save_hf_model(path, family, self.model_cfg, self.params, tokenizer)
 
     def save_train_state(self, path: str):
         """Float32 master parameters, AdamW moments, update count and

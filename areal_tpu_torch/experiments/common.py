@@ -67,17 +67,9 @@ class CommonExperimentConfig(system_api.Experiment):
         return None
 
     def prepare_common(self):
-        """Shared initial_setup preamble: resolve the allocation string,
-        refuse saves (an HF export the port cannot write yet) and default
-        the tokenizer to the main model's HF path."""
+        """Shared initial_setup preamble: resolve the allocation string and
+        default the tokenizer to the main model's HF path."""
         self.resolve_allocation()
-        ctrl = self.exp_ctrl
-        if ctrl.save_freq_epochs or ctrl.save_freq_steps or ctrl.save_freq_secs:
-            raise NotImplementedError(
-                "exp_ctrl.save_freq_*: saves write HF checkpoints, which "
-                "are not ported to areal_tpu_torch yet (ROADMAP.md queue 1, "
-                "item 6); recover checkpoints (ckpt_freq_*) are"
-            )
         main = self._main_model()
         if (
             self.tokenizer_path is None

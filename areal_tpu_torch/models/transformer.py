@@ -30,8 +30,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from areal_tpu_torch.base import logging_
 from areal_tpu_torch.base.device import DeviceLike, resolve_device
 from areal_tpu_torch.models.config import TransformerConfig
+
+logger = logging_.getLogger("transformer")
 
 Params = Dict[str, Any]
 
@@ -257,7 +260,8 @@ def make_attention_mask(
 ) -> torch.Tensor:
     """[B, Tq, Tkv] bool mask: same segment, causal by position, non-pad;
     optional sliding window (the reference's mask; the training forward
-    never builds it, the flash kernel applies the same rule by index)."""
+    builds it only for a sliding-window model, the flash kernel applies
+    the rule without a window by index)."""
     same = seg_q[:, :, None] == seg_kv[:, None, :]
     causal = pos_q[:, :, None] >= pos_kv[:, None, :]
     valid = (seg_q[:, :, None] != 0) & (seg_kv[:, None, :] != 0)
@@ -283,26 +287,43 @@ def reference_attention(q, k, v, mask, logits_dtype=torch.float32):
     return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)
 
 
-def _attention_dispatch(q, k, v, cfg: TransformerConfig, seg_ids):
-    """Self-attention of the training forward: always the flash kernel's
-    wrapper (the CUDA kernel on a card, its plain version on the CPU)."""
+def _attention_dispatch(q, k, v, cfg: TransformerConfig, seg_ids, mask):
+    """Self-attention of the training forward: the flash kernel's wrapper
+    (the CUDA kernel on a card, its plain version on the CPU), or, for a
+    sliding-window model, masked dense attention under ``mask`` (the
+    reference's semantics: it never sends a window to its flash kernel)."""
     from areal_tpu_torch.ops.flash_attention import flash_attention
 
     if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            "sliding-window attention is not ported to the training forward"
-        )
+        _warn_dense_attention(q.shape[1], q.device)
+        return reference_attention(q, k, v, mask)
     return flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous(), seg_ids
     )
 
 
-def _layer(cfg: TransformerConfig, x, lp: Params, seg_ids, rope_cs):
+_warned_dense = set()
+
+
+def _warn_dense_attention(T: int, device: torch.device):
+    """One warning per length when a long sliding-window sequence pays the
+    O(T^2) dense path on a card (the reference's ``_warn_dense_fallback``
+    for its sliding-window cause)."""
+    if device.type != "cuda" or T < 1024 or T in _warned_dense:
+        return
+    _warned_dense.add(T)
+    logger.warning(
+        "attention falling back to the dense O(T^2) path at T=%d (sliding "
+        "window): expect quadratic memory/time", T,
+    )
+
+
+def _layer(cfg: TransformerConfig, x, lp: Params, seg_ids, rope_cs, mask):
     """One transformer block of the training forward (no KV cache)."""
     B, T, _ = x.shape
     h = _norm(x, lp["attn_norm"], cfg)
     q, k, v = _attn_qkv(cfg, lp, h, None, rope_cs)
-    attn = _attention_dispatch(q, k, v, cfg, seg_ids)
+    attn = _attention_dispatch(q, k, v, cfg, seg_ids, mask)
     x = x + _proj(lp["attn"]["o"], attn.reshape(B, T, cfg.q_dim))
     h = _norm(x, lp["mlp_norm"], cfg)
     return x + _mlp_block(cfg, lp, h)
@@ -317,14 +338,22 @@ def _run_layers(params: Params, cfg: TransformerConfig, x, positions, seg_ids):
         if cfg.abs_position_embedding
         else rope_tables(positions, cfg.rotary_base, cfg.head_dim)
     )
+    mask = (
+        None
+        if cfg.sliding_window is None
+        else make_attention_mask(
+            seg_ids, positions, seg_ids, positions, cfg.sliding_window
+        )
+    )
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
         if remat:
             x = checkpoint(
-                _layer, cfg, x, lp, seg_ids, rope_cs, use_reentrant=False
+                _layer, cfg, x, lp, seg_ids, rope_cs, mask,
+                use_reentrant=False,
             )
         else:
-            x = _layer(cfg, x, lp, seg_ids, rope_cs)
+            x = _layer(cfg, x, lp, seg_ids, rope_cs, mask)
     return x
 
 

@@ -35,7 +35,7 @@ import torch
 from areal_tpu_torch.ops import _build
 
 #: head dims the kernels are built for
-_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128)
 #: token granularity of the kernel's segment-range workspace
 _RANGE_TILE = 32
 #: the backward's kernels, as bits of the C entry's ``parts`` (a backward
@@ -116,8 +116,8 @@ def _check(q, k, v, seg_ids):
     B, T, Hq, hd = q.shape
     if k.shape[:2] != (B, T) or k.shape[3] != hd or Hq % k.shape[2] != 0:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not supported (kernels build {_HEAD_DIMS})")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not supported (kernels build {HEAD_DIMS})")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: the kernels take "

@@ -16,16 +16,19 @@ The API is a ZMQ ROUTER socket:
 * ``("metrics", {})`` -> the engine's counters, swap times and SLO digests.
 
 ``format="params"`` names a snapshot that
-:func:`areal_tpu_torch.engine.checkpoint.save_params` wrote.  Not ported
-yet, each refused where a caller could ask for it: prefill/decode roles,
-segment transports and the KV fabric (ROADMAP.md queue 1, item 8),
-multi-process servers and meshes of more than one device (item 10), token
-streams (item 11), swaps from an HF directory (item 6), the compile watch
-and the ``/metrics`` HTTP server (item 11).
+:func:`areal_tpu_torch.engine.checkpoint.save_params` wrote; any other
+format names an HF checkpoint directory of the served architecture
+(``models/hf``).  Not ported yet, each refused where a caller could ask
+for it: prefill/decode roles, segment transports and the KV fabric
+(ROADMAP.md queue 1, item 8), multi-process servers and meshes of more
+than one device (item 10), token streams, the compile watch and the
+``/metrics`` HTTP server (item 11).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import pickle
 import threading
 import time
@@ -44,6 +47,10 @@ SERVER_ROLES = ("prefill", "decode", "unified")
 
 #: segment transports a generation server may register
 SEGMENT_TRANSPORTS = ("host-numpy", "tpu-d2d")
+
+#: config fields an HF directory swapped into a server may differ in from
+#: the served model's (how it runs, not what it computes on which shapes)
+_RUN_OPTIONS = ("dtype", "logits_dtype", "remat", "remat_policy")
 
 #: the mesh-spec field of a one-device registration (the JAX package's
 #: default ``MeshSpec``, so registrations read the same in both packages)
@@ -434,7 +441,7 @@ class GenerationServerWorker(worker_base.Worker):
         device."""
         path = payload.get("path")
         if payload.get("format") != "params":
-            raise _not_ported("weight swaps from an HF checkpoint dir", item=6)
+            return self.engine.prepare_weights(self._load_hf_dir(path, staged))
         from areal_tpu_torch.engine import checkpoint
 
         manifest = checkpoint.read_manifest(path)
@@ -457,6 +464,30 @@ class GenerationServerWorker(worker_base.Worker):
                 template, restore_path, chunk_bytes=self.config.stage_chunk_bytes
             )
         return self.engine.prepare_weights(restored)
+
+    def _load_hf_dir(self, path: str, staged: bool):
+        """An HF checkpoint directory's weights as a serving copy on the
+        engine's device (inside the stage stream when ``staged``).  Its
+        ``config.json`` must describe the served architecture; that is
+        checked before any tensor is read."""
+        from areal_tpu_torch.models.convert import serving_params
+        from areal_tpu_torch.models.hf.registry import (
+            load_hf_config,
+            load_hf_model,
+        )
+
+        _, cfg, _ = load_hf_config(path)
+        mine, theirs = (dataclasses.asdict(c) for c in (self.engine.cfg, cfg))
+        diff = [f"{k} {theirs[k]!r} (served {mine[k]!r})" for k in mine
+                if k not in _RUN_OPTIONS and mine[k] != theirs[k]]
+        if diff:
+            raise RuntimeError(
+                f"HF checkpoint {path} is not the served architecture: "
+                + ", ".join(diff))
+        with (self.engine.stage_context() if staged
+              else contextlib.nullcontext()):
+            _, params = load_hf_model(path, device=self.engine.device)
+            return serving_params(params, self.engine.cfg)
 
     def _begin_stage(self, payload: Dict):
         """Start restoring ``payload``'s snapshot into a staged tree on a

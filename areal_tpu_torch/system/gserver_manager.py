@@ -1781,6 +1781,11 @@ class GserverManager(worker_base.Worker):
         return worker_base.PollResult(sample_count=served)
 
     def _exit_hook(self):
+        # a swap round still in flight must not outlive the manager: its
+        # RPCs wait up to stage_request_timeout, and the interpreter joins
+        # the pool's threads at exit; closed clients fail them at once
+        for client in getattr(self, "_clients", {}).values():
+            client.close()
         pool = getattr(self, "_update_pool", None)
         if pool is not None:
             pool.shutdown(wait=False)

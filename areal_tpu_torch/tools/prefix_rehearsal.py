@@ -1,11 +1,12 @@
-"""Rehearse ``chip_smoke.py``'s prefix-cache and generation-server phases
-on the CPU, at tiny widths, before a chip call.
+"""Rehearse ``chip_smoke.py``'s prefix-cache, generation-server and HF
+phases on the CPU, at tiny widths, before a chip call.
 
 Run from the repository root::
 
     python areal_tpu_torch/tools/prefix_rehearsal.py phase
     python areal_tpu_torch/tools/prefix_rehearsal.py pressure
     python areal_tpu_torch/tools/prefix_rehearsal.py server
+    python areal_tpu_torch/tools/prefix_rehearsal.py hf
 
 ``phase`` runs ``chip_smoke.prefix_phase`` on both pools at tiny sizes
 (groups of 4, pages of 16), with the paged kernels replaced by wrappers
@@ -21,7 +22,9 @@ the generation server in a thread, a group of 4 staged-swapped to
 perturbed weights while it decodes, continuations, the bad-manifest
 control) with the same counting wrappers, pages of 16 and decode chunks of
 4; its restore is held 0.2 s, as long as several decode steps, so the
-stage's check that decoding went on during the restore can pass.
+stage's check that decoding went on during the restore can pass.  ``hf``
+runs ``chip_smoke.hf_phase`` on a qwen2-shaped tiny model (qkv biases,
+tied embedding) with the counting wrappers, into a temporary directory.
 """
 
 from __future__ import annotations
@@ -71,7 +74,7 @@ def main() -> int:
     master = init_params(cfg, cs.SEED, dev, dtype=torch.float32)
     params = serving_params(master, cfg)
     tik = time.perf_counter()
-    if mode in ("phase", "server"):
+    if mode in ("phase", "server", "hf"):
         pa.paged_flash_attention = paged.paged_flash_attention = counting(
             pa.paged_flash_attention, True)
         pa.paged_flash_attention_deep = paged.paged_flash_attention_deep = (
@@ -93,6 +96,17 @@ def main() -> int:
             prompt_len=37, new_tokens=120, cont_new=6, max_batch=4,
             kv_cache_len=256, page_size=16, chunk_size=4, cache_mode="paged",
             prefill_chunk_tokens=32, stage_chunk_bytes=4096)
+    elif mode == "hf":
+        import tempfile
+
+        qcfg = tiny_config(dtype="bfloat16", vocab_size=256,
+                           use_attention_bias=True, tied_embedding=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            cs.hf_phase(
+                qcfg, init_params(qcfg, cs.SEED, dev, dtype=torch.float32),
+                dev, "cpu", f"{tmp}/qwen2", prompt_lens=(37, 20, 9),
+                new_tokens=8, max_batch=4, kv_cache_len=256, page_size=16,
+                chunk_size=4, cache_mode="paged", prefill_chunk_tokens=32)
     elif mode == "phase":
         cs.TOL_INT8_MEAN = cs.TOL_INT8_MAX = 1.0
         for kv in ("auto", "int8"):
@@ -123,7 +137,7 @@ def main() -> int:
               f"decode chunks, "
               f"{eng.prefix_cache_stats()['evictions_total']} cache evictions")
     else:
-        print(f"unknown mode {mode!r} (phase | pressure | server)",
+        print(f"unknown mode {mode!r} (phase | pressure | server | hf)",
               file=sys.stderr)
         return 2
     print(f"done in {time.perf_counter() - tik:.1f} s")

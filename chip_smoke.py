@@ -92,13 +92,24 @@ from a seed, float32 master weights and their bf16 serving copy):
    of each version, the paged launches against the engine's work, the
    SLO digests and swap counters of the metrics reply, and the leak audit
    are checked; it prints the publish, stage and pause seconds;
+   then the HF phase (``hf_phase``) writes the seeded weights as a bf16
+   ``Qwen2ForCausalLM`` directory (one ``model.safetensors``, written with
+   ``safetensors.torch``), loads it through ``make_model(type_="hf")``
+   (bit-identical to the seeded weights cast to bf16), and has a server on
+   other weights stage, commit and serve it (``format: "hf"``; the staged
+   and the served tree bit-identical to the directory's, launches against
+   the work, logprobs against the trainer forward, the leak audit);
 8. runs the whole async-PPO loop through the port's entry point:
    ``AsyncPPOMathExperiment`` through ``run_experiment_local`` (a
    generation server, the gserver manager, two rollout workers running the
    math single-step agent and environment, the master, and a model worker
    that hosts the actor, runs actor_inf and actor_train and publishes each
    version with its int8 sibling, which the manager stages and commits into
-   the server), at the recipe's settings with the ASYNC_* cuts, on a
+   the server), with the recipe's ``actor.type_: hf`` on the HF phase's
+   directory (trainer and server both load it) and ``save_freq_steps`` at
+   its last step (the HF save must name ``Qwen2ForCausalLM`` and reload
+   bit-identical to the trainer's final weights), at the recipe's
+   settings with the ASYNC_* cuts, on a
    word-level tokenizer of the model's 151936 words and 64 math rows; it
    prints which of transformers, tokenizers, zmq and safetensors import,
    and gates the master's steps, the server's version (2 or more, through
@@ -130,8 +141,11 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -152,13 +166,14 @@ PROMPT_LENS = (300, 3000, 777, 1536, 513, 2049, 1023, 2600)
 #: the long-context serving phase: the async-PPO recipe's generation
 #: settings (training/configs/async_ppo.yaml: gen_max_concurrent_batch 16,
 #: gen_kv_cache_len 32768), 14 prompts at the recipe's prompt cap and 2
-#: long ones (53336 prompt tokens), 32 new tokens each (the prompts of
-#: 16000 and 24000 tokens and half the new tokens were cut for the
-#: script's time)
+#: long ones (53336 prompt tokens), 16 new tokens each (the prompts of
+#: 16000 and 24000 tokens and three quarters of the new tokens were cut
+#: for the script's time: 16 decode chunks a wave, from 32; the 31000-token
+#: row still decodes on the deep kernel in arms B and C)
 LONG_MAX_BATCH = 16
 LONG_KV_CACHE_LEN = 32768
 LONG_PROMPT_LENS = (1024,) * 14 + (8000, 31000)
-LONG_NEW_TOKENS = 32
+LONG_NEW_TOKENS = 16
 #: the deep-kernel threshold of arms B and C
 DEEP_MIN_CONTEXT = 8192
 #: (arm, kv_cache_dtype, deep_min_context); None keeps the default table
@@ -185,14 +200,15 @@ PREFIX_SHARED_NEW_TOKENS = 96
 #: chunks of its own once it holds 1500 + 36 tokens
 PREFIX_SWAP_AFTER = 40
 #: the pressure arm: a quarter of the dense pool (32 pages of 256 against
-#: 8 x 4096 tokens) under 8 prompts of 1024-3000 tokens, 128 new tokens
+#: 8 x 4096 tokens) under 8 prompts of 1024-3000 tokens, 96 new tokens
 #: each (16 rows, 16 prompts, a pool of 64 pages and 256 new tokens
-#: before; cut for the script's time, it still preempts)
+#: before, then 128; cut for the script's time, it still preempts twice,
+#: which it stops doing at 64)
 PRESSURE_MAX_BATCH = 8
 PRESSURE_KV_CACHE_LEN = 4096
 PRESSURE_POOL_TOKENS = 8192
 PRESSURE_PROMPT_LENS = (1024, 3000, 1500, 2048, 1100, 2900, 1777, 2500)
-PRESSURE_NEW_TOKENS = 128
+PRESSURE_NEW_TOKENS = 96
 #: the generation-server phase: the recipe's group traffic (group_size 16
 #: over one 1000-token prompt, temperature 1) with 512 new tokens (the
 #: recipe allows 16384), then one continuation round of 64 under the new
@@ -207,27 +223,36 @@ SERVER_NEW_TOKENS = 512
 SERVER_CONT_NEW_TOKENS = 64
 #: the leaf whose shape the bad-manifest control alters
 SERVER_BAD_LEAF = "layers/0/mlp/down/w"
+#: the HF phase: the seeded weights written as a Qwen2ForCausalLM
+#: directory in bf16 (one model.safetensors, as published checkpoints
+#: come), loaded by make_model, and swapped (format "hf", staged) into a
+#: server of 4 rows x 4096 tokens that then serves these prompts
+HF_SERVER_MAX_BATCH = 4
+HF_SERVER_KV_CACHE_LEN = 4096
+HF_PROMPT_LENS = (1000, 300, 37, 2048)
+HF_NEW_TOKENS = 32
 #: the async-PPO phase: AsyncPPOMathExperiment through the port's local
 #: runner at the recipe's settings (training/configs/async_ppo.yaml)
 #: with these cuts: one card for trainer and server, train_bs_n_seqs 32
-#: (recipe 512), max_new_tokens 256 (16384), new_tokens_per_chunk 128
-#: (2048: each answer spans two chunks), max_concurrent_rollouts 4 (64),
+#: (recipe 512), max_new_tokens 128 (16384; 256 before the HF work was
+#: added, cut for the script's time), new_tokens_per_chunk 64 (2048: each
+#: answer spans two chunks), max_concurrent_rollouts 4 (64),
 #: max_tokens_per_mb 2048 (32768), lr 1e-4 without warm-up (1e-6), and
 #: benchmark_steps 3; 64 math rows of 200-1000 prompt tokens
 ASYNC_ROWS = 64
 ASYNC_PROMPT_WORDS = (200, 1000)
 ASYNC_MAX_LENGTH = 1024
 ASYNC_TRAIN_BS = 32
-ASYNC_NEW_TOKENS = 256
-ASYNC_CHUNK_TOKENS = 128
+ASYNC_NEW_TOKENS = 128
+ASYNC_CHUNK_TOKENS = 64
 ASYNC_MAX_ROLLOUTS = 4
 ASYNC_STEPS = 3
 ASYNC_OFFPOLICYNESS = 4
 #: words of the phase's tokenizer that spell a right answer
-#: ("\\boxed{84/2}", "\\boxed{126/3}", ...): 256 tokens drawn uniformly
-#: from 151936 hold one with probability 1 - exp(-256 * 300 / 151936) =
+#: ("\\boxed{84/2}", "\\boxed{126/3}", ...): 128 tokens drawn uniformly
+#: from 151936 hold one with probability 1 - exp(-128 * 600 / 151936) =
 #: 0.40, so groups mix rewards 0 and 1 and the advantages are not all 0
-ASYNC_ANSWER_WORDS = 300
+ASYNC_ANSWER_WORDS = 600
 #: cached prefixes of the mid-page prefill-entry case: a cache hit leaves
 #: a fill's start anywhere in a page
 MID_PAGE_PREFIXES = (1000, 1255, 257, 0)
@@ -2459,6 +2484,274 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
     return res
 
 
+def _by_path(tree, prefix=""):
+    """``{path: leaf}`` of a dict/list tree."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _by_path(v, f"{prefix}/{k}").items()}
+    if isinstance(tree, list):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in _by_path(v, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+def _bit_equal(a, b) -> bool:
+    a, b = _by_path(a), _by_path(b)
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and bool((a[k] == b[k]).all()) for k in a)
+
+
+def _dir_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def write_hf_dir(cfg, master, path) -> int:
+    """Write ``master`` (the port's tree of a qwen2-like ``cfg``) as a
+    ``Qwen2ForCausalLM`` checkpoint directory in bf16: one
+    ``model.safetensors`` under transformers' names, written with
+    ``safetensors.torch`` directly (not through the port's export), and a
+    ``config.json`` like a published Qwen2.5 one (a window with
+    ``use_sliding_window: false``, ``rope_scaling: null``).  Returns the
+    tensor bytes."""
+    import json
+    import os
+
+    import torch
+    from safetensors.torch import save_file
+
+    def bf16(t):
+        return t.detach().to(torch.bfloat16).contiguous().cpu()
+
+    state = {"model.embed_tokens.weight": bf16(master["embed"]["weight"])}
+    for i, lp in enumerate(master["layers"]):
+        pre = f"model.layers.{i}."
+        state[pre + "input_layernorm.weight"] = bf16(lp["attn_norm"]["scale"])
+        state[pre + "post_attention_layernorm.weight"] = bf16(
+            lp["mlp_norm"]["scale"])
+        for x in "qkvo":
+            state[f"{pre}self_attn.{x}_proj.weight"] = bf16(
+                lp["attn"][x]["w"].T)
+        for x in "qkv":
+            state[f"{pre}self_attn.{x}_proj.bias"] = bf16(lp["attn"][x]["b"])
+        for x in ("gate", "up", "down"):
+            state[f"{pre}mlp.{x}_proj.weight"] = bf16(lp["mlp"][x]["w"].T)
+    state["model.norm.weight"] = bf16(master["final_norm"]["scale"])
+    if not cfg.tied_embedding:
+        state["lm_head.weight"] = bf16(master["lm_head"]["w"].T)
+    os.makedirs(path, exist_ok=True)
+    save_file(state, os.path.join(path, "model.safetensors"),
+              metadata={"format": "pt"})
+    config = dict(
+        architectures=["Qwen2ForCausalLM"], model_type="qwen2",
+        hidden_size=cfg.hidden_dim, intermediate_size=cfg.intermediate_dim,
+        num_hidden_layers=cfg.n_layers, num_attention_heads=cfg.n_q_heads,
+        num_key_value_heads=cfg.n_kv_heads, vocab_size=cfg.vocab_size,
+        max_position_embeddings=cfg.max_position_embeddings,
+        rms_norm_eps=cfg.norm_eps, rope_theta=cfg.rotary_base,
+        rope_scaling=None, tie_word_embeddings=cfg.tied_embedding,
+        hidden_act="silu", sliding_window=cfg.max_position_embeddings,
+        use_sliding_window=False, max_window_layers=cfg.n_layers,
+        attention_dropout=0.0, torch_dtype="bfloat16")
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    return sum(t.numel() * t.element_size() for t in state.values())
+
+
+def hf_phase(cfg, master, device, card, hf_dir, *, prompt_lens=HF_PROMPT_LENS,
+             new_tokens=HF_NEW_TOKENS, max_batch=HF_SERVER_MAX_BATCH,
+             kv_cache_len=HF_SERVER_KV_CACHE_LEN, mb_tokens=None,
+             **server_kw):
+    """HF checkpoint import on the card:
+
+    1. write the seeded weights (``master``) as a bf16 ``Qwen2ForCausalLM``
+       directory ``hf_dir`` (:func:`write_hf_dir`);
+    2. ``make_model(ModelAbstraction("hf", {"path": hf_dir}))`` for a
+       server: the config must equal ``cfg``, the family ``qwen2``, and the
+       tree must be bit-identical to ``serving_params`` of the seeded
+       weights cast to bf16;
+    3. start ``GenerationServerWorker`` (``max_batch`` rows x
+       ``kv_cache_len`` tokens) on other random weights (seed ``SEED +
+       1``), stage ``hf_dir`` as version 1 with ``format: "hf"`` (the
+       staged tree bit-identical to step 2's), pause, commit, resume, and
+       serve ``prompt_lens`` (temperature 1, ``new_tokens`` each): every
+       token under v1, the served tree bit-identical to step 2's, the paged
+       launches against the dispatched work (:class:`LaunchGate`), the
+       served logprobs against the trainer forward of ``master``, and the
+       leak audit.
+
+    Prints each step's seconds and bytes; ``server_kw`` overrides
+    GenServerConfig fields (CPU rehearsals)."""
+    import dataclasses
+    import threading
+
+    import torch
+
+    from areal_tpu_torch.api.config import ModelAbstraction
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.api.model_api import (
+        APIGenerateInput,
+        GenerationHyperparameters,
+    )
+    from areal_tpu_torch.api.system_api import GenServerConfig
+    from areal_tpu_torch.base import constants, name_resolve, names
+    from areal_tpu_torch.engine.backend import make_model
+    from areal_tpu_torch.engine.train_engine import TrainEngine
+    from areal_tpu_torch.interfaces.ppo_interface import model_logprobs_fwd
+    from areal_tpu_torch.models.convert import serving_params
+    from areal_tpu_torch.system.generation_server import (
+        GenerationServerWorker,
+        GenServerClient,
+        parse_server_registration,
+    )
+
+    tag = "hf"
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    # 1. the directory
+    _sync(device)
+    tik = time.perf_counter()
+    nbytes = write_hf_dir(cfg, master, hf_dir)
+    t_write = time.perf_counter() - tik
+    log(f"{tag}: wrote a bf16 Qwen2ForCausalLM directory ({nbytes / 1e9:.3f} "
+        f"GB in one model.safetensors) in {t_write:.3f} s on {card}")
+
+    # 2. make_model, as a server calls it
+    tik = time.perf_counter()
+    model = make_model(ModelAbstraction("hf", {"path": hf_dir}), None,
+                       device=None if cuda else device)
+    _sync(device)
+    t_load = time.perf_counter() - tik
+    want = serving_params(_tree_map(lambda x: x.to(torch.bfloat16), master),
+                          cfg)
+    same = (model.model_cfg == cfg and model.backend_name == "qwen2"
+            and _bit_equal(model.init_params, want))
+    log(f"{tag}: make_model(type_='hf') read {nbytes / 1e9:.3f} GB in "
+        f"{t_load:.3f} s: family {model.backend_name}, config equal to the "
+        f"seeded one {model.model_cfg == cfg}, tree bit-identical to the "
+        f"seeded weights cast to bf16 {same}")
+    if not same:
+        raise AssertionError(f"{tag}: the loaded model differs")
+    del model
+
+    # 3. a server on other weights swaps the directory in, staged
+    name_resolve.reconfigure("memory")
+    constants.set_experiment_trial_names("chipsmoke", "hf")
+    config = GenServerConfig(
+        worker_name="gen_server_hf",
+        model=ModelAbstraction("random", {"config": cfg, "seed": SEED + 1}),
+        max_concurrent_batch=max_batch, kv_cache_len=kv_cache_len,
+        device=None if cuda else str(device), **server_kw)
+    worker = GenerationServerWorker()
+    failed = []
+
+    def run_server():
+        try:
+            worker.run(config)
+        except Exception as e:  # noqa: BLE001 - raised below
+            failed.append(e)
+
+    thread = threading.Thread(target=run_server, daemon=True,
+                              name="gen-server-hf")
+    client = None
+    thread.start()
+    try:
+        key = names.gen_server("chipsmoke", "hf", "gen_server_hf")
+        tik = time.perf_counter()
+        while True:
+            try:
+                addr = parse_server_registration(name_resolve.get(key))[0]
+                break
+            except name_resolve.NameEntryNotFoundError:
+                if not thread.is_alive() or time.perf_counter() - tik > 300:
+                    raise AssertionError(
+                        f"{tag}: the server did not start: {failed}")
+                time.sleep(0.01)
+        client = GenServerClient(addr, timeout=600)
+        eng = worker.engine
+        payload = {"path": hf_dir, "version": 1, "format": "hf"}
+        tik = time.perf_counter()
+        reply = client.call("update_weights", dict(payload, mode="stage"))
+        t_stage = time.perf_counter() - tik
+        staged_same = (reply.get("staged") == 1 and eng.staged_version == 1
+                       and _bit_equal(eng._staged_params, want))
+        log(f"{tag}: the server staged the directory as v1 in {t_stage:.3f} "
+            f"s request to reply (server {reply.get('stage_seconds')} s); the "
+            f"staged tree is bit-identical to the directory's: {staged_same}")
+        if not staged_same:
+            raise AssertionError(f"{tag}: stage reply {reply}")
+        if client.call("pause", {}) != "paused":
+            raise AssertionError(f"{tag}: pause")
+        client.call("update_weights", dict(payload, mode="commit"))
+        if client.call("resume", {}) != "resumed":
+            raise AssertionError(f"{tag}: resume")
+
+        prompts = make_prompts(cfg.vocab_size, prompt_lens, SEED + 51)
+        launches = LaunchGate(eng, cfg.n_layers, False)
+        launches.start()
+        outs = [None] * len(prompts)
+
+        def one(i):
+            outs[i] = client.generate(APIGenerateInput(
+                qid=f"hf-{i}", prompt_ids=prompts[i], input_ids=prompts[i],
+                gconfig=GenerationHyperparameters(max_new_tokens=new_tokens)))
+
+        tik = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        t_serve = time.perf_counter() - tik
+        if any(o is None for o in outs):
+            raise AssertionError(f"{tag}: lost replies: {failed}")
+        check_outputs(outs, cfg, new_tokens, tag)
+        if any(o.output_versions != [1] * len(o.output_ids) for o in outs):
+            raise AssertionError(f"{tag}: a token is not of v1")
+        launches.check(f"{tag}, {len(prompts)} requests after the swap")
+        served_same = eng.version == 1 and _bit_equal(eng.params, want)
+        log(f"{tag}: served {len(prompts)} requests under v1 in {t_serve:.3f} "
+            f"s; the served tree is bit-identical to the directory's: "
+            f"{served_same}")
+        if not served_same:
+            raise AssertionError(f"{tag}: the served weights differ")
+    finally:
+        if client is not None:
+            client.close()
+        worker.exit()
+        thread.join(120)
+    if thread.is_alive():
+        raise AssertionError(f"{tag}: the server did not stop")
+    audit_pool(eng, tag)
+    del eng, worker, want
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the served logprobs against the trainer forward of the seeded weights
+    outs = [dataclasses.replace(o, qid=f"{o.qid}/{i}")
+            for i, o in enumerate(outs)]
+    sample = rollout_sample(outs, SEED)
+    trainer = TrainEngine(cfg, None, master, device=device)
+    gap = _response_gap(sample, trainer.forward_batch(
+        sample, model_logprobs_fwd(),
+        MicroBatchSpec(max_tokens_per_mb=mb_tokens or kv_cache_len),
+        output_shift=1))
+    del trainer
+    if not _gap_gate(f"{tag}, v1 (the directory)", gap, TOL_PROX_MEAN,
+                     TOL_PROX_MAX, phase=tag):
+        raise AssertionError(f"{tag}: serving and trainer logprobs disagree")
+    secs = time.perf_counter() - t_phase
+    log(f"{tag}: write {t_write:.3f} s, make_model {t_load:.3f} s, stage "
+        f"{t_stage:.3f} s ({nbytes / 1e9:.3f} GB each), phase {secs:.1f} s, "
+        f"on {card}")
+    return dict(launches=dict(launches.total), bytes=nbytes, write_s=t_write,
+                load_s=t_load, stage_s=t_stage, gap=gap, phase_s=secs)
+
+
 def package_line() -> str:
     """Which of the data path's and the control plane's packages import on
     this machine, with their versions."""
@@ -2530,7 +2823,8 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
                     train_bs=ASYNC_TRAIN_BS, new_tokens=ASYNC_NEW_TOKENS,
                     chunk_tokens=ASYNC_CHUNK_TOKENS,
                     max_tokens_per_mb=MAX_TOKENS_PER_MB, steps=ASYNC_STEPS,
-                    n_answers=ASYNC_ANSWER_WORDS, timeout=600.0, **exp_kw):
+                    n_answers=ASYNC_ANSWER_WORDS, timeout=600.0, hf_dir=None,
+                    **exp_kw):
     """The whole async-PPO loop through the port's entry point:
     ``AsyncPPOMathExperiment`` at the recipe's settings (with the cuts of
     the ASYNC_* constants) through ``run_experiment_local``: a generation
@@ -2539,7 +2833,9 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
     hosts the actor (float32 master weights, AdamW), runs actor_inf and
     actor_train and publishes every version, which the manager stages and
     commits into the server.  Trainer and server draw the same random
-    weights from ``SEED``.
+    weights from ``SEED``, or, with ``hf_dir``, both load that HF
+    directory (the recipe's ``actor.type_: hf``) and the trainer saves an
+    HF directory at its last step (``save_freq_steps`` = ``steps``).
 
     The phase observes the run through wrappers of the workers' methods
     (restored afterwards) and gates: at least ``steps`` master steps, each
@@ -2553,8 +2849,11 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
     logprobs against the server's behaviour logprobs on the tokens sampled
     under the trainer's version (TOL_PROX_MEAN / TOL_PROX_MAX); the paged
     and flash launches against the work the engine and the trainer
-    dispatched; the leak audit of the server's pool.  ``exp_kw`` overrides
-    experiment fields (CPU rehearsals)."""
+    dispatched; the leak audit of the server's pool; with ``hf_dir``, the
+    trainer and the server built from it, and one HF save that names
+    ``Qwen2ForCausalLM`` and reloads bit-identical to the trainer's final
+    float32 weights.  ``exp_kw`` overrides experiment fields (CPU
+    rehearsals)."""
     import dataclasses
     import os
     import shutil
@@ -2571,7 +2870,7 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
     from areal_tpu_torch.api.system_api import ExperimentSaveEvalControl
     from areal_tpu_torch.apps.local_runner import run_experiment_local
     from areal_tpu_torch.base import constants, name_resolve
-    from areal_tpu_torch.engine import checkpoint
+    from areal_tpu_torch.engine import backend, checkpoint
     from areal_tpu_torch.engine.optimizer import OptimizerConfig
     from areal_tpu_torch.experiments.async_ppo_exp import (
         AsyncPPOMathExperiment,
@@ -2600,6 +2899,7 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
 
     # -- what the wrappers record -----------------------------------------
     servers, fetch_s, publishes, manifests, swaps, stage_rpcs = [], [], [], [], [], []
+    builds, saves = [], []  # make_model calls; HF saves
     members = {}  # member qid -> (per-token versions, start, end)
     mfcs = []  # one record per actor_inf / actor_train call
     failures = []  # raised by the wrappers' checks, re-raised here
@@ -2751,7 +3051,27 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
             return out
         return f
 
+    def on_make_model(orig):
+        def f(cfg, *a, dtype=None, **kw):
+            builds.append(dict(type_=cfg.type_, path=cfg.args.get("path"),
+                               dtype=dtype))
+            return orig(cfg, *a, dtype=dtype, **kw)
+        return f
+
+    def on_save(orig):
+        def f(self, model_name, path):
+            tik = time.perf_counter()
+            orig(self, model_name, path)
+            engine = self._models[model_name].engine
+            saves.append(dict(path=path, engine=engine,
+                              version=engine.version,
+                              s=time.perf_counter() - tik,
+                              bytes=_dir_bytes(path)))
+        return f
+
     patch(GenerationServerWorker, "_configure", on_configure)
+    patch(backend, "make_model", on_make_model)
+    patch(mw.ModelWorker, "_save_model", on_save)
     patch(pr.PartialRolloutManager, "_gen_one", on_gen_one)
     patch(mw.ModelWorker, "_handle_fetch", on_fetch)
     patch(mw.ModelWorker, "_publish_weights", on_publish)
@@ -2760,14 +3080,19 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
     patch(gm.GserverManager, "_update_one_server", on_update_one)
     patch(gm.GserverManager, "_flush_and_update", on_flush)
 
-    model_abs = ModelAbstraction(
-        "random", {"config": dataclasses.replace(cfg, remat=True),
-                   "seed": SEED})
+    if hf_dir is None:
+        model_abs = ModelAbstraction(
+            "random", {"config": dataclasses.replace(cfg, remat=True),
+                       "seed": SEED})
+    else:
+        model_abs = ModelAbstraction(
+            "hf", {"path": hf_dir, "remat": True, "dtype": cfg.dtype})
     exp_args = dict(
         experiment_name="chipsmoke", trial_name="asyncppo",
         n_model_workers=1, force_cpu_devices=None if cuda else 1,
-        exp_ctrl=ExperimentSaveEvalControl(total_train_epochs=1,
-                                           benchmark_steps=steps),
+        exp_ctrl=ExperimentSaveEvalControl(
+            total_train_epochs=1, benchmark_steps=steps,
+            save_freq_steps=None if hf_dir is None else steps),
         actor=model_abs, train_bs_n_seqs=train_bs, group_size=16,
         mb_spec=MicroBatchSpec(max_tokens_per_mb=max_tokens_per_mb),
         actor_optimizer=OptimizerConfig(lr=TRAIN_LR,
@@ -2862,14 +3187,17 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
 
     # -- staleness and versions per token --------------------------------
     staleness = Counter()
-    consumed = 0
+    consumed = late_start = 0
     for rec in (r for r in mfcs if r["handle"] == "train_step"):
         k = rec["version"]
         for sid, vs, ve in zip(rec["ids"], rec["version_start"],
                                rec["version_end"]):
             versions, v0, v1 = members[sid]
+            # a trajectory starts at its admission's version; a swap that
+            # applies while its prompt still fills gives its first token a
+            # later one (the engine's version_start, as the reference's)
             if (versions != sorted(versions) or not versions
-                    or versions[0] != vs or versions[-1] != ve
+                    or versions[0] < vs or versions[-1] != ve
                     or (v0, v1) != (vs, ve)):
                 raise AssertionError(f"{tag}: {sid}: token versions "
                                      f"{versions}, trajectory {vs}-{ve}")
@@ -2878,9 +3206,12 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
                                      f"step version {k}")
             staleness[k - vs] += 1
             consumed += 1
+            late_start += versions[0] > vs
     log(f"{tag}: {consumed} trajectories consumed; staleness (train version "
-        f"- first token's version): {dict(sorted(staleness.items()))}; "
-        f"per-token versions non-decreasing in every answer")
+        f"- the version at admission): {dict(sorted(staleness.items()))}; "
+        f"per-token versions non-decreasing in every answer; {late_start} "
+        f"admitted under one version and first sampled under a later one (a "
+        f"swap applied while the prompt filled)")
 
     # -- manifests and the int8 siblings ----------------------------------
     for m in manifests:
@@ -2893,6 +3224,40 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
             or any(m["problems"] or not m["n_int8"] for m in manifests)):
         raise AssertionError(f"{tag}: manifests {manifests} for publishes "
                              f"{published}")
+
+    # -- trainer and server from the HF directory, and its HF save -------
+    if hf_dir is not None:
+        log(f"{tag}: make_model calls {builds}; HF saves "
+            f"{[(os.path.basename(x['path']), x['version'], round(x['s'], 3), x['bytes']) for x in saves]}"
+            f" (dir, trainer version, seconds, bytes)")
+        got = sorted((b["type_"], b["path"], str(b["dtype"])) for b in builds)
+        if got != sorted([("hf", hf_dir, str(torch.float32)),
+                          ("hf", hf_dir, "None")]):
+            raise AssertionError(f"{tag}: trainer and server were not both "
+                                 f"built from {hf_dir}: {builds}")
+        if len(saves) != 1:
+            raise AssertionError(f"{tag}: {len(saves)} HF saves, expected 1")
+        (save,) = saves
+        from areal_tpu_torch.models.hf import load_hf_model
+
+        with open(os.path.join(save["path"], "config.json")) as f:
+            arch = json.load(f)["architectures"]
+        tik = time.perf_counter()
+        _, reloaded = load_hf_model(save["path"], device=device)
+        _sync(device)
+        t_reload = time.perf_counter() - tik
+        trainer = save.pop("engine")
+        same = (trainer.version == save["version"]
+                and _bit_equal(reloaded, trainer.params))
+        del reloaded, trainer
+        log(f"{tag}: the HF save at trainer version {save['version']} "
+            f"({save['bytes'] / 1e9:.3f} GB of float32, written in "
+            f"{save['s']:.3f} s) names {arch}, reloads in {t_reload:.3f} s "
+            f"bit-identical to the trainer's final weights: {same}")
+        if arch != ["Qwen2ForCausalLM"] or not same:
+            raise AssertionError(f"{tag}: the HF save differs from the "
+                                 "trainer's final weights")
+        save["reload_s"] = t_reload
 
     # -- the served weights are the published weights --------------------
     snap = os.path.join(trial_save, "actor", f"v{eng.version}")
@@ -2994,7 +3359,7 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
         step_s=walls, fetch_wait_s=sum(fetch_s), run_s=run_s,
         decode_tok_s=decode_toks / run_s, publishes=publishes, swaps=swaps,
         staleness=dict(staleness), gap=gap, peak_gib=peak, phase_s=secs,
-        work=work)
+        work=work, saves=saves)
     log(f"{tag}: step walls {[round(w, 3) for w in walls]} s; the trainer "
         f"waited {sum(fetch_s):.3f} s for data in {len(fetch_s)} fetches; "
         f"fleet decode {decode_toks} tokens in the {run_s:.1f} s run = "
@@ -3120,17 +3485,24 @@ def main() -> int:
     server = server_phase(cfg, master, device, card)
     log(f"server phase done at {time.perf_counter() - t_start:.1f} s; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    # the loop's trainer and server take the card to themselves
-    del master, eng["outs"], long
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"device memory before the async-PPO phase: "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    loop = async_ppo_phase(cfg, device, card)
+    hf_root = tempfile.mkdtemp(prefix="chip_smoke_hf_")
+    try:
+        hf_dir = os.path.join(hf_root, "qwen2")
+        hf = hf_phase(cfg, master, device, card, hf_dir)
+        log(f"HF phase done at {time.perf_counter() - t_start:.1f} s")
+        # the loop's trainer and server take the card to themselves
+        del master, eng["outs"], long
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"device memory before the async-PPO phase: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        loop = async_ppo_phase(cfg, device, card, hf_dir=hf_dir)
+    finally:
+        shutil.rmtree(hf_root, ignore_errors=True)
     log(f"async-PPO phase done at {time.perf_counter() - t_start:.1f} s")
 
     entries = kernel_entries(kern, long_kern, eng, long_launches, flash,
-                             train, prefix, server, loop)
+                             train, prefix, server, hf, loop)
     if parent is not None:
         torch.cuda.empty_cache()
         parent_ab(parent)
@@ -3146,11 +3518,12 @@ def main() -> int:
 
 
 def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
-                   loop):
+                   hf, loop):
     """The ``{"kernels": [...]}`` line's entries: every kernel, with its
     launches on the main paths (the engine's greedy wave, the long-context
-    arms, the prefix-cache phase, the generation server and the async-PPO
-    loop; the trainer's steps and the loop's for the flash kernels), its
+    arms, the prefix-cache phase, the generation server, the server that
+    swapped in the HF directory and the async-PPO loop; the trainer's
+    steps and the loop's for the flash kernels), its
     comparison's largest absolute error, and its time, plain time and
     bound at its main-path shape."""
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "shape")
@@ -3177,7 +3550,8 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
     entries = [
         entry("paged_flash_attention", paged_src, paged_ref,
               eng["launches"] + arm_launches("std", False) + fp_prefix["std"]
-              + server["launches"]["std"] + loop["launches"]["std"],
+              + server["launches"]["std"] + hf["launches"]["std"]
+              + loop["launches"]["std"],
               max(errs("decode", "prefill", "prefill_long",
                        "prefill_mid_page"),
                   errs("standard_bf16", src=long_kern)),
@@ -3187,11 +3561,13 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
                   long_context=arm_launches("std", False),
                   prefix_cache=fp_prefix["std"],
                   generation_server=server["launches"]["std"],
+                  hf_swap=hf["launches"]["std"],
                   async_ppo=loop["launches"]["std"]),
               prefill_entry_launches=(eng["prefill_launches"]
                                       + arm_launches("prefill", False)
                                       + fp_prefix["prefill"]
                                       + server["launches"]["prefill"]
+                                      + hf["launches"]["prefill"]
                                       + loop["launches"]["prefill"]),
               prefill={k: kern["prefill"][k] for k in timed},
               prefill_long={k: kern["prefill_long"][k] for k in timed},
@@ -3285,4 +3661,27 @@ def _leaves(tree):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import atexit
+    import threading
+    import traceback
+
+    try:
+        code = main()
+    except Exception:
+        traceback.print_exc()
+        code = 1
+    # a failed phase may leave worker threads and their ZMQ sockets alive,
+    # which would hold the interpreter's exit: name them, run the exit
+    # handlers (they stop the child processes, e.g. the verifier's pool)
+    # and end the process without joining them
+    lingering = [t.name for t in threading.enumerate()
+                 if t is not threading.main_thread() and not t.daemon
+                 and t.is_alive()]
+    if lingering:
+        print(f"chip_smoke: threads still running at exit: {lingering}",
+              file=sys.stderr)
+        atexit._run_exitfuncs()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
+    sys.exit(code)

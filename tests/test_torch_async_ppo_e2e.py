@@ -174,6 +174,97 @@ def test_async_ppo_e2e_on_the_cpu(inputs, monkeypatch):
     assert max(max(r["version_start"]) for r in steps) >= 1
 
 
+def _tiny_qwen2_dir(path):
+    """A tiny ``Qwen2ForCausalLM`` directory for the tests' 256-word
+    tokenizer (its config carries a window with ``use_sliding_window:
+    false``, as Qwen2 checkpoints do)."""
+    import transformers
+
+    torch.manual_seed(0)
+    transformers.Qwen2ForCausalLM(transformers.Qwen2Config(
+        hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, vocab_size=256,
+        max_position_embeddings=512, tie_word_embeddings=False,
+    )).save_pretrained(path, safe_serialization=True)
+    return path
+
+
+def test_async_ppo_from_an_hf_dir_saves_every_step(inputs, monkeypatch,
+                                                   tmp_path):
+    """The loop with the recipe's ``actor.type_: hf`` and
+    ``save_freq_steps=1``: trainer and server load the same directory, and
+    each step's HF save reloads bit-equal to the trainer's weights at that
+    step (the last one to its final weights)."""
+    from areal_tpu_torch.api.config import ModelAbstraction
+    from areal_tpu_torch.apps.local_runner import run_experiment_local
+    from areal_tpu_torch.base import constants
+    from areal_tpu_torch.engine.train_engine import tree_map
+    from areal_tpu_torch.models.hf import load_hf_model
+    from areal_tpu_torch.system import generation_server as tgs
+    from tests.test_torch_hf import _assert_same_tree
+
+    hf_dir = _tiny_qwen2_dir(str(tmp_path / "qwen2"))
+    # copies only: a test that fails must not keep a worker (and its ZMQ
+    # sockets) alive past its end
+    saves, served = [], []
+    orig_save, orig_configure = (tmw.ModelWorker._save_model,
+                                 tgs.GenerationServerWorker._configure)
+
+    def save(self, model_name, path):
+        orig_save(self, model_name, path)
+        engine = self._models[model_name].engine
+        saves.append((path, engine, engine.version, tree_map(
+            lambda t: t.detach().clone(), engine.params)))
+
+    def configure(self, config):
+        out = orig_configure(self, config)
+        served.append((self.engine.cfg, tree_map(
+            lambda t: t.detach().clone(), self.engine.params)))
+        return out
+
+    monkeypatch.setattr(tmw.ModelWorker, "_save_model", save)
+    monkeypatch.setattr(tgs.GenerationServerWorker, "_configure", configure)
+    exp = _experiment("torch", *inputs, "hf-save", actor=ModelAbstraction(
+        "hf", {"path": hf_dir, "dtype": "float32"}))
+    exp.exp_ctrl.save_freq_steps = 1
+    cfg = exp.initial_setup()
+    assert cfg.gen_servers[0].model.args["path"] == hf_dir
+    master = run_experiment_local(cfg, timeout=300)
+
+    steps = len(master.stats_history)
+    assert steps == 2 and all(np.isfinite(s["actor_train/loss"])
+                              for s in master.stats_history)
+    # the server started from the directory's weights
+    cfg0, weights0 = load_hf_model(hf_dir, dtype="float32", device="cpu")
+    ((server_cfg, server_weights),) = served
+    assert server_cfg == cfg0
+    _assert_same_tree(server_weights, weights0)
+    assert [os.path.basename(p) for p, *_ in saves] == [
+        f"epoch0epochstep{i}globalstep{i}" for i in (1, 2)]
+    for path, _, _, weights in saves:
+        assert path.startswith(constants.get_save_path())
+        with open(os.path.join(path, "config.json")) as f:
+            assert json.load(f)["architectures"] == ["Qwen2ForCausalLM"]
+        _assert_same_tree(load_hf_model(path, dtype="float32",
+                                        device="cpu")[1], weights)
+    _, engine, version, last = saves[-1]
+    assert engine.version == version > 0
+    _assert_same_tree(engine.params, last)
+    assert any(not torch.equal(a, b) for (_, a), (_, b) in zip(
+        _flat(last), _flat(weights0)))
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _flat(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
 def test_cli_runs_the_recipe_config_on_the_cpu(inputs):
     """``python -m areal_tpu_torch.apps.main_async_ppo`` on the recipe's
     YAML with the overrides the port needs and a tiny size, every worker on

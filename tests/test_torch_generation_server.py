@@ -16,6 +16,7 @@ its own package's client.
 * What the port does not serve is refused with ``NotImplementedError``.
 """
 
+import dataclasses
 import threading
 import time
 
@@ -300,10 +301,66 @@ def test_cancel_and_refused_commands(sides):
                 "export_prefix"):
         with pytest.raises(RuntimeError, match="NotImplementedError"):
             pside.client.call(cmd, {"qid": "x"})
-    with pytest.raises(RuntimeError, match="NotImplementedError"):
-        pside.client.call("update_weights", {
-            "path": pside.snap, "version": 9, "format": "hf", "mode": "full"})
     assert pside.engine.version == 1
+
+
+@pytest.mark.parametrize("mode", ["full", "stage"])
+def test_update_weights_from_an_hf_dir_serves_its_weights(
+        sides, tmp_path, mode):
+    """``update_weights`` with ``format="hf"`` swaps in an HF checkpoint
+    directory, in one call or through the staged round; the server then
+    gives the greedy tokens of an engine built on the directory's weights.
+    A directory of another architecture is refused before any read."""
+    from areal_tpu_torch.engine.inference_server import (
+        ContinuousBatchingEngine,
+    )
+    from areal_tpu_torch.engine.sampling import SamplingParams
+    from areal_tpu_torch.models.convert import serving_params
+    from areal_tpu_torch.models.hf import load_hf_model, save_hf_model
+    from areal_tpu_torch.models.transformer import init_params
+    from chip_smoke import serve
+
+    _, pside = sides
+    eng = pside.engine
+    version = eng.version + 1
+    hf_dir = str(tmp_path / "hf")
+    save_hf_model(hf_dir, "llama", eng.cfg,
+                  init_params(eng.cfg, version, "cpu", dtype=torch.float32))
+    other = str(tmp_path / "other")
+    wide = dataclasses.replace(eng.cfg, intermediate_dim=96)
+    save_hf_model(other, "llama", wide,
+                  init_params(wide, 0, "cpu", dtype=torch.float32))
+    with pytest.raises(RuntimeError, match="not the served architecture"):
+        pside.client.call("update_weights", dict(
+            path=other, version=version, format="hf", mode=mode))
+    payload = dict(path=hf_dir, version=version, format="hf")
+    if mode == "full":
+        reply = pside.client.call("update_weights", dict(payload, mode=mode))
+        assert reply["num_interrupted"] == 0
+    else:
+        reply = pside.client.call("update_weights",
+                                  dict(payload, mode="stage"))
+        assert reply["staged"] == version
+        assert pside.client.call("pause", {}) == "paused"
+        pside.client.call("update_weights", dict(payload, mode="commit"))
+        assert pside.client.call("resume", {}) == "resumed"
+    prompts = _prompts(version)
+    got = pside.generate_all(prompts, f"hf{version}")
+    assert eng.version == version
+    assert all(o.version_start == o.version_end == version for o in got)
+
+    cfg, params = load_hf_model(hf_dir, dtype=eng.cfg.dtype, device="cpu")
+    ref = ContinuousBatchingEngine(
+        cfg, serving_params(params, cfg), max_batch=4, kv_cache_len=128,
+        cache_mode="paged", page_size=16, chunk_size=8,
+        prefill_chunk_tokens=32, sampling=SamplingParams(greedy=True),
+        device="cpu")
+    want, _ = serve(ref, [pside.make_input(f"ref{i}", p, b) for i, (p, b)
+                          in enumerate(zip(prompts, BUDGETS))])
+    for a, b in zip(got, want):
+        assert a.output_ids == b.output_ids
+        np.testing.assert_allclose(a.output_logprobs, b.output_logprobs,
+                                   rtol=TOL, atol=TOL)
 
 
 def test_engine_cancel_releases_rows():

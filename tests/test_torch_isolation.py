@@ -60,6 +60,13 @@ LOOP_MODULES = [
 ]
 
 
+#: the HF checkpoint import/export modules
+HF_MODULES = [
+    f"areal_tpu_torch.models.hf{m}"
+    for m in ("", ".registry", ".llama_like", ".gpt2")
+]
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     prev = torch.get_num_threads()
@@ -80,7 +87,8 @@ def test_no_jax_and_no_reference_package_imported():
         "or k.startswith(('jax.', 'jaxlib', 'areal_tpu.')) or k == 'areal_tpu')\n"
         "assert not bad, bad\n"
         "assert len(mods) >= 12, mods\n"
-        f"missing = sorted(set({sorted(SERVING_MODULES + LOOP_MODULES)!r}) "
+        f"missing = sorted(set("
+        f"{sorted(SERVING_MODULES + LOOP_MODULES + HF_MODULES)!r}) "
         "- set(mods))\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"
@@ -107,7 +115,7 @@ def _imports(path: Path):
     return out
 
 
-@pytest.mark.parametrize("module", LOOP_MODULES + SERVING_MODULES)
+@pytest.mark.parametrize("module", LOOP_MODULES + SERVING_MODULES + HF_MODULES)
 def test_no_module_imports_jax_or_the_reference_anywhere(module):
     rel = module.replace(".", "/")
     path = REPO / f"{rel}.py"
@@ -150,10 +158,9 @@ def test_loop_entry_points_default_to_cuda(monkeypatch, tmp_path):
         (dict(agent_type="math-multi-turn"), "multi-turn"),
         (dict(allocation_mode="d2m1"), "item 10"),
         (dict(force_cpu_devices=2), "item 10"),
-        (dict(save_freq_steps=10), "item 6"),
     ],
     ids=["critic", "ref", "reward_model", "fused", "multi_turn",
-         "allocation", "cpu_devices", "hf_saves"],
+         "allocation", "cpu_devices"],
 )
 def test_loop_refuses_what_it_does_not_port(kw, what):
     from areal_tpu_torch.api.config import ModelAbstraction
@@ -162,14 +169,9 @@ def test_loop_refuses_what_it_does_not_port(kw, what):
     )
     from areal_tpu_torch.experiments.ppo_math_exp import PPOHyperparameters
 
-    from areal_tpu_torch.api.system_api import ExperimentSaveEvalControl
-
     kw = dict(kw)
     ppo = dict(disable_value=True, kl_ctl=0.0)
     ppo.update(kw.pop("ppo", {}))
-    if "save_freq_steps" in kw:
-        kw["exp_ctrl"] = ExperimentSaveEvalControl(
-            save_freq_steps=kw.pop("save_freq_steps"))
     exp = AsyncPPOMathExperiment(
         actor=ModelAbstraction("random", {}), ppo=PPOHyperparameters(**ppo),
         **kw)

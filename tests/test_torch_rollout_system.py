@@ -241,6 +241,42 @@ def test_staged_update_order_matches_the_jax_manager(faults):
         assert c[0][0] == "update_weights" and c[-1] == ("resume", "")
 
 
+def test_exit_ends_a_swap_round_in_flight():
+    """A manager that exits while a staged swap round waits on a server
+    that no longer answers ends the round at once: the round's thread, in
+    the update pool the interpreter joins at exit, does not wait out the
+    600 s stage timeout."""
+    import threading
+    import time
+
+    import zmq
+
+    from areal_tpu_torch.system.generation_server import GenServerClient
+
+    ctx = zmq.Context.instance()
+    silent = ctx.socket(zmq.ROUTER)  # takes requests, never replies
+    port = silent.bind_to_random_port("tcp://127.0.0.1")
+    m = _manager("torch", staged_weight_updates=True,
+                 stage_request_timeout=600.0)
+    m._clients = {a: GenServerClient(f"127.0.0.1:{port}")
+                  for a in m.server_addrs}
+    try:
+        t = threading.Thread(target=m._flush_and_update, args=(
+            {"version": 1, "path": "/none", "format": "params"},), daemon=True)
+        t.start()
+        time.sleep(1.0)
+        assert t.is_alive(), "the round should be waiting on its stage RPCs"
+        tik = time.monotonic()
+        m._exit_hook()
+        t.join(30)
+        assert not t.is_alive() and time.monotonic() - tik < 30
+        assert m._model_version == 0
+    finally:
+        for c in m._clients.values():  # a failed check must not hang
+            c.close()
+        silent.close(linger=0)
+
+
 class _StubManagerClient:
     def __init__(self):
         self.calls = []

@@ -192,11 +192,6 @@ def test_refuses_bf16_master_weights_and_meshes():
         TrainEngine(cfg, None, params, device="cpu")
     with pytest.raises(NotImplementedError):
         TrainEngine(cfg, object(), tt.init_params(cfg, 0, "cpu"), device="cpu")
-    # train-state checkpoints are ported (tests/test_torch_model_worker.py);
-    # the HF export is not
-    with pytest.raises(NotImplementedError):
-        TrainEngine(cfg, None, tt.init_params(cfg, 0, "cpu"),
-                    device="cpu").save_hf("x")
 
 
 def _flat(tree, prefix=""):
