@@ -15,13 +15,15 @@ Usage (from the repository root)::
         tokenizer_path=/path/to/hf_model dataset.args.dataset_path=math.jsonl
 
 The recipe's actor is an HF checkpoint directory (``actor.type_: hf``),
-saved every ``save_freq_steps`` as an HF directory under the save root.  Its four-chip trainer mesh
-(``mesh_spec: d1f4m1``, ``gen_device_start: 4``) is not ported yet
-(ROADMAP.md queue 1, item 10): ``mesh_spec=d1 gen_device_start=null``
-runs trainer and server on one card.  ``actor.type_=random`` trains
-random weights instead; ``force_cpu_devices=1`` runs every worker on the
-CPU (the paged cache needs ``gen_cache_mode=paged`` below 2048 tokens of
-KV).
+saved every ``save_freq_steps`` as an HF directory under the save root.
+Its four-chip trainer mesh (``mesh_spec: d1f4m1``, ``gen_device_start:
+4``) is not ported yet (ROADMAP.md queue 1, item 10): ``mesh_spec=d1
+gen_device_start=null`` runs trainer and server on one card.
+``actor.type_=random`` trains random weights instead (its saves are of
+the ``llama`` family, and a config that family cannot hold, such as qkv
+biases, fails at the save); ``force_cpu_devices=1`` runs every worker on
+the CPU (the paged cache needs ``gen_cache_mode=paged`` below 2048
+tokens of KV).
 """
 
 import os

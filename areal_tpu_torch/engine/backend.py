@@ -46,8 +46,8 @@ def make_model(
       checkpoint directory read by
       :func:`areal_tpu_torch.models.hf.load_hf_model` onto ``device``
       (default ``cuda``).  Unknown keys raise before the checkpoint is
-      read; so does a model whose head_dim the flash kernels do not build
-      (Gemma's 256) when it is loaded for training on a card.
+      read; so does a model that the flash kernel cannot train on a card
+      (a sliding window, or Gemma's head_dim of 256).
       ``backend_name`` is the family's name.
     - ``random``: args ``{config: dict | TransformerConfig, seed?}``, or
       ``tiny_config`` keyword arguments: parameters drawn from ``seed``
@@ -114,15 +114,21 @@ def _load_hf(args, device: DeviceLike, dtype: Optional[torch.dtype]):
     # the overrides are checked (TransformerConfig.__post_init__) before
     # the read too
     hf_cfg = dataclasses.replace(hf_cfg, **post)
-    if (dtype == torch.float32 and device.type == "cuda"
-            and hf_cfg.sliding_window is None
-            and hf_cfg.head_dim not in HEAD_DIMS):
+    if dtype == torch.float32 and device.type == "cuda":
         # a trainer's first step would fail in the flash kernel
-        raise NotImplementedError(
-            f"training {family.name} (head_dim {hf_cfg.head_dim}) on a card: "
-            f"the flash kernels build head_dim {HEAD_DIMS} (ROADMAP.md "
-            "section 2, 'flash kernels at head_dim 256')"
-        )
+        if hf_cfg.sliding_window is not None:
+            raise NotImplementedError(
+                f"training {family.name} (sliding_window "
+                f"{hf_cfg.sliding_window}) on a card: the flash kernel has no "
+                "window (ROADMAP.md section 2, 'window in the flash kernel's "
+                "index mask')"
+            )
+        if hf_cfg.head_dim not in HEAD_DIMS:
+            raise NotImplementedError(
+                f"training {family.name} (head_dim {hf_cfg.head_dim}) on a "
+                f"card: the flash kernels build head_dim {HEAD_DIMS} "
+                "(ROADMAP.md section 2, 'flash kernels at head_dim 256')"
+            )
     model_cfg, params = load_hf_model(
         args["path"], is_critic=args.get("is_critic", False),
         dtype=args.get("dtype"), device=device,

@@ -131,6 +131,16 @@ class CheckpointReader:
         return (t.t() if transpose else t).contiguous()
 
 
+class _StateReader(CheckpointReader):
+    """An exported state dict read back as a checkpoint, on the meta
+    device: shapes only, nothing copied."""
+
+    def __init__(self, state: StateDict):
+        self.device = torch.device("meta")
+        self._where = {k: state for k in state}
+        self.bytes_read = 0
+
+
 def load_hf_config(path: str) -> Tuple[HFFamily, TransformerConfig, Dict]:
     """The family, the port's config and the raw ``config.json`` of an HF
     directory; reads no tensor."""
@@ -196,6 +206,48 @@ def _shards(state: StateDict) -> List[List[str]]:
     return shards
 
 
+#: TransformerConfig fields of a run, not of the architecture: config.json
+#: does not carry them
+_RUN_FIELDS = ("dtype", "logits_dtype", "remat", "remat_policy")
+
+
+def _leaf_shapes(tree, prefix: str = "") -> Dict[str, Tuple[int, ...]]:
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tuple(tree.shape)}
+    out: Dict[str, Tuple[int, ...]] = {}
+    for k, v in items:
+        out.update(_leaf_shapes(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _check_export(family: HFFamily, cfg: TransformerConfig, params: Params,
+                  state: StateDict):
+    """Refuse an export that would load as another model: ``config.json``
+    must give ``cfg`` back, and the tensors every leaf of ``params``."""
+    run = {k: getattr(cfg, k) for k in _RUN_FIELDS}
+    back = dataclasses.replace(
+        family.config_from_hf(family.config_to_hf(cfg)), **run)
+    if back != cfg:
+        diff = {f.name: (getattr(cfg, f.name), getattr(back, f.name))
+                for f in dataclasses.fields(cfg)
+                if getattr(cfg, f.name) != getattr(back, f.name)}
+        raise ValueError(
+            f"the {family.name} family's config.json cannot carry this "
+            f"model: {diff} (the model's value, the reloaded one)")
+    want = _leaf_shapes(params)
+    got = _leaf_shapes(family.params_from_hf(_StateReader(state), cfg))
+    if got != want:
+        bad = sorted(k for k in set(want) | set(got)
+                     if want.get(k) != got.get(k))
+        raise ValueError(
+            f"the {family.name} family's export does not give back the "
+            f"model's parameters at {bad[:8]} ({len(bad)} leaves differ)")
+
+
 def _host_f32(state: StateDict, names: List[str]) -> Iterator:
     for k in names:
         yield k, state[k].detach().to("cpu", torch.float32).contiguous()
@@ -211,13 +263,17 @@ def save_hf_model(
     """Export to an HF checkpoint directory (``config.json`` and float32
     safetensors, sharded with an index file above
     :data:`MAX_SHARD_BYTES`).  ``params`` is the port's tree of tensors on
-    any device; one shard at a time is copied to the host."""
+    any device; one shard at a time is copied to the host.  A model that
+    the family's files cannot hold (its ``config.json`` would reload as
+    another config, or a leaf is not exported) raises ``ValueError``
+    before anything is written."""
     from safetensors.torch import save_file
 
     family = get_hf_family(family_name)
-    os.makedirs(path, exist_ok=True)
     with torch.no_grad():
         state = family.params_to_hf(params, cfg)
+        _check_export(family, cfg, params, state)
+    os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(family.config_to_hf(cfg), f, indent=2)
     shards = _shards(state)

@@ -30,11 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from areal_tpu_torch.base import logging_
 from areal_tpu_torch.base.device import DeviceLike, resolve_device
 from areal_tpu_torch.models.config import TransformerConfig
-
-logger = logging_.getLogger("transformer")
 
 Params = Dict[str, Any]
 
@@ -260,8 +257,8 @@ def make_attention_mask(
 ) -> torch.Tensor:
     """[B, Tq, Tkv] bool mask: same segment, causal by position, non-pad;
     optional sliding window (the reference's mask; the training forward
-    builds it only for a sliding-window model, the flash kernel applies
-    the rule without a window by index)."""
+    builds it only for a sliding-window model on the CPU, the flash kernel
+    applies the rule without a window by index)."""
     same = seg_q[:, :, None] == seg_kv[:, None, :]
     causal = pos_q[:, :, None] >= pos_kv[:, None, :]
     valid = (seg_q[:, :, None] != 0) & (seg_kv[:, None, :] != 0)
@@ -290,31 +287,15 @@ def reference_attention(q, k, v, mask, logits_dtype=torch.float32):
 def _attention_dispatch(q, k, v, cfg: TransformerConfig, seg_ids, mask):
     """Self-attention of the training forward: the flash kernel's wrapper
     (the CUDA kernel on a card, its plain version on the CPU), or, for a
-    sliding-window model, masked dense attention under ``mask`` (the
-    reference's semantics: it never sends a window to its flash kernel)."""
+    sliding-window model on the CPU, masked dense attention under ``mask``
+    (the reference's semantics: it never sends a window to its flash
+    kernel)."""
     from areal_tpu_torch.ops.flash_attention import flash_attention
 
     if cfg.sliding_window is not None:
-        _warn_dense_attention(q.shape[1], q.device)
         return reference_attention(q, k, v, mask)
     return flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous(), seg_ids
-    )
-
-
-_warned_dense = set()
-
-
-def _warn_dense_attention(T: int, device: torch.device):
-    """One warning per length when a long sliding-window sequence pays the
-    O(T^2) dense path on a card (the reference's ``_warn_dense_fallback``
-    for its sliding-window cause)."""
-    if device.type != "cuda" or T < 1024 or T in _warned_dense:
-        return
-    _warned_dense.add(T)
-    logger.warning(
-        "attention falling back to the dense O(T^2) path at T=%d (sliding "
-        "window): expect quadratic memory/time", T,
     )
 
 
@@ -338,13 +319,18 @@ def _run_layers(params: Params, cfg: TransformerConfig, x, positions, seg_ids):
         if cfg.abs_position_embedding
         else rope_tables(positions, cfg.rotary_base, cfg.head_dim)
     )
-    mask = (
-        None
-        if cfg.sliding_window is None
-        else make_attention_mask(
+    mask = None
+    if cfg.sliding_window is not None:
+        if x.is_cuda:
+            # the dense [B, T, T] path would stand in for the kernel
+            raise NotImplementedError(
+                f"sliding_window {cfg.sliding_window} on a card: the flash "
+                "kernel has no window (ROADMAP.md section 2, 'window in the "
+                "flash kernel's index mask')"
+            )
+        mask = make_attention_mask(
             seg_ids, positions, seg_ids, positions, cfg.sliding_window
         )
-    )
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
         if remat:

@@ -64,7 +64,7 @@ from a seed, float32 master weights and their bf16 serving copy):
    plus 500 tokens (only the suffix prefilled) through two weight swaps
    (the cache flushed, the shared blocks recomputed, bit-identical from
    one swap to the next), and a pressure arm with a quarter of the dense
-   pool (8192 tokens for 8 x 4096) that preempts and completes every
+   pool (4096 tokens for 8 x 2048) that preempts and completes every
    request; launches against the dispatched work, logprobs against the
    trainer forward, and the leak audit on every path;
 6. runs one async-PPO trainer iteration on the greedy wave's rollout
@@ -199,15 +199,15 @@ PREFIX_SHARED_NEW_TOKENS = 96
 #: the first sharer's recompute covers the shared blocks in full 512-token
 #: chunks of its own once it holds 1500 + 36 tokens
 PREFIX_SWAP_AFTER = 40
-#: the pressure arm: a quarter of the dense pool (32 pages of 256 against
-#: 8 x 4096 tokens) under 8 prompts of 1024-3000 tokens, 96 new tokens
-#: each (16 rows, 16 prompts, a pool of 64 pages and 256 new tokens
-#: before, then 128; cut for the script's time, it still preempts twice,
-#: which it stops doing at 64)
+#: the pressure arm: a quarter of the dense pool (16 pages of 256 against
+#: 8 x 2048 tokens) under 8 prompts of 512-1500 tokens, 96 new tokens
+#: each; sized for the script's time, it preempts twice, in 21 fill and 27
+#: decode chunks (``tools/prefix_rehearsal.py pressure``; PERF.md section 4
+#: lists the earlier sizes)
 PRESSURE_MAX_BATCH = 8
-PRESSURE_KV_CACHE_LEN = 4096
-PRESSURE_POOL_TOKENS = 8192
-PRESSURE_PROMPT_LENS = (1024, 3000, 1500, 2048, 1100, 2900, 1777, 2500)
+PRESSURE_KV_CACHE_LEN = 2048
+PRESSURE_POOL_TOKENS = 4096
+PRESSURE_PROMPT_LENS = (512, 1500, 750, 1024, 550, 1450, 888, 1250)
 PRESSURE_NEW_TOKENS = 96
 #: the generation-server phase: the recipe's group traffic (group_size 16
 #: over one 1000-token prompt, temperature 1) with 512 new tokens (the
@@ -234,25 +234,24 @@ HF_NEW_TOKENS = 32
 #: the async-PPO phase: AsyncPPOMathExperiment through the port's local
 #: runner at the recipe's settings (training/configs/async_ppo.yaml)
 #: with these cuts: one card for trainer and server, train_bs_n_seqs 32
-#: (recipe 512), max_new_tokens 128 (16384; 256 before the HF work was
-#: added, cut for the script's time), new_tokens_per_chunk 64 (2048: each
-#: answer spans two chunks), max_concurrent_rollouts 4 (64),
+#: (recipe 512), max_new_tokens 256 (16384), new_tokens_per_chunk 128
+#: (2048: each answer spans two chunks), max_concurrent_rollouts 4 (64),
 #: max_tokens_per_mb 2048 (32768), lr 1e-4 without warm-up (1e-6), and
 #: benchmark_steps 3; 64 math rows of 200-1000 prompt tokens
 ASYNC_ROWS = 64
 ASYNC_PROMPT_WORDS = (200, 1000)
 ASYNC_MAX_LENGTH = 1024
 ASYNC_TRAIN_BS = 32
-ASYNC_NEW_TOKENS = 128
-ASYNC_CHUNK_TOKENS = 64
+ASYNC_NEW_TOKENS = 256
+ASYNC_CHUNK_TOKENS = 128
 ASYNC_MAX_ROLLOUTS = 4
 ASYNC_STEPS = 3
 ASYNC_OFFPOLICYNESS = 4
 #: words of the phase's tokenizer that spell a right answer
-#: ("\\boxed{84/2}", "\\boxed{126/3}", ...): 128 tokens drawn uniformly
-#: from 151936 hold one with probability 1 - exp(-128 * 600 / 151936) =
+#: ("\\boxed{84/2}", "\\boxed{126/3}", ...): 256 tokens drawn uniformly
+#: from 151936 hold one with probability 1 - exp(-256 * 300 / 151936) =
 #: 0.40, so groups mix rewards 0 and 1 and the advantages are not all 0
-ASYNC_ANSWER_WORDS = 600
+ASYNC_ANSWER_WORDS = 300
 #: cached prefixes of the mid-page prefill-entry case: a cache hit leaves
 #: a fill's start anywhere in a page
 MID_PAGE_PREFIXES = (1000, 1255, 257, 0)
@@ -2818,13 +2817,12 @@ def async_inputs(tmp, vocab, *, rows=ASYNC_ROWS, words=ASYNC_PROMPT_WORDS,
     return tok_dir, path
 
 
-def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
+def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
                     prompt_words=ASYNC_PROMPT_WORDS,
                     train_bs=ASYNC_TRAIN_BS, new_tokens=ASYNC_NEW_TOKENS,
                     chunk_tokens=ASYNC_CHUNK_TOKENS,
                     max_tokens_per_mb=MAX_TOKENS_PER_MB, steps=ASYNC_STEPS,
-                    n_answers=ASYNC_ANSWER_WORDS, timeout=600.0, hf_dir=None,
-                    **exp_kw):
+                    n_answers=ASYNC_ANSWER_WORDS, timeout=600.0, **exp_kw):
     """The whole async-PPO loop through the port's entry point:
     ``AsyncPPOMathExperiment`` at the recipe's settings (with the cuts of
     the ASYNC_* constants) through ``run_experiment_local``: a generation
@@ -2832,10 +2830,10 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
     single-step agent and environment, the master, and a model worker that
     hosts the actor (float32 master weights, AdamW), runs actor_inf and
     actor_train and publishes every version, which the manager stages and
-    commits into the server.  Trainer and server draw the same random
-    weights from ``SEED``, or, with ``hf_dir``, both load that HF
-    directory (the recipe's ``actor.type_: hf``) and the trainer saves an
-    HF directory at its last step (``save_freq_steps`` = ``steps``).
+    commits into the server.  Trainer and server both load the HF
+    directory ``hf_dir`` (the recipe's ``actor.type_: hf``;
+    :func:`write_hf_dir` writes one) and the trainer saves an HF directory
+    at its last step (``save_freq_steps`` = ``steps``).
 
     The phase observes the run through wrappers of the workers' methods
     (restored afterwards) and gates: at least ``steps`` master steps, each
@@ -2849,12 +2847,11 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
     logprobs against the server's behaviour logprobs on the tokens sampled
     under the trainer's version (TOL_PROX_MEAN / TOL_PROX_MAX); the paged
     and flash launches against the work the engine and the trainer
-    dispatched; the leak audit of the server's pool; with ``hf_dir``, the
-    trainer and the server built from it, and one HF save that names
+    dispatched; the leak audit of the server's pool; the trainer and the
+    server built from ``hf_dir``, and one HF save that names
     ``Qwen2ForCausalLM`` and reloads bit-identical to the trainer's final
     float32 weights.  ``exp_kw`` overrides experiment fields (CPU
     rehearsals)."""
-    import dataclasses
     import os
     import shutil
     import tempfile
@@ -3080,19 +3077,14 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
     patch(gm.GserverManager, "_update_one_server", on_update_one)
     patch(gm.GserverManager, "_flush_and_update", on_flush)
 
-    if hf_dir is None:
-        model_abs = ModelAbstraction(
-            "random", {"config": dataclasses.replace(cfg, remat=True),
-                       "seed": SEED})
-    else:
-        model_abs = ModelAbstraction(
-            "hf", {"path": hf_dir, "remat": True, "dtype": cfg.dtype})
+    model_abs = ModelAbstraction(
+        "hf", {"path": hf_dir, "remat": True, "dtype": cfg.dtype})
     exp_args = dict(
         experiment_name="chipsmoke", trial_name="asyncppo",
         n_model_workers=1, force_cpu_devices=None if cuda else 1,
         exp_ctrl=ExperimentSaveEvalControl(
             total_train_epochs=1, benchmark_steps=steps,
-            save_freq_steps=None if hf_dir is None else steps),
+            save_freq_steps=steps),
         actor=model_abs, train_bs_n_seqs=train_bs, group_size=16,
         mb_spec=MicroBatchSpec(max_tokens_per_mb=max_tokens_per_mb),
         actor_optimizer=OptimizerConfig(lr=TRAIN_LR,
@@ -3226,38 +3218,37 @@ def async_ppo_phase(cfg, device, card, *, rows=ASYNC_ROWS,
                              f"{published}")
 
     # -- trainer and server from the HF directory, and its HF save -------
-    if hf_dir is not None:
-        log(f"{tag}: make_model calls {builds}; HF saves "
-            f"{[(os.path.basename(x['path']), x['version'], round(x['s'], 3), x['bytes']) for x in saves]}"
-            f" (dir, trainer version, seconds, bytes)")
-        got = sorted((b["type_"], b["path"], str(b["dtype"])) for b in builds)
-        if got != sorted([("hf", hf_dir, str(torch.float32)),
-                          ("hf", hf_dir, "None")]):
-            raise AssertionError(f"{tag}: trainer and server were not both "
-                                 f"built from {hf_dir}: {builds}")
-        if len(saves) != 1:
-            raise AssertionError(f"{tag}: {len(saves)} HF saves, expected 1")
-        (save,) = saves
-        from areal_tpu_torch.models.hf import load_hf_model
+    log(f"{tag}: make_model calls {builds}; HF saves "
+        f"{[(os.path.basename(x['path']), x['version'], round(x['s'], 3), x['bytes']) for x in saves]}"
+        f" (dir, trainer version, seconds, bytes)")
+    got = sorted((b["type_"], b["path"], str(b["dtype"])) for b in builds)
+    if got != sorted([("hf", hf_dir, str(torch.float32)),
+                      ("hf", hf_dir, "None")]):
+        raise AssertionError(f"{tag}: trainer and server were not both "
+                             f"built from {hf_dir}: {builds}")
+    if len(saves) != 1:
+        raise AssertionError(f"{tag}: {len(saves)} HF saves, expected 1")
+    (save,) = saves
+    from areal_tpu_torch.models.hf import load_hf_model
 
-        with open(os.path.join(save["path"], "config.json")) as f:
-            arch = json.load(f)["architectures"]
-        tik = time.perf_counter()
-        _, reloaded = load_hf_model(save["path"], device=device)
-        _sync(device)
-        t_reload = time.perf_counter() - tik
-        trainer = save.pop("engine")
-        same = (trainer.version == save["version"]
-                and _bit_equal(reloaded, trainer.params))
-        del reloaded, trainer
-        log(f"{tag}: the HF save at trainer version {save['version']} "
-            f"({save['bytes'] / 1e9:.3f} GB of float32, written in "
-            f"{save['s']:.3f} s) names {arch}, reloads in {t_reload:.3f} s "
-            f"bit-identical to the trainer's final weights: {same}")
-        if arch != ["Qwen2ForCausalLM"] or not same:
-            raise AssertionError(f"{tag}: the HF save differs from the "
-                                 "trainer's final weights")
-        save["reload_s"] = t_reload
+    with open(os.path.join(save["path"], "config.json")) as f:
+        arch = json.load(f)["architectures"]
+    tik = time.perf_counter()
+    _, reloaded = load_hf_model(save["path"], device=device)
+    _sync(device)
+    t_reload = time.perf_counter() - tik
+    trainer = save.pop("engine")
+    same = (trainer.version == save["version"]
+            and _bit_equal(reloaded, trainer.params))
+    del reloaded, trainer
+    log(f"{tag}: the HF save at trainer version {save['version']} "
+        f"({save['bytes'] / 1e9:.3f} GB of float32, written in "
+        f"{save['s']:.3f} s) names {arch}, reloads in {t_reload:.3f} s "
+        f"bit-identical to the trainer's final weights: {same}")
+    if arch != ["Qwen2ForCausalLM"] or not same:
+        raise AssertionError(f"{tag}: the HF save differs from the "
+                             "trainer's final weights")
+    save["reload_s"] = t_reload
 
     # -- the served weights are the published weights --------------------
     snap = os.path.join(trial_save, "actor", f"v{eng.version}")
@@ -3496,7 +3487,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"device memory before the async-PPO phase: "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-        loop = async_ppo_phase(cfg, device, card, hf_dir=hf_dir)
+        loop = async_ppo_phase(cfg, device, card, hf_dir)
     finally:
         shutil.rmtree(hf_root, ignore_errors=True)
     log(f"async-PPO phase done at {time.perf_counter() - t_start:.1f} s")
@@ -3506,6 +3497,11 @@ def main() -> int:
     if parent is not None:
         torch.cuda.empty_cache()
         parent_ab(parent)
+    # a thread that outlives its phase would hold the interpreter's exit
+    lingering = _lingering_threads()
+    if lingering:
+        raise AssertionError(f"threads still running after the phases: "
+                             f"{lingering}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": entries}), flush=True)
@@ -3660,9 +3656,16 @@ def _leaves(tree):
         yield tree
 
 
-if __name__ == "__main__":
-    import atexit
+def _lingering_threads():
     import threading
+
+    return [t.name for t in threading.enumerate()
+            if t is not threading.main_thread() and not t.daemon
+            and t.is_alive()]
+
+
+if __name__ == "__main__":
+    import multiprocessing
     import traceback
 
     try:
@@ -3671,17 +3674,17 @@ if __name__ == "__main__":
         traceback.print_exc()
         code = 1
     # a failed phase may leave worker threads and their ZMQ sockets alive,
-    # which would hold the interpreter's exit: name them, run the exit
-    # handlers (they stop the child processes, e.g. the verifier's pool)
-    # and end the process without joining them
-    lingering = [t.name for t in threading.enumerate()
-                 if t is not threading.main_thread() and not t.daemon
-                 and t.is_alive()]
+    # which would hold the interpreter's exit: name them, stop the child
+    # processes (the verifier's pool) and end the process without joining
+    # the threads, as a failure
+    lingering = _lingering_threads()
     if lingering:
         print(f"chip_smoke: threads still running at exit: {lingering}",
               file=sys.stderr)
-        atexit._run_exitfuncs()
+        for proc in multiprocessing.active_children():
+            proc.terminate()
+            proc.join(10)
         sys.stdout.flush()
         sys.stderr.flush()
-        os._exit(code)
+        os._exit(code or 1)
     sys.exit(code)

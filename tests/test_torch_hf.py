@@ -172,14 +172,6 @@ def test_sliding_window_forward_and_gradients(remat, tmp_path):
                                    atol=GRAD_TOL, rtol=GRAD_TOL, err_msg=k)
 
 
-def test_dense_attention_warns_once_per_length_on_a_card():
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    tt._warned_dense.discard(4096)
-    for device, T in ((cpu, 4096), (cuda, 512), (cuda, 4096), (cuda, 4096)):
-        tt._warn_dense_attention(T, device)
-    assert tt._warned_dense >= {4096} and 512 not in tt._warned_dense
-
-
 @pytest.mark.parametrize("family", FAMILIES)
 def test_export_reloads_in_transformers(family, tmp_path):
     import transformers
@@ -195,6 +187,33 @@ def test_export_reloads_in_transformers(family, tmp_path):
         a = hf_model(tokens).logits.numpy()
         b = reloaded(tokens).logits.numpy()
     np.testing.assert_allclose(a, b, atol=SAVE_TOL)
+
+
+@pytest.mark.parametrize(
+    "change, what",
+    [
+        (dict(use_attention_bias=True), "use_attention_bias"),
+        (dict(use_qk_norm=True), "use_qk_norm"),
+        (dict(activation="gelu"), "activation"),
+        ({}, "q/b"),
+    ],
+    ids=["qkv_bias", "qk_norm", "activation", "leaf"],
+)
+def test_export_refuses_a_model_the_family_cannot_hold(change, what,
+                                                       tmp_path):
+    """A model saved as a family whose files would reload it as another
+    (a random actor reports 'llama' whatever its architecture) raises
+    before anything is written."""
+    from areal_tpu_torch.models.config import tiny_config
+
+    cfg = tiny_config(vocab_size=32, **change)
+    params = tt.init_params(cfg, 0, "cpu", dtype=torch.float32)
+    if not change:  # a leaf the llama export has no name for
+        params["layers"][0]["attn"]["q"]["b"] = torch.zeros(cfg.q_dim)
+    out = str(tmp_path / "saved")
+    with pytest.raises(ValueError, match=f"llama.*{what}"):
+        save_hf_model(out, "llama", cfg, params)
+    assert not os.path.exists(out)
 
 
 @pytest.mark.parametrize("family", ["qwen2", "gpt2"])
@@ -368,6 +387,24 @@ def test_training_at_head_dim_256_is_refused_on_a_card(tmp_path,
         with pytest.raises(AssertionError, match="read"):
             backend.make_model(gemma, None, device=device, dtype=dtype)
 
+
+
+def test_sliding_window_training_is_refused_on_a_card(tmp_path, monkeypatch):
+    """The flash kernel has no window, and the masked dense path is only
+    the CPU's: a trainer's load of a sliding-window model on a card is
+    refused before the read; a server's load and the CPU's get as far as
+    the read (the paged engine refuses to serve it)."""
+    path = _config_dir(tmp_path, architectures=["MistralForCausalLM"],
+                       sliding_window=4)
+    _no_read(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    mistral = ModelAbstraction("hf", {"path": path})
+    with pytest.raises(NotImplementedError,
+                       match="window in the flash kernel's index mask"):
+        backend.make_model(mistral, None, device="cuda", dtype=torch.float32)
+    for device, dtype in (("cuda", None), ("cpu", torch.float32)):
+        with pytest.raises(AssertionError, match="read"):
+            backend.make_model(mistral, None, device=device, dtype=dtype)
 
 # -- the save hook and the experiment --------------------------------------
 
