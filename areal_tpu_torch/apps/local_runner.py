@@ -25,10 +25,12 @@ from areal_tpu_torch.system.worker_base import WorkerServerStatus
 logger = logging_.getLogger("local_runner")
 
 
-def register_impls():
+def register_impls(threads: bool = True):
     """Import the port's implementation modules so its registries (the
     datasets, agents, envs, backends, interfaces and experiments of
-    ``api/*``) populate."""
+    ``api/*``) populate; with ``threads``, also resolve transformers'
+    tokenizer classes now, for workers that will load tokenizers from
+    threads of this process."""
     import areal_tpu_torch.agents.math_single_step_agent  # noqa: F401
     import areal_tpu_torch.data.math_code_dataset  # noqa: F401
     import areal_tpu_torch.engine.backend  # noqa: F401
@@ -37,10 +39,11 @@ def register_impls():
     import areal_tpu_torch.experiments.ppo_math_exp  # noqa: F401
     import areal_tpu_torch.interfaces.ppo_interface  # noqa: F401
 
-    # pre-resolve transformers' lazy attributes in the main thread: its lazy
-    # module loader is not thread-safe, and worker threads load tokenizers
-    # concurrently at configure time
-    from transformers import AutoTokenizer  # noqa: F401
+    if threads:
+        # pre-resolve transformers' lazy attributes in the main thread: its
+        # lazy module loader is not thread-safe, and worker threads load
+        # tokenizers concurrently at configure time
+        from transformers import AutoTokenizer  # noqa: F401
 
 
 def run_experiment_local(

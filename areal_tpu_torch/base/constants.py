@@ -45,6 +45,14 @@ def _tmp_root() -> str:
     return os.path.join(tempfile.gettempdir(), "areal_tpu_torch")
 
 
+def get_cache_path() -> str:
+    """Where the launcher dumps an experiment's config for its worker
+    processes (``AREAL_CACHE_ROOT`` overrides)."""
+    root = os.environ.get("AREAL_CACHE_ROOT", os.path.join(_tmp_root(), "cache"))
+    os.makedirs(root, exist_ok=True)
+    return root
+
+
 def _trial_path(root_env: str, default_root: str, *sub) -> str:
     root = os.environ.get(root_env, default_root)
     p = os.path.join(root, getpass.getuser(), experiment_name(), trial_name(), *sub)
@@ -75,3 +83,10 @@ def get_recover_path() -> str:
     return _trial_path(
         "AREAL_SAVE_ROOT", os.path.join(_tmp_root(), "checkpoints"), "recover"
     )
+
+
+def reset():
+    """Forget the experiment and trial names (a restart in tests)."""
+    global _experiment_name, _trial_name
+    _experiment_name = None
+    _trial_name = None

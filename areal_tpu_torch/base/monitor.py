@@ -4,8 +4,12 @@ rollout accounting (port of ``areal_tpu/base/monitor.py``).
 Device gauges come from ``torch.cuda.memory_stats`` (the caching
 allocator's bytes in use and at peak) instead of the TPU's
 ``device.memory_stats()``; the gauge names stay the reference's
-(``hbm_*``), so dashboards read both.  The HBM ledger's reconciliation is
-not ported (ROADMAP.md queue 1, item 11), nor is the TPU peak-FLOP table
+(``hbm_*``), so dashboards read both.  Only the processes that hold the
+card read them (the model workers with each train step, the generation
+servers with each ``metrics`` reply, each its own allocator); the
+background sampler reads the host only, so the master, in a process of
+its own, never creates a CUDA context.  The HBM ledger's reconciliation
+is not ported (ROADMAP.md queue 1, item 11), nor is the TPU peak-FLOP table
 (the train engine keeps the card's own, ``engine/train_engine.py``).
 The JAX package's time marks are not copied: nothing in the port records
 them.
@@ -63,7 +67,8 @@ def _host_stats() -> Dict[str, float]:
 def device_memory_stats() -> Dict[str, float]:
     """Per-device memory gauges from ``torch.cuda.memory_stats`` (bytes
     the caching allocator holds for tensors now and at peak, and the
-    card's total memory); {} without CUDA devices."""
+    card's total memory), also set in the scrape registry; {} without
+    CUDA devices."""
     import torch
 
     out: Dict[str, float] = {}
@@ -79,13 +84,29 @@ def device_memory_stats() -> Dict[str, float]:
         out[f"{key}/hbm_limit_gb"] = (
             torch.cuda.get_device_properties(i).total_memory / 1e9
         )
+    try:
+        from areal_tpu_torch.observability import get_registry
+
+        reg = get_registry()
+        for k, v in out.items():
+            dev, field = k.split("/", 1)
+            # metric names literal at the call sites, for
+            # scripts/check_metric_names.py
+            if field == "hbm_in_use_gb":
+                reg.gauge("areal_device_hbm_in_use_gb").set(v, device=dev)
+            elif field == "hbm_peak_gb":
+                reg.gauge("areal_device_hbm_peak_gb").set(v, device=dev)
+            elif field == "hbm_limit_gb":
+                reg.gauge("areal_device_hbm_limit_gb").set(v, device=dev)
+    except Exception:  # noqa: BLE001 - monitoring must not kill work
+        logger.exception("metric registry publish failed")
     return out
 
 
 class UtilizationMonitor:
     """Background sampler (reference: gpu_utilization_monitor thread :266).
 
-    Samples device + host gauges every ``interval`` seconds into a ring of
+    Samples host gauges every ``interval`` seconds into a ring of
     the last ``keep`` snapshots; ``export()`` returns the latest gauges for
     the metrics fan-out."""
 
@@ -107,7 +128,7 @@ class UtilizationMonitor:
         self._thread.start()
 
     def _sample(self):
-        snap = {"ts": time.time(), **_host_stats(), **device_memory_stats()}
+        snap = {"ts": time.time(), **_host_stats()}
         with self._lock:
             self._snapshots.append(snap)
             if len(self._snapshots) > self.keep:
@@ -128,16 +149,6 @@ class UtilizationMonitor:
                 reg.gauge("areal_host_load5").set(snap["host/load5"])
             if "host/rss_gb" in snap:
                 reg.gauge("areal_host_rss_gb").set(snap["host/rss_gb"])
-            for k, v in snap.items():
-                if not k.startswith("device") or "/" not in k:
-                    continue
-                dev, field = k.split("/", 1)
-                if field == "hbm_in_use_gb":
-                    reg.gauge("areal_device_hbm_in_use_gb").set(v, device=dev)
-                elif field == "hbm_peak_gb":
-                    reg.gauge("areal_device_hbm_peak_gb").set(v, device=dev)
-                elif field == "hbm_limit_gb":
-                    reg.gauge("areal_device_hbm_limit_gb").set(v, device=dev)
         except Exception:  # noqa: BLE001 - monitoring must not kill work
             logger.exception("metric registry publish failed")
 

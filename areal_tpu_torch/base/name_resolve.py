@@ -1,12 +1,12 @@
 """Key-value discovery & synchronization service (copy of
-``areal_tpu/base/name_resolve.py``, memory and nfs backends).
+``areal_tpu/base/name_resolve.py``: the memory, nfs and server backends).
 
 Every worker discovery, barrier, version announcement, and address exchange
 goes through this module.  The default backend is in-memory (single
 process); the file backend supports multi-process / multi-host via a shared
 filesystem, rooted under ``AREAL_NAME_RESOLVE_ROOT`` or the process's
-temporary directory.  The ``server`` backend (the JAX package's ZMQ KV
-service) is not ported yet (ROADMAP.md queue 1, item 13).
+temporary directory; the ``server`` backend talks to the ZMQ KV service of
+``base/name_resolve_server.py`` at ``AREAL_NAME_RESOLVE_ADDR``.
 """
 
 from __future__ import annotations
@@ -290,10 +290,20 @@ def reconfigure(backend: str = "memory", **kwargs) -> NameRecordRepository:
     elif backend in ("nfs", "file"):
         DEFAULT_REPOSITORY = NfsNameRecordRepository(**kwargs)
     elif backend == "server":
-        raise NotImplementedError(
-            "the name_resolve server backend is not ported to areal_tpu_torch "
-            "yet (see ROADMAP.md queue 1, item 13)"
+        # the ZMQ KV service of base/name_resolve_server.py
+        from areal_tpu_torch.base.name_resolve_server import (
+            ServerNameRecordRepository,
         )
+
+        address = kwargs.pop(
+            "address", os.environ.get("AREAL_NAME_RESOLVE_ADDR", "")
+        )
+        if not address:
+            raise ValueError(
+                "server backend needs address=host:port or "
+                "AREAL_NAME_RESOLVE_ADDR"
+            )
+        DEFAULT_REPOSITORY = ServerNameRecordRepository(address)
     else:
         raise NotImplementedError(f"name_resolve backend {backend}")
     return DEFAULT_REPOSITORY

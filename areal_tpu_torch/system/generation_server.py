@@ -37,7 +37,14 @@ from typing import Dict, Optional, Tuple
 import zmq
 
 from areal_tpu_torch.api import dataset_api, system_api
-from areal_tpu_torch.base import constants, logging_, name_resolve, names, network
+from areal_tpu_torch.base import (
+    constants,
+    logging_,
+    monitor,
+    name_resolve,
+    names,
+    network,
+)
 from areal_tpu_torch.engine.inference_server import _not_ported
 from areal_tpu_torch.system import worker_base
 
@@ -635,6 +642,9 @@ class GenerationServerWorker(worker_base.Worker):
             "cancelled_total": eng.cancelled_total,
             "preempted_total": eng.preempted_total,
             "preempted_by_class": dict(eng.preempted_by_class),
+            # on a card, this process's own allocator's gauges
+            **(monitor.device_memory_stats()
+               if self.engine.k_pool.device.type == "cuda" else {}),
         }
 
     # -- poll ---------------------------------------------------------------

@@ -34,6 +34,7 @@ one accounting surface.
 from __future__ import annotations
 
 import heapq
+import os
 import pickle
 import threading
 import time
@@ -169,6 +170,9 @@ class GserverManager(worker_base.Worker):
 
         self._expr = constants.experiment_name()
         self._trial = constants.trial_name()
+        # a restarted manager admits nothing until the master has re-seeded
+        # the trained-sample count (is_staled)
+        self._awaiting_trained_count = os.environ.get("AREAL_RECOVER") == "1"
         if config.schedule_policy not in (
             "round_robin", "least_requests", "least_token_usage",
         ):
@@ -1190,7 +1194,20 @@ class GserverManager(worker_base.Worker):
         """Would a rollout started now exceed the staleness bound?
         (reference: realhf/system/gserver_manager.py:417-453).  In-flight
         rollouts are counted in sequences (``group_size`` per rollout) to
-        match ``train_batch_size`` units."""
+        match ``train_batch_size`` units.
+
+        After a restart (``AREAL_RECOVER=1``) the answer is yes until the
+        master has published the trained-sample count of the steps it
+        resumes after: read as 0 before that, it would let rollouts of
+        the initial weights through for a trainer that is already steps
+        ahead (the JAX package has this gap; ROADMAP.md section 3)."""
+        if getattr(self, "_awaiting_trained_count", False):
+            try:
+                name_resolve.get(names.training_samples(self._expr,
+                                                        self._trial))
+            except name_resolve.NameEntryNotFoundError:
+                return True
+            self._awaiting_trained_count = False
         return self.version_lag() > self.config.max_head_offpolicyness
 
     def _allocate_rollout(

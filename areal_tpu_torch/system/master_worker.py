@@ -78,9 +78,10 @@ class MasterWorker(worker_base.AsyncWorker):
             experiment_name=constants.experiment_name(),
             trial_name=constants.trial_name(),
         )
-        # device-HBM/host sampler (reference: the gpu_utilization_monitor
-        # thread, realhf/base/monitor.py:266); gauges land in the scrape
-        # registry so the master's own /metrics page carries them
+        # host sampler (reference: the gpu_utilization_monitor thread,
+        # realhf/base/monitor.py:266); the device gauges come from the
+        # processes that hold the card, so the master never creates a CUDA
+        # context of its own
         self._util_monitor = UtilizationMonitor()
         self._util_monitor.start()
 

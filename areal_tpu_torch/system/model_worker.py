@@ -51,6 +51,9 @@ logger = logging_.getLogger("model_worker")
 
 NON_BLOCKING_RPCS = ("fetch", "spec", "clear_data_cache", "model_config")
 
+#: the model's train-step counter in a recover checkpoint
+MODEL_VERSION_FILE = "model_version.json"
+
 
 def _count_dataset_rows(d) -> int:
     """Row count of a jsonl/json dataset abstraction without building it."""
@@ -238,23 +241,48 @@ class ModelWorker(worker_base.Worker):
             return
         try:
             backend.load(model, latest)
-            self.logger.info(
-                "recover: %s reloaded from %s (version %d)",
-                name,
-                latest,
-                getattr(model.engine, "version", -1),
-            )
-            from areal_tpu_torch.base import name_resolve, names
-
-            name_resolve.add(
-                names.recover_load(
-                    constants.experiment_name(), constants.trial_name(), name
-                ),
-                latest,
-                replace=True,
-            )
         except NotImplementedError:
-            pass
+            return
+        # the train-step counter that names published versions resumes
+        # too (the JAX package restores only the engine's update count, so
+        # its versions restart from 0 after a restart: ROADMAP.md section 3)
+        vpath = os.path.join(latest, MODEL_VERSION_FILE)
+        if os.path.exists(vpath):
+            import json
+
+            with open(vpath) as f:
+                model.version = model_api.ModelVersionSteps(**json.load(f))
+        self.logger.info(
+            "recover: %s reloaded from %s (engine version %d, step %d)",
+            name,
+            latest,
+            getattr(model.engine, "version", -1),
+            model.version.global_step,
+        )
+        from areal_tpu_torch.base import name_resolve, names
+
+        name_resolve.add(
+            names.recover_load(
+                constants.experiment_name(), constants.trial_name(), name
+            ),
+            latest,
+            replace=True,
+        )
+        # the launcher cleared the trial's keys, so the restarted manager
+        # and servers start from the initial weights at version 0: publish
+        # the restored weights again, or the staleness gate (trained steps
+        # minus the served version) holds every rollout back once the run
+        # is more than max_head_offpolicyness steps in
+        if self._has_published(model):
+            self._publish_weights(name)
+
+    def _has_published(self, model) -> bool:
+        import re
+
+        base = os.path.join(
+            constants.get_param_realloc_path(), model.name.role)
+        return os.path.isdir(base) and any(
+            re.fullmatch(r"v\d+", d) for d in os.listdir(base))
 
     def _get_interface(self, rpc_name: str) -> model_api.ModelInterface:
         if rpc_name not in self._interfaces:
@@ -569,11 +597,17 @@ class ModelWorker(worker_base.Worker):
         os.replace(tmp, path)
 
     def _ckpt_model(self, model_name: str, path: str):
-        """Recover checkpoint: sharded train state (params+optimizer+version),
-        every SPMD peer writing its own shards."""
-        backend = self._backends[model_name]
+        """Recover checkpoint: the train state (parameters, optimizer and
+        the engine's update count) and the model's train-step counter,
+        written first, so a whole train state always has it."""
+        import json
+
+        model = self._models[model_name]
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, MODEL_VERSION_FILE), "w") as f:
+            json.dump(dataclasses.asdict(model.version), f)
         try:
-            backend.save(self._models[model_name], path)
+            self._backends[model_name].save(model, path)
         except NotImplementedError:
             pass
 
@@ -628,6 +662,12 @@ class ModelWorker(worker_base.Worker):
                     os.path.join(profile_dir, f"{rpc_name}.json")
                 )
         elapsed = time.monotonic() - tik
+        if (handle == "train_step" and isinstance(res, dict)
+                and getattr(self, "_cuda_stream", None) is not None):
+            # this process's allocator: the master holds no context
+            from areal_tpu_torch.base.monitor import device_memory_stats
+
+            res.update(device_memory_stats())
 
         reply: Dict = {"elapsed": elapsed}
         reply.update(self._mfc_flops_stats(model, handle, data, res))

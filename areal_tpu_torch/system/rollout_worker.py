@@ -7,12 +7,17 @@ with obs/act queues driving the PartialRolloutManager, trajectory push via
 ZMQ :293, ``/finish_rollout`` :304).
 
 The port's copy of ``areal_tpu/system/rollout_worker.py``,
-its imports renamed to ``areal_tpu_torch``.
+its imports renamed to ``areal_tpu_torch``.  One difference: the manager
+calls (allocate and finish) run on a thread pool of their own, not on
+the event loop's default one, where they would queue behind the group
+members' generate calls; so a poll, and the commands read between polls
+(the launcher's ``exit``), never wait for a generate chunk.
 """
 
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import itertools
 from typing import Dict, List, Optional, Set
 
@@ -58,6 +63,8 @@ class RolloutWorker(worker_base.AsyncWorker):
         self._data_iter = itertools.cycle(range(len(self._dataset)))
 
         self.manager_client = GserverManagerClient(self._expr, self._trial)
+        self._manager_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=2, thread_name_prefix=f"{self.worker_name}-manager")
         self.prm = PartialRolloutManager(
             self.manager_client,
             config.gconfig,
@@ -137,11 +144,8 @@ class RolloutWorker(worker_base.AsyncWorker):
             # always release the manager's rollout slot; on exit the
             # client is aborted and the slot dies with the manager
             try:
-                await asyncio.to_thread(
-                    self.manager_client.call,
-                    "finish_rollout",
-                    {"qid": qid, "accepted": accepted},
-                )
+                await self._manager_call(
+                    "finish_rollout", {"qid": qid, "accepted": accepted})
             except (TimeoutError, ConnectionError, OSError):
                 if not self.exit_requested:
                     raise
@@ -151,6 +155,21 @@ class RolloutWorker(worker_base.AsyncWorker):
                 qid, "rollout.episode", root=qid,
                 accepted=accepted, pushed=pushed,
             )
+
+    async def _manager_call(self, cmd: str, payload: Dict):
+        # a worker built without _configure (tests) has no pool: the
+        # loop's default one serves
+        try:
+            fut = asyncio.get_running_loop().run_in_executor(
+                getattr(self, "_manager_pool", None),
+                self.manager_client.call, cmd, payload)
+        except RuntimeError as e:
+            # the exit hook shut the pool down and the loop's shutdown is
+            # cancelling the rollouts: as with the aborted client, the
+            # slot dies with the manager
+            raise ConnectionError(f"{cmd}: the manager calls' pool is shut "
+                                  "down") from e
+        return await fut
 
     async def _poll_async(self) -> worker_base.PollResult:
         # harvest finished tasks (exceptions propagate)
@@ -168,9 +187,7 @@ class RolloutWorker(worker_base.AsyncWorker):
         self._alloc_counter += 1
         prompt_sample.ids = [qid]
         try:
-            resp = await asyncio.to_thread(
-                self.manager_client.call, "allocate_rollout", {"qid": qid}
-            )
+            resp = await self._manager_call("allocate_rollout", {"qid": qid})
         except (TimeoutError, ConnectionError, OSError):
             if self.exit_requested:
                 # exit() aborted the client mid-call so this loop could
@@ -214,3 +231,5 @@ class RolloutWorker(worker_base.AsyncWorker):
             self.manager_client.close()
         if hasattr(self, "pusher"):
             self.pusher.close()
+        if hasattr(self, "_manager_pool"):
+            self._manager_pool.shutdown(wait=False)

@@ -1,12 +1,11 @@
 """Worker lifecycle base classes (port of ``areal_tpu/system/worker_base.py``:
 ``Worker`` with its ``_configure`` + ``_poll`` contract and run loop,
-``PollResult``, and the ``WorkerServer`` command socket with its status
-and heartbeat keys in name_resolve).
+``PollResult``, the ``WorkerServer`` command socket with its status and
+heartbeat keys in name_resolve, and the controller side,
+``WorkerControlPanel``, which the multi-process launcher drives).
 
 Not ported yet: the per-worker ``/metrics`` HTTP server that the JAX
-package's ``WorkerServer`` starts (ROADMAP.md queue 1, item 11), and the
-controller side (``WorkerControlPanel``, which the multi-process
-launcher drives; item 13).
+package's ``WorkerServer`` starts (ROADMAP.md queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ import pickle
 import queue
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import zmq
 
@@ -135,6 +134,122 @@ class WorkerServer:
         self._beat_stop.set()
         self._beat_thread.join(timeout=HEARTBEAT_INTERVAL + 1)
         self._sock.close(linger=0)
+
+
+class WorkerControlPanel:
+    """Controller side: a REQ socket to every worker's server, and the
+    workers' status and heartbeat keys."""
+
+    def __init__(self, experiment_name: str, trial_name: str):
+        self.experiment_name = experiment_name
+        self.trial_name = trial_name
+        self._ctx = zmq.Context.instance()
+        self._socks: Dict[str, zmq.Socket] = {}
+        # worker -> (last heartbeat value seen, our monotonic time when it
+        # was first seen): staleness is judged on this process's clock from
+        # the last change, so clock skew between hosts cannot fake a missed
+        # (or a fresh) beat
+        self._hb_seen: Dict[str, tuple] = {}
+
+    def connect(self, worker_names: List[str], timeout: float = 60.0):
+        deadline = time.monotonic() + timeout
+        for wname in worker_names:
+            addr = name_resolve.wait(
+                names.worker(self.experiment_name, self.trial_name, wname),
+                timeout=max(0.1, deadline - time.monotonic()),
+            )
+            sock = self._ctx.socket(zmq.REQ)
+            sock.connect(f"tcp://{addr}")
+            self._socks[wname] = sock
+
+    @property
+    def worker_names(self) -> List[str]:
+        return list(self._socks)
+
+    def request(
+        self, worker_name: str, command: str, timeout: float = 300.0, **kwargs
+    ):
+        sock = self._socks[worker_name]
+        sock.send(pickle.dumps((command, kwargs)))
+        if not sock.poll(timeout=int(timeout * 1000)):
+            raise TimeoutError(
+                f"worker {worker_name} did not reply to {command}"
+            )
+        status, payload = pickle.loads(sock.recv())
+        if status != "ok":
+            raise WorkerException(worker_name, payload, f"requesting {command}")
+        return payload
+
+    def group_request(self, command: str, timeout: float = 300.0, **kwargs):
+        return {
+            w: self.request(w, command, timeout=timeout, **kwargs)
+            for w in self.worker_names
+        }
+
+    def broadcast(self, worker_names: List[str], command: str,
+                  timeout: float = 10.0) -> List[str]:
+        """Send ``command`` to every worker of ``worker_names`` at once and
+        collect the replies within one ``timeout``: a worker whose poll is
+        busy costs the wait once, not once per worker.  Returns the workers
+        that did not reply (their sockets are closed: a REQ socket that
+        lost its reply cannot send again)."""
+        for w in worker_names:
+            self._socks[w].send(pickle.dumps((command, {})))
+        deadline = time.monotonic() + timeout
+        silent = []
+        for w in worker_names:
+            sock = self._socks[w]
+            left = max(0.0, deadline - time.monotonic())
+            if sock.poll(timeout=int(left * 1000)):
+                sock.recv()
+            else:
+                silent.append(w)
+                sock.close(linger=0)
+                del self._socks[w]
+        return silent
+
+    def get_worker_status(self, worker_name: str) -> WorkerServerStatus:
+        try:
+            return WorkerServerStatus(name_resolve.get(names.worker_status(
+                self.experiment_name, self.trial_name, worker_name)))
+        except name_resolve.NameEntryNotFoundError:
+            return WorkerServerStatus.LOST
+
+    def get_heartbeat_age(self, worker_name: str) -> Optional[float]:
+        """Seconds, on this process's monotonic clock, since the worker's
+        heartbeat value was last seen to change; None if it never beat (a
+        worker that never registered cannot be declared lost yet)."""
+        try:
+            val = name_resolve.get(names.worker_heartbeat(
+                self.experiment_name, self.trial_name, worker_name))
+        except name_resolve.NameEntryNotFoundError:
+            return None
+        now = time.monotonic()
+        seen = self._hb_seen.get(worker_name)
+        if seen is None or seen[0] != val:
+            self._hb_seen[worker_name] = (val, now)
+            return 0.0
+        return now - seen[1]
+
+    def find_stale_workers(
+        self, worker_names: List[str], timeout: float = HEARTBEAT_TIMEOUT
+    ) -> List[str]:
+        """Workers whose heartbeat is older than ``timeout`` and whose
+        status is not terminal: they should be alive and stopped beating."""
+        stale = []
+        for w in worker_names:
+            if self.get_worker_status(w) in (
+                WorkerServerStatus.COMPLETED, WorkerServerStatus.ERROR
+            ):
+                continue
+            age = self.get_heartbeat_age(w)
+            if age is not None and age > timeout:
+                stale.append(w)
+        return stale
+
+    def close(self):
+        for s in self._socks.values():
+            s.close(linger=0)
 
 
 class Worker:

@@ -43,7 +43,7 @@ from a seed, float32 master weights and their bf16 serving copy):
    depths, chunked prefill, and profiles of one decode chunk and of one
    prefill chunk after a short and after a 31000-token prefix);
 3. serves the async-PPO recipe's configuration (16 rows, 32768-token KV,
-   a wave of 14 prompts of 1024 tokens and 2 of 8000 and 31000) in three
+   a wave of 14 prompts of 512 tokens and 2 of 8000 and 31000) in three
    arms: a bf16 pool on the default dispatch table, a bf16 pool routing
    decode chunks past 8192 tokens to the deep kernel, and an int8 pool
    with that table; checks each arm's kernel launches against the
@@ -59,7 +59,7 @@ from a seed, float32 master weights and their bf16 serving copy):
 5. serves the recipe's group traffic through the radix prefix cache, on a
    bf16 pool and on an int8 pool, with keyed sampling at temperature 1
    (16 rows, 32768-token KV): a group of 16 over one 1000-token prompt
-   (one prefill, 15 copied tail blocks), two rounds of continuations that
+   (one prefill, 15 copied tail blocks), one round of continuations that
    resume parked rows (no prefill), a second group over the first prompt
    plus 500 tokens (only the suffix prefilled) through two weight swaps
    (the cache flushed, the shared blocks recomputed, bit-identical from
@@ -78,7 +78,7 @@ from a seed, float32 master weights and their bf16 serving copy):
 7. publishes phase 6's trained weights as version 1 (a bf16 snapshot
    written on a background thread, then its manifest) and serves the
    recipe's group traffic (16 requests over one 1000-token prompt,
-   temperature 1, 512 new tokens) through ``GenerationServerWorker`` over
+   temperature 1, 384 new tokens) through ``GenerationServerWorker`` over
    ZMQ at the GenServerConfig defaults with the recipe's 16 rows and
    32768-token KV, its engine at version 0 from the same seed: it stages
    v1 while the group decodes (the server's poll loop must enqueue decode
@@ -109,15 +109,37 @@ from a seed, float32 master weights and their bf16 serving copy):
    directory (trainer and server both load it) and ``save_freq_steps`` at
    its last step (the HF save must name ``Qwen2ForCausalLM`` and reload
    bit-identical to the trainer's final weights), at the recipe's
-   settings with the ASYNC_* cuts, on a
+   settings with the ASYNC_* cuts and the LOOP_* cuts (one group of
+   128-token answers a step, 2 steps, no head offpolicyness, so that
+   step 2's group waits for the manager's swap of step 1's version), on a
    word-level tokenizer of the model's 151936 words and 64 math rows; it
    prints which of transformers, tokenizers, zmq and safetensors import,
-   and gates the master's steps, the server's version (2 or more, through
-   the manager's swaps), every consumed trajectory's staleness and token
+   and gates the master's steps, the server's version (through the
+   manager's swaps), every consumed trajectory's staleness and token
    versions, every published manifest and its int8 sibling, the served
    weights against the published snapshot, actor_inf's logprobs against
    the server's, the paged and flash launches against the dispatched work,
-   and the leak audit.
+   and the leak audit;
+9. runs phase 8's experiment at the ASYNC_* settings (3 steps of 32
+   sequences, 256-token answers) as one process per worker through the
+   port's launcher (``launch_experiment(mode="local",
+   recover_retries=1)``: the master, the model worker, the generation
+   server, the gserver manager and two rollout workers), with a recover
+   checkpoint at step 2 and the HF save at step 3; once the master's
+   recover info is on disk it SIGKILLs the model worker's process, and the
+   launcher's restart policy relaunches every process with
+   ``AREAL_RECOVER=1``.  Each worker process runs :func:`process_probe`;
+   the gates read across the process boundary (the master's
+   ``stats.jsonl``, the device processes' counters files, the probes'
+   lines, the snapshots and the HF save on disk): the steps (exactly one
+   after the restart), the recover (``recover_load`` of ``globalstep2``,
+   the restored train state's checksums equal to what step 2 wrote), the
+   served version and weights, token versions and staleness, the HF
+   save, logprobs, each device process's launches against its own work,
+   only the model worker and the server holding the card
+   (``nvidia-smi``), and no worker process left; it prints step walls,
+   ``actor_train``, the trainer's wait, decode tokens/s, publish, stage,
+   pause, restart and checkpoint seconds and each process's peak memory.
 
 The engines of phases 2-6 run without the SLO records, and those of
 phases 2, 3 and 6 without the prefix cache, so their work counts and
@@ -156,23 +178,26 @@ PREFILL_CHUNK = 512
 CHUNK_SIZE = 16
 PIPELINE_DEPTH = 2
 NEW_TOKENS = 128
-#: the sampled waves compare their streams at two pipeline depths: 32
-#: tokens a request (8 x 32 positions) keep the script inside its time
-SAMPLED_NEW_TOKENS = 32
+#: the resubmitted greedy wave's tokens, held to the first wave's heads
+RESUBMIT_TOKENS = 32
+#: the sampled waves compare their streams at two pipeline depths: 16
+#: tokens a request (8 x 16 positions) keep the script inside its time
+SAMPLED_NEW_TOKENS = 16
 #: prompt lengths of the 8 requests: spread over 300-3000 tokens, crossing
 #: page (256) and prefill-chunk (512) boundaries
 PROMPT_LENS = (300, 3000, 777, 1536, 513, 2049, 1023, 2600)
 
 #: the long-context serving phase: the async-PPO recipe's generation
 #: settings (training/configs/async_ppo.yaml: gen_max_concurrent_batch 16,
-#: gen_kv_cache_len 32768), 14 prompts at the recipe's prompt cap and 2
-#: long ones (53336 prompt tokens), 16 new tokens each (the prompts of
-#: 16000 and 24000 tokens and three quarters of the new tokens were cut
-#: for the script's time: 16 decode chunks a wave, from 32; the 31000-token
-#: row still decodes on the deep kernel in arms B and C)
+#: gen_kv_cache_len 32768), 14 prompts at half the recipe's prompt cap
+#: and 2 long ones (46168 prompt tokens), 16 new tokens each (the prompts
+#: of 16000 and 24000 tokens, three quarters of the new tokens and half of
+#: each short prompt were cut for the script's time: 16 decode chunks a
+#: wave, from 32; the 31000-token row still decodes on the deep kernel in
+#: arms B and C)
 LONG_MAX_BATCH = 16
 LONG_KV_CACHE_LEN = 32768
-LONG_PROMPT_LENS = (1024,) * 14 + (8000, 31000)
+LONG_PROMPT_LENS = (512,) * 14 + (8000, 31000)
 LONG_NEW_TOKENS = 16
 #: the deep-kernel threshold of arms B and C
 DEEP_MIN_CONTEXT = 8192
@@ -186,31 +211,31 @@ DISPATCH_CONTEXTS = (4096, 8192, 16384, 32768)
 #: the prefix-cache phase, at the recipe's serving shape (max_batch 16,
 #: kv_cache_len 32768, group_size 16: training/configs/async_ppo.yaml:24):
 #: a group of 16 over one prompt of 1000 tokens (not a page multiple, so
-#: its tail block is copied per member), 64 new tokens each, then two
-#: rounds of continuations; a second group whose 1500-token prompt starts
+#: its tail block is copied per member), 64 new tokens each, then one
+#: round of continuations; a second group whose 1500-token prompt starts
 #: with the first prompt (a shared system prompt), through two weight
 #: swaps once its rows have generated PREFIX_SWAP_AFTER tokens
 PREFIX_GROUP = 16
 PREFIX_PROMPT = 1000
 PREFIX_SUFFIX = 500
 PREFIX_NEW_TOKENS = 64
-PREFIX_ROUNDS = 2
+PREFIX_ROUNDS = 1
 PREFIX_SHARED_NEW_TOKENS = 96
 #: the first sharer's recompute covers the shared blocks in full 512-token
 #: chunks of its own once it holds 1500 + 36 tokens
 PREFIX_SWAP_AFTER = 40
 #: the pressure arm: a quarter of the dense pool (16 pages of 256 against
-#: 8 x 2048 tokens) under 8 prompts of 512-1500 tokens, 96 new tokens
-#: each; sized for the script's time, it preempts twice, in 21 fill and 27
-#: decode chunks (``tools/prefix_rehearsal.py pressure``; PERF.md section 4
-#: lists the earlier sizes)
+#: 8 x 2048 tokens) under 8 prompts of 512-1500 tokens, 48 new tokens
+#: each; sized for the script's time, it preempts once and gives back one
+#: fill, in 18 fill and 19 decode chunks (``tools/prefix_rehearsal.py
+#: pressure``; PERF.md section 4 lists the earlier sizes)
 PRESSURE_MAX_BATCH = 8
 PRESSURE_KV_CACHE_LEN = 2048
 PRESSURE_POOL_TOKENS = 4096
 PRESSURE_PROMPT_LENS = (512, 1500, 750, 1024, 550, 1450, 888, 1250)
-PRESSURE_NEW_TOKENS = 96
+PRESSURE_NEW_TOKENS = 48
 #: the generation-server phase: the recipe's group traffic (group_size 16
-#: over one 1000-token prompt, temperature 1) with 512 new tokens (the
+#: over one 1000-token prompt, temperature 1) with 384 new tokens (the
 #: recipe allows 16384), then one continuation round of 64 under the new
 #: weights, served by GenerationServerWorker at the GenServerConfig
 #: defaults with the recipe's max_concurrent_batch 16 and kv_cache_len
@@ -218,8 +243,8 @@ PRESSURE_NEW_TOKENS = 96
 #: records on).  The server reads a command only between steps, and each
 #: of the stage, pause and commit RPCs may wait out a 64-step chunk; a
 #: group member may run a chunk ahead of the others; so every member
-#: needs more than 5 chunks of budget to be in flight when v1 applies
-SERVER_NEW_TOKENS = 512
+#: needs more than 5 chunks of budget to be in flight when v1 applies: 6
+SERVER_NEW_TOKENS = 384
 SERVER_CONT_NEW_TOKENS = 64
 #: the leaf whose shape the bad-manifest control alters
 SERVER_BAD_LEAF = "layers/0/mlp/down/w"
@@ -252,6 +277,15 @@ ASYNC_OFFPOLICYNESS = 4
 #: from 151936 hold one with probability 1 - exp(-256 * 300 / 151936) =
 #: 0.40, so groups mix rewards 0 and 1 and the advantages are not all 0
 ASYNC_ANSWER_WORDS = 300
+#: phase 8 (in one process) cut to pay for the processes phase, which runs
+#: at the ASYNC_* settings: one group of 128-token answers a step, 2 steps,
+#: and no head offpolicyness, so that step 2's group is admitted only once
+#: the manager has swapped step 1's version in: the run shows one swap
+#: staged and committed while trainer and server share the process
+LOOP_TRAIN_BS = 16
+LOOP_NEW_TOKENS = 128
+LOOP_STEPS = 2
+LOOP_OFFPOLICYNESS = 0
 #: cached prefixes of the mid-page prefill-entry case: a cache hit leaves
 #: a fill's start anywhere in a page
 MID_PAGE_PREFIXES = (1000, 1255, 257, 0)
@@ -965,11 +999,15 @@ def engine_phase(cfg, params, device, *, prompt_lens=PROMPT_LENS,
         f"decode {decode_tps:.1f} tok/s ({dec_tok} decode-chunk tokens / "
         f"the greedy wave's wall time less the first-token wave's)")
 
-    # resubmitting the same greedy wave gives the identical streams
-    again, _ = serve(eng, requests(prompts, new_tokens, "greedy"))
-    if [o.output_ids for o in again] != [o.output_ids for o in outs]:
+    # resubmitting the same greedy wave, cut to its first RESUBMIT_TOKENS
+    # tokens, gives the same streams' heads (the rows fill and decode
+    # together as in the first wave, over pool blocks it left behind)
+    again, _ = serve(eng, requests(prompts, RESUBMIT_TOKENS, "greedy"))
+    if ([o.output_ids for o in again]
+            != [o.output_ids[:RESUBMIT_TOKENS] for o in outs]):
         raise AssertionError("a resubmitted greedy wave changed its tokens")
-    log("engine check: resubmitted greedy wave gives identical tokens")
+    log(f"engine check: resubmitted greedy wave gives identical tokens (its "
+        f"first {RESUBMIT_TOKENS} of {new_tokens})")
 
     # update_weights changes the output and stamps the new version
     short = requests([p[:200] for p in prompts[:2]], 16, "swap")
@@ -1104,8 +1142,9 @@ def anatomy(fn, label, top=0):
     enqueue = time.perf_counter() - tik
     torch.cuda.synchronize()
     wall = time.perf_counter() - tik
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    # device activity only, as in _device_profile: the rows read below
+    # are device rows, and host ops need not be traced for them
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
     busy, kern = device_seconds(
@@ -2283,6 +2322,8 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
         prompt = make_prompts(cfg.vocab_size, [prompt_len], SEED + 41)[0]
         launches = LaunchGate(eng, cfg.n_layers, False)
         launches.start()
+        # the engine is idle here, so the counters agree with each other
+        s0 = (eng.decode_steps_total, eng.prefill_calls)
         tik = time.perf_counter()
         pending = generate_all([prompt] * group, new_tokens, "group")
         while eng.decode_chunks_total == 0:
@@ -2315,9 +2356,6 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
         if reply["decode_steps_during_stage"] < 1:
             raise AssertionError(f"{tag}: decoding did not go on during the "
                                  f"restore ({reply})")
-        if calls != cfg.n_layers * (steps + fills):
-            raise AssertionError(f"{tag}: {calls} paged calls around the stage "
-                                 f"for {steps} decode steps and {fills} fills")
         # the staged tree is the serving copy of what was published
         want = serving_params(_tree_map(lambda x: x.to(torch.bfloat16),
                                         master), cfg)
@@ -2332,6 +2370,21 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
             raise AssertionError(f"{tag}: the staged tree differs")
         if client.call("pause", {}) != "paused":
             raise AssertionError(f"{tag}: pause")
+        # the paged calls from the group's start to the pause, the stage
+        # inside: the server takes a command between steps, and a paused
+        # engine only drains, so these counters stand still now (read while
+        # a step is enqueued, as around the stage above, a count can be a
+        # layer ahead of the steps)
+        steps = eng.decode_steps_total - s0[0]
+        fills = eng.prefill_calls - s0[1]
+        calls = pa.paged_flash_attention.launches
+        log(f"{tag}: from the group's start to the pause: {steps} decode "
+            f"steps and {fills} fill chunks enqueued, {calls} paged kernel "
+            f"calls")
+        if calls != cfg.n_layers * (steps + fills):
+            raise AssertionError(f"{tag}: {calls} paged calls from the "
+                                 f"group's start to the pause for {steps} "
+                                 f"decode steps and {fills} fills")
         t_commit0 = time.perf_counter()
         reply = client.call("update_weights", {
             "path": snap, "version": 1, "format": "params", "mode": "commit"})
@@ -2504,8 +2557,8 @@ def _bit_equal(a, b) -> bool:
 def _dir_bytes(path) -> int:
     import os
 
-    return sum(os.path.getsize(os.path.join(path, f))
-               for f in os.listdir(path))
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
 
 
 def write_hf_dir(cfg, master, path) -> int:
@@ -2817,11 +2870,86 @@ def async_inputs(tmp, vocab, *, rows=ASYNC_ROWS, words=ASYNC_PROMPT_WORDS,
     return tok_dir, path
 
 
+def token_version_gate(tag, train_steps, member,
+                       offpolicyness=ASYNC_OFFPOLICYNESS):
+    """Every trajectory a train step consumed: its tokens' versions
+    non-decreasing, the first not earlier than its ``version_start`` (a
+    swap that applies while its prompt fills gives the first token a later
+    one, as in the reference), the last its ``version_end``, and the step's
+    version within ``max_head_offpolicyness`` of its start.  ``member(rec,
+    sid)`` gives ``(per-token versions, version_start, version_end)`` as the
+    rollout recorded them.  Returns the staleness histogram."""
+    from collections import Counter
+
+    staleness = Counter()
+    late_start = 0
+    for rec in train_steps:
+        k = rec["version"]
+        for sid, vs, ve in zip(rec["ids"], rec["version_start"],
+                               rec["version_end"]):
+            versions, v0, v1 = member(rec, sid)
+            if (versions != sorted(versions) or not versions
+                    or versions[0] < vs or versions[-1] != ve
+                    or (v0, v1) != (vs, ve)):
+                raise AssertionError(f"{tag}: {sid}: token versions "
+                                     f"{versions}, trajectory {vs}-{ve}")
+            if k - vs > offpolicyness or vs > k:
+                raise AssertionError(f"{tag}: {sid} (from v{vs}) trained at "
+                                     f"step version {k}")
+            staleness[k - vs] += 1
+            late_start += versions[0] > vs
+    log(f"{tag}: {sum(staleness.values())} trajectories consumed; staleness "
+        f"(train version - the version at admission): "
+        f"{dict(sorted(staleness.items()))}; per-token versions "
+        f"non-decreasing in every answer; {late_start} admitted under one "
+        f"version and first sampled under a later one (a swap applied while "
+        f"the prompt filled)")
+    return staleness
+
+
+def logprob_gap_gate(tag, inference_recs, versions_of):
+    """actor_inf's ``prox_logp`` against the server's behaviour logprobs on
+    the response tokens sampled under the trainer's version at that call
+    (``versions_of(rec, sid)``: a member's per-token versions), within
+    TOL_PROX_MEAN / TOL_PROX_MAX.  Returns (mean, max)."""
+    import numpy as np
+
+    diffs = []
+    for rec in inference_recs:
+        k = rec["version"]
+        mask = np.asarray(rec["prompt_mask"], bool)
+        behav, prox = np.asarray(rec["behav"]), np.asarray(rec["prox"])
+        starts = np.cumsum([0] + rec["lens"][:-1])
+        # logprobs are [L-1] per sequence, packed
+        lp_starts = np.cumsum([0] + [n - 1 for n in rec["lens"][:-1]])
+        for sid, s0, lp0, n in zip(rec["ids"], starts, lp_starts,
+                                   rec["lens"]):
+            versions = versions_of(rec, sid)
+            # transition t predicts token t + 1; the j-th response
+            # transition samples output token j
+            resp = np.flatnonzero(~mask[s0 + 1:s0 + n])
+            mine = [t for j, t in enumerate(resp) if versions[j] == k]
+            if mine:
+                idx = lp0 + np.asarray(mine)
+                diffs.append(np.abs(prox[idx] - behav[idx]))
+    d = np.concatenate(diffs) if diffs else np.zeros(0)
+    gap = (float(d.mean()) if d.size else float("nan"),
+           float(d.max()) if d.size else float("nan"))
+    log(f"{tag}: actor_inf prox_logp against the server's behaviour "
+        f"logprobs on {d.size} tokens sampled under the trainer's version: "
+        f"mean {gap[0]:.3e} (tol {TOL_PROX_MEAN}), max {gap[1]:.3e} (tol "
+        f"{TOL_PROX_MAX})")
+    if not d.size or not (gap[0] <= TOL_PROX_MEAN and gap[1] <= TOL_PROX_MAX):
+        raise AssertionError(f"{tag}: served and trained logprobs disagree")
+    return gap
+
+
 def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
                     prompt_words=ASYNC_PROMPT_WORDS,
                     train_bs=ASYNC_TRAIN_BS, new_tokens=ASYNC_NEW_TOKENS,
                     chunk_tokens=ASYNC_CHUNK_TOKENS,
                     max_tokens_per_mb=MAX_TOKENS_PER_MB, steps=ASYNC_STEPS,
+                    offpolicyness=ASYNC_OFFPOLICYNESS,
                     n_answers=ASYNC_ANSWER_WORDS, timeout=600.0, **exp_kw):
     """The whole async-PPO loop through the port's entry point:
     ``AsyncPPOMathExperiment`` at the recipe's settings (with the cuts of
@@ -2856,7 +2984,6 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
     import shutil
     import tempfile
     import threading
-    from collections import Counter
 
     import numpy as np
     import torch
@@ -3098,7 +3225,7 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
             use_decoupled_loss=PPO_RECIPE["use_decoupled_loss"],
             behav_imp_weight_cap=PPO_RECIPE["behav_imp_weight_cap"]),
         n_rollout_workers=2, n_gen_servers=1,
-        max_head_offpolicyness=ASYNC_OFFPOLICYNESS,
+        max_head_offpolicyness=offpolicyness,
         max_concurrent_rollouts=ASYNC_MAX_ROLLOUTS,
         new_tokens_per_chunk=chunk_tokens,
         gen_kv_cache_len=LONG_KV_CACHE_LEN,
@@ -3127,7 +3254,7 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
             f"{len(xcfg.rollout_workers)} rollout workers; train_bs_n_seqs "
             f"{train_bs}, group_size 16, {new_tokens} new tokens in chunks of "
             f"{chunk_tokens}, max_concurrent_rollouts {ASYNC_MAX_ROLLOUTS}, "
-            f"max_head_offpolicyness {ASYNC_OFFPOLICYNESS}, "
+            f"max_head_offpolicyness {offpolicyness}, "
             f"max_tokens_per_mb {max_tokens_per_mb}, lr {TRAIN_LR} without "
             f"warm-up, {steps} steps; {rows} rows, the tokenizer's "
             f"{cfg.vocab_size} words")
@@ -3173,37 +3300,18 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
     log(f"{tag}: publishes {[(p['version'], round(p['full'], 3), round(p['int8'], 3)) for p in publishes]} "
         f"(version, full, int8 seconds); swap rounds {swaps}; stage/commit "
         f"RPCs {stage_rpcs}")
-    if eng.version < 2 or not applied or max(applied) != eng.version:
+    # every publish but the last is swapped in before the run ends; the
+    # last one's round may still be in flight when the master ends, and its
+    # commit may land as the manager's clients close
+    if (not applied or max(applied) < steps - 1
+            or eng.version not in (max(applied), steps)):
         raise AssertionError(f"{tag}: the server ended at v{eng.version}; "
                              f"the manager applied {applied}")
 
     # -- staleness and versions per token --------------------------------
-    staleness = Counter()
-    consumed = late_start = 0
-    for rec in (r for r in mfcs if r["handle"] == "train_step"):
-        k = rec["version"]
-        for sid, vs, ve in zip(rec["ids"], rec["version_start"],
-                               rec["version_end"]):
-            versions, v0, v1 = members[sid]
-            # a trajectory starts at its admission's version; a swap that
-            # applies while its prompt still fills gives its first token a
-            # later one (the engine's version_start, as the reference's)
-            if (versions != sorted(versions) or not versions
-                    or versions[0] < vs or versions[-1] != ve
-                    or (v0, v1) != (vs, ve)):
-                raise AssertionError(f"{tag}: {sid}: token versions "
-                                     f"{versions}, trajectory {vs}-{ve}")
-            if k - vs > ASYNC_OFFPOLICYNESS or vs > k:
-                raise AssertionError(f"{tag}: {sid} (from v{vs}) trained at "
-                                     f"step version {k}")
-            staleness[k - vs] += 1
-            consumed += 1
-            late_start += versions[0] > vs
-    log(f"{tag}: {consumed} trajectories consumed; staleness (train version "
-        f"- the version at admission): {dict(sorted(staleness.items()))}; "
-        f"per-token versions non-decreasing in every answer; {late_start} "
-        f"admitted under one version and first sampled under a later one (a "
-        f"swap applied while the prompt filled)")
+    staleness = token_version_gate(
+        tag, [r for r in mfcs if r["handle"] == "train_step"],
+        lambda rec, sid: members[sid], offpolicyness)
 
     # -- manifests and the int8 siblings ----------------------------------
     for m in manifests:
@@ -3253,9 +3361,11 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
     # -- the served weights are the published weights --------------------
     snap = os.path.join(trial_save, "actor", f"v{eng.version}")
     served = checkpoint.load_params_like(eng.params, snap)
-    same = all(a.dtype == b.dtype and torch.equal(a, b)
-               for a, b in zip(_leaves(served), _leaves(eng.params)))
-    del served
+    ref, got = _by_path(served), _by_path(eng.params)
+    # a server widens its norm scales to float32, exactly
+    same = ref.keys() == got.keys() and all(
+        torch.equal(ref[k].to(got[k].dtype), got[k]) for k in got)
+    del served, ref, got
     log(f"{tag}: the served v{eng.version} tree is bit-identical to the "
         f"published snapshot: {same}")
     if not same:
@@ -3263,31 +3373,9 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
                              f"{eng.version}'s snapshot")
 
     # -- logprobs: actor_inf against the behaviour logprobs ---------------
-    diffs = []
-    for rec in (r for r in mfcs if r["handle"] == "inference"):
-        k = rec["version"]
-        starts = np.cumsum([0] + rec["lens"][:-1])
-        # logprobs are [L-1] per sequence, packed
-        lp_starts = np.cumsum([0] + [n - 1 for n in rec["lens"][:-1]])
-        for sid, s0, lp0, n in zip(rec["ids"], starts, lp_starts,
-                                   rec["lens"]):
-            versions = members[sid][0]
-            # transition t predicts token t + 1; the j-th response
-            # transition samples output token j
-            resp = np.flatnonzero(~rec["prompt_mask"][s0 + 1:s0 + n])
-            mine = [t for j, t in enumerate(resp) if versions[j] == k]
-            if mine:
-                idx = lp0 + np.asarray(mine)
-                diffs.append(np.abs(rec["prox"][idx] - rec["behav"][idx]))
-    d = np.concatenate(diffs) if diffs else np.zeros(0)
-    gap = (float(d.mean()) if d.size else float("nan"),
-           float(d.max()) if d.size else float("nan"))
-    log(f"{tag}: actor_inf prox_logp against the server's behaviour "
-        f"logprobs on {d.size} tokens sampled under the trainer's version: "
-        f"mean {gap[0]:.3e} (tol {TOL_PROX_MEAN}), max {gap[1]:.3e} (tol "
-        f"{TOL_PROX_MAX})")
-    if not d.size or not (gap[0] <= TOL_PROX_MEAN and gap[1] <= TOL_PROX_MAX):
-        raise AssertionError(f"{tag}: served and trained logprobs disagree")
+    gap = logprob_gap_gate(
+        tag, [r for r in mfcs if r["handle"] == "inference"],
+        lambda rec, sid: members[sid][0])
 
     # -- launches -----------------------------------------------------------
     inf_mbs = sum(r["n_mbs"] for r in mfcs if r["handle"] == "inference")
@@ -3359,6 +3447,855 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
         f"stage RPCs {[(r['version'], r['mode'], round(r['s'], 3)) for r in stage_rpcs]} s; "
         f"pause {[(w['version'], round(w['pause_s'], 3)) for w in swaps]} s; "
         f"peak device memory {peak:.2f} GiB; phase {secs:.1f} s, on {card}")
+    return res
+
+
+# -- the processes phase: one process per worker ---------------------------
+
+#: the processes phase's trial: the recover checkpoint after step 2, the
+#: model worker's process killed then, the HF save at step 3
+PROC_CKPT_STEP = 2
+PROC_SAVE_STEP = 3
+#: chunk of a tensor's elements summed at once by :func:`tensor_digest`
+DIGEST_CHUNK = 1 << 24
+
+
+def tensor_digest(t):
+    """Two sums over a tensor's bits, as integers: of its elements' bit
+    patterns, and of each pattern times its position modulo 65521, plus
+    one (both modulo 2**64, so the order of the sums does not matter).
+    Tensors of one dtype and shape with equal digests are taken as
+    bit-identical; the digest crosses a process boundary as two numbers."""
+    import torch
+
+    bits = {4: torch.int32, 2: torch.int16, 1: torch.int8}[t.element_size()]
+    flat = t.detach().contiguous().view(-1).view(bits)
+    s1 = torch.zeros((), dtype=torch.int64, device=flat.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=flat.device)
+    for i in range(0, flat.numel(), DIGEST_CHUNK):
+        c = flat[i:i + DIGEST_CHUNK].to(torch.int64)
+        w = torch.arange(i, i + c.numel(), device=c.device) % 65521 + 1
+        s1 += c.sum()
+        s2 += (c * w).sum()
+    return [str(t.dtype), list(t.shape), int(s1), int(s2)]
+
+
+def tree_digest(tree):
+    """``{"a/b/c": tensor_digest(leaf)}`` over a parameter tree, keyed as
+    the port's snapshots key their tensors."""
+    from areal_tpu_torch.engine.checkpoint import _flatten
+
+    return {"/".join(kp): tensor_digest(leaf) for kp, leaf in _flatten(tree)}
+
+
+def file_digest(path, device, like=None):
+    """:func:`tree_digest` of every tensor of a safetensors file, read one
+    tensor at a time onto ``device``; with ``like`` (a digest), each
+    tensor is first cast to the dtype ``like`` names for it, as a restore
+    casts a snapshot's leaves to the engine's (a server keeps its norm
+    scales in float32 where the snapshot has the model dtype)."""
+    import torch
+    from safetensors import safe_open
+
+    out = {}
+    with safe_open(path, framework="pt", device=str(device)) as f:
+        for k in f.keys():
+            t = f.get_tensor(k)
+            if like is not None and k in like:
+                t = t.to(getattr(torch, like[k][0].split(".")[-1]))
+            out[k] = tensor_digest(t)
+    return out
+
+
+def _probe_write(rec):
+    from areal_tpu_torch.base import constants
+
+    rec = dict(rec, pid=os.getpid(), time=time.time(),
+               launch=int(os.environ.get("AREAL_RECOVER") == "1"))
+    path = os.path.join(constants.get_log_path(),
+                        f"probe.{_PROBE['worker']}.jsonl")
+    with open(path, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+
+
+_PROBE = {}
+
+#: seconds between two lines of a generation server's counters file
+COUNTERS_INTERVAL = 2.0
+
+
+def kernel_launch_counters():
+    """This process's kernel wrappers' launch counters (each wrapper adds
+    one where it launches its kernel)."""
+    from areal_tpu_torch.ops import decode_attention as da
+    from areal_tpu_torch.ops import paged_attention as pa
+    from areal_tpu_torch.ops.flash_attention import flash_attention as fa
+
+    std, deep = pa.paged_flash_attention, pa.paged_flash_attention_deep
+    return dict(
+        paged_std=std.launches, paged_std_int8=std.int8_launches,
+        paged_prefill=std.prefill_launches, paged_deep=deep.launches,
+        paged_deep_int8=deep.int8_launches, flash_fwd=fa.fwd_launches,
+        flash_bwd=fa.bwd_launches, flash_decode=da.flash_decode.launches,
+    )
+
+
+def _counters_write(worker_name, rec):
+    """One line of a device process's own counters (its kernel wrappers'
+    launches, its peak device memory and ``rec``) appended to
+    ``<worker_name>.counters.jsonl`` in the trial's log directory."""
+    import torch
+
+    from areal_tpu_torch.base import constants
+
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if torch.cuda.is_initialized() else 0.0)
+    rec = dict(rec, pid=os.getpid(), time=time.time(),
+               launches=kernel_launch_counters(), peak_gib=peak)
+    path = os.path.join(constants.get_log_path(),
+                        f"{worker_name}.counters.jsonl")
+    with open(path, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+
+
+def process_probe(worker_type, worker_index, worker):
+    """``AREAL_WORKER_HOOK=chip_smoke:process_probe``: in each worker
+    process of the processes phase, wrap the worker's methods as phase 8's
+    wrappers do and append what they record, as JSON lines, to
+    ``probe.<worker>.jsonl`` in the trial's log directory; the device
+    processes also append their own counters to
+    ``<worker>.counters.jsonl`` (the model worker after each request that
+    ran its model, the server every COUNTERS_INTERVAL seconds and at its
+    exit).  A killed process keeps what it wrote."""
+    import numpy as np
+
+    _PROBE["worker"] = f"{worker_type}{worker_index}"
+    _probe_write(dict(kind="start", worker_type=worker_type))
+
+    def wrap(owner, name, make):
+        setattr(owner, name, make(getattr(owner, name)))
+
+    def on_exit(orig):
+        def f(self):
+            out = orig(self)
+            # whether this process ever created a CUDA context
+            torch = sys.modules.get("torch")
+            _probe_write(dict(kind="exit", cuda=bool(
+                torch is not None and torch.cuda.is_initialized())))
+            return out
+        return f
+
+    wrap(type(worker), "_exit_hook", on_exit)
+
+    if worker_type == "rollout_worker":
+        from areal_tpu_torch.system import partial_rollout as pr
+
+        def on_gen_one(orig):
+            async def f(self, qid, prompt_ids, root=None, presched=None):
+                out = await orig(self, qid, prompt_ids, root=root,
+                                 presched=presched)
+                _probe_write(dict(kind="member", qid=qid,
+                                  versions=list(out.output_versions),
+                                  v0=out.version_start, v1=out.version_end))
+                return out
+            return f
+
+        wrap(pr.PartialRolloutManager, "_gen_one", on_gen_one)
+    elif worker_type == "gserver_manager":
+        from areal_tpu_torch.observability import get_registry
+        from areal_tpu_torch.system import gserver_manager as gm
+
+        def on_update_one(orig):
+            def f(self, addr, client, payload, timeout=None):
+                tik = time.perf_counter()
+                out = orig(self, addr, client, payload, timeout=timeout)
+                _probe_write(dict(kind="stage_rpc", version=payload["version"],
+                                  mode=payload.get("mode", "full"),
+                                  s=time.perf_counter() - tik))
+                return out
+            return f
+
+        def on_flush(orig):
+            def f(self, info):
+                tik = time.perf_counter()
+                out = orig(self, info)
+                _probe_write(dict(
+                    kind="swap", version=info["version"],
+                    applied=self._model_version,
+                    round_s=time.perf_counter() - tik,
+                    pause_s=get_registry().gauge(
+                        "areal_gserver_weight_update_pause_seconds").value()))
+                return out
+            return f
+
+        wrap(gm.GserverManager, "_update_one_server", on_update_one)
+        wrap(gm.GserverManager, "_flush_and_update", on_flush)
+    elif worker_type == "gen_server":
+        from areal_tpu_torch.system import generation_server as gs
+
+        def server_counters(self):
+            eng = self.engine
+            _PROBE["counters_at"] = time.monotonic()
+            _counters_write(self.worker_name, dict(
+                kind="gen_server", version=eng.version,
+                chunk_size=eng.chunk_size, prefill_calls=eng.prefill_calls,
+                one_token_fill_calls=eng.one_token_fill_calls,
+                decode_chunks_total=eng.decode_chunks_total,
+                deep_decode_chunks_total=eng.deep_decode_chunks_total,
+                decode_tokens_total=eng.decode_tokens_total,
+                gen_tokens_total=eng.gen_tokens_total))
+
+        def on_poll(orig):
+            def f(self):
+                out = orig(self)
+                if (getattr(self, "engine", None) is not None
+                        and time.monotonic() - _PROBE.get("counters_at", 0.0)
+                        > COUNTERS_INTERVAL):
+                    server_counters(self)
+                return out
+            return f
+
+        def on_exit_hook(orig):
+            def f(self):
+                eng = getattr(self, "engine", None)
+                if eng is not None:
+                    server_counters(self)
+                    _probe_write(dict(kind="served", version=eng.version,
+                                      digest=tree_digest(eng.params)))
+                return orig(self)
+            return f
+
+        wrap(gs.GenerationServerWorker, "_poll", on_poll)
+        wrap(gs.GenerationServerWorker, "_exit_hook", on_exit_hook)
+    elif worker_type == "model_worker":
+        from areal_tpu_torch.engine import checkpoint
+        from areal_tpu_torch.observability import get_registry
+        from areal_tpu_torch.system import model_worker as mw
+
+        mbs = {"inference": 0, "train_step": 0}
+
+        def trainer_counters(self):
+            # the micro-batches run by kind, against which the flash
+            # kernels' launches are checked
+            _counters_write(self.worker_name, dict(
+                kind="model_worker", mbs=dict(mbs),
+                versions={k: m.version.global_step
+                          for k, m in self._models.items()},
+                engine_versions={k: int(getattr(m.engine, "version", 0))
+                                 for k, m in self._models.items()}))
+
+        def state_digest(engine):
+            return dict(digest=tree_digest(checkpoint._state_tree(engine)),
+                        engine_version=int(engine.version),
+                        opt_count=int(engine.opt.count))
+
+        def on_fetch(orig):
+            def f(self, batch_size):
+                tik = time.perf_counter()
+                try:
+                    return orig(self, batch_size)
+                finally:
+                    _probe_write(dict(kind="fetch",
+                                      s=time.perf_counter() - tik))
+            return f
+
+        def hist_sum(part):
+            return get_registry().histogram(
+                "areal_weight_publish_seconds").snapshot(part=part)[0]
+
+        def on_publish(orig):
+            def f(self, model_name):
+                s0 = {p: hist_sum(p) for p in ("full", "int8")}
+                tik = time.perf_counter()
+                out = orig(self, model_name)
+                _probe_write(dict(
+                    kind="publish",
+                    version=self._models[model_name].version.global_step,
+                    host_s=time.perf_counter() - tik,
+                    **{p: hist_sum(p) - s0[p] for p in ("full", "int8")}))
+                return out
+            return f
+
+        def on_rpc(orig):
+            def f(self, req):
+                if _PROBE.get("held"):
+                    # the launcher's kill comes within a poll of the
+                    # recover info: no step of this launch runs past it
+                    time.sleep(3600)
+                spec = req.data
+                handle, ids = spec["handle_name"], list(spec["ids"])
+                model = self._models[spec["model_name"]]
+                rec = dict(kind=handle, version=model.version.global_step,
+                           ids=ids)
+                if handle == "train_step":
+                    v = self._data_manager.get_batch(
+                        ids, ["version_start", "version_end"])
+                    for k in ("version_start", "version_end"):
+                        rec[k] = np.asarray(v.data[k]).reshape(-1).tolist()
+                out = orig(self, req)
+                if handle in mbs:
+                    mbs[handle] += int(
+                        model.engine.last_forward_mbs if handle == "inference"
+                        else out["stats"]["n_mbs"])
+                    trainer_counters(self)
+                if handle == "inference":
+                    rec["n_mbs"] = model.engine.last_forward_mbs
+                    b = self._data_manager.get_batch(ids, [
+                        "packed_input_ids", "packed_logprobs", "prompt_mask",
+                        "prox_logp"])
+                    rec["lens"] = [l[0] for l in b.seqlens["packed_input_ids"]]
+                    rec["prompt_mask"] = np.asarray(
+                        b.data["prompt_mask"]).astype(int).tolist()
+                    rec["behav"] = np.asarray(
+                        b.data["packed_logprobs"]).tolist()
+                    rec["prox"] = np.asarray(b.data["prox_logp"]).tolist()
+                elif handle == "train_step":
+                    rec["n_mbs"] = int(out["stats"]["n_mbs"])
+                rec["elapsed"] = out.get("elapsed", 0.0)
+                _probe_write(rec)
+                return out
+            return f
+
+        def on_save(orig):
+            def f(self, model_name, path):
+                tik = time.perf_counter()
+                orig(self, model_name, path)
+                trainer_counters(self)
+                engine = self._models[model_name].engine
+                _probe_write(dict(kind="hf_save", path=path,
+                                  version=engine.version,
+                                  s=time.perf_counter() - tik,
+                                  bytes=_dir_bytes(path),
+                                  digest=tree_digest(engine.params)))
+            return f
+
+        def on_ckpt(orig):
+            def f(self, model_name, path):
+                tik = time.perf_counter()
+                orig(self, model_name, path)
+                s = time.perf_counter() - tik
+                trainer_counters(self)
+                _probe_write(dict(kind="ckpt", path=path, s=s,
+                                  bytes=_dir_bytes(path),
+                                  **state_digest(
+                                      self._models[model_name].engine)))
+                kill = os.environ.get("CHIP_SMOKE_KILL_AFTER_STEP")
+                if (kill and os.environ.get("AREAL_RECOVER") != "1"
+                        and path.endswith(f"globalstep{kill}")):
+                    _PROBE["held"] = True
+            return f
+
+        def on_recover(orig):
+            def f(self, name, backend, model):
+                tik = time.perf_counter()
+                t_publish = []
+                publish = self._publish_weights
+
+                def timed_publish(model_name):
+                    t0 = time.perf_counter()
+                    publish(model_name)
+                    t_publish.append(time.perf_counter() - t0)
+
+                self._publish_weights = timed_publish
+                try:
+                    orig(self, name, backend, model)
+                finally:
+                    del self._publish_weights
+                if os.environ.get("AREAL_RECOVER") == "1":
+                    _probe_write(dict(
+                        kind="recover_load",
+                        s=time.perf_counter() - tik - sum(t_publish),
+                        republish_s=sum(t_publish),
+                        step=model.version.global_step,
+                        **state_digest(model.engine)))
+            return f
+
+        wrap(mw.ModelWorker, "_handle_fetch", on_fetch)
+        wrap(mw.ModelWorker, "_publish_weights", on_publish)
+        wrap(mw.ModelWorker, "_handle_model_rpc", on_rpc)
+        wrap(mw.ModelWorker, "_save_model", on_save)
+        wrap(mw.ModelWorker, "_ckpt_model", on_ckpt)
+        wrap(mw.ModelWorker, "_maybe_recover_load", on_recover)
+
+
+def read_jsonl(path):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def trial_records(log_dir):
+    """What the worker processes of a trial left in its log directory:
+    ``(stats rows, {worker: counters lines}, {worker: probe lines})``."""
+    import glob
+
+    def by_worker(pattern, strip):
+        return {os.path.basename(p)[len(strip[0]):-len(strip[1])]:
+                read_jsonl(p)
+                for p in sorted(glob.glob(os.path.join(log_dir, pattern)))}
+
+    return (read_jsonl(os.path.join(log_dir, "stats.jsonl")),
+            by_worker("*.counters.jsonl", ("", ".counters.jsonl")),
+            by_worker("probe.*.jsonl", ("probe.", ".jsonl")))
+
+
+def kill_after_recover_info(step, recover_info, counters, stop, out,
+                            poll=0.2):
+    """Wait for the master's recover info to resume at ``step`` (its
+    checkpoint written), then SIGKILL the model worker's process (the pid
+    of the last line of its counters file ``counters``); records the
+    time and pid in ``out``.  Returns early once ``stop`` is set."""
+    import signal
+
+    while not stop.is_set():
+        try:
+            with open(recover_info) as f:
+                at = json.load(f)["recover_start"]["global_step"]
+        except (OSError, ValueError, KeyError):
+            at = None
+        if at == step:
+            pid = read_jsonl(counters)[-1]["pid"]
+            out.update(pid=pid, time=time.time())
+            os.kill(pid, signal.SIGKILL)
+            return
+        stop.wait(poll)
+
+
+def compute_apps():
+    """``[(pid, used MiB)]`` of the processes that hold a CUDA context, as
+    ``nvidia-smi --query-compute-apps`` lists them."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30)
+    out = []
+    for line in res.stdout.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            out.append((int(parts[0]),
+                        float(parts[1]) if parts[1].replace(".", "").isdigit()
+                        else float("nan")))
+    return out
+
+
+def _last_by_pid(lines):
+    """The last line of each process in a counters or probe file, in the
+    order the processes started."""
+    out = {}
+    for line in lines:
+        out[line["pid"]] = line
+    return out
+
+
+def processes_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
+                    prompt_words=ASYNC_PROMPT_WORDS,
+                    train_bs=ASYNC_TRAIN_BS, new_tokens=ASYNC_NEW_TOKENS,
+                    chunk_tokens=ASYNC_CHUNK_TOKENS,
+                    max_tokens_per_mb=MAX_TOKENS_PER_MB, steps=ASYNC_STEPS,
+                    ckpt_step=PROC_CKPT_STEP, n_answers=ASYNC_ANSWER_WORDS,
+                    timeout=900.0, **exp_kw):
+    """Phase 8's experiment as one process per worker, through the port's
+    launcher, ``launch_experiment(mode="local", recover_retries=1)``: the
+    master, the model worker, the generation server, the gserver manager
+    and two rollout workers, each ``python -m areal_tpu_torch.apps.remote``
+    (6 processes), with a recover checkpoint at step ``ckpt_step`` and the
+    HF save at step ``steps``.  Once the master's recover info resumes at
+    ``ckpt_step``, the script SIGKILLs the model worker's process; the
+    launcher's restart policy stops every process and launches them all
+    again with ``AREAL_RECOVER=1``, and the run resumes at step
+    ``ckpt_step + 1`` and ends at ``steps``.
+
+    Each worker process runs :func:`process_probe`
+    (``AREAL_WORKER_HOOK``); the gates read across the process boundary:
+    the master's ``stats.jsonl`` (the steps, exactly ``steps - ckpt_step``
+    after the restart), the device processes' own counters files (their
+    kernel wrappers' launches against their engines' work, their versions,
+    their peak memory), the probes' lines (token versions, logprobs,
+    swaps, checksums of what a process held) and the snapshots and the HF
+    save on disk; ``nvidia-smi`` must list no process holding the card
+    but this one, the model workers and the servers, and no worker
+    process may outlive the phase.  ``exp_kw`` overrides experiment
+    fields (CPU rehearsals)."""
+    import signal
+    import threading
+    from pathlib import Path
+
+    import torch
+
+    from areal_tpu_torch.api.config import DatasetAbstraction, ModelAbstraction
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters
+    from areal_tpu_torch.api.system_api import ExperimentSaveEvalControl
+    from areal_tpu_torch.apps.main import launch_experiment
+    from areal_tpu_torch.base import constants, name_resolve, names
+    from areal_tpu_torch.base.recover import RECOVER_INFO_FILE
+    from areal_tpu_torch.engine import checkpoint
+    from areal_tpu_torch.engine.optimizer import OptimizerConfig
+    from areal_tpu_torch.experiments.async_ppo_exp import (
+        AsyncPPOMathExperiment,
+    )
+    from areal_tpu_torch.experiments.ppo_math_exp import PPOHyperparameters
+    from areal_tpu_torch.models.hf import load_hf_model
+
+    tag = "processes"
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_procs_")
+    here = str(Path(__file__).resolve().parent)
+    env = dict(
+        AREAL_LOG_ROOT=os.path.join(tmp, "logs"),
+        AREAL_SAVE_ROOT=os.path.join(tmp, "save"),
+        AREAL_CACHE_ROOT=os.path.join(tmp, "cache"),
+        AREAL_NAME_RESOLVE="nfs",
+        AREAL_NAME_RESOLVE_ROOT=os.path.join(tmp, "name_resolve"),
+        AREAL_WORKER_HOOK="chip_smoke:process_probe",
+        CHIP_SMOKE_KILL_AFTER_STEP=str(ckpt_step),
+        PYTHONPATH=os.pathsep.join(
+            p for p in (here, os.environ.get("PYTHONPATH")) if p),
+    )
+    env0 = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    L = cfg.n_layers
+    kill = {}
+    stop = threading.Event()
+    apps = []  # (time, [(pid, MiB)]) samples of nvidia-smi
+
+    def sample_apps():
+        while not stop.wait(5.0):
+            try:
+                apps.append((time.time(), compute_apps()))
+            except (OSError, subprocess.SubprocessError):
+                pass
+
+    beats = {}  # worker -> the longest heartbeat age seen
+
+    def sample_beats(worker_names):
+        from areal_tpu_torch.system.worker_base import WorkerControlPanel
+
+        panel = WorkerControlPanel(xcfg.experiment_name, xcfg.trial_name)
+        while not stop.wait(1.0):
+            for w in worker_names:
+                try:
+                    age = panel.get_heartbeat_age(w)
+                except Exception:  # noqa: BLE001 - a key cleared by a launch
+                    age = None
+                if age is not None:
+                    beats[w] = max(beats.get(w, 0.0), age)
+
+    threads = []
+    try:
+        tok_dir, data_path = async_inputs(tmp, cfg.vocab_size, rows=rows,
+                                          words=prompt_words,
+                                          n_answers=n_answers)
+        exp_args = dict(
+            experiment_name="chipsmoke", trial_name="procs",
+            n_model_workers=1, force_cpu_devices=None if cuda else 1,
+            exp_ctrl=ExperimentSaveEvalControl(
+                total_train_epochs=1, benchmark_steps=steps,
+                save_freq_steps=steps, ckpt_freq_steps=ckpt_step),
+            actor=ModelAbstraction(
+                "hf", {"path": hf_dir, "remat": True, "dtype": cfg.dtype}),
+            train_bs_n_seqs=train_bs, group_size=16,
+            mb_spec=MicroBatchSpec(max_tokens_per_mb=max_tokens_per_mb),
+            actor_optimizer=OptimizerConfig(lr=TRAIN_LR,
+                                            warmup_steps_proportion=0.0),
+            ppo=PPOHyperparameters(
+                gen=GenerationHyperparameters(max_new_tokens=new_tokens,
+                                              temperature=1.0),
+                ppo_n_minibatches=PPO_RECIPE["n_minibatches"],
+                kl_ctl=PPO_RECIPE["kl_ctl"],
+                disable_value=PPO_RECIPE["disable_value"],
+                use_decoupled_loss=PPO_RECIPE["use_decoupled_loss"],
+                behav_imp_weight_cap=PPO_RECIPE["behav_imp_weight_cap"]),
+            n_rollout_workers=2, n_gen_servers=1,
+            max_head_offpolicyness=ASYNC_OFFPOLICYNESS,
+            max_concurrent_rollouts=ASYNC_MAX_ROLLOUTS,
+            new_tokens_per_chunk=chunk_tokens,
+            gen_kv_cache_len=LONG_KV_CACHE_LEN,
+            gen_max_concurrent_batch=LONG_MAX_BATCH,
+            tokenizer_path=tok_dir,
+            dataset=DatasetAbstraction("math_code_prompt", {
+                "dataset_path": data_path, "max_length": ASYNC_MAX_LENGTH}),
+        )
+        exp_args.update(exp_kw)
+        xcfg = AsyncPPOMathExperiment(**exp_args).initial_setup()
+        constants.set_experiment_trial_names(xcfg.experiment_name,
+                                             xcfg.trial_name)
+        log_dir = constants.get_log_path()
+        recover_dir = constants.get_recover_path()
+        realloc_dir = constants.get_param_realloc_path()
+        disk = shutil.disk_usage(env["AREAL_SAVE_ROOT"])
+        log(f"{tag}: {len(xcfg.rollout_workers) + 4} worker processes "
+            f"(master, model worker, generation server, gserver manager, "
+            f"{len(xcfg.rollout_workers)} rollout workers) through "
+            f"launch_experiment(mode='local', recover_retries=1); phase 8's "
+            f"settings, {steps} steps, recover checkpoint at step "
+            f"{ckpt_step}, HF save at step {steps}; the save root has "
+            f"{disk.free / 1e9:.1f} of {disk.total / 1e9:.1f} GB free")
+        if cuda:
+            free, total = torch.cuda.mem_get_info()
+            log(f"{tag}: device memory before the launch: "
+                f"{(total - free) / 2**30:.2f} GiB in use on the card, "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+                f"by this process")
+        threads = [threading.Thread(
+            target=kill_after_recover_info, name="chip-smoke-kill",
+            args=(ckpt_step, os.path.join(recover_dir, RECOVER_INFO_FILE),
+                  os.path.join(log_dir, f"{xcfg.model_workers[0].worker_name}"
+                               ".counters.jsonl"), stop, kill),
+            daemon=True)]
+        from areal_tpu_torch.apps.main import _worker_specs
+
+        threads.append(threading.Thread(
+            target=sample_beats, daemon=True, name="chip-smoke-beats",
+            args=([w for _, _, w in _worker_specs(xcfg)],)))
+        if cuda:
+            threads.append(threading.Thread(target=sample_apps, daemon=True,
+                                            name="chip-smoke-smi"))
+        for t in threads:
+            t.start()
+        tik = time.time()
+        launch_experiment(xcfg, mode="local", recover_retries=1,
+                          timeout=timeout)
+        run_s = time.time() - tik
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(30)
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    stats, counters, probes = trial_records(log_dir)
+    if not kill:
+        raise AssertionError(f"{tag}: the model worker was never killed "
+                             f"(no recover info at step {ckpt_step})")
+    recs = [r for lines in probes.values() for r in lines]
+
+    def probe(kind, launch=None):
+        return [r for r in recs if r["kind"] == kind
+                and (launch is None or r["launch"] == launch)]
+
+    starts = probe("start")
+    pids = {r["pid"]: r["worker_type"] for r in starts}
+    restart = [r for r in stats if r["time"] > kill["time"]]
+
+    # -- the master's steps, before and after the restart -----------------
+    for st in stats:
+        log(f"{tag}: step {st['step']}{' (resumed)' if st in restart else ''}"
+            f": wall {st['time_perf/e2e']:.3f} s, actor_train/loss "
+            f"{st['actor_train/loss']:.6e}, kl {st['actor_train/kl']:.3e}, "
+            f"reward_mean {st['actor_train/reward_mean']:.4f}, n_tokens "
+            f"{st['actor_train/n_tokens']:.0f}, actor_inf "
+            f"{st['actor_inf/elapsed']:.3f} s, actor_train "
+            f"{st['actor_train/elapsed']:.3f} s, trainer peak "
+            f"{st.get('actor_train/device0/hbm_peak_gb', 0.0):.2f} GB")
+    if ([st["step"] for st in stats] != list(range(1, steps + 1))
+            or [st["step"] for st in restart]
+            != list(range(ckpt_step + 1, steps + 1))
+            or not all(math.isfinite(st["actor_train/loss"])
+                       and "actor_train/kl" in st for st in stats)):
+        raise AssertionError(f"{tag}: master steps {stats} (killed at "
+                             f"{kill})")
+
+    # -- the recover -------------------------------------------------------
+    name_resolve.reconfigure("nfs", record_root=env["AREAL_NAME_RESOLVE_ROOT"])
+    try:
+        loaded_from = name_resolve.get(names.recover_load(
+            xcfg.experiment_name, xcfg.trial_name, "actor@0"))
+    finally:
+        name_resolve.reconfigure("memory")
+    (ckpt,) = [r for r in probe("ckpt", 0)
+               if r["path"].endswith(f"globalstep{ckpt_step}")]
+    (load,) = probe("recover_load", 1)
+    same_state = all(ckpt[k] == load[k] for k in
+                     ("digest", "engine_version", "opt_count"))
+    first_resumed = min(st["time"] for st in restart)
+    restart_s = first_resumed - kill["time"]
+    log(f"{tag}: killed the model worker (pid {kill['pid']}) after step "
+        f"{ckpt_step}'s recover checkpoint; the restarted model worker "
+        f"recorded recover_load {loaded_from} and restored its train state "
+        f"(step {load['step']}, engine version {load['engine_version']}, "
+        f"AdamW count {load['opt_count']}) with checksums equal to what step "
+        f"{ckpt_step} wrote: {same_state}; restart {restart_s:.1f} s from "
+        f"the kill to the first resumed step's end; checkpoint "
+        f"{ckpt['bytes'] / 1e9:.3f} GB written in {ckpt['s']:.3f} s, read "
+        f"in {load['s']:.3f} s, the restored weights republished in "
+        f"{load['republish_s']:.3f} s")
+    if (not loaded_from.endswith(f"globalstep{ckpt_step}") or not same_state
+            or load["step"] != ckpt_step):
+        raise AssertionError(f"{tag}: the recover did not restore step "
+                             f"{ckpt_step}'s train state")
+
+    # -- swaps and the served version ---------------------------------------
+    swaps = probe("swap")
+    (served,) = probe("served", 1)
+    applied = [s["applied"] for s in swaps if s["launch"] == 1]
+    trained = _last_by_pid(next(v for k, v in counters.items()
+                                if k.startswith("model_worker")))
+    final_trained = list(trained.values())[-1]["versions"]["actor@0"]
+    log(f"{tag}: swap rounds {[(s['launch'], s['version'], s['applied'], round(s['pause_s'], 3)) for s in swaps]} "
+        f"(launch, version, applied, pause s); the server ended at "
+        f"v{served['version']}, the trainer at v{final_trained}")
+    if (not applied or served["version"] != max(applied)
+            or served["version"] < ckpt_step
+            or served["version"] not in (final_trained, final_trained - 1)):
+        raise AssertionError(f"{tag}: served v{served['version']}, applied "
+                             f"{applied}, trained v{final_trained}")
+
+    # -- staleness and versions per token -------------------------------
+    members = {(r["launch"], r["qid"]): r for r in probe("member")}
+
+    def member(rec, sid):
+        m = members[(rec["launch"], sid)]
+        return m["versions"], m["v0"], m["v1"]
+
+    staleness = token_version_gate(tag, probe("train_step"), member)
+
+    # -- the HF save and the served weights against the files ------------
+    (save,) = probe("hf_save")
+    with open(os.path.join(save["path"], "config.json")) as f:
+        arch = json.load(f)["architectures"]
+    tik = time.perf_counter()
+    _, reloaded = load_hf_model(save["path"], device=device)
+    same_save = tree_digest(reloaded) == save["digest"]
+    del reloaded
+    t_reload = time.perf_counter() - tik
+    snap = os.path.join(realloc_dir, "actor", f"v{served['version']}",
+                        checkpoint.TENSORS_NAME)
+    on_disk = file_digest(snap, device, like=served["digest"])
+    same_served = on_disk == served["digest"]
+    if not same_served:
+        diff = sorted(k for k in set(on_disk) | set(served["digest"])
+                      if on_disk.get(k) != served["digest"].get(k))
+        log(f"{tag}: leaves that differ: "
+            f"{[(k, on_disk.get(k), served['digest'].get(k)) for k in diff[:4]]}"
+            f" ({len(diff)} of {len(on_disk)})")
+    log(f"{tag}: the HF save at trainer version {save['version']} "
+        f"({save['bytes'] / 1e9:.3f} GB, written in {save['s']:.3f} s) names "
+        f"{arch} and reloads ({t_reload:.3f} s) with checksums equal to the "
+        f"trainer's final weights: {same_save}; the served v"
+        f"{served['version']} tree's checksums equal the published "
+        f"snapshot's: {same_served}")
+    if arch != ["Qwen2ForCausalLM"] or not same_save or not same_served:
+        raise AssertionError(f"{tag}: the HF save or the served weights "
+                             "differ from what the trainer wrote")
+
+    # -- logprobs: actor_inf against the behaviour logprobs ---------------
+    gap = logprob_gap_gate(tag, probe("inference"),
+                           lambda rec, sid: member(rec, sid)[0])
+
+    # -- launches, from each device process's own counters ----------------
+    total = dict(std=0, prefill=0, deep=0, fwd=0, bwd=0)
+    peaks = {}
+    decode_toks = {}
+    for worker, lines in counters.items():
+        for pid, c in _last_by_pid(lines).items():
+            got = c["launches"]
+            peaks[f"{worker} (pid {pid})"] = c["peak_gib"]
+            if c["kind"] == "model_worker":
+                inf = c["mbs"].get("inference", 0)
+                tr = c["mbs"].get("train_step", 0)
+                want = ((L * inf + 2 * L * tr, L * tr) if cuda else (0, 0))
+                have = (got["flash_fwd"], got["flash_bwd"])
+                log(f"{tag}: {worker} pid {pid}: flash launches fwd/bwd "
+                    f"{have} for {inf} actor_inf and {tr} actor_train "
+                    f"micro-batches (expected {want})")
+                if have != want:
+                    raise AssertionError(f"{tag}: {worker} pid {pid}: flash "
+                                         f"launches {have}, expected {want}")
+                total["fwd"] += have[0]
+                total["bwd"] += have[1]
+            else:
+                W, fills = c["chunk_size"], c["prefill_calls"]
+                one, chunks = c["one_token_fill_calls"], c["decode_chunks_total"]
+                deep_chunks = c["deep_decode_chunks_total"]
+                have = dict(std=got["paged_std"], deep=got["paged_deep"],
+                            prefill=got["paged_prefill"])
+                want = (dict(std=L * (fills + W * (chunks - deep_chunks)),
+                             deep=L * W * deep_chunks,
+                             prefill=L * (fills - one)) if cuda
+                        else dict(std=0, deep=0, prefill=0))
+                log(f"{tag}: {worker} pid {pid}: {fills} fill chunks ({one} "
+                    f"of one token), {chunks} decode chunks ({deep_chunks} "
+                    f"deep), {c['decode_tokens_total']} decode tokens; paged "
+                    f"launches {have}, expected {want}")
+                if (have != want or got["paged_std_int8"]
+                        or got["paged_deep_int8"] or (cuda and not have["std"])):
+                    raise AssertionError(f"{tag}: {worker} pid {pid}: paged "
+                                         f"launches {have}, expected {want}")
+                for k in ("std", "deep", "prefill"):
+                    total[k] += have[k]
+                decode_toks[pid] = c["decode_tokens_total"]
+
+    # -- who held the card, and what is left -------------------------------
+    # nvidia-smi may name processes by pids of another namespace (all 1 in
+    # a container): the count of contexts is what it can show, and each
+    # worker that exits cleanly says whether it created one
+    device_pids = {p for p, t in pids.items()
+                   if t in ("model_worker", "gen_server")} | {os.getpid()}
+    most = max((len(s) for _, s in apps), default=0)
+    biggest = max(apps, key=lambda a: sum(m for _, m in a[1]),
+                  default=(0, []))[1]
+    seen = {p for _, sample in apps for p, _ in sample}
+    with_cuda = sorted({pids[r["pid"]] for r in probe("exit") if r["cuda"]})
+    log(f"{tag}: nvidia-smi compute apps over {len(apps)} samples: at most "
+        f"{most} at once (this script, the model worker and the server "
+        f"make 3), pids as listed {sorted(seen)}, the fullest sample "
+        f"{biggest} (pid, MiB); workers that exited cleanly with a CUDA "
+        f"context: {with_cuda} of {len(probe('exit'))}")
+    if cuda and (not apps or most > 3 or with_cuda != ["gen_server",
+                                                       "model_worker"]
+                 or (seen & set(pids) and not seen <= device_pids)):
+        raise AssertionError(f"{tag}: processes other than the model worker "
+                             f"and the server held the card: {apps[-3:]}, "
+                             f"{with_cuda}")
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    if alive:
+        for pid in alive:
+            os.kill(pid, signal.SIGKILL)
+        raise AssertionError(f"{tag}: worker processes {alive} outlived "
+                             "the launch")
+
+    log(f"{tag}: the longest heartbeat gap seen per worker (beats every "
+        f"2 s from a daemon thread; the launcher declares a worker lost "
+        f"past 60 s): { {w: round(a, 1) for w, a in sorted(beats.items())} } s")
+
+    # -- what it costs -------------------------------------------------------
+    fetch = sum(r["s"] for r in probe("fetch"))
+    walls = [st["time_perf/e2e"] for st in stats]
+    publishes = [(r["launch"], r["version"], round(r["full"], 3),
+                  round(r["int8"], 3)) for r in probe("publish")]
+    stage_rpcs = [(r["launch"], r["version"], r["mode"], round(r["s"], 3))
+                  for r in probe("stage_rpc")]
+    secs = time.perf_counter() - t_phase
+    res = dict(
+        launches=total, step_s=walls, fetch_wait_s=fetch, run_s=run_s,
+        restart_s=restart_s, decode_tok_s=sum(decode_toks.values()) / run_s,
+        ckpt=dict(bytes=ckpt["bytes"], write_s=ckpt["s"], read_s=load["s"]),
+        peaks=peaks, gap=gap, staleness=dict(staleness), phase_s=secs,
+        smi_fullest=biggest, heartbeat_gaps=beats)
+    log(f"{tag}: step walls {[round(w, 3) for w in walls]} s; actor_train "
+        f"{[round(st['actor_train/elapsed'], 3) for st in stats]} s; the "
+        f"trainer waited {fetch:.3f} s for data ({fetch / sum(walls):.1%} of "
+        f"the step walls); fleet decode {sum(decode_toks.values())} tokens in "
+        f"the {run_s:.1f} s run = {res['decode_tok_s']:.1f} tokens/s; publish "
+        f"(launch, version, full / int8 host s) {publishes}; stage RPCs "
+        f"{stage_rpcs}; pause {[(s['launch'], s['version'], round(s['pause_s'], 3)) for s in swaps]} s; "
+        f"restart {restart_s:.1f} s; recover checkpoint {ckpt['bytes'] / 1e9:.3f} "
+        f"GB, write {ckpt['s']:.3f} s, read {load['s']:.3f} s; peak device "
+        f"memory by process (allocator) "
+        f"{ {k: round(v, 2) for k, v in peaks.items()} } GiB; phase "
+        f"{secs:.1f} s, on {card}")
+    shutil.rmtree(tmp, ignore_errors=True)
     return res
 
 
@@ -3487,13 +4424,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"device memory before the async-PPO phase: "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-        loop = async_ppo_phase(cfg, device, card, hf_dir)
+        loop = async_ppo_phase(cfg, device, card, hf_dir,
+                               train_bs=LOOP_TRAIN_BS,
+                               new_tokens=LOOP_NEW_TOKENS, steps=LOOP_STEPS,
+                               offpolicyness=LOOP_OFFPOLICYNESS)
+        log(f"async-PPO phase done at {time.perf_counter() - t_start:.1f} s")
+        # the worker processes hold the card; this process keeps only its
+        # context and what the earlier phases left allocated
+        gc.collect()
+        torch.cuda.empty_cache()
+        procs = processes_phase(cfg, device, card, hf_dir)
     finally:
         shutil.rmtree(hf_root, ignore_errors=True)
-    log(f"async-PPO phase done at {time.perf_counter() - t_start:.1f} s")
+    log(f"processes phase done at {time.perf_counter() - t_start:.1f} s")
 
     entries = kernel_entries(kern, long_kern, eng, long_launches, flash,
-                             train, prefix, server, hf, loop)
+                             train, prefix, server, hf, loop, procs)
     if parent is not None:
         torch.cuda.empty_cache()
         parent_ab(parent)
@@ -3514,7 +4460,7 @@ def main() -> int:
 
 
 def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
-                   hf, loop):
+                   hf, loop, procs):
     """The ``{"kernels": [...]}`` line's entries: every kernel, with its
     launches on the main paths (the engine's greedy wave, the long-context
     arms, the prefix-cache phase, the generation server, the server that
@@ -3547,7 +4493,7 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
         entry("paged_flash_attention", paged_src, paged_ref,
               eng["launches"] + arm_launches("std", False) + fp_prefix["std"]
               + server["launches"]["std"] + hf["launches"]["std"]
-              + loop["launches"]["std"],
+              + loop["launches"]["std"] + procs["launches"]["std"],
               max(errs("decode", "prefill", "prefill_long",
                        "prefill_mid_page"),
                   errs("standard_bf16", src=long_kern)),
@@ -3558,13 +4504,15 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
                   prefix_cache=fp_prefix["std"],
                   generation_server=server["launches"]["std"],
                   hf_swap=hf["launches"]["std"],
-                  async_ppo=loop["launches"]["std"]),
+                  async_ppo=loop["launches"]["std"],
+                  async_ppo_processes=procs["launches"]["std"]),
               prefill_entry_launches=(eng["prefill_launches"]
                                       + arm_launches("prefill", False)
                                       + fp_prefix["prefill"]
                                       + server["launches"]["prefill"]
                                       + hf["launches"]["prefill"]
-                                      + loop["launches"]["prefill"]),
+                                      + loop["launches"]["prefill"]
+                                      + procs["launches"]["prefill"]),
               prefill={k: kern["prefill"][k] for k in timed},
               prefill_long={k: kern["prefill_long"][k] for k in timed},
               prefill_mid_page={k: kern["prefill_mid_page"][k]
@@ -3613,9 +4561,11 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
             route="cuda",
             source="areal_tpu_torch/csrc/flash_attention.cu",
             replaces="areal_tpu/ops/flash_attention.py:36",
-            launches=train["launches"][kind] + loop["launches"][kind],
+            launches=(train["launches"][kind] + loop["launches"][kind]
+                      + procs["launches"][kind]),
             launches_by_path=dict(train=train["launches"][kind],
-                                  async_ppo=loop["launches"][kind]),
+                                  async_ppo=loop["launches"][kind],
+                                  async_ppo_processes=procs["launches"][kind]),
             max_abs_err=max(r[kind]["max_abs_err"] for r in flash.values()),
             **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms", "shape")},

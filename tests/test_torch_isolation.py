@@ -66,6 +66,16 @@ HF_MODULES = [
     for m in ("", ".registry", ".llama_like", ".gpt2")
 ]
 
+#: the launcher's modules: one process per worker, the scheduler clients,
+#: the name-resolve service
+LAUNCH_MODULES = [
+    f"areal_tpu_torch.{m}" for m in (
+        "apps.main", "apps.remote", "apps.quickstart", "scheduler",
+        "scheduler.client", "scheduler.slurm", "base.name_resolve_server",
+        "base.watchdog",
+    )
+]
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -88,7 +98,7 @@ def test_no_jax_and_no_reference_package_imported():
         "assert not bad, bad\n"
         "assert len(mods) >= 12, mods\n"
         f"missing = sorted(set("
-        f"{sorted(SERVING_MODULES + LOOP_MODULES + HF_MODULES)!r}) "
+        f"{sorted(SERVING_MODULES + LOOP_MODULES + HF_MODULES + LAUNCH_MODULES)!r}) "
         "- set(mods))\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"
@@ -115,7 +125,8 @@ def _imports(path: Path):
     return out
 
 
-@pytest.mark.parametrize("module", LOOP_MODULES + SERVING_MODULES + HF_MODULES)
+@pytest.mark.parametrize("module", LOOP_MODULES + SERVING_MODULES + HF_MODULES
+                         + LAUNCH_MODULES)
 def test_no_module_imports_jax_or_the_reference_anywhere(module):
     rel = module.replace(".", "/")
     path = REPO / f"{rel}.py"
@@ -125,6 +136,61 @@ def test_no_module_imports_jax_or_the_reference_anywhere(module):
            if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "flax",
                                   "areal_tpu")]
     assert not bad, (module, bad)
+
+
+def test_host_worker_processes_never_initialize_cuda(tmp_path):
+    """On a machine with a card (``torch.cuda.is_available()`` made True),
+    the master's, the gserver manager's and the rollout workers' paths of
+    ``apps.remote`` import, build their workers and, for the master,
+    configure it and take a sample of its utilization monitor, without
+    initializing CUDA (``torch.cuda``'s initialization made to raise): only
+    the model workers and the generation servers hold the card."""
+    code = (
+        "import torch\n"
+        "def boom(*a, **k):\n"
+        "    raise AssertionError('CUDA initialized')\n"
+        "torch.cuda._lazy_init = boom\n"
+        "torch.cuda.init = boom\n"
+        "torch.cuda.is_available = lambda: True\n"
+        "torch.cuda.device_count = lambda: 1\n"
+        "from areal_tpu_torch.apps import remote\n"
+        "from areal_tpu_torch.apps.local_runner import register_impls\n"
+        "from areal_tpu_torch.api.system_api import MasterWorkerConfig\n"
+        "from areal_tpu_torch.base import constants, name_resolve\n"
+        "register_impls()\n"
+        "name_resolve.reconfigure('memory')\n"
+        "constants.set_experiment_trial_names('iso', 'host')\n"
+        "workers = {t: remote.worker_class(t)() for t in\n"
+        "           ('master', 'gserver_manager', 'rollout_worker')}\n"
+        "m = workers['master']\n"
+        "m._configure(MasterWorkerConfig())\n"
+        "m._util_monitor._sample()\n"
+        "assert not any(k.startswith('device') for k in\n"
+        "               m._util_monitor.export()), m._util_monitor.export()\n"
+        "m._exit_hook()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               AREAL_LOG_ROOT=str(tmp_path / "logs"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), (
+        out.stdout[-2000:] + out.stderr[-4000:])
+
+
+def test_launcher_refuses_what_it_does_not_port(monkeypatch):
+    """A worker spread over several processes (item 10) and the gateway
+    worker (item 16) are refused by name."""
+    from areal_tpu_torch.apps import remote
+
+    with pytest.raises(NotImplementedError, match="item 16"):
+        remote.worker_class("gateway")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        remote.run_worker("e", "t", "master", 0)
 
 
 def test_loop_entry_points_default_to_cuda(monkeypatch, tmp_path):
