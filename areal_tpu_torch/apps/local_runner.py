@@ -37,7 +37,10 @@ def register_impls(threads: bool = True):
     import areal_tpu_torch.envs.math_code_single_step_env  # noqa: F401
     import areal_tpu_torch.experiments.async_ppo_exp  # noqa: F401
     import areal_tpu_torch.experiments.ppo_math_exp  # noqa: F401
+    import areal_tpu_torch.interfaces.fused_interface  # noqa: F401
     import areal_tpu_torch.interfaces.ppo_interface  # noqa: F401
+    import areal_tpu_torch.interfaces.rm_interface  # noqa: F401
+    import areal_tpu_torch.interfaces.rw_interface  # noqa: F401
 
     if threads:
         # pre-resolve transformers' lazy attributes in the main thread: its

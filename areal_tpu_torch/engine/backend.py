@@ -49,8 +49,9 @@ def make_model(
       read; so does a model that the flash kernel cannot train on a card
       (a sliding window, or Gemma's head_dim of 256).
       ``backend_name`` is the family's name.
-    - ``random``: args ``{config: dict | TransformerConfig, seed?}``, or
-      ``tiny_config`` keyword arguments: parameters drawn from ``seed``
+    - ``random``: args ``{config: dict | TransformerConfig, seed?,
+      is_critic?}``, or ``tiny_config`` keyword arguments: parameters
+      drawn from ``seed``
       (default 0) by :func:`areal_tpu_torch.models.transformer.init_params`
       in ``dtype`` on ``device`` (default ``cuda``).  The draws are made in
       float32 either way, so a server and a trainer built from one seed
@@ -74,12 +75,19 @@ def make_model(
         args = dict(cfg.args)
         seed = args.pop("seed", 0)
         conf = args.pop("config", None)
+        is_critic = args.pop("is_critic", False)
         if isinstance(conf, TransformerConfig):
             model_cfg = conf
         elif conf is not None:
             model_cfg = TransformerConfig(**conf)
         else:
             model_cfg = tiny_config(**args)
+        if is_critic:
+            # also beside a ``config`` dict, which the JAX package's
+            # factory reads without it (its critic twin of such an actor
+            # gets an LM head)
+            model_cfg = dataclasses.replace(
+                model_cfg, is_critic=True, tied_embedding=False)
         params = init_params(model_cfg, seed, device, dtype=dtype)
         backend_name = "llama"
     else:

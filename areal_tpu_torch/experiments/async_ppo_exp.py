@@ -3,7 +3,8 @@
 realhf/experiments/async_exp/async_rl_exp.py:59 and
 async_ppo_math_exp.py:26).
 
-The trainer's graph is {actor_inf?, actor_train}; trajectories arrive via
+The trainer's graph is {ref_inf?, actor_inf?, actor_train (+ the critic
+pair)}; trajectories arrive via
 the rollout workers' push stream into the trainer's PullerStreamDataset;
 after each actor train step the new weights are published and the gserver
 manager swaps them into every generation server.

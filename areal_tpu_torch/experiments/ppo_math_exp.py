@@ -1,17 +1,15 @@
-"""PPO math experiment: the MFC graph with its pruning options (port of
-``areal_tpu/experiments/ppo_math_exp.py``; reference:
+"""Sync PPO math experiment: the 7-MFC graph with its pruning options
+(port of ``areal_tpu/experiments/ppo_math_exp.py``; reference:
 realhf/experiments/common/ppo_math_exp.py:29,120-341 — actor_gen ->
 {rew_inf, ref_inf, critic_inf, actor_inf} -> {actor_train, critic_train};
 disable_value drops the critic pair, kl_ctl=0 drops ref_inf,
-use_decoupled_loss adds actor_inf).
+use_decoupled_loss adds actor_inf, fuse_rew_ref merges rew_inf into the
+reference model's MFC, reward_source="model" scores with a trained
+reward model; ref_ema_eta moves the reference model toward the actor
+after each actor step through a ParamReallocHook).
 
-The port refuses, by name, each MFC it lacks where a config asks for it:
-the critic (``disable_value=False``), the reference model (``kl_ctl !=
-0``), a trained reward model (``reward_source="model"``) and the fused
-reward/reference interface (``fuse_rew_ref``) (ROADMAP.md queue 1, item
-7).  The synchronous graph itself builds, but its ``actor_gen`` MFC
-(on-device generation) is not ported either: the port runs the
-asynchronous experiment (``async_ppo_exp.py``), which drops it.
+Every model of the graph runs on the one device of its model worker
+(``experiments/common.py``).
 """
 
 from __future__ import annotations
@@ -111,26 +109,7 @@ class PPOMathExperiment(CommonExperimentConfig):
     def use_ref(self) -> bool:
         return self.ppo.kl_ctl != 0.0
 
-    def check_ported(self):
-        """Refuse, by name, each MFC of the graph the port lacks."""
-        missing = []
-        if self.use_critic:
-            missing.append("the critic (disable_value=False)")
-        if self.use_ref:
-            missing.append(f"the reference model (kl_ctl={self.ppo.kl_ctl})")
-        if self.reward_source == "model":
-            missing.append("a trained reward model (reward_source='model')")
-        if self.fuse_rew_ref:
-            missing.append("the fused reward/reference interface "
-                           "(fuse_rew_ref=True)")
-        if missing:
-            raise NotImplementedError(
-                "; ".join(missing) + ": not ported to areal_tpu_torch yet "
-                "(ROADMAP.md queue 1, item 7)"
-            )
-
     def initial_setup(self) -> system_api.ExperimentConfig:
-        self.check_ported()
         self.prepare_common()  # allocation_mode (refused) and tokenizer
         ppo = self.ppo
         actor = ModelName("actor")

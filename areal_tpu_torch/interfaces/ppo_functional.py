@@ -1,9 +1,8 @@
-"""PPO actor loss, reward shaping and KL controllers (port of the actor
-half of ``areal_tpu/interfaces/ppo_functional.py``).
+"""PPO actor and critic losses, reward shaping and KL controllers (port
+of ``areal_tpu/interfaces/ppo_functional.py``).
 
 Tensor functions work on the padded ``[B, T]`` transition layout (entry t
-is the transition predicting token t+1).  The critic's loss is not ported
-(critics are not part of the slice).
+is the transition predicting token t+1).
 """
 
 from __future__ import annotations
@@ -104,6 +103,40 @@ def actor_loss_fn(
         dual_clip_mask=dual_clip_mask & loss_mask,
     )
     return pg_loss, stat
+
+
+def _huber(x, y, delta=10.0):
+    diff = torch.abs(x - y)
+    return torch.where(diff < delta, 0.5 * diff**2, delta * (diff - 0.5 * delta))
+
+
+def _mse(x, y):
+    return 0.5 * (x - y) ** 2
+
+
+def critic_loss_fn(
+    value: torch.Tensor,
+    old_value: torch.Tensor,
+    target_value: torch.Tensor,
+    value_eps_clip: float,
+    loss_mask: torch.Tensor,
+    loss_fn_type: str = "mse",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Clipped value loss: the larger of the loss at ``value`` and at
+    ``value`` clipped to ``old_value +- value_eps_clip``, averaged over
+    ``loss_mask``."""
+    loss_mask = loss_mask.bool()
+    fn = _huber if loss_fn_type == "huber" else _mse
+    loss_original = fn(value, target_value)
+    value_clipped = old_value + torch.clamp(
+        value - old_value, -value_eps_clip, value_eps_clip
+    )
+    loss_clipped = fn(value_clipped, target_value)
+    loss = torch.maximum(loss_original, loss_clipped)
+    clip_mask = (loss_clipped > loss_original) & loss_mask
+    count = torch.clamp(torch.sum(loss_mask), min=1)
+    scalar = torch.sum(torch.where(loss_mask, loss, torch.zeros_like(loss))) / count
+    return scalar, dict(clip_mask=clip_mask, loss=loss)
 
 
 def shape_rewards(

@@ -1,6 +1,6 @@
-"""The PPO actor interface (port of ``PPOActorInterface`` in
-``areal_tpu/interfaces/ppo_interface.py``; loss math in
-:mod:`areal_tpu_torch.interfaces.ppo_functional`).
+"""The PPO actor and critic interfaces (port of ``PPOActorInterface`` and
+``PPOCriticInterface`` in ``areal_tpu/interfaces/ppo_interface.py``; loss
+math in :mod:`areal_tpu_torch.interfaces.ppo_functional`).
 
 Data contract (packed SequenceSample keys, lengths per sequence of L tokens):
   packed_input_ids [L]       prompt + response tokens
@@ -8,6 +8,7 @@ Data contract (packed SequenceSample keys, lengths per sequence of L tokens):
   packed_logprobs  [L-1]     behavioural logprobs (from the generation engine)
   packed_ref_logprobs [L-1]  reference-policy logprobs (KL penalty)
   prox_logp        [L-1]     proximal (recomputed) logprobs, decoupled PPO
+  values           [L]       critic values (absent when disable_value)
   rewards          [1]       sequence-level task reward
   seq_no_eos_mask  [1]       1 if truncated without EOS
 
@@ -15,10 +16,11 @@ The advantage preparation (reward shaping, GAE, normalisation) is a
 small whole-batch pass over host data and runs on the CPU; the forwards
 and the train step run on the engine's device.  The statistics come back
 in the returned dict and, as in the reference, go to ``stats_tracker``
-under ``ppo_actor``.  Critics (``PPOCriticInterface``,
-``critic_values_fwd``) and on-device generation (``generate``, the
-sync-PPO path) are not ported.  The interfaces register as ``ppo_actor``
-and ``ppo_critic`` (which refuses) in the port's registry.
+under ``ppo_actor`` (``ppo_critic`` for the critic).  ``generate`` is
+sync PPO's ``actor_gen`` (:func:`areal_tpu_torch.engine.generation.generate_for_sample`).
+The router losses of mixture-of-experts models stay out, as those models
+do (ROADMAP.md queue 1, item 9).  The interfaces register as
+``ppo_actor`` and ``ppo_critic`` in the port's registry.
 """
 
 from __future__ import annotations
@@ -85,7 +87,13 @@ def model_logprobs_fwd(temperature: float = 1.0):
 
 
 def critic_values_fwd(params, cfg, batch):
-    raise NotImplementedError("critic_values_fwd: critics are not ported")
+    """fwd_fn producing per-token values [B, T] (0 on padding)."""
+    from areal_tpu_torch.models.transformer import forward
+
+    values = forward(
+        params, cfg, batch["tokens"], batch["positions"], batch["seg_ids"]
+    )
+    return values * (batch["seg_ids"] != 0)
 
 
 @dataclasses.dataclass
@@ -283,16 +291,16 @@ class PPOActorInterface(model_api.ModelInterface):
             seqlens, data.ids, {key: logp.astype(np.float32)}
         )
 
-    def generate(self, model, data, mb_spec):
-        raise NotImplementedError(
-            "PPOActorInterface.generate (on-device generation for sync PPO) "
-            "is not ported; rollouts come from the serving engine"
-        )
+    def generate(
+        self,
+        model: model_api.Model,
+        data: SequenceSample,
+        mb_spec: MicroBatchSpec,
+    ) -> SequenceSample:
+        """Generation on the model's device for sync PPO."""
+        from areal_tpu_torch.engine.generation import generate_for_sample
 
-
-class PPOCriticInterface(model_api.ModelInterface):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("PPOCriticInterface: critics are not ported")
+        return generate_for_sample(model, data, self.gconfig)
 
 
 def _aggregate_minibatch_stats(stats_iter) -> Dict[str, float]:
@@ -360,6 +368,99 @@ def _actor_loss(params, cfg, batch, iface: PPOActorInterface):
         ),
     }
     # the engine divides gradients by the summed denominators
+    return loss * count, count, stats
+
+
+@dataclasses.dataclass
+class PPOCriticInterface(model_api.ModelInterface):
+    n_minibatches: int = 4
+    value_eps_clip: float = 0.2
+    value_loss_type: str = "mse"
+    kl_ctl: float = 0.1
+    discount: float = 1.0
+    gae_lambda: float = 1.0
+    max_reward_clip: float = 5.0
+    mask_no_eos_with_zero: bool = False
+    token_key: str = "packed_input_ids"
+
+    def __post_init__(self):
+        # the actor's advantage preparation, with the values kept
+        self._prep = PPOActorInterface(
+            kl_ctl=self.kl_ctl,
+            discount=self.discount,
+            gae_lambda=self.gae_lambda,
+            max_reward_clip=self.max_reward_clip,
+            mask_no_eos_with_zero=self.mask_no_eos_with_zero,
+            adv_norm=False,
+            token_key=self.token_key,
+        )
+        self._loss_fn = functools.partial(_critic_loss, iface=self)
+
+    def inference(
+        self,
+        model: model_api.Model,
+        data: SequenceSample,
+        mb_spec: MicroBatchSpec,
+    ) -> SequenceSample:
+        values = model.engine.forward_batch(
+            data, critic_values_fwd, mb_spec, token_key=self.token_key,
+            output_shift=0,
+        )
+        seqlens = [l[0] for l in data.seqlens[self.token_key]]
+        return SequenceSample.from_default(
+            seqlens, data.ids, {"values": values.astype(np.float32)}
+        )
+
+    def train_step(
+        self,
+        model: model_api.Model,
+        data: SequenceSample,
+        mb_spec: MicroBatchSpec,
+    ) -> Dict:
+        engine = model.engine
+        if "returns" not in data.keys:
+            self._prep._prepare_batch(data)
+        mbs, *_ = data.split(MicroBatchSpec(n_mbs=self.n_minibatches))
+        all_stats = _aggregate_minibatch_stats(
+            engine.train_batch(
+                mb, self._loss_fn, mb_spec, token_key=self.token_key
+            )
+            for mb in mbs
+        )
+        all_stats["value_clip_frac"] = all_stats.pop("clip_frac", 0.0)
+        model.version.advance(
+            model.ft_spec.steps_per_epoch if model.ft_spec else int(1e9)
+        )
+        with stats_tracker.scope("ppo_critic"):
+            stats_tracker.scalar(
+                **{
+                    k: v
+                    for k, v in all_stats.items()
+                    if isinstance(v, (int, float))
+                }
+            )
+        return all_stats
+
+
+def _critic_loss(params, cfg, batch, iface: PPOCriticInterface):
+    hidden = hidden_states(
+        params, cfg, batch["tokens"], batch["positions"], batch["seg_ids"]
+    )
+    w = params["value_head"]["w"].to(hidden.dtype)
+    values = (hidden @ w)[..., 0].float()
+    values = values * (batch["seg_ids"] != 0)
+    loss_mask = batch["ppo_loss_mask"]
+    old_values = batch.get("values", torch.zeros_like(values)).float()
+    loss, stat = ppo_functional.critic_loss_fn(
+        values,
+        old_values,
+        batch["returns"].float(),
+        iface.value_eps_clip,
+        loss_mask,
+        loss_fn_type=iface.value_loss_type,
+    )
+    count = torch.clamp(torch.sum(loss_mask), min=1.0)
+    stats = {"clip_count_sum": torch.sum(stat["clip_mask"])}
     return loss * count, count, stats
 
 

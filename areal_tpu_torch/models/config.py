@@ -3,8 +3,9 @@
 A copy of the reference's :class:`TransformerConfig` with the fields the
 serving and training forwards read.  Of the training knobs only layer
 rematerialisation with the default policy (full recompute) is ported;
-context parallelism, the pipeline schedule and the critic head are not.
-Mixture-of-experts and critic configs are rejected.
+context parallelism and the pipeline schedule are not.  A critic
+(``is_critic``) has a value head ``[D, 1]`` in place of the LM head.
+Mixture-of-experts configs are rejected.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ class TransformerConfig:
     # MoE; n_experts=0 disables (the only value the port accepts)
     n_experts: int = 0
 
-    # head; True (a value head) is not ported
+    # head: a value head (dim 1) instead of the LM head
     is_critic: bool = False
 
     # numerics
@@ -67,10 +68,6 @@ class TransformerConfig:
             raise NotImplementedError(
                 "mixture-of-experts models are not ported yet; the torch "
                 "port serves dense models"
-            )
-        if self.is_critic:
-            raise NotImplementedError(
-                "critic (value-head) models are not ported yet"
             )
         if self.remat_policy != "none":
             raise NotImplementedError(

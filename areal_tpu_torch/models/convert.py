@@ -4,7 +4,8 @@
 ``areal_tpu.models.transformer.init_params`` (or an HF import) produces,
 already turned into numpy arrays by the caller (``jax.device_get``), and
 returns the port's parameters: the layer-stacked ``params["layers"]``
-becomes a list of per-layer dictionaries, and every leaf keeps its own
+becomes a list of per-layer dictionaries (a critic's ``value_head``
+``[D, 1]`` comes across with the rest), and every leaf keeps its own
 dtype (float32 for the reference's master parameters, which is what the
 trainer needs).  :func:`serving_params` turns such a tree into a copy in
 the types the reference serves with (see :mod:`.transformer`).  This
@@ -77,8 +78,6 @@ def params_from_jax(
     ``cuda``), each leaf in its own dtype; for serving, pass the result
     through :func:`serving_params`."""
     device = resolve_device(device)
-    if "value_head" in np_tree:
-        raise NotImplementedError("critic (value-head) models are not ported")
     out: Params = {
         k: _convert(v, device)
         for k, v in np_tree.items()

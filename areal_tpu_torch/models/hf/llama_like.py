@@ -130,7 +130,7 @@ def _params_from_hf(
         "layers": layers,
         "final_norm": norm("model.norm.weight"),
     }
-    if not cfg.tied_embedding:
+    if not cfg.tied_embedding and not cfg.is_critic:
         params["lm_head"] = {"w": state.get("lm_head.weight", transpose=True)}
     return params
 
@@ -168,6 +168,8 @@ def _params_to_hf(
     out["model.norm.weight"] = norm(params["final_norm"])
     if "lm_head" in params:
         out["lm_head.weight"] = t(params["lm_head"]["w"]).T
+    if "value_head" in params:
+        out["value_head.weight"] = t(params["value_head"]["w"]).T
     return out
 
 

@@ -163,23 +163,32 @@ def load_hf_model(
     leaves on ``device`` (default ``cuda``), the trainer's master weights;
     for serving, pass them through
     :func:`areal_tpu_torch.models.convert.serving_params`.  ``dtype``
-    replaces the config's activation dtype.  ``is_critic=True`` (a value
-    head) is refused: critics are not ported."""
-    if is_critic:
-        from areal_tpu_torch.engine.inference_server import _not_ported
-
-        raise _not_ported("critic models from an HF checkpoint "
-                          "(is_critic=True)", item=7)
+    replaces the config's activation dtype.  ``is_critic=True`` makes a
+    critic of it: the LM head is dropped, the embedding untied, and the
+    value head ``[D, 1]`` read from ``value_head.weight`` where the
+    directory has one (a critic or reward model this package saved), else
+    zero (a critic bootstrapped from an LM checkpoint)."""
     device = resolve_device(device)
     family, cfg, _ = load_hf_config(path)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
+    if is_critic:
+        cfg = dataclasses.replace(cfg, is_critic=True, tied_embedding=False)
     state = CheckpointReader(path, device)
     params = family.params_from_hf(state, cfg)
+    if is_critic:
+        params.pop("lm_head", None)
+        if "value_head.weight" in state.keys():
+            # a trained scorer: zeroing it would discard the training
+            params["value_head"] = {
+                "w": state.get("value_head.weight", transpose=True)}
+        else:
+            params["value_head"] = {"w": torch.zeros(
+                (cfg.hidden_dim, 1), dtype=torch.float32, device=device)}
     logger.info(
-        "loaded %s (%d layers, %d hidden) from %s: %.3f GB read",
-        family.name, cfg.n_layers, cfg.hidden_dim, path,
-        state.bytes_read / 1e9,
+        "loaded %s (%d layers, %d hidden%s) from %s: %.3f GB read",
+        family.name, cfg.n_layers, cfg.hidden_dim,
+        ", critic" if is_critic else "", path, state.bytes_read / 1e9,
     )
     return cfg, params
 
@@ -228,7 +237,9 @@ def _check_export(family: HFFamily, cfg: TransformerConfig, params: Params,
                   state: StateDict):
     """Refuse an export that would load as another model: ``config.json``
     must give ``cfg`` back, and the tensors every leaf of ``params``."""
-    run = {k: getattr(cfg, k) for k in _RUN_FIELDS}
+    # config.json does not say critic: a critic is loaded as one by asking
+    # for it (``is_critic=True``), and its head travels as value_head.weight
+    run = {k: getattr(cfg, k) for k in _RUN_FIELDS + ("is_critic",)}
     back = dataclasses.replace(
         family.config_from_hf(family.config_to_hf(cfg)), **run)
     if back != cfg:
@@ -240,6 +251,8 @@ def _check_export(family: HFFamily, cfg: TransformerConfig, params: Params,
             f"model: {diff} (the model's value, the reloaded one)")
     want = _leaf_shapes(params)
     got = _leaf_shapes(family.params_from_hf(_StateReader(state), cfg))
+    if cfg.is_critic and "value_head.weight" in state:
+        got["value_head/w"] = tuple(state["value_head.weight"].shape[::-1])
     if got != want:
         bad = sorted(k for k in set(want) | set(got)
                      if want.get(k) != got.get(k))

@@ -2,7 +2,10 @@
 building blocks the paged serving forwards use, and the training forward
 over packed ``[B, T]`` rows (:func:`forward`, :func:`hidden_states`,
 :func:`logprobs_of_labels`), whose attention goes through
-:func:`areal_tpu_torch.ops.flash_attention.flash_attention`.
+:func:`areal_tpu_torch.ops.flash_attention.flash_attention`, and the
+dense KV cache of sync PPO's generation (:class:`KVCache`,
+:func:`prefill`, :func:`decode_step`), whose decode attention on a card
+goes through :func:`areal_tpu_torch.ops.decode_attention.flash_decode`.
 
 Parameters are plain dictionaries of tensors, laid out like the
 reference's param tree except that the per-layer parameters are a Python
@@ -23,6 +26,7 @@ the activation dtype at use, so gradients reach the float32 leaves.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -121,7 +125,9 @@ def init_params(
         params["pos_embed"] = {
             "weight": dense((cfg.max_position_embeddings, D))
         }
-    if not cfg.tied_embedding:
+    if cfg.is_critic:
+        params["value_head"] = {"w": dense((D, 1))}
+    elif not cfg.tied_embedding:
         params["lm_head"] = {"w": dense((D, V))}
     return params
 
@@ -234,7 +240,12 @@ def _embed(params: Params, cfg: TransformerConfig, tokens, positions):
 
 
 def _head(params: Params, cfg: TransformerConfig, x: torch.Tensor):
+    """Logits ``[..., V]``, or a critic's values ``[...]``, in
+    ``cfg.logits_dtype``."""
     x = _norm(x, params["final_norm"], cfg)
+    if cfg.is_critic:
+        values = x @ params["value_head"]["w"].to(x.dtype)
+        return values[..., 0].to(torch_dtype(cfg.logits_dtype))
     if cfg.tied_embedding:
         # x @ embed.T without materializing the transpose
         logits = F.linear(x, params["embed"]["weight"].to(x.dtype))
@@ -350,7 +361,8 @@ def forward(
     positions: torch.Tensor,  # [B, T] int (within-segment positions)
     seg_ids: torch.Tensor,  # [B, T] int32, 0 = padding
 ) -> torch.Tensor:
-    """Full forward over a packed padded batch: logits [B, T, V]."""
+    """Full forward over a packed padded batch: logits [B, T, V] (values
+    [B, T] for a critic)."""
     x = _embed(params, cfg, tokens, positions)
     x = _run_layers(params, cfg, x, positions, seg_ids)
     return _head(params, cfg, x)
@@ -389,3 +401,228 @@ def logprobs_of_labels(
         lab = labels[:, c0 : c0 + chunk, None]
         out.append(torch.gather(logits, -1, lab)[..., 0] - lse)
     return torch.cat(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Dense KV cache: prefill and step decode (sync PPO's generation)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Decode-time KV cache, stacked over layers (the reference's
+    ``KVCache``).
+
+    ``k``/``v`` ``[L, B, Hkv, S, hd]`` are head-major, so ``k[l]`` is the
+    ``[B, Hkv, S, hd]`` layout :func:`~areal_tpu_torch.ops.decode_attention.flash_decode`
+    reads; ``lengths`` ``[B]`` int32 are the rows' lengths (the next
+    token's slot).  :func:`prefill` and :func:`decode_step` write the
+    tensors in place and return a cache over the same tensors.  ``empty``
+    is a host-side flag, True only for a cache from :meth:`zeros` that
+    nothing has written yet: a card prefills only such a cache, whose
+    attention is then plain causal self-attention over the prompt."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor
+    empty: bool = False
+
+    @classmethod
+    def zeros(cls, cfg: TransformerConfig, batch: int, max_len: int,
+              device: DeviceLike = None):
+        """An empty cache in the model dtype."""
+        device = resolve_device(device)
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+        dt = torch_dtype(cfg.dtype)
+        return cls(
+            k=torch.zeros(shape, dtype=dt, device=device),
+            v=torch.zeros(shape, dtype=dt, device=device),
+            lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+            empty=True,
+        )
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+
+def cache_attention(q, k, v, mask):
+    """Attention over a KV cache in its head-major layout, GQA-grouped (the
+    reference's ``cache_attention``): q ``[B,T,Hq,hd]``, k/v
+    ``[B,Hkv,S,hd]``, mask ``[B,T,S]`` -> ``[B,T,Hq,hd]``; scores and
+    softmax in float32, the probabilities cast to v's dtype for the
+    product.  The plain path of :func:`prefill` and :func:`decode_step`
+    on the CPU."""
+    B, T, Hq, hd = q.shape
+    Hkv = k.shape[1]
+    qg = q.reshape(B, T, Hkv, Hq // Hkv, hd)
+    scores = torch.einsum(
+        "btkrd,bksd->bkrts", qg.float(), k.to(qg.dtype).float()
+    ) / math.sqrt(hd)
+    scores = torch.where(
+        mask[:, None, None], scores, torch.full_like(scores, -1e30)
+    )
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkrts,bksd->btkrd", probs.to(v.dtype), v)
+    return out.reshape(B, T, Hq, hd)
+
+
+def _refuse_window_on_card(cfg: TransformerConfig, x: torch.Tensor, what):
+    if cfg.sliding_window is not None and x.device.type != "cpu":
+        raise NotImplementedError(
+            f"{what} with sliding_window {cfg.sliding_window} on a card: "
+            "the flash kernels have no window (ROADMAP.md section 2, "
+            "'window in the flash kernel's index mask')"
+        )
+
+
+def _write_cache_rows(cache_l: torch.Tensor, new: torch.Tensor, start):
+    """Write ``new`` ``[B, T, Hkv, hd]`` into ``cache_l`` ``[B, Hkv, S, hd]``
+    at each row's slots ``start[b] + [0, T)``, the start clamped so the
+    slots fit (``lax.dynamic_update_slice``'s rule)."""
+    B, T = new.shape[:2]
+    S = cache_l.shape[2]
+    start = torch.clamp(start.long(), max=S - T)
+    slots = start[:, None] + torch.arange(T, device=new.device)  # [B, T]
+    rows = torch.arange(B, device=new.device)[:, None]
+    # cache_l[rows, :, slots] has the advanced dims first: [B, T, Hkv, hd]
+    cache_l[rows, :, slots] = new.to(cache_l.dtype)
+
+
+def flash_decode_attention(q, k, v, attended):
+    """One query per row, q ``[B, 1, Hq, hd]``, over each row's cache slots
+    ``[0, attended)`` of k/v ``[B, Hkv, S, hd]`` through
+    :func:`~areal_tpu_torch.ops.decode_attention.flash_decode` (the kernel
+    off the CPU, its plain version on it), its partials normalised:
+    ``[B, 1, Hq, hd]`` in q's dtype.  :func:`decode_step`'s attention on a
+    card; the same function as :func:`cache_attention` under the mask
+    ``slot < attended``."""
+    from areal_tpu_torch.ops.decode_attention import flash_decode
+
+    acc, _, lsum = flash_decode(q[:, 0].contiguous(), k, v, attended)
+    return (acc / lsum[..., None]).to(q.dtype)[:, None]
+
+
+def prefill(
+    params: Params,
+    cfg: TransformerConfig,
+    tokens: torch.Tensor,  # [B, T]
+    positions: torch.Tensor,  # [B, T] absolute positions
+    seg_ids: torch.Tensor,  # [B, T] 1 real, 0 right padding
+    cache: KVCache,
+    last_pos: Optional[torch.Tensor] = None,  # [B] each row's last token
+) -> Tuple[torch.Tensor, KVCache]:
+    """Run the prompts through the model, writing their keys and values at
+    each row's ``lengths``; returns ``(logits [B, T, V], cache)``, or
+    ``[B, 1, V]`` logits of each row's ``last_pos`` when it is given (full
+    logits at a 152k vocabulary are gigabytes nobody reads).
+
+    Slot s holds the token at absolute position s; a real query at
+    position p attends slots ``<= p`` (the reference's mask).  On the CPU
+    that is the plain :func:`cache_attention`.  Off the CPU only an empty
+    cache (:meth:`KVCache.zeros`) is prefilled, and its attention is causal
+    self-attention over the prompt, which the flash kernel computes
+    (padding queries give 0 where the reference averages; their keys and
+    values lie beyond each row's length and are never attended).  A
+    non-empty cache and a sliding window are refused there."""
+    B, T = tokens.shape
+    S = cache.max_len
+    x = _embed(params, cfg, tokens, positions)
+    on_cpu = x.device.type == "cpu"
+    _refuse_window_on_card(cfg, x, "prefill")
+    if not on_cpu and not cache.empty:
+        raise NotImplementedError(
+            "prefill into a non-empty KV cache on a card: only the dense "
+            "generation server sends one, and it is not ported (ROADMAP.md "
+            "queue 1, item 8)"
+        )
+    mask = None
+    if on_cpu:
+        kv_pos = torch.arange(S, device=x.device)[None, None, :]
+        mask = (kv_pos <= positions[:, :, None]) & (seg_ids != 0)[:, :, None]
+        if cfg.sliding_window is not None:
+            mask &= positions[:, :, None] - kv_pos < cfg.sliding_window
+    rope_cs = (
+        None
+        if cfg.abs_position_embedding
+        else rope_tables(positions, cfg.rotary_base, cfg.head_dim)
+    )
+    seg32 = seg_ids.to(torch.int32)
+    for l, lp in enumerate(params["layers"]):
+        h = _norm(x, lp["attn_norm"], cfg)
+        q, k, v = _attn_qkv(cfg, lp, h, positions, rope_cs)
+        _write_cache_rows(cache.k[l], k, cache.lengths)
+        _write_cache_rows(cache.v[l], v, cache.lengths)
+        if on_cpu:
+            attn = cache_attention(q, cache.k[l], cache.v[l], mask)
+        else:
+            from areal_tpu_torch.ops.flash_attention import flash_attention
+
+            attn = flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), seg32
+            )
+        x = x + _proj(lp["attn"]["o"], attn.reshape(B, T, cfg.q_dim))
+        h = _norm(x, lp["mlp_norm"], cfg)
+        x = x + _mlp_block(cfg, lp, h)
+    lengths = cache.lengths + (seg_ids != 0).sum(dim=1).to(torch.int32)
+    if last_pos is not None:
+        idx = last_pos.long()[:, None, None].expand(B, 1, x.shape[-1])
+        x = torch.gather(x, 1, idx)
+    return _head(params, cfg, x), KVCache(cache.k, cache.v, lengths)
+
+
+def decode_step(
+    params: Params,
+    cfg: TransformerConfig,
+    tokens: torch.Tensor,  # [B] the next token of each row
+    cache: KVCache,
+    active: Optional[torch.Tensor] = None,  # [B] bool
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step for every row: each token's keys and values go to
+    slot ``lengths`` and its query attends slots ``[0, lengths]``; returns
+    ``(logits [B, V], cache)``, the lengths of ``active`` rows advanced
+    (an inactive row's write lies beyond its length and is overwritten by
+    its next one).
+
+    On the CPU the attention is the plain :func:`cache_attention`; off the
+    CPU it launches ``flash_decode`` (the hand-written kernel) on the
+    layer's cache ``[B, Hkv, S, hd]`` with lengths + 1 and normalises its
+    partials, ``acc / l``, or raises; a sliding window is refused there."""
+    B = tokens.shape[0]
+    S = cache.max_len
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=tokens.device)
+    positions = cache.lengths[:, None].long()  # [B, 1]
+    x = _embed(params, cfg, tokens[:, None].long(), positions)
+    on_cpu = x.device.type == "cpu"
+    _refuse_window_on_card(cfg, x, "decode_step")
+    if on_cpu:
+        kv_pos = torch.arange(S, device=x.device)[None, :]
+        mask = kv_pos <= positions
+        if cfg.sliding_window is not None:
+            mask &= positions - kv_pos < cfg.sliding_window
+        mask = mask[:, None, :]  # [B, 1, S]
+    else:
+        attended = cache.lengths + 1
+    rope_cs = (
+        None
+        if cfg.abs_position_embedding
+        else rope_tables(positions, cfg.rotary_base, cfg.head_dim)
+    )
+    rows = torch.arange(B, device=x.device)
+    slot = cache.lengths.long()
+    for l, lp in enumerate(params["layers"]):
+        h = _norm(x, lp["attn_norm"], cfg)
+        q, k, v = _attn_qkv(cfg, lp, h, positions, rope_cs)
+        # cache.k[l][rows, :, slot] is [B, Hkv, hd]
+        cache.k[l][rows, :, slot] = k[:, 0].to(cache.k.dtype)
+        cache.v[l][rows, :, slot] = v[:, 0].to(cache.v.dtype)
+        if on_cpu:
+            attn = cache_attention(q, cache.k[l], cache.v[l], mask)
+        else:
+            attn = flash_decode_attention(q, cache.k[l], cache.v[l], attended)
+        x = x + _proj(lp["attn"]["o"], attn.reshape(B, 1, cfg.q_dim))
+        h = _norm(x, lp["mlp_norm"], cfg)
+        x = x + _mlp_block(cfg, lp, h)
+    lengths = cache.lengths + active.to(torch.int32)
+    return _head(params, cfg, x)[:, 0], KVCache(cache.k, cache.v, lengths)

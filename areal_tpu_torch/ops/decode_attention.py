@@ -15,8 +15,9 @@ deep paged kernel through its ``flash_decode_fwd`` entry point
 cache's strides, or raises; that kernel walks only each row's valid keys,
 whatever S is.  A bf16 cache runs its tensor-core body, copied by TMA
 when S is a multiple of 64 (the tensor map (hd, S, Hkv, B)).  On CPU tensors it runs the plain version,
-:func:`reference_decode_partials`.  No path of the engine calls it yet:
-the reference's dense decode, which would, is not ported.
+:func:`reference_decode_partials`.  Sync PPO's generation calls it: every
+``models/transformer.py decode_step`` on a card attends each layer's
+dense cache through it (``flash_decode_attention``).
 """
 
 from __future__ import annotations

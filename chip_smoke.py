@@ -98,7 +98,21 @@ from a seed, float32 master weights and their bf16 serving copy):
    (bit-identical to the seeded weights cast to bf16), and has a server on
    other weights stage, commit and serve it (``format: "hf"``; the staged
    and the served tree bit-identical to the directory's, launches against
-   the work, logprobs against the trainer forward, the leak audit);
+   the work, logprobs against the trainer forward, the leak audit); then
+   the sync-PPO phase (``sync_ppo_phase``) runs ``PPOMathExperiment``
+   from the recipe's ``training/configs/sync_ppo.yaml`` with the critic
+   and the reference model (``ppo.disable_value=false``,
+   ``ppo.kl_ctl=0.1``) through ``run_experiment_local``, 2 steps of 16
+   sequences and 256 new tokens (SYNC_*), all three models loaded from
+   the HF directory: the 7-MFC graph, generation over the dense KV cache
+   (decode through ``flash_decode``, the prefill of the empty cache
+   through the flash kernel), the critic from a zero value head; it gates
+   the launches of each generation against the decode steps and prefills
+   the loop counted, the run's flash launches against its micro-batches,
+   step 1's KL, the critic's values, actor_inf's logprobs against the
+   generation's, and ``flash_decode`` at the phase's cache shape against
+   its plain version, and prints generation tokens/s, each MFC's seconds,
+   the step walls and the peak memory;
 8. runs the whole async-PPO loop through the port's entry point:
    ``AsyncPPOMathExperiment`` through ``run_experiment_local`` (a
    generation server, the gserver manager, two rollout workers running the
@@ -110,7 +124,7 @@ from a seed, float32 master weights and their bf16 serving copy):
    its last step (the HF save must name ``Qwen2ForCausalLM`` and reload
    bit-identical to the trainer's final weights), at the recipe's
    settings with the ASYNC_* cuts and the LOOP_* cuts (one group of
-   128-token answers a step, 2 steps, no head offpolicyness, so that
+   32-token answers a step, 2 steps, no head offpolicyness, so that
    step 2's group waits for the manager's swap of step 1's version), on a
    word-level tokenizer of the model's 151936 words and 64 math rows; it
    prints which of transformers, tokenizers, zmq and safetensors import,
@@ -120,8 +134,9 @@ from a seed, float32 master weights and their bf16 serving copy):
    weights against the published snapshot, actor_inf's logprobs against
    the server's, the paged and flash launches against the dispatched work,
    and the leak audit;
-9. runs phase 8's experiment at the ASYNC_* settings (3 steps of 32
-   sequences, 256-token answers) as one process per worker through the
+9. runs phase 8's experiment at the ASYNC_* settings, cut to 3 steps of
+   one group of 64-token answers (PROC_TRAIN_BS, PROC_NEW_TOKENS), as one
+   process per worker through the
    port's launcher (``launch_experiment(mode="local",
    recover_retries=1)``: the master, the model worker, the generation
    server, the gserver manager and two rollout workers), with a recover
@@ -204,8 +219,10 @@ DEEP_MIN_CONTEXT = 8192
 #: (arm, kv_cache_dtype, deep_min_context); None keeps the default table
 LONG_ARMS = (("A", "auto", None), ("B", "auto", DEEP_MIN_CONTEXT),
              ("C", "int8", DEEP_MIN_CONTEXT))
-#: prompts of the broken int8 control wave (32 new tokens each)
+#: prompts of the broken int8 control wave and their new tokens (32
+#: before the cut for the script's time: 6 decode chunks, from 12)
 LONG_CONTROL_LENS = (1024,) * 4 + (8000, 16000)
+LONG_CONTROL_NEW_TOKENS = 16
 #: contexts at which the standard and deep kernels are timed at decode
 DISPATCH_CONTEXTS = (4096, 8192, 16384, 32768)
 #: the prefix-cache phase, at the recipe's serving shape (max_batch 16,
@@ -278,14 +295,30 @@ ASYNC_OFFPOLICYNESS = 4
 #: 0.40, so groups mix rewards 0 and 1 and the advantages are not all 0
 ASYNC_ANSWER_WORDS = 300
 #: phase 8 (in one process) cut to pay for the processes phase, which runs
-#: at the ASYNC_* settings: one group of 128-token answers a step, 2 steps,
+#: at the ASYNC_* settings (cut to PROC_*): one group of 32-token answers
+#: a step (128 before the sync-PPO phase came, then 64), 2 steps,
 #: and no head offpolicyness, so that step 2's group is admitted only once
 #: the manager has swapped step 1's version in: the run shows one swap
 #: staged and committed while trainer and server share the process
 LOOP_TRAIN_BS = 16
-LOOP_NEW_TOKENS = 128
+LOOP_NEW_TOKENS = 32
 LOOP_STEPS = 2
 LOOP_OFFPOLICYNESS = 0
+#: the sync-PPO phase (the recipe's training/configs/sync_ppo.yaml with the
+#: critic and the reference model): 2 steps of 16 sequences (512 in the
+#: recipe), 256 new tokens (4096), micro-batches of MAX_TOKENS_PER_MB
+SYNC_TRAIN_BS = 16
+SYNC_NEW_TOKENS = 256
+SYNC_STEPS = 2
+SYNC_KL_CTL = 0.1
+#: decode steps of the sync-PPO generation replayed for its anatomy (32
+#: before the cut for the script's time)
+ANAT_DECODE_STEPS = 8
+#: the processes phase cut from the ASYNC_* 32 sequences of 256-token
+#: answers a step to pay for the sync-PPO phase (its 3 steps and its
+#: kill-and-resume unchanged)
+PROC_TRAIN_BS = 16
+PROC_NEW_TOKENS = 64
 #: cached prefixes of the mid-page prefill-entry case: a cache hit leaves
 #: a fill's start anywhere in a page
 MID_PAGE_PREFIXES = (1000, 1255, 257, 0)
@@ -784,11 +817,15 @@ def flash_decode_case(device, *, B, S, lengths, timing_iters, n_layers,
     k, v = caches
     lens = torch.tensor(lengths, dtype=torch.int32, device=device)
     got = da.flash_decode(q, k[0], v[0], lens)
+    again = da.flash_decode(q, k[0], v[0], lens)
     ref = da.reference_decode_partials(q, k[0], v[0], lens)
     _sync(device)
     err = check_partials(
         f"flash_decode: B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} bf16 cache, "
         f"lengths={lengths}", got, ref, lens)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_decode at B={B} S={S}: a repeated call "
+                             "is not bit-identical")
     full = torch.full((B,), S, dtype=torch.int32, device=device)
     layer = [0]
 
@@ -1835,7 +1872,8 @@ def long_context_phase(cfg, master, params, device, card, *,
     paged._prefix_partials = broken
     try:
         bad, _ = serve(eng, requests(
-            make_prompts(cfg.vocab_size, control, SEED + 12), 32, "control"))
+            make_prompts(cfg.vocab_size, control, SEED + 12),
+            LONG_CONTROL_NEW_TOKENS, "control"))
     finally:
         paged._prefix_partials = real
     if eng.close():
@@ -2908,7 +2946,8 @@ def token_version_gate(tag, train_steps, member,
 
 
 def logprob_gap_gate(tag, inference_recs, versions_of):
-    """actor_inf's ``prox_logp`` against the server's behaviour logprobs on
+    """actor_inf's ``prox_logp`` against the behaviour logprobs (the
+    server's, or sync PPO's generation's) on
     the response tokens sampled under the trainer's version at that call
     (``versions_of(rec, sid)``: a member's per-token versions), within
     TOL_PROX_MEAN / TOL_PROX_MAX.  Returns (mean, max)."""
@@ -2935,7 +2974,7 @@ def logprob_gap_gate(tag, inference_recs, versions_of):
     d = np.concatenate(diffs) if diffs else np.zeros(0)
     gap = (float(d.mean()) if d.size else float("nan"),
            float(d.max()) if d.size else float("nan"))
-    log(f"{tag}: actor_inf prox_logp against the server's behaviour "
+    log(f"{tag}: actor_inf prox_logp against the generation's behaviour "
         f"logprobs on {d.size} tokens sampled under the trainer's version: "
         f"mean {gap[0]:.3e} (tol {TOL_PROX_MEAN}), max {gap[1]:.3e} (tol "
         f"{TOL_PROX_MAX})")
@@ -3448,6 +3487,521 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
         f"pause {[(w['version'], round(w['pause_s'], 3)) for w in swaps]} s; "
         f"peak device memory {peak:.2f} GiB; phase {secs:.1f} s, on {card}")
     return res
+
+
+def mark_generation(gen, sink, on_first_decode=None, also=()):
+    """Wrap ``engine/generation.py``'s ``decode_step``,
+    ``sample_logits_keyed`` and ``_is_stop`` (module functions that
+    ``generate_loop`` looks up at each call), and the ``(module, name)``
+    functions of ``also``, so that each call appends ``(name, "in" /
+    "out", host seconds)`` to the list ``sink()`` returns.
+    ``on_first_decode`` runs once, before the first decode step's mark.
+    Returns the originals, for :func:`unmark_generation`.  The wrappers
+    add two clock reads a call and no device work."""
+    targets = [(gen, n) for n in
+               ("decode_step", "sample_logits_keyed", "_is_stop")]
+    originals = {(o, n): getattr(o, n) for o, n in targets + list(also)}
+    first = [on_first_decode]
+
+    def wrap(name, orig):
+        def f(*a, **kw):
+            if name == "decode_step" and first[0] is not None:
+                cb, first[0] = first[0], None
+                cb()
+            sink().append((name, "in", time.perf_counter()))
+            out = orig(*a, **kw)
+            sink().append((name, "out", time.perf_counter()))
+            return out
+        return f
+
+    for (o, n), orig in originals.items():
+        setattr(o, n, wrap(n, orig))
+    return originals
+
+
+def unmark_generation(originals):
+    for (o, n), orig in originals.items():
+        setattr(o, n, orig)
+
+
+def decode_step_split(marks):
+    """Host seconds of each decode step of one ``generate_loop`` call from
+    its marks (:func:`mark_generation`, with ``("loop", "in" / "out", t)``
+    around the call): rows of (wall from this step's ``decode_step`` to
+    the next one's or the loop's end, ``decode_step``'s host time (the
+    model's enqueue), ``sample_logits_keyed``'s, the rest of the step up
+    to ``_is_stop``'s return, and the wait after it, which holds the
+    step's one sync: ``active.any()``).  Also (the prefill's seconds, from
+    the loop's start to the first decode step, its first token and its
+    sync included; the loop's seconds)."""
+    import numpy as np
+
+    rows, cur, t_loop, t_first = [], None, None, None
+    for name, edge, t in marks:
+        if name == "loop" and edge == "in":
+            t_loop = t
+        elif (name == "decode_step" and edge == "in") or name == "loop":
+            if cur is not None:
+                rows.append((t - cur["t0"], cur["model"], cur["sample"],
+                             cur["stop"] - cur["t0"] - cur["model"]
+                             - cur["sample"], t - cur["stop"]))
+            cur = dict(t0=t) if name == "decode_step" else None
+            if t_first is None and name == "decode_step":
+                t_first = t
+            if name == "loop":
+                t_end = t
+        elif cur is not None:
+            if name == "decode_step":
+                cur["model"] = t - cur["t0"]
+            elif name == "sample_logits_keyed":
+                cur["s_in" if edge == "in" else "sample"] = (
+                    t if edge == "in" else t - cur["s_in"])
+            elif name == "_is_stop" and edge == "out":
+                cur["stop"] = t
+    prefill_s = (t_end if t_first is None else t_first) - t_loop
+    return np.array(rows, dtype=np.float64).reshape(-1, 5), prefill_s, \
+        t_end - t_loop
+
+
+def split_line(rows):
+    """One line of :func:`decode_step_split`'s rows: means (medians) in
+    ms."""
+    import numpy as np
+
+    if len(rows) == 0:
+        return "no decode steps"
+    mean, med = rows.mean(axis=0) * 1e3, np.median(rows, axis=0) * 1e3
+    names = ("wall", "host enqueue: the model", "sampling", "the rest",
+             "wait at the step's sync")
+    return ", ".join(f"{n} {a:.3f} ({b:.3f})"
+                     for n, a, b in zip(names, mean, med)) + " ms a step"
+
+
+def decode_anatomy(cfg, device, hf_dir, loop_args):
+    """Where a decode step of sync PPO's generation spends its time: the
+    last ``generate_loop`` call of the phase (its prompts ``[B, T]``,
+    lengths, seed, sampling and cache length, ``loop_args``) replayed on
+    the ``hf_dir`` weights in the serving types for ANAT_DECODE_STEPS
+    decode steps (no stop tokens, so every row runs each step).  A warm-up
+    call, then a call with the host marks of :func:`mark_generation` (each
+    step's wall, its host enqueue by part, of which ``flash_decode``'s
+    wrapper, and its wait at the sync), then, on a card, a
+    call under ``torch.profiler`` (device activity only) started at the
+    first decode step: device busy time a step (kernels and copies), its
+    kernel count, and the rows with the most time.  Idle share = 1 -
+    device busy / the unprofiled wall."""
+    import torch
+
+    from areal_tpu_torch.engine import generation as gen
+    from areal_tpu_torch.models.convert import serving_params
+    from areal_tpu_torch.models.hf import load_hf_model
+    from areal_tpu_torch.ops import decode_attention as da
+
+    steps = ANAT_DECODE_STEPS
+    tokens, lens, seed, sampling, cache_len = loop_args
+    cuda = device.type == "cuda"
+    _, master = load_hf_model(hf_dir, device=device)
+    params = serving_params(master, cfg)
+    del master
+    tokens, lens = tokens.to(device), lens.to(device)
+    counts0 = gen.counters.decode_steps
+
+    def call(marks, on_first_decode=None):
+        originals = mark_generation(gen, lambda: marks, on_first_decode,
+                                    also=[(da, "_launch")])
+        try:
+            marks.append(("loop", "in", time.perf_counter()))
+            gen.generate_loop(params, cfg, tokens, lens, seed,
+                              max_new_tokens=steps + 1, min_new_tokens=0,
+                              stop_tokens=(), sampling=sampling,
+                              cache_len=cache_len)
+            marks.append(("loop", "out", time.perf_counter()))
+        finally:
+            unmark_generation(originals)
+        return decode_step_split(marks)
+
+    call([])
+    marks = []
+    rows, prefill_s, loop_s = call(marks)
+    # the kernel wrapper's host work (checks, outputs, split workspace,
+    # tickets, the launch), inside the model's enqueue
+    t_in = [t for n, e, t in marks if n == "_launch" and e == "in"]
+    t_out = [t for n, e, t in marks if n == "_launch" and e == "out"]
+    wrapper = sum(b - a for a, b in zip(t_in, t_out)) / steps
+    if len(t_in) != (cfg.n_layers * steps if cuda else 0):
+        raise AssertionError(f"decode anatomy: {len(t_in)} flash_decode "
+                             f"launches in {steps} decode steps")
+    if len(rows) != steps:
+        raise AssertionError(f"decode anatomy: {len(rows)} decode steps "
+                             f"replayed, expected {steps}")
+    busy = kernels = None
+    top = []
+    if cuda:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CUDA], acc_events=True)
+
+        def start():
+            torch.cuda.synchronize()
+            prof.start()
+
+        call([], on_first_decode=start)
+        torch.cuda.synchronize()
+        prof.stop()
+        busy_s, _ = device_seconds(prof, ())
+        if busy_s > 0:
+            busy = busy_s / steps
+            kernels = sum(
+                ev.count for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)) / steps
+            top = [(sec / steps, calls / steps, name)
+                   for sec, calls, name in top_device_rows(prof, 8)]
+    wall = float(rows[:, 0].mean())
+    del params
+    gen.counters.decode_steps = counts0
+    B, T = tokens.shape
+    dev = ("device time not measured (no card)" if not cuda else
+           "device time not measured (the profiler saw no device events)"
+           if busy is None else
+           f"device busy {busy * 1e3:.3f} ms a step (idle share "
+           f"{1 - busy / wall:.3f}), {kernels:.1f} device rows a step")
+    log(f"decode anatomy ({B} rows, prompts padded to {T}, cache "
+        f"{cache_len}, {steps} decode steps replayed): {split_line(rows)} "
+        f"(flash_decode's wrapper {len(t_in) / steps:.0f} calls, "
+        f"{wrapper * 1e3:.3f} ms of the model's); {dev}; prefill with its first token {prefill_s * 1e3:.1f} ms, "
+        f"the loop {loop_s * 1e3:.1f} ms")
+    for sec, calls, name in top:
+        log(f"decode anatomy device time a step: {sec * 1e3:.4f} ms in "
+            f"{calls:.1f} calls of {name}")
+    return dict(steps=steps, split_ms=(rows.mean(axis=0) * 1e3).tolist(),
+                wrapper_ms=wrapper * 1e3,
+                busy_ms=None if busy is None else busy * 1e3,
+                idle_share=None if busy is None else 1 - busy / wall,
+                kernels=kernels, prefill_ms=prefill_s * 1e3,
+                top=[(sec * 1e3, calls, name) for sec, calls, name in top])
+
+
+
+def sync_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
+                   prompt_words=ASYNC_PROMPT_WORDS, train_bs=SYNC_TRAIN_BS,
+                   new_tokens=SYNC_NEW_TOKENS, n_answers=ASYNC_ANSWER_WORDS,
+                   overrides=()):
+    """Sync PPO through the port's entry point: ``PPOMathExperiment`` from
+    the recipe's ``training/configs/sync_ppo.yaml`` (``parse_cli``, as
+    ``python -m areal_tpu_torch.apps.main_sync_ppo`` reads it) with
+    ``mesh_spec=d1``, the critic (``ppo.disable_value=false``) and the
+    reference model (``ppo.kl_ctl=SYNC_KL_CTL``), SYNC_STEPS steps of
+    ``train_bs`` sequences, ``new_tokens`` new tokens and micro-batches of
+    MAX_TOKENS_PER_MB tokens, through ``run_experiment_local``: one model
+    worker holds the actor, the critic and the reference model, all three
+    loaded from the HF directory ``hf_dir`` (the critic with a zero value
+    head), and runs the 7-MFC graph (actor_gen over the dense KV cache,
+    rew_inf, ref_inf, critic_inf, actor_inf, actor_train, critic_train).
+
+    Gates: SYNC_STEPS master steps with finite ``actor_train/kl`` and
+    ``critic_train/loss``; step 1's KL within TOL_PROX_MEAN of 0 (actor and
+    reference load one directory); critic_inf's values all 0 at step 1
+    (the zero head) and not all 0 at step 2; actor_inf's logprobs against
+    the generation's (TOL_PROX_MEAN / TOL_PROX_MAX); in each actor_gen,
+    ``flash_decode`` launches equal to ``n_layers`` x the decode steps the
+    generation loop counts itself and flash-forward launches equal to
+    ``n_layers`` x its prefills; the whole run's flash launches against the
+    micro-batches the MFCs dispatched; the three models built from
+    ``hf_dir``; and ``flash_decode`` at the phase's cache shape against its
+    plain version, repeated bit-identical.  Also where actor_gen's time
+    goes: each decode step's host time by part (:func:`mark_generation`)
+    in the run, and the replay of :func:`decode_anatomy` (device busy time
+    and idle share a step).  ``overrides`` are further ``key=value``
+    arguments (CPU rehearsals)."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.cli_args import parse_cli
+    from areal_tpu_torch.apps.local_runner import run_experiment_local
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.engine import backend
+    from areal_tpu_torch.engine import generation as gen
+    from areal_tpu_torch.experiments.ppo_math_exp import PPOMathExperiment
+    from areal_tpu_torch.ops import decode_attention as da
+    from areal_tpu_torch.ops.flash_attention import flash_attention as fa
+    from areal_tpu_torch.system import model_worker as mw
+
+    tag = "sync-ppo"
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    L = cfg.n_layers
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sync_")
+    env0 = {k: os.environ.get(k) for k in ("AREAL_LOG_ROOT", "AREAL_SAVE_ROOT")}
+    os.environ["AREAL_LOG_ROOT"] = os.path.join(tmp, "logs")
+    os.environ["AREAL_SAVE_ROOT"] = os.path.join(tmp, "save")
+    name_resolve.reconfigure("memory")
+
+    mfcs, builds, loops, failures, originals = [], [], [], [], []
+    timelines, last_loop = [], []
+
+    def patch(owner, name, make):
+        orig = getattr(owner, name)
+        originals.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def counts():
+        return (da.flash_decode.launches, fa.fwd_launches, fa.bwd_launches,
+                gen.counters.decode_steps, gen.counters.prefills)
+
+    def on_rpc(orig):
+        def f(self, req):
+            spec = req.data
+            rpc, handle = spec["rpc_name"], spec["handle_name"]
+            ids = list(spec["ids"])
+            model = self._models[spec["model_name"]]
+            # one model worker runs the MFCs in turn, each step's from its
+            # actor_gen on
+            step = sum(r["handle"] == "generate" for r in mfcs) - (
+                handle != "generate")
+            rec = dict(rpc=rpc, handle=handle, ids=ids, step=step,
+                       version=model.version.global_step)
+            c0 = counts()
+            out = orig(self, req)
+            rec["delta"] = dict(zip(
+                ("decode", "fwd", "bwd", "decode_steps", "prefills"),
+                (b - a for a, b in zip(c0, counts()))))
+            rec["elapsed"] = out.get("elapsed", 0.0)
+            try:
+                if handle == "generate":
+                    out_ids = list(out["meta"].ids)
+                    b = self._data_manager.get_batch(out_ids, ["prompt_mask"])
+                    rec["new_tokens"] = int(
+                        (~np.asarray(b.data["prompt_mask"], bool)).sum())
+                elif handle == "inference" and model.engine is not None:
+                    rec["n_mbs"] = model.engine.last_forward_mbs
+                    if rpc == "actor_inf":
+                        b = self._data_manager.get_batch(ids, [
+                            "packed_input_ids", "packed_logprobs",
+                            "prompt_mask", "prox_logp"])
+                        rec["lens"] = [l[0] for l in
+                                       b.seqlens["packed_input_ids"]]
+                        rec["prompt_mask"] = np.asarray(b.data["prompt_mask"])
+                        rec["behav"] = np.asarray(b.data["packed_logprobs"])
+                        rec["prox"] = np.asarray(b.data["prox_logp"])
+                    elif rpc == "critic_inf":
+                        b = self._data_manager.get_batch(
+                            ids, ["values", "prompt_mask"])
+                        resp = ~np.asarray(b.data["prompt_mask"], bool)
+                        rec["values"] = np.asarray(b.data["values"])[resp]
+                elif handle == "train_step":
+                    rec["n_mbs"] = int(out["stats"]["n_mbs"])
+                    rec["stats"] = dict(out["stats"])
+            except Exception as e:  # noqa: BLE001 - raised below
+                failures.append(f"{rpc} record: {e!r}")
+            mfcs.append(rec)
+            return out
+        return f
+
+    def on_make_model(orig):
+        def f(mcfg, *a, dtype=None, **kw):
+            builds.append((mcfg.type_, mcfg.args.get("path"),
+                           bool(mcfg.args.get("is_critic")), str(dtype)))
+            return orig(mcfg, *a, dtype=dtype, **kw)
+        return f
+
+    def on_loop(orig):
+        def f(params, cfg_, prompt_tokens, prompt_lens, seed, **kw):
+            loops.append(dict(B=prompt_tokens.shape[0],
+                              T=prompt_tokens.shape[1],
+                              cache_len=kw["cache_len"]))
+            last_loop[:] = [prompt_tokens.cpu(), prompt_lens.cpu(), seed,
+                            kw["sampling"], kw["cache_len"]]
+            timelines.append([("loop", "in", time.perf_counter())])
+            out = orig(params, cfg_, prompt_tokens, prompt_lens, seed, **kw)
+            timelines[-1].append(("loop", "out", time.perf_counter()))
+            return out
+        return f
+
+    patch(mw.ModelWorker, "_handle_model_rpc", on_rpc)
+    patch(backend, "make_model", on_make_model)
+    patch(gen, "generate_loop", on_loop)
+    originals.extend(
+        (o, n, f) for (o, n), f in
+        mark_generation(gen, lambda: timelines[-1]).items())
+    da.flash_decode.launches = 0
+    fa.fwd_launches = fa.bwd_launches = 0
+    gen.counters = gen.GenerationCounters()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    recipe = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "training", "configs", "sync_ppo.yaml")
+    try:
+        tok_dir, data_path = async_inputs(tmp, cfg.vocab_size, rows=rows,
+                                          words=prompt_words,
+                                          n_answers=n_answers)
+        argv = [
+            "--config", recipe, "mesh_spec=d1", "experiment_name=chipsmoke",
+            "trial_name=syncppo", f"actor.args.path={hf_dir}",
+            f"tokenizer_path={tok_dir}",
+            f"dataset.args.dataset_path={data_path}",
+            f"dataset.args.max_length={ASYNC_MAX_LENGTH}",
+            "ppo.disable_value=false", f"ppo.kl_ctl={SYNC_KL_CTL}",
+            f"train_bs_n_seqs={train_bs}",
+            f"ppo.gen.max_new_tokens={new_tokens}",
+            f"mb_spec.max_tokens_per_mb={MAX_TOKENS_PER_MB}",
+            f"exp_ctrl.benchmark_steps={SYNC_STEPS}",
+            "exp_ctrl.save_freq_steps=null", "exp_ctrl.ckpt_freq_steps=null",
+        ] + (["force_cpu_devices=1"] if not cuda else []) + list(overrides)
+        exp = parse_cli(PPOMathExperiment, argv)
+        xcfg = exp.initial_setup()
+        graph = [r.name for r in xcfg.master.model_rpcs]
+        log(f"{tag}: PPOMathExperiment from {os.path.basename(recipe)}: graph "
+            f"{graph}; models {[str(s.model_name) for s in xcfg.model_workers[0].shards]}; "
+            f"train_bs_n_seqs {train_bs}, {new_tokens} new tokens, "
+            f"max_tokens_per_mb {MAX_TOKENS_PER_MB}, kl_ctl {SYNC_KL_CTL}, "
+            f"{SYNC_STEPS} steps; {rows} rows, the tokenizer's {cfg.vocab_size} "
+            f"words")
+        want_graph = ["actor_gen", "rew_inf", "ref_inf", "critic_inf",
+                      "actor_inf", "actor_train", "critic_train"]
+        if graph != want_graph:
+            raise AssertionError(f"{tag}: graph {graph}, expected "
+                                 f"{want_graph}")
+        tik = time.perf_counter()
+        master = run_experiment_local(xcfg, timeout=900.0)
+        run_s = time.perf_counter() - tik
+    finally:
+        for owner, name, orig in reversed(originals):
+            setattr(owner, name, orig)
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"{tag}: {failures}")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+
+    # -- the models --------------------------------------------------------
+    want = sorted([("hf", hf_dir, False, str(torch.float32)),
+                   ("hf", hf_dir, True, str(torch.float32)),
+                   ("hf", hf_dir, False, str(torch.float32))])
+    if sorted(b for b in builds if b[0] == "hf") != want:
+        raise AssertionError(f"{tag}: models built {builds}, expected the "
+                             f"actor, the critic and the reference from "
+                             f"{hf_dir}")
+
+    # -- the master's steps ------------------------------------------------
+    hist = master.stats_history
+    by_step = [[r for r in mfcs if r["step"] == k] for k in range(SYNC_STEPS)]
+    gen_tok_s = []
+    for i, st in enumerate(hist):
+        (g,) = [r for r in by_step[i] if r["handle"] == "generate"]
+        gen_tok_s.append(g["new_tokens"] / max(g["elapsed"], 1e-9))
+        elapsed = {m: round(st[f"{m}/elapsed"], 3) for m in want_graph}
+        log(f"{tag}: step {i + 1}: wall {st['time_perf/e2e']:.3f} s; MFC "
+            f"seconds {elapsed}; generation {g['new_tokens']} tokens, "
+            f"{g['delta']['decode_steps']} decode steps, "
+            f"{gen_tok_s[-1]:.1f} tokens/s; actor_train/loss "
+            f"{st['actor_train/loss']:.6e}, kl {st['actor_train/kl']:.3e}, "
+            f"reward_mean {st['actor_train/reward_mean']:.4f}, "
+            f"critic_train/loss {st['critic_train/loss']:.6e}")
+    if len(hist) != SYNC_STEPS or not all(
+            math.isfinite(st["actor_train/kl"])
+            and math.isfinite(st["critic_train/loss"])
+            and math.isfinite(st["actor_train/loss"]) for st in hist):
+        raise AssertionError(f"{tag}: master stats {hist}")
+    kl1 = hist[0]["actor_train/kl"]
+    log(f"{tag}: step 1's KL to the reference model {kl1:.3e} (|kl| tol "
+        f"{TOL_PROX_MEAN}: actor and reference load one directory)")
+    if abs(kl1) > TOL_PROX_MEAN:
+        raise AssertionError(f"{tag}: step 1's KL {kl1}")
+
+    # -- the critic's values -------------------------------------------------
+    values = [np.concatenate([r["values"] for r in recs
+                              if r["rpc"] == "critic_inf"]) for recs in by_step]
+    nonzero = [int(np.count_nonzero(v)) for v in values]
+    log(f"{tag}: critic_inf values on response tokens: nonzero "
+        f"{nonzero} of {[v.size for v in values]} by step, max |v| "
+        f"{[float(np.abs(v).max()) for v in values]}")
+    if nonzero[0] != 0 or nonzero[-1] == 0 or not all(
+            np.isfinite(v).all() for v in values):
+        raise AssertionError(f"{tag}: the critic's values are not 0 at step "
+                             "1 (its zero head) and then trained")
+
+    # -- logprobs: actor_inf against the generation's ------------------------
+    gap = logprob_gap_gate(
+        tag, [r for r in mfcs if r["rpc"] == "actor_inf"],
+        lambda rec, sid: [rec["version"]] * (max(rec["lens"]) + 1))
+
+    # -- launches --------------------------------------------------------------
+    gens = [r for r in mfcs if r["handle"] == "generate"]
+    inf_mbs = sum(r.get("n_mbs", 0) for r in mfcs if r["handle"] == "inference")
+    train_mbs = sum(r["n_mbs"] for r in mfcs if r["handle"] == "train_step")
+    prefills = sum(r["delta"]["prefills"] for r in gens)
+    decode_steps = sum(r["delta"]["decode_steps"] for r in gens)
+    for r in gens:
+        d = r["delta"]
+        want_d = ((L * d["decode_steps"], L * d["prefills"], 0) if cuda
+                  else (0, 0, 0))
+        got_d = (d["decode"], d["fwd"], d["bwd"])
+        log(f"{tag}: actor_gen at version {r['version']}: flash_decode / "
+            f"flash fwd / bwd launches {got_d} for {d['decode_steps']} decode "
+            f"steps and {d['prefills']} prefill (expected {want_d})")
+        if got_d != want_d or d["decode_steps"] <= 0 or d["prefills"] != 1:
+            raise AssertionError(f"{tag}: actor_gen launches {got_d}, "
+                                 f"expected {want_d}")
+    splits = []
+    for r, marks in zip(gens, timelines):
+        rows_s, prefill_s, loop_s = decode_step_split(marks)
+        if len(rows_s) != r["delta"]["decode_steps"]:
+            raise AssertionError(f"{tag}: {len(rows_s)} decode steps marked, "
+                                 f"{r['delta']['decode_steps']} counted")
+        splits.append(dict(split_ms=(rows_s.mean(axis=0) * 1e3).tolist(),
+                           prefill_s=prefill_s, loop_s=loop_s,
+                           elapsed_s=r["elapsed"]))
+        log(f"{tag}: actor_gen at version {r['version']}: {r['elapsed']:.3f} "
+            f"s, of which the loop {loop_s:.3f} s (prefill with its first "
+            f"token and sync {prefill_s:.3f} s; {len(rows_s)} decode steps "
+            f"{rows_s[:, 0].sum():.3f} s: {split_line(rows_s)}) and "
+            f"{r['elapsed'] - loop_s:.3f} s outside it (the bf16 copy of "
+            f"the weights, trimming, the data's host side)")
+    want_fa = ((L * (prefills + inf_mbs + 2 * train_mbs), L * train_mbs)
+               if cuda else (0, 0))
+    got_fa = (fa.fwd_launches, fa.bwd_launches)
+    log(f"{tag}: flash launches fwd/bwd {got_fa} for {prefills} prefills, "
+        f"{inf_mbs} inference and {train_mbs} train micro-batches (expected "
+        f"{want_fa})")
+    if got_fa != want_fa:
+        raise AssertionError(f"{tag}: flash launches {got_fa}, expected "
+                             f"{want_fa}")
+    launches = dict(decode=da.flash_decode.launches, fwd=got_fa[0],
+                    bwd=got_fa[1], prefill_fwd=L * prefills if cuda else 0)
+    del master
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- flash_decode at the phase's cache shape -------------------------------
+    case = None
+    if cuda:
+        B, S = loops[0]["B"], loops[0]["cache_len"]
+        lengths = [S, 1] + np.random.default_rng(SEED).integers(
+            1, S + 1, B - 2).tolist()
+        case = flash_decode_case(device, B=B, S=S, lengths=lengths,
+                                 timing_iters=50, n_layers=L)
+    anat = decode_anatomy(cfg, device, hf_dir, last_loop)
+    walls = [st["time_perf/e2e"] for st in hist]
+    secs = time.perf_counter() - t_phase
+    mfc_s = {m: [round(st[f"{m}/elapsed"], 3) for st in hist]
+             for m in want_graph}
+    log(f"{tag}: step walls {[round(w, 3) for w in walls]} s; MFC seconds by "
+        f"step {mfc_s}; generation {[round(t, 1) for t in gen_tok_s]} "
+        f"tokens/s over {decode_steps} decode steps (cache shapes {loops}); "
+        f"peak device memory {peak:.2f} GiB; run {run_s:.1f} s, phase "
+        f"{secs:.1f} s, on {card}")
+    return dict(launches=launches, flash_decode=case, step_s=walls,
+                mfc_s=mfc_s, gen_tok_s=gen_tok_s, kl1=kl1, gap=gap,
+                peak_gib=peak, run_s=run_s, phase_s=secs,
+                decode_steps=decode_steps, loops=loops, splits=splits,
+                anatomy=anat)
 
 
 # -- the processes phase: one process per worker ---------------------------
@@ -4422,8 +4976,14 @@ def main() -> int:
         del master, eng["outs"], long
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"device memory before the async-PPO phase: "
+        log(f"device memory before the sync-PPO phase: "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        sync = sync_ppo_phase(cfg, device, card, hf_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"sync-PPO phase done at {time.perf_counter() - t_start:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+            f"after it")
         loop = async_ppo_phase(cfg, device, card, hf_dir,
                                train_bs=LOOP_TRAIN_BS,
                                new_tokens=LOOP_NEW_TOKENS, steps=LOOP_STEPS,
@@ -4433,13 +4993,15 @@ def main() -> int:
         # context and what the earlier phases left allocated
         gc.collect()
         torch.cuda.empty_cache()
-        procs = processes_phase(cfg, device, card, hf_dir)
+        procs = processes_phase(cfg, device, card, hf_dir,
+                                train_bs=PROC_TRAIN_BS,
+                                new_tokens=PROC_NEW_TOKENS)
     finally:
         shutil.rmtree(hf_root, ignore_errors=True)
     log(f"processes phase done at {time.perf_counter() - t_start:.1f} s")
 
     entries = kernel_entries(kern, long_kern, eng, long_launches, flash,
-                             train, prefix, server, hf, loop, procs)
+                             train, prefix, server, hf, sync, loop, procs)
     if parent is not None:
         torch.cuda.empty_cache()
         parent_ab(parent)
@@ -4460,14 +5022,14 @@ def main() -> int:
 
 
 def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
-                   hf, loop, procs):
+                   hf, sync, loop, procs):
     """The ``{"kernels": [...]}`` line's entries: every kernel, with its
     launches on the main paths (the engine's greedy wave, the long-context
     arms, the prefix-cache phase, the generation server, the server that
-    swapped in the HF directory and the async-PPO loop; the trainer's
-    steps and the loop's for the flash kernels), its
-    comparison's largest absolute error, and its time, plain time and
-    bound at its main-path shape."""
+    swapped in the HF directory and the async-PPO loop; sync PPO's
+    generation for ``flash_decode``; the trainer's steps, sync PPO's and
+    the loop's for the flash kernels), its comparison's largest absolute
+    error, and its time, plain time and bound at its main-path shape."""
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "shape")
 
     def entry(name, source, replaces, launches, err, main, **extra):
@@ -4549,10 +5111,15 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
               decode={k: kern["deep_int8_decode"][k] for k in timed},
               prefill={k: kern["deep_int8_prefill"][k] for k in timed}),
         entry("flash_decode", deep_src, "areal_tpu/ops/decode_attention.py:150",
-              0, long_kern["flash_decode"]["max_abs_err"],
-              long_kern["flash_decode"],
-              note="on no path: compared and timed only; library_ms is "
-                   "scaled_dot_product_attention on the same full rows"),
+              sync["launches"]["decode"],
+              max(long_kern["flash_decode"]["max_abs_err"],
+                  sync["flash_decode"]["max_abs_err"]),
+              sync["flash_decode"],
+              launches_by_path=dict(sync_ppo=sync["launches"]["decode"]),
+              long={k: long_kern["flash_decode"][k]
+                    for k in timed + ("library_ms",)},
+              note="library_ms is scaled_dot_product_attention on the same "
+                   "full rows"),
     ]
     for kind in ("fwd", "bwd"):
         main_shape, long_shape = flash["packed"][kind], flash["long"][kind]
@@ -4561,9 +5128,10 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
             route="cuda",
             source="areal_tpu_torch/csrc/flash_attention.cu",
             replaces="areal_tpu/ops/flash_attention.py:36",
-            launches=(train["launches"][kind] + loop["launches"][kind]
-                      + procs["launches"][kind]),
+            launches=(train["launches"][kind] + sync["launches"][kind]
+                      + loop["launches"][kind] + procs["launches"][kind]),
             launches_by_path=dict(train=train["launches"][kind],
+                                  sync_ppo=sync["launches"][kind],
                                   async_ppo=loop["launches"][kind],
                                   async_ppo_processes=procs["launches"][kind]),
             max_abs_err=max(r[kind]["max_abs_err"] for r in flash.values()),

@@ -357,11 +357,10 @@ def test_make_model_hf_typo_raises_before_the_read(llama_dir, monkeypatch):
          {}, NotImplementedError, "item 9"),
         (dict(architectures=["Qwen3MoeForCausalLM"], num_experts=4), {},
          NotImplementedError, "item 9"),
-        ({}, {"is_critic": True}, NotImplementedError, "item 7"),
         (dict(rope_scaling={"rope_type": "llama3", "factor": 8.0}), {},
          ValueError, "rope_scaling"),
     ],
-    ids=["mixtral", "qwen3_moe", "critic", "rope_scaling"],
+    ids=["mixtral", "qwen3_moe", "rope_scaling"],
 )
 def test_make_model_hf_refusals(hf, args, err, what, tmp_path, monkeypatch):
     path = _config_dir(tmp_path, **hf)

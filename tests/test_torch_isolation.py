@@ -76,6 +76,18 @@ LAUNCH_MODULES = [
     )
 ]
 
+#: sync PPO's modules: generation over the dense KV cache, the critic, the
+#: reference and reward models, the fused interface, the entry point
+SYNC_MODULES = [
+    f"areal_tpu_torch.{m}" for m in (
+        "engine.generation", "models.transformer", "models.convert",
+        "models.config", "interfaces.ppo_functional",
+        "interfaces.ppo_interface", "interfaces.rw_interface",
+        "interfaces.fused_interface", "interfaces.rm_interface",
+        "apps.main_sync_ppo", "tools.sync_rehearsal",
+    )
+]
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -98,7 +110,7 @@ def test_no_jax_and_no_reference_package_imported():
         "assert not bad, bad\n"
         "assert len(mods) >= 12, mods\n"
         f"missing = sorted(set("
-        f"{sorted(SERVING_MODULES + LOOP_MODULES + HF_MODULES + LAUNCH_MODULES)!r}) "
+        f"{sorted(SERVING_MODULES + LOOP_MODULES + HF_MODULES + LAUNCH_MODULES + SYNC_MODULES)!r}) "
         "- set(mods))\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"
@@ -126,7 +138,7 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("module", LOOP_MODULES + SERVING_MODULES + HF_MODULES
-                         + LAUNCH_MODULES)
+                         + LAUNCH_MODULES + SYNC_MODULES)
 def test_no_module_imports_jax_or_the_reference_anywhere(module):
     rel = module.replace(".", "/")
     path = REPO / f"{rel}.py"
@@ -217,16 +229,11 @@ def test_loop_entry_points_default_to_cuda(monkeypatch, tmp_path):
 @pytest.mark.parametrize(
     "kw,what",
     [
-        (dict(ppo=dict(disable_value=False, kl_ctl=0.0)), "critic"),
-        (dict(ppo=dict(disable_value=True, kl_ctl=0.1)), "reference model"),
-        (dict(reward_source="model"), "reward model"),
-        (dict(fuse_rew_ref=True), "fused"),
         (dict(agent_type="math-multi-turn"), "multi-turn"),
         (dict(allocation_mode="d2m1"), "item 10"),
         (dict(force_cpu_devices=2), "item 10"),
     ],
-    ids=["critic", "ref", "reward_model", "fused", "multi_turn",
-         "allocation", "cpu_devices"],
+    ids=["multi_turn", "allocation", "cpu_devices"],
 )
 def test_loop_refuses_what_it_does_not_port(kw, what):
     from areal_tpu_torch.api.config import ModelAbstraction

@@ -137,15 +137,6 @@ def test_inference_then_train_step_matches_reference():
 
 
 def test_out_of_slice_paths_are_refused():
-    _, tm, _ = _models()
-    with pytest.raises(NotImplementedError):
-        tppo.PPOActorInterface(**RECIPE).generate(tm, None, MicroBatchSpec())
-    with pytest.raises(NotImplementedError):
-        tppo.PPOCriticInterface()
-    with pytest.raises(NotImplementedError):
-        tppo.critic_values_fwd(None, None, None)
-    with pytest.raises(NotImplementedError):
-        port_config(jtiny(is_critic=True))
     with pytest.raises(NotImplementedError):
         port_config(jtiny(remat=True, remat_policy="dots"))
 
