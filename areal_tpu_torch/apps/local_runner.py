@@ -32,15 +32,24 @@ def register_impls(threads: bool = True):
     tokenizer classes now, for workers that will load tokenizers from
     threads of this process."""
     import areal_tpu_torch.agents.math_single_step_agent  # noqa: F401
-    import areal_tpu_torch.data.math_code_dataset  # noqa: F401
     import areal_tpu_torch.engine.backend  # noqa: F401
     import areal_tpu_torch.envs.math_code_single_step_env  # noqa: F401
     import areal_tpu_torch.experiments.async_ppo_exp  # noqa: F401
+    import areal_tpu_torch.experiments.dpo_exp  # noqa: F401
+    import areal_tpu_torch.experiments.null_exp  # noqa: F401
     import areal_tpu_torch.experiments.ppo_math_exp  # noqa: F401
+    import areal_tpu_torch.experiments.rm_exp  # noqa: F401
+    import areal_tpu_torch.experiments.sft_exp  # noqa: F401
+    import areal_tpu_torch.interfaces.dpo_interface  # noqa: F401
     import areal_tpu_torch.interfaces.fused_interface  # noqa: F401
+    import areal_tpu_torch.interfaces.null_interface  # noqa: F401
     import areal_tpu_torch.interfaces.ppo_interface  # noqa: F401
     import areal_tpu_torch.interfaces.rm_interface  # noqa: F401
     import areal_tpu_torch.interfaces.rw_interface  # noqa: F401
+    import areal_tpu_torch.interfaces.sft_interface  # noqa: F401
+    from areal_tpu_torch.data import register_all
+
+    register_all()
 
     if threads:
         # pre-resolve transformers' lazy attributes in the main thread: its

@@ -150,7 +150,7 @@ def _load_hf(args, device: DeviceLike, dtype: Optional[torch.dtype]):
 
 @dataclasses.dataclass
 class TrainBackend(model_api.ModelBackend):
-    """The train engine with AdamW (reference: megatron.py:561).
+    """The train engine with its optimizer (reference: megatron.py:561).
 
     ``device`` is the engine's device (None = ``cuda``); the model worker
     sets it from its config."""
@@ -159,18 +159,10 @@ class TrainBackend(model_api.ModelBackend):
         default_factory=OptimizerConfig
     )
     pack_sequences: bool = True
-    #: segment-packing row budget above the longest sequence; the port
-    #: packs each micro-batch into rows of its longest sequence, so only
-    #: 0 is accepted
+    #: segment-packing row budget: rows of bucket_len(max(pack_capacity,
+    #: the longest sequence)) tokens (0 = the longest sequence's bucket)
     pack_capacity: int = 0
     device: Optional[str] = None
-
-    def __post_init__(self):
-        if self.pack_capacity:
-            raise NotImplementedError(
-                "pack_capacity > 0 is not ported; rows hold the longest "
-                "sequence of their micro-batch"
-            )
 
     def _initialize(self, model, spec):
         model.engine = TrainEngine(
@@ -181,6 +173,7 @@ class TrainBackend(model_api.ModelBackend):
             total_train_steps=max(1, spec.total_train_steps),
             pack_sequences=self.pack_sequences,
             device=self.device,
+            pack_capacity=self.pack_capacity,
         )
         model.init_params = None
         return model
@@ -200,13 +193,6 @@ class InferenceBackend(model_api.ModelBackend):
     pack_capacity: int = 0
     device: Optional[str] = None
 
-    def __post_init__(self):
-        if self.pack_capacity:
-            raise NotImplementedError(
-                "pack_capacity > 0 is not ported; rows hold the longest "
-                "sequence of their micro-batch"
-            )
-
     def _initialize(self, model, spec):
         model.engine = TrainEngine(
             model.model_cfg,
@@ -215,6 +201,7 @@ class InferenceBackend(model_api.ModelBackend):
             optimizer_cfg=None,
             pack_sequences=self.pack_sequences,
             device=self.device,
+            pack_capacity=self.pack_capacity,
         )
         model.init_params = None
         return model

@@ -242,10 +242,11 @@ def pack_batch(
     fixed_len: int = 0,
     fixed_segs: int = 0,
     bins: Optional[List[List[int]]] = None,
+    capacity: int = 0,
 ) -> PaddedBatch:
     """FFD-bin sequences into multi-segment rows under a token budget.
 
-    Row width T is ``bucket_len(longest sequence)`` (or
+    Row width T is ``bucket_len(max(capacity, longest sequence))`` (or
     ``fixed_len``); :func:`datapack.bin_pack_ffd` packs
     sequences into rows of at most T tokens, so the padded-slot count
     tracks the TOTAL token count instead of ``n_seqs x max_len``.  Within
@@ -261,7 +262,7 @@ def pack_batch(
     """
     seqlens = [l for ls in sample.seqlens[token_key] for l in ls]
     max_len = max(seqlens)
-    T = fixed_len or bucket_len(max_len)
+    T = fixed_len or bucket_len(max(capacity, max_len))
     assert max_len <= T, (max_len, T)
     if bins is None:
         bins = datapack.bin_pack_ffd(seqlens, T)

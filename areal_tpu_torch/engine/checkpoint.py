@@ -17,8 +17,12 @@ manifest (``serving_quant``, :func:`quant_manifest_entry`).  Serving from
 it is not ported yet (ROADMAP.md queue 1, item 8).
 
 Train-state checkpoints (:func:`save_train_state`) hold the trainer's
-float32 master parameters, its AdamW moments and step count, and the
-version, in one safetensors file with a manifest.
+float32 master parameters, its optimizer's moments and step count, and
+the version, in one safetensors file with a manifest.  Each moment is
+kept as the optimizer stores it: in its own dtype (``mu_dtype``,
+``nu_dtype``), and a factored second moment as its ``r`` and ``c``
+vectors under the parameter's key path.  A restore requires the same
+kinds (key paths, shapes and dtypes) and copies them bit for bit.
 """
 
 from __future__ import annotations
@@ -436,11 +440,12 @@ def quant_manifest_entry(quant_avals, path: str) -> Dict:
 
 
 def _state_tree(engine) -> Dict[str, Any]:
-    """The train state as one tree: float32 master parameters and, with an
-    optimizer, its AdamW moments, each moment under its parameter's key
-    path (the optimizer keeps them in the engine's leaf order)."""
+    """The train state as one tree: float32 master parameters and, with
+    Adam, its moments, each under its parameter's key path (the optimizer
+    keeps them in the engine's leaf order; a factored second moment is a
+    ``{"r", "c"}`` subtree there)."""
     tree: Dict[str, Any] = {"params": engine.params}
-    if engine.opt is not None:
+    if getattr(engine.opt, "mu", None) is not None:
 
         def like_params(moments):
             it = iter(moments)
@@ -455,7 +460,7 @@ def _state_tree(engine) -> Dict[str, Any]:
 def save_train_state(engine, path: str):
     """Write a :class:`~areal_tpu_torch.engine.train_engine.TrainEngine`'s
     train state into the directory ``path``: its float32 master
-    parameters, AdamW moments and update count, and its version, as one
+    parameters, optimizer moments and update count, and its version, as one
     safetensors file (:data:`TRAIN_STATE_NAME`) and a manifest.  Both land
     by ``os.replace``, the manifest last, so a dir with a manifest is
     whole."""
@@ -491,6 +496,14 @@ def load_train_state(engine, path: str) -> bool:
         return False
     tree = _state_tree(engine)
     problems = validate_manifest(tree, manifest)
+    # a train state restores unchanged: no float width is cast either
+    problems += [
+        f"dtype mismatch at {k}: engine {v['dtype']} vs snapshot "
+        f"{manifest['leaves'][k].get('dtype')}"
+        for k, v in _leaves_meta(tree).items()
+        if k in manifest["leaves"]
+        and manifest["leaves"][k].get("dtype") != v["dtype"]
+    ]
     if problems:
         raise ValueError(
             f"train state at {path} does not match the engine: "

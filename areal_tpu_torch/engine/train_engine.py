@@ -79,7 +79,7 @@ def device_peak_flops(device: torch.device) -> float:
 
 
 class TrainEngine:
-    """One model on one device: float32 parameters and optional AdamW."""
+    """One model on one device: float32 parameters and an optional optimizer."""
 
     def __init__(
         self,
@@ -90,6 +90,7 @@ class TrainEngine:
         total_train_steps: int = 1,
         pack_sequences: bool = True,
         device: DeviceLike = None,
+        pack_capacity: int = 0,
     ):
         if mesh is not None:
             raise NotImplementedError(
@@ -99,7 +100,10 @@ class TrainEngine:
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.optimizer_cfg = optimizer_cfg
+        # segment packing bounds each row by bucket_len(max(pack_capacity,
+        # the longest sequence)): 0 packs into rows of the longest sequence
         self.pack_sequences = pack_sequences
+        self.pack_capacity = pack_capacity
         bad = [
             tuple(t.shape) for t in tree_leaves(params)
             if t.dtype != torch.float32
@@ -118,7 +122,11 @@ class TrainEngine:
         self.opt = None
         if optimizer_cfg is not None:
             self.opt = make_optimizer(optimizer_cfg, total_train_steps)
-            self.opt.init(self._leaves)
+            # the per-layer leaves: the reference's stacked [L, ...] leaves,
+            # which alone its factored second moment may take
+            layer_ids = {id(t) for t in tree_leaves(self.params.get("layers", []))}
+            in_layers = [id(t) in layer_ids for t in self._leaves]
+            self.opt.init(self._leaves, factored=in_layers)
         self.version = 0
         self._peak_flops = device_peak_flops(self.device)
 
@@ -139,17 +147,22 @@ class TrainEngine:
 
     def _pad(self, sample: SequenceSample, token_key: str) -> batching.PaddedBatch:
         if self.pack_sequences:
-            return batching.pack_batch(sample, token_key=token_key)
+            return batching.pack_batch(
+                sample, token_key=token_key, capacity=self.pack_capacity
+            )
         return batching.pad_batch(sample, token_key=token_key)
 
     def _layout(self, mbs, token_key: str) -> List[batching.PaddedBatch]:
         """Every micro-batch at a common [B, T], as the reference stacks
-        them (packing: rows of ``bucket_len(longest)``)."""
+        them (packing: rows of ``bucket_len(max(pack_capacity,
+        longest))``)."""
         seqlens = [
             [l for ls in mb.seqlens[token_key] for l in ls] for mb in mbs
         ]
         if self.pack_sequences:
-            T = batching.bucket_len(max(max(s) for s in seqlens))
+            T = batching.bucket_len(
+                max(self.pack_capacity, max(max(s) for s in seqlens))
+            )
             all_bins = [datapack.bin_pack_ffd(s, T) for s in seqlens]
             rows = max(len(b) for b in all_bins)
             seg_cap = batching.next_pow2(max(len(s) for s in seqlens))
@@ -300,7 +313,7 @@ class TrainEngine:
         save_hf_model(path, family, self.model_cfg, self.params, tokenizer)
 
     def save_train_state(self, path: str):
-        """Float32 master parameters, AdamW moments, update count and
+        """Float32 master parameters, optimizer moments, update count and
         version as one snapshot (``checkpoint.save_train_state``)."""
         from areal_tpu_torch.engine import checkpoint
 

@@ -1,8 +1,8 @@
 """Transformer architecture config (port of ``areal_tpu/models/config.py``).
 
 A copy of the reference's :class:`TransformerConfig` with the fields the
-serving and training forwards read.  Of the training knobs only layer
-rematerialisation with the default policy (full recompute) is ported;
+serving and training forwards read.  Of the training knobs layer
+rematerialisation and its policies (``models/remat.py``) are ported;
 context parallelism and the pipeline schedule are not.  A critic
 (``is_critic``) has a value head ``[D, 1]`` in place of the LM head.
 Mixture-of-experts configs are rejected.
@@ -50,8 +50,8 @@ class TransformerConfig:
     logits_dtype: str = "float32"
     # rematerialise each layer in the backward (a per-layer checkpoint)
     remat: bool = False
-    # what the layer checkpoint keeps: only the reference's default
-    # "none" (full recompute) is ported
+    # what the layer checkpoint keeps (models/remat.py POLICY_NAMES):
+    # none | offload_qkv | attn_out | mlp | qkv_attn | dots
     remat_policy: str = "none"
 
     def __post_init__(self):
@@ -66,13 +66,15 @@ class TransformerConfig:
             raise ValueError(f"unknown norm_type {self.norm_type!r}")
         if self.n_experts > 0:
             raise NotImplementedError(
-                "mixture-of-experts models are not ported yet; the torch "
-                "port serves dense models"
+                "mixture-of-experts models are not ported yet (ROADMAP.md "
+                "queue 1, item 9); the torch port runs dense models"
             )
-        if self.remat_policy != "none":
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r}: only the default full "
-                "per-layer recompute ('none') is ported"
+        from areal_tpu_torch.models.remat import POLICY_NAMES
+
+        if self.remat_policy not in POLICY_NAMES:
+            raise ValueError(
+                f"unknown remat_policy {self.remat_policy!r} (valid: "
+                f"{POLICY_NAMES})"
             )
 
     @property

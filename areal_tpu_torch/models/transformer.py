@@ -32,7 +32,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch.base.device import DeviceLike, resolve_device
 from areal_tpu_torch.models.config import TransformerConfig
@@ -323,8 +322,8 @@ def _layer(cfg: TransformerConfig, x, lp: Params, seg_ids, rope_cs, mask):
 
 def _run_layers(params: Params, cfg: TransformerConfig, x, positions, seg_ids):
     """The layers in order (the reference's ``lax.scan``); with
-    ``cfg.remat`` each layer is checkpointed, so the backward recomputes
-    it (the reference's default ``jax.checkpoint`` policy)."""
+    ``cfg.remat`` each layer runs under ``cfg.remat_policy``
+    (``models/remat.py``), which decides what its backward recomputes."""
     rope_cs = (
         None
         if cfg.abs_position_embedding
@@ -342,15 +341,13 @@ def _run_layers(params: Params, cfg: TransformerConfig, x, positions, seg_ids):
         mask = make_attention_mask(
             seg_ids, positions, seg_ids, positions, cfg.sliding_window
         )
-    remat = cfg.remat and torch.is_grad_enabled()
+    layer = _layer
+    if cfg.remat and torch.is_grad_enabled():
+        from areal_tpu_torch.models.remat import policy_for
+
+        layer = policy_for(cfg.remat_policy)
     for lp in params["layers"]:
-        if remat:
-            x = checkpoint(
-                _layer, cfg, x, lp, seg_ids, rope_cs, mask,
-                use_reentrant=False,
-            )
-        else:
-            x = _layer(cfg, x, lp, seg_ids, rope_cs, mask)
+        x = layer(cfg, x, lp, seg_ids, rope_cs, mask)
     return x
 
 

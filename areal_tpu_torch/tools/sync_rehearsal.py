@@ -1,10 +1,10 @@
-"""Run ``chip_smoke.py``'s sync-PPO phase alone: on the CPU at tiny
-widths before a chip call, or on one card at the full Qwen2.5-1.5B size.
+"""Run ``chip_smoke.py``'s sync-PPO phase alone: on one card at the full
+Qwen2.5-1.5B size, or, when asked, on the CPU at tiny widths.
 
 Run from the repository root::
 
-    python areal_tpu_torch/tools/sync_rehearsal.py          # CPU, tiny
-    python areal_tpu_torch/tools/sync_rehearsal.py --card   # one card
+    python3 areal_tpu_torch/tools/sync_rehearsal.py         # one card
+    python areal_tpu_torch/tools/sync_rehearsal.py --cpu    # CPU, tiny
 
 The CPU run writes a qwen2-shaped tiny model (qkv biases, tied embedding,
 float32) as an HF directory and runs ``chip_smoke.sync_ppo_phase`` on it
@@ -33,7 +33,7 @@ from areal_tpu_torch.models.transformer import init_params  # noqa: E402
 
 
 def main() -> int:
-    card = "--card" in sys.argv[1:]
+    card = "--cpu" not in sys.argv[1:]
     tik = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="sync_rehearsal_") as tmp:
         hf_dir = os.path.join(tmp, "qwen2")
@@ -42,7 +42,7 @@ def main() -> int:
             from areal_tpu_torch.ops import _build
 
             if not torch.cuda.is_available():
-                print("sync_rehearsal: --card needs a CUDA device",
+                print("sync_rehearsal: needs a CUDA device (--cpu for the CPU rehearsal)",
                       file=sys.stderr)
                 return 2
             torch.backends.cuda.matmul.allow_tf32 = False

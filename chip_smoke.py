@@ -156,6 +156,25 @@ from a seed, float32 master weights and their bf16 serving copy):
    ``actor_train``, the trainer's wait, decode tokens/s, publish, stage,
    pause, restart and checkpoint seconds and each process's peak memory.
 
+Between the sync-PPO phase and phase 8, the training phase
+(``training_phase``) runs ``SFTExperiment`` from the recipe's
+``training/configs/sft.yaml`` (8 sequences of up to 4096 tokens in
+micro-batches of 16384, once in rows of the longest sequence for 3 steps
+and once in rows packed to 16384 tokens for 2: step 1's first micro-batch
+against the plain attention, the loss falling on the repeated batch),
+``DPOExperiment`` from ``training/configs/dpo.yaml`` (the actor and its
+frozen reference, step 1's loss at ln 2) and ``RMExperiment`` (``rw``, a
+critic with a zero value head) through ``run_experiment_local``, all from
+the HF directory at full width and depth, gating every MFC's flash
+launches against its micro-batches; then, at 4 layers on one 16384-token
+row, one step under each remat policy (its gradient norm against
+``none``'s, its peak memory and step time) and two steps each of float32
+Adam, bf16 ``mu``, bf16 ``nu`` and the factored second moment
+(``opt_state_bytes``, the second update against float32 Adam's).  The
+long-context, prefix-cache and generation-server phases serve the model's
+first CUT_LAYERS layers, and the sync-PPO phase and phases 8 and 9 load a
+copy of the HF directory cut to them.
+
 The engines of phases 2-6 run without the SLO records, and those of
 phases 2, 3 and 6 without the prefix cache, so their work counts and
 times stay comparable with an engine that has neither.
@@ -175,6 +194,7 @@ versions are exact float32 references.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -306,9 +326,12 @@ LOOP_STEPS = 2
 LOOP_OFFPOLICYNESS = 0
 #: the sync-PPO phase (the recipe's training/configs/sync_ppo.yaml with the
 #: critic and the reference model): 2 steps of 16 sequences (512 in the
-#: recipe), 256 new tokens (4096), micro-batches of MAX_TOKENS_PER_MB
+#: recipe), 192 new tokens (4096; 256 before the cut for the training
+#: phase: 16 answers then miss every right-answer word with probability
+#: (1 - 0.316)^16 = 0.2%, and the critic's gate needs a reward), micro-batches
+#: of MAX_TOKENS_PER_MB
 SYNC_TRAIN_BS = 16
-SYNC_NEW_TOKENS = 256
+SYNC_NEW_TOKENS = 192
 SYNC_STEPS = 2
 SYNC_KL_CTL = 0.1
 #: decode steps of the sync-PPO generation replayed for its anatomy (32
@@ -319,6 +342,44 @@ ANAT_DECODE_STEPS = 8
 #: kill-and-resume unchanged)
 PROC_TRAIN_BS = 16
 PROC_NEW_TOKENS = 64
+#: the long-context, prefix-cache and generation-server phases serve the
+#: model's first CUT_LAYERS layers, and the sync-PPO phase and phases 8
+#: and 9 load a copy of the HF directory cut to them (28 before the cut for the script's
+#: time, to pay for the training phase): their host-bound prefill and
+#: decode, loads, recover checkpoint and HF save scale with depth; their
+#: shapes, widths and gates do not
+CUT_LAYERS = 14
+#: the training phase (SFT, DPO and reward-model training from the
+#: recipes' training/configs/{sft,dpo}.yaml at full width and depth): the
+#: recipes' max_length and max_tokens_per_mb, and the row capacity of the
+#: packed SFT run
+TRAIN_MAX_LENGTH = 4096
+TRAIN_MB_TOKENS = 16384
+TRAIN_PACK_CAPACITY = 16384
+#: SFT: one batch of 8 sequences (64 in the recipe), 16496 tokens in two
+#: micro-batches, repeated each epoch; the longest reaches max_length.
+#: Step 1's lr is the warm-up's 0, so the third step shows the fall
+SFT_LENS = (4096, 3500, 2900, 2300, 1700, 1100, 600, 300)
+SFT_STEPS = 3
+SFT_PACKED_STEPS = 2
+#: the recipe's 2e-5 on a random model moves a 12-nat loss by less than the
+#: rounding of two layouts of one batch; 1e-4 shows one update's fall
+SFT_LR = 1e-4
+#: DPO / rw rows: (prompt words, ((chosen, rejected words), ...)), the
+#: recipe's max_pairs_per_prompt 2; the longest sequence reaches max_length
+PAIR_ROWS = ((3000, ((1095, 700), (400, 900))),
+             (1500, ((800, 1200), (300, 50))),
+             (800, ((2000, 1500), (100, 600))),
+             (200, ((3000, 1000), (500, 2500))))
+DPO_TRAIN_BS = 4  # prompts (32 in the recipe): 16 sequences, 8 pairs
+RW_TRAIN_BS = 2
+#: the options arm: the architecture's width at 4 layers, one micro-batch
+#: of 16384 tokens in one packed row, lr 1e-4 without warm-up
+OPTIONS_LAYERS = 4
+OPTIONS_LENS = (4096,) * 4
+OPTIONS_LR = 1e-4
+#: steps per remat policy in the options arm: the first carries first use
+REMAT_STEPS = 2
 #: cached prefixes of the mid-page prefill-entry case: a cache hit leaves
 #: a fill's start anywhere in a page
 MID_PAGE_PREFIXES = (1000, 1255, 257, 0)
@@ -378,6 +439,40 @@ TOL_FA_LSE = 1e-4
 #: relative L2 distance of dq, dk, dv (bf16 internals; the verify notes'
 #: ~2e-2 for gradients)
 TOL_FA_GRAD = 2e-2
+#: the kernels against the plain attention on a train step's first
+#: micro-batch at full depth (train_route_check): the largest relative L2
+#: distance of one real token's final hidden state, and the largest
+#: |logprob - plain| of a transition.  Float32 weights, bf16 activations;
+#: the kernels round P to bf16.  Read on an H100 at 28 layers (rows of 4096
+#: and of 16384): 1.41e-2 to 1.42e-2 and 2.7e-3 to 3.1e-3; the control,
+#: the kernels given each row as one segment, 1.47 to 1.51 and 0.31 to
+#: 0.38.  Each limit is 3.3-3.5x above the sound reading and 29-31x below
+#: the control's; the script runs the control in both SFT runs and fails
+#: if a gate does not see it
+TOL_TRAIN_HIDDEN = 5e-2
+TOL_TRAIN_LOGPROB = 1e-2
+#: the packed SFT run's first loss (a token mean over the same batch in
+#: rows of 16384) against the run in rows of the longest sequence: the
+#: same sums in other layouts
+TOL_SFT_PACKED_REL = 1e-4
+#: DPO's first loss against ln 2: actor and reference hold the same
+#: float32 weights (the model worker builds every model in float32; no
+#: bf16 serving copy), but the reference's logprobs come from one
+#: inference pass whose rows pack the sequences otherwise than the train
+#: micro-batches do, so the bf16 products round otherwise: a pair's
+#: logratio moves by ~1e-2 over ~7000 tokens, beta 0.1 scales it, and
+#: the loss moves by a quarter of that (2.8e-04 measured)
+TOL_DPO_LN2 = 2e-3
+#: a remat policy's gradient norm against none's: the same arithmetic,
+#: up to the order of the embedding gradient's atomic adds
+TOL_REMAT_GNORM_REL = 1e-4
+#: the second step's parameter change with bf16 mu or nu against float32
+#: Adam's (relative L2): the stored moment rounds to 2^-9 relative, and
+#: optax forms b1 mu with b1 rounded to bf16
+TOL_MOMENT_DELTA = 2e-2
+#: the factored second moment's change against Adam's: the same signs,
+#: other magnitudes (the rank-1 estimate of g^2)
+MIN_FACTORED_COS = 0.5
 #: the flash phase's layouts: (name, B, T, segment lengths per row).  The
 #: first two are timed for the kernels line; the others cover T below one
 #: 64-token tile, T not a multiple of a tile, segments of one token and
@@ -4004,6 +4099,542 @@ def sync_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
                 anatomy=anat)
 
 
+# -- the training phase: SFT, DPO, the reward model, the options -----------
+
+def training_inputs(tmp, vocab):
+    """The training phase's data, in ``tmp``: :func:`async_inputs`'
+    word-level tokenizer (one token a word), a ``prompt_answer`` jsonl with
+    one row per length of SFT_LENS (prompt + answer + EOS tokens, the
+    prompt a quarter of it) and an ``rw_pair`` jsonl with one row per
+    ``(prompt words, ((chosen words, rejected words), ...))`` of
+    PAIR_ROWS, the words drawn from numpy seed SEED.  Returns (tokenizer
+    dir, SFT path, pairs path)."""
+    import numpy as np
+
+    tok_dir, _ = async_inputs(tmp, vocab, rows=1, words=(1, 1), seed=SEED)
+    rng = np.random.default_rng(SEED)
+    n_words = vocab - 3 - ASYNC_ANSWER_WORDS
+
+    def words(n):
+        # a trailing space: the datasets concatenate prompt, answer and EOS
+        return "".join(f"w{j} " for j in rng.integers(0, n_words, n))
+
+    sft_path = os.path.join(tmp, "sft.jsonl")
+    with open(sft_path, "w") as f:
+        for i, n in enumerate(SFT_LENS):
+            p = max(1, n // 4)
+            f.write(json.dumps(dict(id=f"s{i}", prompt=words(p),
+                                    answer=words(n - p - 1))) + "\n")
+    pair_path = os.path.join(tmp, "pairs.jsonl")
+    with open(pair_path, "w") as f:
+        for i, (p, pairs) in enumerate(PAIR_ROWS):
+            prompt = words(p)
+            f.write(json.dumps(dict(
+                id=f"p{i}", prompt=prompt,
+                pos_answers=[words(a) for a, _ in pairs],
+                neg_answers=[words(b) for _, b in pairs])) + "\n")
+    return tok_dir, sft_path, pair_path
+
+
+def per_head_plain_attention(q, k, v, seg_ids):
+    """The flash wrapper's plain version (``reference_flash_attention``),
+    one query head at a time: its float32 [B, 1, T, T] scores at T = 16384
+    take 1 GiB a head instead of 12."""
+    import torch
+
+    from areal_tpu_torch.ops.flash_attention import reference_flash_attention
+
+    r = q.shape[2] // k.shape[2]
+    return torch.cat([reference_flash_attention(
+        q[:, :, h:h + 1], k[:, :, h // r:h // r + 1], v[:, :, h // r:h // r + 1],
+        seg_ids) for h in range(q.shape[2])], dim=2)
+
+
+def train_route_check(engine, sample, mb_spec, token_key, control):
+    """The first micro-batch of a train step, as the engine lays it out,
+    through the model's forward three times under ``no_grad``: with the
+    flash kernels, with the plain attention, and, for ``control``, with
+    the kernels given every row as one segment (a fault that packing
+    shows: a token attends to the sequences before it in its row).  Per
+    real token, the relative L2 distance of the final hidden state to the
+    plain route's, and, for an actor, |logprob - plain| of each transition
+    inside a segment; their maxima for the kernels and the control.  The
+    launches here are not counted."""
+    import torch
+
+    from areal_tpu_torch.models.transformer import head_weight, hidden_states
+    from areal_tpu_torch.ops import flash_attention as fa_mod
+    from areal_tpu_torch.ops.loss import per_token_logprobs_entropy
+
+    fa = fa_mod.flash_attention
+    c0 = (fa.fwd_launches, fa.bwd_launches)
+    mbs, *_ = sample.split(mb_spec)
+    batch = engine._device_batch(engine._layout(mbs, token_key)[0])
+    params, mcfg = engine.params, engine.model_cfg
+    tokens, seg = batch["tokens"], batch["seg_ids"]
+    real = seg != 0
+    trans = (seg[:, 1:] == seg[:, :-1]) & real[:, 1:]
+
+    def route(flash):
+        fa_mod.flash_attention = flash
+        try:
+            with torch.no_grad():
+                h = hidden_states(params, mcfg, tokens, batch["positions"], seg)
+                if mcfg.is_critic:
+                    return h.float(), None
+                B, T, D = h.shape
+                lp, _ = per_token_logprobs_entropy(
+                    h[:, :-1].reshape(-1, D), head_weight(params, mcfg).to(h.dtype),
+                    tokens[:, 1:].reshape(-1), with_entropy=False)
+                return h.float(), lp.reshape(B, T - 1)
+        finally:
+            fa_mod.flash_attention = fa
+
+    h_p, lp_p = route(per_head_plain_attention)
+    norm = h_p.norm(dim=-1)[real]
+
+    def distance(h, lp):
+        d = dict(hidden=float(((h - h_p).norm(dim=-1)[real] / norm).max()))
+        if lp is not None:
+            d["logprob"] = float((lp - lp_p).abs()[trans].max())
+        return d
+
+    out = dict(kernel=distance(*route(fa)), rows=tuple(tokens.shape),
+               segments=int(seg.amax(dim=1).sum()), tokens=int(real.sum()))
+    if control:
+        def merged(q, k, v, s):
+            return fa(q, k, v, (s != 0).to(s.dtype))
+
+        # the wrapper counts on the module's flash_attention, this function
+        # while it stands there
+        merged.fwd_launches = merged.bwd_launches = 0
+        out["control"] = distance(*route(merged))
+    fa.fwd_launches, fa.bwd_launches = c0
+    return out
+
+
+def options_arm(cfg, device):
+    """The training options at ``cfg``'s width and OPTIONS_LAYERS layers,
+    on one micro-batch of OPTIONS_LENS sequences packed into one row
+    (``pack_capacity = sum(OPTIONS_LENS)``): REMAT_STEPS SFT steps from
+    the same weights under each remat policy (step 1's gradient norm
+    against ``none``'s within TOL_REMAT_GNORM_REL and its loss equal
+    within 1e-6; each step's time and peak memory, the first carrying
+    first use, such as an offload's pinned host buffers), and two steps
+    each of float32 Adam, bf16 ``mu``, bf16 ``nu`` and the factored
+    second moment (the first step's lr is the warm-up's 0, so the second
+    reads the stored moments): their ``opt_state_bytes``, and the second
+    step's parameter change against float32 Adam's (bf16 moments within
+    TOL_MOMENT_DELTA relative L2; the factored moment, another
+    second-moment estimate with the same signs, at a cosine above
+    MIN_FACTORED_COS)."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
+    from areal_tpu_torch.engine.optimizer import OptimizerConfig, opt_state_bytes
+    from areal_tpu_torch.engine.train_engine import TrainEngine, tree_map
+    from areal_tpu_torch.interfaces.sft_interface import sft_loss_fn
+    from areal_tpu_torch.models.remat import POLICY_NAMES
+    from areal_tpu_torch.models.transformer import init_params
+
+    tag = "training/options"
+    cfg_l = dataclasses.replace(cfg, n_layers=OPTIONS_LAYERS, remat=True)
+    init = init_params(cfg_l, SEED + 1, device, dtype=torch.float32)
+    rng = np.random.default_rng(SEED)
+    n = int(sum(OPTIONS_LENS))
+    pmask = np.concatenate([np.arange(l) < l // 4 for l in OPTIONS_LENS])
+    sample = SequenceSample.from_default(
+        seqlens=list(OPTIONS_LENS), ids=[f"o{i}" for i in range(len(OPTIONS_LENS))],
+        data={"packed_input_ids": rng.integers(
+            3, cfg.vocab_size, n).astype(np.int32), "prompt_mask": pmask})
+
+    def run(policy="none", steps=1, **opt_kw):
+        torch.cuda.empty_cache()
+        eng = TrainEngine(
+            dataclasses.replace(cfg_l, remat_policy=policy), None,
+            tree_map(lambda t: t.detach().clone(), init),
+            OptimizerConfig(lr=OPTIONS_LR, warmup_steps_proportion=0.0,
+                            **opt_kw),
+            10, device=device, pack_capacity=n)
+        sts = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            tik = time.perf_counter()
+            st = eng.train_batch(sample, sft_loss_fn,
+                                 MicroBatchSpec(max_tokens_per_mb=n))
+            torch.cuda.synchronize()
+            st["step_s"] = time.perf_counter() - tik
+            st["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            st["activation_gib"] = ((torch.cuda.max_memory_allocated() - base)
+                                    / 2**30)
+            sts.append(st)
+        st = dict(sts[0], steps_s=[x["step_s"] for x in sts],
+                  activation_gibs=[x["activation_gib"] for x in sts],
+                  opt_bytes=opt_state_bytes(eng.opt),
+                  delta=[(p.detach() - q).flatten() for p, q in zip(
+                      eng._leaves, _leaves(init))])
+        st.update(step_s=sts[-1]["step_s"], peak_gib=sts[-1]["peak_gib"])
+        del eng
+        return st
+
+    run()  # warm-up: the first step's allocations and library handles
+    policies = {}
+    for policy in POLICY_NAMES:
+        st = run(policy, steps=REMAT_STEPS)
+        st.pop("delta")
+        policies[policy] = st
+        log(f"{tag}: remat {policy}: step 1's loss {st['loss']:.6f}, grad "
+            f"norm {st['grad_norm']:.6e}; steps "
+            f"{[round(s * 1e3, 1) for s in st['steps_s']]} ms, activations "
+            f"{[round(g, 2) for g in st['activation_gibs']]} GiB above the "
+            f"train state (peak {st['peak_gib']:.2f} GiB)")
+    ref = policies["none"]
+    for policy, st in policies.items():
+        rel = abs(st["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        if not (math.isfinite(st["loss"]) and rel <= TOL_REMAT_GNORM_REL
+                and abs(st["loss"] - ref["loss"]) <= 1e-6 * abs(ref["loss"])):
+            raise AssertionError(
+                f"{tag}: remat {policy}: loss {st['loss']} grad norm "
+                f"{st['grad_norm']} against none's {ref['loss']} "
+                f"{ref['grad_norm']} (rel {rel:.2e}, tol "
+                f"{TOL_REMAT_GNORM_REL})")
+    moments = {}
+    for name, kw in (("fp32", {}), ("mu_bf16", dict(mu_dtype="bfloat16")),
+                     ("nu_bf16", dict(nu_dtype="bfloat16")),
+                     ("factored", dict(factored_second_moment=True))):
+        moments[name] = run(steps=2, **kw)
+    n_params = sum(t.numel() for t in _leaves(init))
+    ref_d = moments["fp32"].pop("delta")
+    ref_norm = math.sqrt(sum(float(d.double().square().sum()) for d in ref_d))
+    out = {}
+    for name, st in moments.items():
+        d = st.pop("delta", ref_d)
+        diff = math.sqrt(sum(float((a - b).double().square().sum())
+                             for a, b in zip(d, ref_d)))
+        dot = sum(float((a.double() * b.double()).sum()) for a, b in zip(d, ref_d))
+        norm = math.sqrt(sum(float(a.double().square().sum()) for a in d))
+        out[name] = dict(opt_bytes=st["opt_bytes"], rel_l2=diff / ref_norm,
+                         cos=dot / max(norm * ref_norm, 1e-30),
+                         loss=st["loss"], step_s=st["step_s"],
+                         peak_gib=st["peak_gib"])
+        log(f"{tag}: {name}: opt_state_bytes {st['opt_bytes']} "
+            f"({st['opt_bytes'] / 2**30:.3f} GiB); step 2's parameter "
+            f"change against float32 Adam's: relative L2 "
+            f"{out[name]['rel_l2']:.3e}, cosine {out[name]['cos']:.6f}; "
+            f"step {st['step_s'] * 1e3:.1f} ms, peak {st['peak_gib']:.2f} GiB")
+    want_bytes = 8 * n_params + 8
+    if (out["fp32"]["opt_bytes"] != want_bytes
+            or out["mu_bf16"]["opt_bytes"] != want_bytes - 2 * n_params
+            or out["nu_bf16"]["opt_bytes"] != want_bytes - 2 * n_params
+            or not out["factored"]["opt_bytes"] < want_bytes):
+        raise AssertionError(f"{tag}: opt_state_bytes "
+                             f"{ {k: v['opt_bytes'] for k, v in out.items()} } "
+                             f"for {n_params} parameters")
+    for name in ("mu_bf16", "nu_bf16"):
+        if not out[name]["rel_l2"] <= TOL_MOMENT_DELTA:
+            raise AssertionError(f"{tag}: {name}: parameter change "
+                                 f"{out[name]['rel_l2']} from float32 Adam's")
+    if not (ref_norm > 0 and out["factored"]["cos"] > MIN_FACTORED_COS):
+        raise AssertionError(f"{tag}: factored: cosine {out['factored']['cos']}"
+                             f" with float32 Adam's change ({ref_norm})")
+    return dict(policies={k: {f: v[f] for f in (
+                    "grad_norm", "loss", "steps_s", "peak_gib",
+                    "activation_gibs")} for k, v in policies.items()},
+                moments=out, n_params=n_params, tokens=n)
+
+
+def training_phase(cfg, device, card, hf_dir):
+    """SFT, DPO and reward-model training through the port's entry points
+    on the card, the models from the HF directory ``hf_dir`` at full width
+    and depth:
+
+    - ``SFTExperiment`` from the recipe's ``training/configs/sft.yaml``
+      (``parse_cli``, as ``python -m areal_tpu_torch.apps.main_sft`` reads
+      it; ``mesh_spec=d1``, ``remat: true``, ``max_tokens_per_mb``
+      TRAIN_MB_TOKENS) over one batch of SFT_LENS sequences, run twice
+      through ``run_experiment_local``: SFT_STEPS steps with rows of the
+      longest sequence, then SFT_PACKED_STEPS with the train backend's
+      ``pack_capacity`` TRAIN_PACK_CAPACITY.  Gates: finite losses; the
+      batch repeats each epoch and step 1's lr is the warm-up's 0, so step
+      2's loss repeats step 1's and step 3's must fall below it by more
+      than 10x that repeat's difference; the packed run's first loss
+      equals the unpadded one's within TOL_SFT_PACKED_REL;
+    - ``DPOExperiment`` from ``training/configs/dpo.yaml``: the actor and
+      its frozen reference (the actor's abstraction, on an ``inference``
+      backend) from ``hf_dir``, one step of DPO_TRAIN_BS prompts; step 1's
+      loss within TOL_DPO_LN2 of ln 2 (the actor is its reference: this
+      checks the loss's plumbing, not the kernels);
+    - ``RMExperiment`` (``rw``): a critic from ``hf_dir`` (a zero value
+      head), one step of RW_TRAIN_BS prompts: loss ln 2 within 1e-6 (every
+      score 0: plumbing again), a nonzero gradient;
+    - :func:`options_arm`.
+
+    The kernels' gate: each run's first train micro-batch through
+    :func:`train_route_check`, its final hidden states within
+    TOL_TRAIN_HIDDEN and an actor's logprobs within TOL_TRAIN_LOGPROB of
+    the plain attention's, and in both SFT runs (rows of several
+    sequences) the segment control outside both.  Every run's flash launches against its micro-batches
+    (per layer: remat ``none`` 2 forward and 1 backward a train
+    micro-batch, an inference micro-batch 1 forward)."""
+    import torch
+
+    from areal_tpu_torch.api.cli_args import parse_cli
+    from areal_tpu_torch.apps.local_runner import run_experiment_local
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.engine.train_engine import TrainEngine
+    from areal_tpu_torch.experiments.dpo_exp import DPOExperiment
+    from areal_tpu_torch.experiments.rm_exp import RMExperiment
+    from areal_tpu_torch.experiments.sft_exp import SFTExperiment
+    from areal_tpu_torch.ops import flash_attention as fa_mod
+    from areal_tpu_torch.system import model_worker as mw
+
+    tag = "training"
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    fa = fa_mod.flash_attention
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    env0 = {k: os.environ.get(k) for k in ("AREAL_LOG_ROOT", "AREAL_SAVE_ROOT")}
+    os.environ["AREAL_LOG_ROOT"] = os.path.join(tmp, "logs")
+    os.environ["AREAL_SAVE_ROOT"] = os.path.join(tmp, "save")
+    name_resolve.reconfigure("memory")
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "training", "configs")
+    mfcs, failures, originals = [], [], []
+    checks = {}
+
+    def patch(owner, name, make):
+        orig = getattr(owner, name)
+        originals.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def on_rpc(orig):
+        def f(self, req):
+            spec = req.data
+            model = self._models[spec["model_name"]]
+            c0 = (fa.fwd_launches, fa.bwd_launches)
+            out = orig(self, req)
+            rec = dict(run=runs[-1], rpc=spec["rpc_name"],
+                       handle=spec["handle_name"],
+                       delta=(fa.fwd_launches - c0[0], fa.bwd_launches - c0[1]),
+                       elapsed=out.get("elapsed", 0.0))
+            try:
+                if rec["handle"] == "train_step":
+                    rec["stats"] = dict(out["stats"])
+                    rec["n_mbs"] = int(out["stats"]["n_mbs"])
+                    rec["remat"] = model.model_cfg.remat
+                elif rec["handle"] == "inference":
+                    rec["n_mbs"] = model.engine.last_forward_mbs
+            except Exception as e:  # noqa: BLE001 - raised below
+                failures.append(f"{rec['rpc']} record: {e!r}")
+            mfcs.append(rec)
+            return out
+        return f
+
+    def on_train_batch(orig):
+        def f(self, sample, loss_fn, mb_spec, token_key="packed_input_ids"):
+            name = runs[-1]
+            if name not in checks:
+                checks[name] = chk = train_route_check(
+                    self, sample, mb_spec, token_key,
+                    control=name.startswith("sft"))
+                log(f"{tag}/{name}: first micro-batch {chk['rows']} "
+                    f"({chk['segments']} sequences, {chk['tokens']} tokens) "
+                    f"against the plain attention: kernels {chk['kernel']}, "
+                    f"rows as one segment {chk.get('control', '-')} (tol "
+                    f"hidden {TOL_TRAIN_HIDDEN}, logprob {TOL_TRAIN_LOGPROB})")
+            return orig(self, sample, loss_fn, mb_spec, token_key)
+        return f
+
+    def within(d):
+        return (d["hidden"] <= TOL_TRAIN_HIDDEN
+                and d.get("logprob", 0.0) <= TOL_TRAIN_LOGPROB)
+
+    runs = []
+    results = {}
+    try:
+        tok_dir, sft_path, pair_path = training_inputs(tmp, cfg.vocab_size)
+        patch(mw.ModelWorker, "_handle_model_rpc", on_rpc)
+        patch(TrainEngine, "train_batch", on_train_batch)
+        common = [
+            "mesh_spec=d1", "experiment_name=chipsmoke",
+            f"tokenizer_path={tok_dir}",
+            f"dataset.args.max_length={TRAIN_MAX_LENGTH}",
+            f"mb_spec.max_tokens_per_mb={TRAIN_MB_TOKENS}",
+            "exp_ctrl.save_freq_steps=null", "exp_ctrl.ckpt_freq_steps=null",
+        ]
+        fa.fwd_launches = fa.bwd_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+
+        def run(name, exp_cls, argv, steps, pack=0):
+            runs.append(name)
+            exp = parse_cli(exp_cls, argv + common + [
+                f"trial_name={name.replace('_', '-')}",
+                f"exp_ctrl.benchmark_steps={steps}"])
+            xcfg = exp.initial_setup()
+            if pack:
+                for w in xcfg.model_workers:
+                    for s in w.shards:
+                        if s.backend.type_ == "train":
+                            s.backend.args["pack_capacity"] = pack
+            torch.cuda.reset_peak_memory_stats()
+            tik = time.perf_counter()
+            hist = run_experiment_local(xcfg, timeout=900.0).stats_history
+            secs = time.perf_counter() - tik
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            recs = [r for r in mfcs if r["run"] == name]
+            log(f"{tag}/{name}: {exp_cls.__name__}, graph "
+                f"{[r.name for r in xcfg.master.model_rpcs]}, {len(hist)} "
+                f"steps in {secs:.1f} s (model loads included); step walls "
+                f"{[round(s['time_perf/e2e'], 3) for s in hist]} s; MFCs "
+                f"{[(r['rpc'], r.get('n_mbs'), round(r['elapsed'], 3)) for r in recs]};"
+                f" peak device memory {peak:.2f} GiB")
+            if len(hist) != steps:
+                raise AssertionError(f"{tag}/{name}: {len(hist)} steps, "
+                                     f"expected {steps}")
+            chk = checks.get(name)
+            if chk is None or not within(chk["kernel"]):
+                raise AssertionError(f"{tag}/{name}: the kernels against the "
+                                     f"plain attention: {chk}")
+            results[name] = dict(hist=hist, recs=recs, s=secs, peak_gib=peak)
+            return hist, recs
+
+        # -- SFT: rows of the longest sequence, then packed rows -----------
+        sft_argv = ["--config", os.path.join(configs, "sft.yaml"),
+                    f"model.args.path={hf_dir}",
+                    f"dataset.args.dataset_path={sft_path}",
+                    f"train_bs_n_seqs={len(SFT_LENS)}",
+                    f"optimizer.lr={SFT_LR}",
+                    f"exp_ctrl.total_train_epochs={SFT_STEPS}"]
+        hist, recs = run("sft", SFTExperiment, sft_argv, SFT_STEPS)
+        losses = [s["trainDefault/loss"] for s in hist]
+        noise = abs(losses[1] - losses[0])
+        fall = losses[0] - losses[2]
+        log(f"{tag}/sft: losses {[f'{l:.6f}' for l in losses]}; the batch "
+            f"repeats: step 2 - step 1 {-noise:+.3e} (step 1's lr 0), step 3 "
+            f"- step 1 {-fall:+.3e}")
+        if not all(math.isfinite(l) for l in losses) or not (
+                fall > 10 * noise and fall > 0):
+            raise AssertionError(f"{tag}/sft: losses {losses}")
+        hist_p, _ = run("sft_packed", SFTExperiment,
+                        sft_argv[:-1] + ["exp_ctrl.total_train_epochs="
+                                         f"{SFT_PACKED_STEPS}"],
+                        SFT_PACKED_STEPS, pack=TRAIN_PACK_CAPACITY)
+        packed = [s["trainDefault/loss"] for s in hist_p]
+        log(f"{tag}/sft_packed: pack_capacity {TRAIN_PACK_CAPACITY}: losses "
+            f"{[f'{l:.6f}' for l in packed]} (rows of the longest sequence: "
+            f"{[f'{l:.6f}' for l in losses[:len(packed)]]})")
+        if not all(math.isfinite(l) for l in packed) or abs(
+                packed[0] - losses[0]) > TOL_SFT_PACKED_REL * abs(losses[0]):
+            raise AssertionError(f"{tag}/sft_packed: losses {packed} against "
+                                 f"{losses}")
+        for name in ("sft", "sft_packed"):
+            ctl = checks[name]["control"]
+            if (ctl["hidden"] <= TOL_TRAIN_HIDDEN
+                    or ctl["logprob"] <= TOL_TRAIN_LOGPROB):
+                raise AssertionError(f"{tag}/{name}: the segment control "
+                                     f"{ctl} passes a gate")
+
+        # -- DPO: the actor and its frozen reference -----------------------
+        hist, recs = run("dpo", DPOExperiment, [
+            "--config", os.path.join(configs, "dpo.yaml"),
+            f"actor.args.path={hf_dir}",
+            f"dataset.args.dataset_path={pair_path}",
+            f"train_bs_n_seqs={DPO_TRAIN_BS}"], 1)
+        d1 = hist[0]["dpo_train/loss"]
+        dst = recs[-1]["stats"]
+        log(f"{tag}/dpo: step 1's loss {d1:.6f} (ln 2 = {math.log(2):.6f}, "
+            f"tol {TOL_DPO_LN2}); {dst['n_tokens']:.0f} pairs, mean margin "
+            f"{dst['margin_sum'] / dst['n_tokens']:.4e}, grad norm "
+            f"{dst['grad_norm']:.4e}")
+        if not abs(d1 - math.log(2)) <= TOL_DPO_LN2:
+            raise AssertionError(f"{tag}/dpo: step 1's loss {d1}")
+
+        # -- rw: a critic from the directory -------------------------------
+        # no recipe ships a reward-model YAML: the DPO recipe's data and
+        # batch settings, a critic of the directory
+        rw_yaml = os.path.join(tmp, "rw.yaml")
+        with open(rw_yaml, "w") as f:
+            json.dump(dict(
+                model=dict(type_="hf", args=dict(path=hf_dir, is_critic=True,
+                                                 remat=True)),
+                dataset=dict(type_="rw_pair", args=dict(
+                    dataset_path=pair_path, max_length=TRAIN_MAX_LENGTH,
+                    max_pairs_per_prompt=2)),
+                train_bs_n_seqs=RW_TRAIN_BS, optimizer=dict(lr=2e-5)), f)
+        hist, recs = run("rw", RMExperiment, ["--config", rw_yaml], 1)
+        r1 = hist[0]["rw_train/loss"]
+        g1 = recs[-1]["stats"]["grad_norm"]
+        log(f"{tag}/rw: step 1's loss {r1:.8f} (the zero value head scores "
+            f"every sequence 0: ln 2), grad norm {g1:.4e}")
+        if not (abs(r1 - math.log(2)) <= 1e-6 and math.isfinite(g1)
+                and g1 > 0):
+            raise AssertionError(f"{tag}/rw: loss {r1}, grad norm {g1}")
+    finally:
+        for owner, name, orig in reversed(originals):
+            setattr(owner, name, orig)
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"{tag}: {failures}")
+
+    # -- launches of the experiments ----------------------------------------
+    want = [0, 0]
+    for r in mfcs:
+        per = ((2 if r["remat"] else 1, 1) if r["handle"] == "train_step"
+               else (1, 0))
+        exp_r = tuple(L * r["n_mbs"] * k for k in per)
+        if r["delta"] != exp_r:
+            raise AssertionError(f"{tag}/{r['run']}: {r['rpc']} flash "
+                                 f"launches {r['delta']} for {r['n_mbs']} "
+                                 f"micro-batches, expected {exp_r}")
+        want = [a + b for a, b in zip(want, exp_r)]
+    got = [fa.fwd_launches, fa.bwd_launches]
+    log(f"{tag}: flash launches fwd/bwd {tuple(got)} over the experiments' "
+        f"{sum(r['n_mbs'] for r in mfcs)} micro-batches (expected "
+        f"{tuple(want)})")
+    if got != want:
+        raise AssertionError(f"{tag}: flash launches {got}, expected {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the options arm -------------------------------------------------------
+    c0 = (fa.fwd_launches, fa.bwd_launches)
+    opts = options_arm(cfg, device)
+    d_opts = (fa.fwd_launches - c0[0], fa.bwd_launches - c0[1])
+    # per layer and step: a policy that recomputes the attention runs the
+    # flash forward again in the backward
+    fwd_per_step = {"none": 2, "attn_out": 2, "mlp": 2, "qkv_attn": 1,
+                    "offload_qkv": 1, "dots": 2}
+    # the warm-up and each moment option's 2 steps run remat none
+    n_none_steps = 1 + 4 * 2
+    want_o = (OPTIONS_LAYERS * (2 * n_none_steps
+                                + REMAT_STEPS * sum(fwd_per_step.values())),
+              OPTIONS_LAYERS * (n_none_steps + REMAT_STEPS * len(fwd_per_step)))
+    log(f"{tag}/options: flash launches fwd/bwd {d_opts} (expected {want_o})")
+    if d_opts != want_o:
+        raise AssertionError(f"{tag}/options: flash launches {d_opts}, "
+                             f"expected {want_o}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"{tag}: phase {secs:.1f} s (sft {results['sft']['s']:.1f}, packed "
+        f"{results['sft_packed']['s']:.1f}, dpo {results['dpo']['s']:.1f}, rw "
+        f"{results['rw']['s']:.1f} s), on {card}")
+    return dict(launches=dict(fwd=fa.fwd_launches, bwd=fa.bwd_launches),
+                checks=checks, sft_losses=losses, packed_losses=packed,
+                dpo=d1, rw=r1, options=opts, phase_s=secs,
+                runs={k: dict(s=v["s"], peak_gib=v["peak_gib"],
+                              walls=[s["time_perf/e2e"] for s in v["hist"]])
+                      for k, v in results.items()})
+
+
 # -- the processes phase: one process per worker ---------------------------
 
 #: the processes phase's trial: the recover checkpoint after step 2, the
@@ -4937,6 +5568,10 @@ def main() -> int:
         f"{n_params / 1e9:.3f} B parameters (random, seed {SEED}; float32 "
         f"master weights and their bf16 serving copy), built in "
         f"{time.perf_counter() - tik:.1f} s")
+    # the first CUT_LAYERS layers of both trees (views, not copies)
+    cut_cfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    cut_master = dict(master, layers=master["layers"][:CUT_LAYERS])
+    cut_params = dict(params, layers=params["layers"][:CUT_LAYERS])
     eng = engine_phase(cfg, params, device, card=card)
     sampled_phase(cfg, params, device)
     chunked_prefill_phase(cfg, params, device)
@@ -4944,7 +5579,7 @@ def main() -> int:
     log(f"serving phases done at {time.perf_counter() - t_start:.1f} s; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats()
-    long = long_context_phase(cfg, master, params, device, card)
+    long = long_context_phase(cut_cfg, cut_master, cut_params, device, card)
     long_launches = {k: dict(launches=r["launches"], int8=r["int8"])
                      for k, r in long.items() if k in ("A", "B", "C")}
     log(f"long-context phase done at {time.perf_counter() - t_start:.1f} s; "
@@ -4954,17 +5589,17 @@ def main() -> int:
     flash = flash_phase(device)
     log(f"flash phase done at {time.perf_counter() - t_start:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    prefix = {kv: prefix_phase(cfg, master, params, device, card,
+    prefix = {kv: prefix_phase(cut_cfg, cut_master, cut_params, device, card,
                                kv_dtype=kv) for kv in ("auto", "int8")}
     log(f"prefix-cache phase done at {time.perf_counter() - t_start:.1f} s; "
         f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     train = train_phase(cfg, master, params, device, eng["outs"], card)
     log(f"train phase done at {time.perf_counter() - t_start:.1f} s")
-    del params
+    del params, cut_params
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    server = server_phase(cfg, master, device, card)
+    server = server_phase(cut_cfg, cut_master, device, card)
     log(f"server phase done at {time.perf_counter() - t_start:.1f} s; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     hf_root = tempfile.mkdtemp(prefix="chip_smoke_hf_")
@@ -4972,19 +5607,31 @@ def main() -> int:
         hf_dir = os.path.join(hf_root, "qwen2")
         hf = hf_phase(cfg, master, device, card, hf_dir)
         log(f"HF phase done at {time.perf_counter() - t_start:.1f} s")
+        cut_dir = os.path.join(hf_root, f"qwen2_{CUT_LAYERS}_layers")
+        tik = time.perf_counter()
+        cut_bytes = write_hf_dir(cut_cfg, cut_master, cut_dir)
+        log(f"HF directory of the first {CUT_LAYERS} layers for the sync-PPO "
+            f"phase and phases 8 and 9: {cut_bytes / 1e9:.3f} GB in "
+            f"{time.perf_counter() - tik:.1f} s")
         # the loop's trainer and server take the card to themselves
-        del master, eng["outs"], long
+        del master, cut_master, eng["outs"], long
         gc.collect()
         torch.cuda.empty_cache()
         log(f"device memory before the sync-PPO phase: "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-        sync = sync_ppo_phase(cfg, device, card, hf_dir)
+        sync = sync_ppo_phase(cut_cfg, device, card, cut_dir)
         gc.collect()
         torch.cuda.empty_cache()
         log(f"sync-PPO phase done at {time.perf_counter() - t_start:.1f} s; "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
             f"after it")
-        loop = async_ppo_phase(cfg, device, card, hf_dir,
+        training = training_phase(cfg, device, card, hf_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"training phase done at {time.perf_counter() - t_start:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+            f"after it")
+        loop = async_ppo_phase(cut_cfg, device, card, cut_dir,
                                train_bs=LOOP_TRAIN_BS,
                                new_tokens=LOOP_NEW_TOKENS, steps=LOOP_STEPS,
                                offpolicyness=LOOP_OFFPOLICYNESS)
@@ -4993,7 +5640,7 @@ def main() -> int:
         # context and what the earlier phases left allocated
         gc.collect()
         torch.cuda.empty_cache()
-        procs = processes_phase(cfg, device, card, hf_dir,
+        procs = processes_phase(cut_cfg, device, card, cut_dir,
                                 train_bs=PROC_TRAIN_BS,
                                 new_tokens=PROC_NEW_TOKENS)
     finally:
@@ -5001,7 +5648,8 @@ def main() -> int:
     log(f"processes phase done at {time.perf_counter() - t_start:.1f} s")
 
     entries = kernel_entries(kern, long_kern, eng, long_launches, flash,
-                             train, prefix, server, hf, sync, loop, procs)
+                             train, prefix, server, hf, sync, training, loop,
+                             procs)
     if parent is not None:
         torch.cuda.empty_cache()
         parent_ab(parent)
@@ -5022,13 +5670,15 @@ def main() -> int:
 
 
 def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
-                   hf, sync, loop, procs):
+                   hf, sync, training, loop, procs):
     """The ``{"kernels": [...]}`` line's entries: every kernel, with its
     launches on the main paths (the engine's greedy wave, the long-context
     arms, the prefix-cache phase, the generation server, the server that
     swapped in the HF directory and the async-PPO loop; sync PPO's
-    generation for ``flash_decode``; the trainer's steps, sync PPO's and
-    the loop's for the flash kernels), its comparison's largest absolute
+    generation for ``flash_decode``; the trainer's steps, sync PPO's, the
+    training phase's (SFT, DPO, rw and the options arm, remat recomputes
+    included) and the loop's for the flash kernels), its comparison's
+    largest absolute
     error, and its time, plain time and bound at its main-path shape."""
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "shape")
 
@@ -5129,9 +5779,11 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
             source="areal_tpu_torch/csrc/flash_attention.cu",
             replaces="areal_tpu/ops/flash_attention.py:36",
             launches=(train["launches"][kind] + sync["launches"][kind]
-                      + loop["launches"][kind] + procs["launches"][kind]),
+                      + training["launches"][kind] + loop["launches"][kind]
+                      + procs["launches"][kind]),
             launches_by_path=dict(train=train["launches"][kind],
                                   sync_ppo=sync["launches"][kind],
+                                  training=training["launches"][kind],
                                   async_ppo=loop["launches"][kind],
                                   async_ppo_processes=procs["launches"][kind]),
             max_abs_err=max(r[kind]["max_abs_err"] for r in flash.values()),

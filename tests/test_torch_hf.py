@@ -343,11 +343,15 @@ def test_make_model_hf_typo_raises_before_the_read(llama_dir, monkeypatch):
         backend.make_model(ModelAbstraction(
             "hf", {"path": llama_dir, "remat_polcy": "qkv_attn"}), None,
             device="cpu")
-    # an override the port refuses fails in TransformerConfig, also first
-    with pytest.raises(NotImplementedError, match="remat_policy"):
+    # a bad override fails in TransformerConfig, also first: an unknown
+    # remat policy, and the mixture of experts the port refuses
+    with pytest.raises(ValueError, match="remat_policy"):
         backend.make_model(ModelAbstraction(
-            "hf", {"path": llama_dir, "remat_policy": "qkv_attn"}), None,
+            "hf", {"path": llama_dir, "remat_policy": "qkv_atn"}), None,
             device="cpu")
+    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
+        backend.make_model(ModelAbstraction(
+            "hf", {"path": llama_dir, "n_experts": 4}), None, device="cpu")
 
 
 @pytest.mark.parametrize(

@@ -88,6 +88,21 @@ SYNC_MODULES = [
     )
 ]
 
+#: the rest of the training surface: SFT, DPO, reward-model and null
+#: experiments, their datasets and interfaces, the optimizer options and
+#: the remat policies
+TRAINING_MODULES = [
+    f"areal_tpu_torch.{m}" for m in (
+        "data", "data.prompt_answer_dataset", "data.rw_paired_dataset",
+        "data.prompt_dataset", "data.preprocess", "ops.dpo",
+        "interfaces.sft_interface", "interfaces.dpo_interface",
+        "interfaces.null_interface", "experiments.sft_exp",
+        "experiments.dpo_exp", "experiments.rm_exp", "experiments.null_exp",
+        "apps.main_sft", "apps.main_dpo", "engine.optimizer",
+        "engine.train_engine", "models.remat", "tools.training_rehearsal",
+    )
+]
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -110,7 +125,7 @@ def test_no_jax_and_no_reference_package_imported():
         "assert not bad, bad\n"
         "assert len(mods) >= 12, mods\n"
         f"missing = sorted(set("
-        f"{sorted(SERVING_MODULES + LOOP_MODULES + HF_MODULES + LAUNCH_MODULES + SYNC_MODULES)!r}) "
+        f"{sorted(SERVING_MODULES + LOOP_MODULES + HF_MODULES + LAUNCH_MODULES + SYNC_MODULES + TRAINING_MODULES)!r}) "
         "- set(mods))\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"
@@ -138,7 +153,7 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("module", LOOP_MODULES + SERVING_MODULES + HF_MODULES
-                         + LAUNCH_MODULES + SYNC_MODULES)
+                         + LAUNCH_MODULES + SYNC_MODULES + TRAINING_MODULES)
 def test_no_module_imports_jax_or_the_reference_anywhere(module):
     rel = module.replace(".", "/")
     path = REPO / f"{rel}.py"

@@ -137,8 +137,10 @@ def test_inference_then_train_step_matches_reference():
 
 
 def test_out_of_slice_paths_are_refused():
-    with pytest.raises(NotImplementedError):
-        port_config(jtiny(remat=True, remat_policy="dots"))
+    # every remat policy of the reference is carried; MoE stays refused
+    assert port_config(jtiny(remat=True, remat_policy="dots")).remat_policy == "dots"
+    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
+        port_config(jtiny(n_experts=4))
 
 
 # ---------------------------------------------------------------------------

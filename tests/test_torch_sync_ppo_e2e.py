@@ -90,9 +90,9 @@ def _experiment(pkg, tok_dir, data_path, trial="e2e", exp_kw=None, **ppo_kw):
     return ppo_exp.PPOMathExperiment(**kw)
 
 
-#: a field of the JAX package's OptimizerConfig that the port leaves out
-#: with the factored second moment (ROADMAP.md queue 1, item 7)
-_NOT_CARRIED = {"factored_min_dim"}
+#: fields of the JAX package's configs that the port leaves out (none: the
+#: port's OptimizerConfig carries factored_min_dim)
+_NOT_CARRIED = set()
 
 
 def _plain(x):

@@ -256,7 +256,13 @@ def test_adamw_with_clipping_matches_optax(sched):
 
 
 def test_out_of_slice_optimizer_options_are_refused():
+    # the reference's options build (their arithmetic is held to optax in
+    # test_torch_training_options.py); an optimizer it does not have is
+    # refused as there, and a moment dtype torch does not store fails
     for kw in (dict(mu_dtype="bfloat16"), dict(nu_dtype="bfloat16"),
                dict(factored_second_moment=True), dict(type="sgd")):
-        with pytest.raises(NotImplementedError):
-            OptimizerConfig(**kw)
+        make_optimizer(OptimizerConfig(**kw), 10)
+    with pytest.raises(NotImplementedError):
+        OptimizerConfig(type="lion")
+    with pytest.raises(ValueError, match="moment dtype"):
+        make_optimizer(OptimizerConfig(mu_dtype="int8"), 10)
