@@ -194,23 +194,25 @@ class GenServerConfig:
     temperature: float = 1.0
     # greedy (argmax) decoding server-wide
     greedy: bool = False
-    # KV layout: "auto" uses the paged block pool at kv_cache_len >= 2k
-    # (the dense per-row cache below it is not ported); kv_pool_tokens
-    # sizes the pool (None = max_batch * kv_cache_len); prefill_chunk_tokens
-    # bounds the per-step admission prefill (chunked prefill)
+    # KV layout: "auto" uses the paged block pool at kv_cache_len >= 2k and
+    # the dense per-row cache below it (and for sliding-window models);
+    # kv_pool_tokens sizes the pool (None = max_batch * kv_cache_len);
+    # prefill_chunk_tokens bounds the per-step admission prefill (chunked
+    # prefill)
     cache_mode: str = "auto"
     page_size: int = 1024
     kv_pool_tokens: Optional[int] = None
     # "auto" (model-dtype pool) or "int8" (int8 pool, f32 scales)
     kv_cache_dtype: str = "auto"
-    # "auto" only: int8 serving weights are not ported yet
+    # "auto" (the published dtype) or "int8" (int8 matmul weights with
+    # per-output-channel scales, restored from the publisher's int8 tree)
     serving_weight_dtype: str = "auto"
     prefill_chunk_tokens: int = 1024
     # the radix prefix cache over the paged pool
     prefix_cache: bool = True
     prefix_cache_capacity_frac: float = 0.5
     prefix_cache_min_match_tokens: int = 64
-    # 0 only: the host spill tier is not ported yet
+    # bytes of host memory for the prefix cache's spill tier (0 = off)
     prefix_cache_host_bytes: int = 0
     # "unified" only: prefill/decode roles are not ported yet
     role: str = "unified"
@@ -220,8 +222,7 @@ class GenServerConfig:
     # "host-numpy" only: the KV fabric is not ported yet
     segment_transport: str = "host-numpy"
     prefix_pull_min_tokens: int = 256
-    # None or a block with ``enabled=False``: speculative decoding is not
-    # ported yet
+    # self-speculative decoding (a SpecDecodeConfig; None = off)
     spec_decode: Optional[Any] = None
     # the request-level SLO plane (observability/latency.py)
     slo_tracking: bool = True

@@ -31,11 +31,21 @@ from areal_tpu_torch.base import datapack
 BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 
 
-def bucket_len(n: int) -> int:
-    for b in BUCKETS:
+#: widths of a speculative verify window (pending token + drafts)
+SPEC_WINDOW_BUCKETS = (2, 4, 8, 16, 32, 64)
+
+
+def bucket_len(n: int, buckets=BUCKETS) -> int:
+    for b in buckets:
         if n <= b:
             return b
     raise ValueError(f"sequence length {n} exceeds largest bucket")
+
+
+def spec_window_bucket(n: int) -> int:
+    """The verify window's width for ``n`` positions (the pending token and
+    the longest draft of the step), as the reference buckets it."""
+    return bucket_len(n, SPEC_WINDOW_BUCKETS)
 
 
 def next_pow2(n: int) -> int:

@@ -13,8 +13,9 @@ the port is read only by the port.
 Beside each full-precision snapshot a publisher may write the int8
 serving tree (:func:`save_quantized_params`, ``models/quantize.py``) into
 a sibling directory (:func:`quant_snapshot_path`) and advertise it in the
-manifest (``serving_quant``, :func:`quant_manifest_entry`).  Serving from
-it is not ported yet (ROADMAP.md queue 1, item 8).
+manifest (``serving_quant``, :func:`quant_manifest_entry`); a server
+with ``serving_weight_dtype="int8"`` restores that tree
+(``system/generation_server.py``).
 
 Train-state checkpoints (:func:`save_train_state`) hold the trainer's
 float32 master parameters, its optimizer's moments and step count, and
@@ -64,6 +65,19 @@ _pending_lock = threading.Lock()
 def quant_snapshot_path(path: str) -> str:
     """The sibling dir a snapshot's int8 serving tree publishes to."""
     return os.path.abspath(path) + QUANT_DIR_SUFFIX
+
+
+class LeafSpec:
+    """A restore template's leaf without data: the shape, dtype and device
+    a snapshot leaf is restored to (a template of these allocates
+    nothing until the restore)."""
+
+    __slots__ = ("shape", "dtype", "device")
+
+    def __init__(self, shape, dtype: torch.dtype, device):
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.device = torch.device(device)
 
 
 def _flatten(tree, prefix=()) -> List[Tuple[Tuple[str, ...], Any]]:

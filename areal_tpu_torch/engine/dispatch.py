@@ -8,8 +8,8 @@ measurement on the card, not a constant, so the engine reads two
 thresholds from a :class:`PagedDispatchTable`:
 
 * ``paged_min_cache_len``: ``cache_mode="auto"`` resolves to the paged
-  pool at or above this ``kv_cache_len`` (the port has no dense mode and
-  refuses what resolves to it);
+  pool at or above this ``kv_cache_len``, and to the dense cache below it
+  (and for a sliding-window model, which only the dense cache serves);
 * ``deep_min_context``: a decode chunk runs the deep kernel once the
   batch's longest live context reaches it.
 
@@ -17,7 +17,8 @@ thresholds from a :class:`PagedDispatchTable`:
 context length) into thresholds; :func:`resolve_dispatch_table` builds
 the table from config fields.  The defaults (paged from 2048 tokens, deep
 never) leave an unconfigured engine as it was.  The speculative-decode
-constants of the reference module wait for speculative decode.
+defaults (:data:`DEFAULT_SPEC_MIN_ACCEPT_RATE`,
+:data:`DEFAULT_SPEC_VERIFY_COST`) live here too.
 """
 
 from __future__ import annotations
@@ -32,6 +33,20 @@ DEFAULT_PAGED_MIN_CACHE_LEN = 2048
 #: a context length no row reaches: the deep kernel stays off until a
 #: measurement shows it faster
 DISPATCH_NEVER = 1 << 30
+
+#: speculative decoding: the acceptance-rate EMA below which a row's drafts
+#: are judged not worth verifying and the row falls back to plain chunked
+#: decode (the reference's default, set there for a TPU; no measurement on
+#: a card has replaced it)
+DEFAULT_SPEC_MIN_ACCEPT_RATE = 0.2
+
+#: the cost of one speculative verify pass in plain-decode-step units: the
+#: per-step batch vote dispatches a verify window instead of a decode chunk
+#: only when the rows' expected emitted tokens exceed this times the live
+#: rows.  The reference's TPU value; ``chip_smoke.py``'s
+#: ``serving_features`` phase measures the card's and prints it
+#: (``verify_cost_over_decode_step``), and a config may pin it
+DEFAULT_SPEC_VERIFY_COST = 2.0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,5 @@
-"""Continuous-batching inference engine over a paged KV pool, with
-interruptible weight update (port of the paged path of
+"""Continuous-batching inference engine over a paged KV pool or a dense
+per-row cache, with interruptible weight update (port of
 ``areal_tpu/engine/inference_server.py``'s ``ContinuousBatchingEngine``).
 
 Design, as in the reference:
@@ -57,11 +57,29 @@ Design, as in the reference:
 * ``kv_cache_dtype="int8"`` stores the pool as int8 with float32 scales
   per (block, head, slot); fill and decode chunks quantize at the scatter,
   both kernels dequantize at the read, and block copies carry the scales.
+* ``serving_weight_dtype="int8"`` keeps every matmul weight as int8 with a
+  float32 scale per output channel (``models/quantize.py``), quantized at
+  construction and at every weight swap, dequantized at use in each
+  projection.
+* ``prefix_cache_host_bytes > 0`` adds the prefix cache's host tier:
+  evicted full blocks are copied to host memory instead of dropped, and a
+  match on them restores them (one batched scatter), the admission
+  requeued until the step after.
+* ``spec_decode_params`` (paged and greedy only) turns on self-speculative
+  decoding (``engine/spec_decode.py``): rows draft their continuations by
+  n-gram lookup and one batched verify window per step scores the drafts,
+  token-identical to plain greedy decode.
+* ``cache_mode="dense"`` (and ``"auto"`` below the dispatch table's
+  ``paged_min_cache_len``, or for a sliding-window model) keeps one
+  ``[L, max_batch, Hkv, kv_cache_len, hd]`` cache: a batched prefill per
+  admission wave, group prompts prefilled once, and decode chunks of
+  ``models/transformer.py decode_chunk``, whose main-cache attention is
+  the ``flash_decode`` kernel on a card.
 
 Left out so far, each rejected explicitly where a caller could ask for it:
-the prefix cache's host spill tier, speculative decode, int8 weights, P/D
-handoff and fleet prefix pulls, token streams, tensor-parallel meshes, the
-dense cache mode, MoE models, and the HBM ledger.
+P/D handoff and fleet prefix pulls (ROADMAP.md queue 1, item 8), token
+streams (item 11), tensor-parallel meshes (item 10), MoE models, and the
+HBM ledger.
 """
 
 from __future__ import annotations
@@ -80,12 +98,16 @@ import torch
 from areal_tpu_torch.api import model_api
 from areal_tpu_torch.base import logging_
 from areal_tpu_torch.base.device import DeviceLike, resolve_device
+from areal_tpu_torch.engine import spec_decode
+from areal_tpu_torch.engine.batching import bucket_len, spec_window_bucket
+from areal_tpu_torch.engine.checkpoint import LeafSpec
 from areal_tpu_torch.engine.dispatch import PagedDispatchTable
 from areal_tpu_torch.engine.prefix_cache import PrefixMatch, RadixPrefixCache
 from areal_tpu_torch.engine.sampling import SamplingParams, sample_logits_keyed
-from areal_tpu_torch.models import paged
+from areal_tpu_torch.models import paged, quantize
 from areal_tpu_torch.models.config import TransformerConfig
-from areal_tpu_torch.models.convert import serving_params
+from areal_tpu_torch.models.convert import serving_dtype, serving_params
+from areal_tpu_torch.models.transformer import KVCache, decode_chunk, prefill
 from areal_tpu_torch.observability.latency import LatencyDigest, LatencyRecord
 from areal_tpu_torch.observability.tracing import get_tracer
 
@@ -134,6 +156,10 @@ class _Row:
     epoch: int = 0
     # the weight version each generated token was sampled under
     versions: List[int] = dataclasses.field(default_factory=list)
+    # speculative decoding: the row's n-gram index and acceptance EMA,
+    # made when it first drafts; it survives park, resume, preemption and
+    # swaps (none of them rewrites history)
+    spec: Optional[spec_decode.SpecRowState] = None
     # SLO stamps (monotonic clock; telemetry only, no dispatch decision
     # reads them): submit -> admit is the admission wait, submit -> first
     # token the TTFT, (last - first) / (tokens - 1) the TPOT; stall_s sums
@@ -178,11 +204,51 @@ class _InflightChunk:
     """One dispatched-but-unharvested decode chunk: its outputs
     ``(out_t, out_l, emitted, active)`` as host tensors being filled by
     a non-blocking copy, the event recorded behind that copy (None on the
-    CPU), and the dispatch-time ``(row_id, epoch)`` occupancy."""
+    CPU), and the dispatch-time ``(row_id, epoch)`` occupancy.
+    ``spec_meta`` marks a speculative verify chunk, ``{row_id: (qid,
+    n_drafted)}`` for its drafting rows: it folds in like a decode chunk
+    and drives the acceptance bookkeeping at harvest."""
 
     host: Tuple[torch.Tensor, ...]
     ready: Optional[torch.cuda.Event]
     snapshot: List[Tuple[int, int]]
+    spec_meta: Optional[Dict[int, Tuple[str, int]]] = None
+
+
+@torch.no_grad()
+def _admit_rows(
+    params,
+    cfg: TransformerConfig,
+    cache: KVCache,
+    tokens: torch.Tensor,  # [m, T] right-padded UNIQUE prompts
+    lengths: torch.Tensor,  # [m] int32
+    rows: torch.Tensor,  # [n] target cache rows
+    src: torch.Tensor,  # [n] which unique prompt each target row copies
+    seeds: torch.Tensor,  # [n] per-request sampler key identity
+    seed: int,
+    sampling: SamplingParams,
+):
+    """The dense cache's batched prefill: the ``m`` unique prompts run
+    through the model once, in a cache of their own, and each prompt's KV
+    is copied into every target row that shares it (a sampling group of n
+    pays one prefill); each target samples its own first token, keyed on
+    (request seed, prompt length).  Writes ``cache`` in place and returns
+    (tokens [n] int32, logprobs [n] f32)."""
+    m, T = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(T, device=dev)[None, :].expand(m, T)
+    seg = (positions < lengths[:, None]).to(torch.int32)
+    mini = KVCache.zeros(cfg, m, T, device=dev)
+    logits, mini = prefill(
+        params, cfg, tokens, positions, seg, mini,
+        last_pos=torch.clamp(lengths - 1, min=0),
+    )
+    cache.k[:, rows, :, :T] = mini.k[:, src]
+    cache.v[:, rows, :, :T] = mini.v[:, src]
+    cache.lengths[rows] = lengths[src]
+    return sample_logits_keyed(
+        logits[:, 0][src].float(), seed, seeds, lengths[src], sampling
+    )
 
 
 class ContinuousBatchingEngine:
@@ -240,59 +306,65 @@ class ContinuousBatchingEngine:
         ``prefix_cache_capacity_frac`` of the pool, and matches shorter
         than ``prefix_cache_min_tokens`` are not used.  Its entries are the
         first thing reclaimed for a live row, and a weight swap flushes it.
-        ``prefix_cache_host_bytes > 0`` (the host spill tier) is refused.
+        ``prefix_cache_host_bytes > 0`` adds its host tier: evicted full
+        blocks spill to up to that many bytes of host memory (counted at
+        the pool's real block size, scales included) and are restored when
+        a match reaches them.
 
-        ``dispatch_table`` (default: paged from 2048 tokens, deep kernel
-        never) resolves ``cache_mode="auto"`` by ``kv_cache_len`` and picks
-        the deep paged kernel for a decode chunk by the batch's longest
-        live context.  ``kv_cache_dtype`` is ``"auto"`` (model-dtype pool)
-        or ``"int8"`` (int8 pool with float32 scales).
+        ``cache_mode`` is ``"paged"``, ``"dense"`` or ``"auto"``, which
+        consults ``dispatch_table`` (default: paged from 2048 tokens, deep
+        kernel never) by ``kv_cache_len``; a sliding-window model resolves
+        to the dense cache, the only one that serves it.  The same table
+        picks the deep paged kernel for a decode chunk by the batch's
+        longest live context.  ``kv_cache_dtype`` is ``"auto"``
+        (model-dtype pool) or ``"int8"`` (int8 pool with float32 scales;
+        a dense cache serves at the model dtype, with a warning).
+        ``serving_weight_dtype="int8"`` serves int8 matmul weights with
+        per-output-channel scales, quantized from the tree given here and
+        from every swapped-in full-precision tree.
+
+        ``spec_decode_params`` (:class:`~areal_tpu_torch.engine.spec_decode.
+        SpecDecodeParams`) turns on self-speculative decoding on a paged,
+        greedy engine; elsewhere it is disabled with a warning, as in the
+        reference.
 
         ``slo_tracking`` keeps a latency record per request (see
         :meth:`slo_stats`); ``server_name`` labels them.  A ``tokenizer``'s
         EOS token joins ``stop_tokens``.
 
-        Refused with ``NotImplementedError``: ``prefix_cache_host_bytes >
-        0``, ``serving_weight_dtype="int8"``, ``spec_decode_params``,
-        ``handoff_streaming=True``, ``mesh``, the dense cache mode and a
-        sliding-window model (which only the dense cache serves)."""
+        Refused with ``NotImplementedError``: ``handoff_streaming=True``
+        (P/D handoff, ROADMAP.md queue 1, item 8) and ``mesh`` (item
+        10)."""
         if cache_mode not in ("auto", "dense", "paged"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
         self.dispatch_table = dispatch_table or PagedDispatchTable()
-        if cfg.sliding_window is not None:
-            # the reference serves these on its dense cache path only
-            raise _not_ported(
-                f"serving a sliding-window model (sliding_window="
-                f"{cfg.sliding_window}): the paged cache serves global "
-                "attention, and the dense cache path", item=8,
-            )
-        paged_mode = cache_mode == "paged" or (
+        self.paged = cache_mode == "paged" or (
             cache_mode == "auto"
             and kv_cache_len >= self.dispatch_table.paged_min_cache_len
+            and cfg.sliding_window is None
         )
-        if not paged_mode:
-            raise _not_ported(
-                f"the dense cache mode (cache_mode={cache_mode!r}, "
-                f"kv_cache_len={kv_cache_len}, paged from "
-                f"{self.dispatch_table.paged_min_cache_len}; pass "
-                "cache_mode='paged')", item=8,
+        if self.paged and cfg.sliding_window is not None:
+            raise ValueError(
+                "the paged cache serves global-attention models; a "
+                f"sliding-window model (sliding_window={cfg.sliding_window}) "
+                "takes the dense cache (cache_mode='dense' or 'auto')"
             )
         if kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(
                 f"kv_cache_dtype must be 'auto' or 'int8', got {kv_cache_dtype!r}"
             )
-        if serving_weight_dtype != "auto":
-            raise _not_ported(
-                f"serving_weight_dtype={serving_weight_dtype!r} (int8 weights)",
-                item=8,
+        if kv_cache_dtype == "int8" and not self.paged:
+            logger.warning(
+                "kv_cache_dtype='int8' asked for, but the cache mode resolved "
+                "to dense; the int8 pool is paged only: serving at the model "
+                "dtype"
             )
-        if prefix_cache_host_bytes > 0:
-            raise _not_ported(
-                "the prefix cache's host spill tier (prefix_cache_host_bytes="
-                f"{prefix_cache_host_bytes})", item=8,
+            kv_cache_dtype = "auto"
+        if serving_weight_dtype not in ("auto", "int8"):
+            raise ValueError(
+                "serving_weight_dtype must be 'auto' or 'int8', got "
+                f"{serving_weight_dtype!r}"
             )
-        if spec_decode_params is not None:
-            raise _not_ported("speculative decoding (spec_decode_params)", item=8)
         if handoff_streaming:
             raise _not_ported("streamed P/D KV handoff (handoff_streaming=True)",
                               item=8)
@@ -302,7 +374,21 @@ class ContinuousBatchingEngine:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = serving_params(params, cfg, self.device)
+        self.serving_weight_dtype = serving_weight_dtype
+        self._weight_quant = serving_weight_dtype == "int8"
+        # quality counters of int8 serving weights: parity harnesses fold
+        # their greedy divergence checks in here
+        self.weight_quant_divergence_checks_total = 0
+        self.weight_quant_divergence_diverged_total = 0
+        # an int8 engine's restore template for a full-precision snapshot
+        # (a publisher that wrote no int8 tree): shapes and serving dtypes
+        # on the engine's device, no data; the restored tree is quantized
+        # on arrival, so the resident format never changes
+        self._full_weight_template = (
+            _spec_tree(params, cfg, self.device) if self._weight_quant
+            else None
+        )
+        self.params = self._serving_copy(params)
         self.max_batch = max_batch
         self.kv_cache_len = kv_cache_len
         self.chunk_size = chunk_size
@@ -321,16 +407,71 @@ class ContinuousBatchingEngine:
         self.kv_quant_divergence_checks_total = 0
         self.kv_quant_divergence_diverged_total = 0
 
-        self._init_paged_state(page_size, kv_pool_tokens, prefill_chunk_tokens)
+        # speculative decoding: the paged path, under greedy sampling only
+        self._spec: Optional[spec_decode.SpecDecodeParams] = None
+        if spec_decode_params is not None and spec_decode_params.enabled:
+            if not self.paged:
+                logger.warning(
+                    "spec_decode asked for, but the cache mode resolved to "
+                    "dense; speculative decoding runs on the paged path "
+                    "only: disabled"
+                )
+            elif not self.sampling.greedy:
+                logger.warning(
+                    "spec_decode asked for with non-greedy sampling; draft "
+                    "verification is exact under greedy decode only: "
+                    "disabled"
+                )
+            else:
+                self._spec = spec_decode_params
+        self.spec_drafted_total = 0
+        self.spec_accepted_total = 0
+        self.spec_rejected_total = 0
+        self.spec_verify_chunks_total = 0
+        self.spec_fallback_rows_total = 0
+        # (row, verify) participations with drafts: the unit of tokens
+        # emitted per verify pass
+        self.spec_draft_row_passes_total = 0
+        # recent per-verify acceptance fractions, drained by the server
+        self._spec_accept_samples: Deque[float] = deque(maxlen=1024)
+
+        # host-tier rounds (one batched gather per spill round, one batched
+        # scatter per restore) and their bytes and host seconds
+        self.host_spill_rounds_total = 0
+        self.host_restore_rounds_total = 0
+        self.host_spill_bytes_total = 0
+        self.host_restore_bytes_total = 0
+        self.host_restore_seconds_total = 0.0
+        self._filling: List[_Fill] = []
+        self._preempted: List[_Row] = []
         self._prefix_cache: Optional[RadixPrefixCache] = None
-        if prefix_cache:
-            self._prefix_cache = RadixPrefixCache(
-                page_size=self.page_size,
-                capacity_blocks=int(prefix_cache_capacity_frac * self.n_blocks),
-                acquire=self._incref_blocks,
-                release=self._free_block_list,
-                min_match_tokens=prefix_cache_min_tokens,
-            )
+        if self.paged:
+            self._init_paged_state(page_size, kv_pool_tokens,
+                                   prefill_chunk_tokens)
+            if prefix_cache:
+                host_bytes = max(0, int(prefix_cache_host_bytes))
+                self._prefix_cache = RadixPrefixCache(
+                    page_size=self.page_size,
+                    capacity_blocks=int(
+                        prefix_cache_capacity_frac * self.n_blocks
+                    ),
+                    acquire=self._incref_blocks,
+                    release=self._free_block_list,
+                    min_match_tokens=prefix_cache_min_tokens,
+                    host_bytes_budget=host_bytes,
+                    block_bytes=self._pool_block_bytes(),
+                    spill_fetch=self._spill_gather if host_bytes > 0 else None,
+                )
+        else:
+            dev = self.device
+            self.cache = KVCache.zeros(cfg, max_batch, kv_cache_len, dev)
+            self.cur_tokens = torch.zeros(max_batch, dtype=torch.int32,
+                                          device=dev)
+            self.active = torch.zeros(max_batch, dtype=torch.bool, device=dev)
+            self.budgets = torch.zeros(max_batch, dtype=torch.int32,
+                                       device=dev)
+            self.row_seeds = torch.zeros(max_batch, dtype=torch.int32,
+                                         device=dev)
 
         self.rows: List[Optional[_Row]] = [None] * max_batch
         self._pending: List[model_api.APIGenerateInput] = []
@@ -435,8 +576,6 @@ class ContinuousBatchingEngine:
         self._free_blocks = list(range(self.n_blocks - 1, -1, -1))
         self._block_ref = np.zeros((self.n_blocks,), np.int32)
         self._row_blocks: List[List[int]] = [[] for _ in range(max_batch)]
-        self._filling: List[_Fill] = []
-        self._preempted: List[_Row] = []
 
     # -- host <-> device ------------------------------------------------------
 
@@ -477,17 +616,22 @@ class ContinuousBatchingEngine:
             if self._block_ref[b] == 0:
                 self._free_blocks.append(b)
 
-    def _alloc_blocks_reclaiming(self, n: int, keep_qids=()) -> Optional[List[int]]:
+    def _alloc_blocks_reclaiming(
+        self, n: int, keep_qids=(), protect_step: Optional[int] = None
+    ) -> Optional[List[int]]:
         """``_alloc_blocks`` with tiered reclamation: prefix-cache entries
-        first (recompute insurance: the cache always yields to live rows),
-        then parked rows, except those whose continuation is queued
-        (``keep_qids``).  None when both tiers are exhausted (the caller
-        may then preempt or requeue)."""
+        first (recompute insurance: the cache always yields to live rows;
+        with the host tier on, yielding means spilling), then parked rows,
+        except those whose continuation is queued (``keep_qids``).  None
+        when both tiers are exhausted (the caller may then preempt or
+        requeue).  ``protect_step`` spares cache nodes touched at that
+        step (a restore allocates while the nodes it restores sit freshly
+        matched)."""
         blocks = self._alloc_blocks(n)
         while blocks is None:
             deficit = n - len(self._free_blocks)
             if self._prefix_cache is not None and self._prefix_cache.evict(
-                deficit
+                deficit, protect_step=protect_step
             ):
                 pass
             elif self._evict_parked(keep_qids=keep_qids) is None:
@@ -505,7 +649,7 @@ class ContinuousBatchingEngine:
     def _release_row(self, row_id: int):
         """Single exit point for a row slot: frees its pool blocks."""
         self.rows[row_id] = None
-        if self._row_blocks[row_id]:
+        if self.paged and self._row_blocks[row_id]:
             self._free_block_list(self._row_blocks[row_id])
             self._set_row_blocks(row_id, [])
 
@@ -521,6 +665,60 @@ class ContinuousBatchingEngine:
         )
         self.block_copies_total += len(src)
 
+    def _pool_block_bytes(self) -> int:
+        """One pool block's storage bytes, from the pool tensors (an int8
+        pool's bytes plus its float32 scales): the host tier's unit."""
+        parts = paged._pool_parts(self.k_pool, self.v_pool, self.k_scale,
+                                  self.v_scale)
+        return sum(p.numel() * p.element_size() for p in parts) // max(
+            self.n_blocks, 1
+        )
+
+    def _spill_gather(self, blocks: List[int]):
+        """The prefix cache's ``spill_fetch``: whole blocks to host memory
+        in one batch (an int8 pool's bytes with their scales)."""
+        out = paged.gather_blocks_host(
+            self.k_pool, self.v_pool, blocks, self.k_scale, self.v_scale
+        )
+        self.host_spill_rounds_total += 1
+        self.host_spill_bytes_total += sum(
+            a.numel() * a.element_size() for a in out
+        )
+        return out
+
+    def _scatter_host_payloads(self, payloads, blocks: List[int]):
+        """One batched restore of per-block host payloads into ``blocks``,
+        enqueued on the stream behind the work already there."""
+        paged.restore_blocks_from_host(
+            self.k_pool, self.v_pool, payloads, blocks, self.k_scale,
+            self.v_scale,
+        )
+        self.host_restore_bytes_total += sum(
+            a.numel() * a.element_size() for p in payloads for a in p
+        )
+
+    def _restore_spilled(self, nodes, keep_qids=()) -> bool:
+        """Bring spilled prefix blocks back into the pool: allocate blocks
+        (reclamation spares the nodes being restored), enqueue one batched
+        scatter of their payloads, and make the nodes usable from the next
+        engine step (the admission requeues meanwhile).  False when the
+        pool cannot provide the blocks: the caller uses the resident part
+        of the match."""
+        tik = time.perf_counter()
+        blocks = self._alloc_blocks_reclaiming(
+            len(nodes), keep_qids=keep_qids, protect_step=self._step_seq
+        )
+        if blocks is None:
+            return False
+        payloads = self._prefix_cache.begin_restore(nodes)
+        self._scatter_host_payloads(payloads, blocks)
+        self._prefix_cache.complete_restore(
+            nodes, blocks, ready_step=self._step_seq + 1
+        )
+        self.host_restore_rounds_total += 1
+        self.host_restore_seconds_total += time.perf_counter() - tik
+        return True
+
     @property
     def free_pool_blocks(self) -> int:
         return len(self._free_blocks)
@@ -535,13 +733,46 @@ class ContinuousBatchingEngine:
     def kv_quant_stats(self) -> Dict[str, int]:
         """Quantized-KV storage counters."""
         held = self.n_blocks - len(self._free_blocks) if self._kv_quant else 0
+        store = self.k_pool if self.paged else self.cache.k
         return {
             "quantized": int(self._kv_quant),
-            "storage_bits": self.k_pool.element_size() * 8,
+            "storage_bits": store.element_size() * 8,
             "quantized_blocks_held": int(held),
             "divergence_checks_total": self.kv_quant_divergence_checks_total,
             "divergence_diverged_total": (
                 self.kv_quant_divergence_diverged_total
+            ),
+        }
+
+    def note_weight_divergence_check(self, checked: int, diverged: int):
+        """Fold a measured greedy-divergence check (an int8-weight arm
+        compared with a full-precision arm token by token) into the
+        engine's cumulative quality counters."""
+        self.weight_quant_divergence_checks_total += int(checked)
+        self.weight_quant_divergence_diverged_total += int(diverged)
+
+    def weight_quant_stats(self) -> Dict[str, int]:
+        """Serving-weight counters: the resident format, its storage bits,
+        the quantized projections, the tree's bytes and the divergence
+        checks."""
+        quantized = quantize.is_quantized_tree(self.params)
+        if quantized:
+            bits = quantize.STORAGE_BITS
+        else:
+            probe = self.params["layers"][0]["attn"]["q"]["w"]
+            bits = probe.element_size() * 8
+        return {
+            "quantized": int(quantized),
+            "storage_bits": bits,
+            # counted as in the reference's layer-stacked tree (one
+            # layer's projections), so the gauge reads the same in both
+            "quantized_leaves": quantize.quantized_leaf_count(
+                dict(self.params, layers=self.params["layers"][:1])
+            ),
+            "param_bytes": quantize.tree_bytes(self.params),
+            "divergence_checks_total": self.weight_quant_divergence_checks_total,
+            "divergence_diverged_total": (
+                self.weight_quant_divergence_diverged_total
             ),
         }
 
@@ -569,9 +800,21 @@ class ContinuousBatchingEngine:
         partial tail is copied into an owned block (the donor may still
         append to it), and ``fill_pos`` starts past the cached prefix.
         None when the pool cannot provide the other blocks even after
-        reclamation (the caller requeues)."""
+        reclamation (the caller requeues), or when the match reached
+        host-tier blocks: their restore is dispatched (or already pending)
+        and the requeued admission matches them resident next step."""
         n_blocks = max(1, -(-len(seq) // self.page_size))
         m = self._match_prefix(seq)
+        if m.restore_nodes or m.pending:
+            restored = bool(m.restore_nodes) and self._restore_spilled(
+                m.restore_nodes, keep_qids=keep_qids
+            )
+            if restored or m.pending:
+                return None
+            # the pool could not take the restore: fall back to the
+            # resident part of the match, which must clear the floor alone
+            if m.n_tokens < self._prefix_cache.min_match_tokens:
+                m = PrefixMatch()
         # pin what the match returned BEFORE allocating: the allocation may
         # evict cache entries, and an unpinned matched block could be
         # recycled into this very allocation
@@ -814,24 +1057,44 @@ class ContinuousBatchingEngine:
             # the copy is made now: the trainer goes on updating its
             # weights in place, and the swap applies the version of this
             # call
-            params = serving_params(params, self.cfg, self.device)
+            params = self._serving_copy(params)
         with self._lock:
             self._new_params = (params, version, pre_sharded)
             return self.n_inflight
 
+    def _serving_copy(self, params):
+        """A copy of ``params`` in the engine's resident format on its
+        device: quantized first when the engine serves int8 weights and
+        the tree is full precision, then every leaf in its serving type
+        (int8 ``qw`` and float32 ``scale`` stay as they are)."""
+        if self._weight_quant and not quantize.is_quantized_tree(params):
+            params = quantize.quantize_param_tree(params)
+        return serving_params(params, self.cfg, self.device)
+
     def weight_restore_template(self, fmt: str):
-        """The template an incoming published tree in ``fmt`` restores
-        onto: the resident serving tree for ``"full"``.  The engine holds
-        no other format (``"int8"`` serving weights are not ported)."""
-        if fmt == "full":
+        """The template an incoming published tree in ``fmt`` (``"full"``
+        or ``"int8"``) restores onto: the resident tree when the formats
+        agree; for an int8 engine offered a full-precision snapshot (the
+        publisher wrote no int8 tree), the full tree's shapes and serving
+        dtypes on the engine's device, restored and then quantized on
+        arrival (:meth:`prepare_weights`)."""
+        resident = "int8" if quantize.is_quantized_tree(self.params) else "full"
+        if fmt == resident:
             return self.params
+        if fmt == "full" and self._full_weight_template is not None:
+            return self._full_weight_template
         if fmt == "int8":
-            raise _not_ported("int8 serving weights", item=8)
+            # an "auto" server never negotiates int8; a direct caller gets
+            # the layout (meta tensors), as from the reference
+            return quantize.quant_tree_struct(self.params)
         raise ValueError(f"unknown weight format {fmt!r}")
 
     def prepare_weights(self, params):
-        """An incoming tree in the engine's resident format (the only
-        format the port serves, so a pass-through)."""
+        """An incoming tree in the engine's resident format: an int8
+        engine quantizes a full-precision tree on arrival; anything else
+        passes through."""
+        if self._weight_quant and not quantize.is_quantized_tree(params):
+            return quantize.quantize_param_tree(params)
         return params
 
     def stage_context(self):
@@ -866,7 +1129,7 @@ class ContinuousBatchingEngine:
                     torch.cuda.default_stream(self.device)
                 )
             if not owned:
-                params = serving_params(params, self.cfg, self.device)
+                params = self._serving_copy(params)
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
         with self._lock:
@@ -949,7 +1212,10 @@ class ContinuousBatchingEngine:
         prefix cache, and the free stack must hold exactly the blocks
         nobody references, once each.  Returns ``{"kv_blocks": n}`` for
         the n blocks that disagree, ``{}`` when none does.  With no parked
-        rows and a flushed cache, a whole pool is free.  Idempotent."""
+        rows and a flushed cache, a whole pool is free.  Idempotent.  A
+        dense engine holds no pool: ``{}``."""
+        if not self.paged:
+            return {}
         want = np.zeros(self.n_blocks, np.int64)
         for blocks in self._row_blocks:
             np.add.at(want, np.asarray(blocks, np.int64), 1)
@@ -1082,8 +1348,16 @@ class ContinuousBatchingEngine:
             self.tracer.event(
                 self.rows[rid].req.qid, "engine.recompute", version=self.version
             )
-        if entries:
+        if entries and self.paged:
             self._refill_rows_paged(entries)
+        elif entries:
+            # the dense cache recomputes each row's whole sequence; the
+            # first tokens it samples are dropped, the pending ones stay
+            self._prefill_rows(entries)
+            ids = [rid for rid, _ in entries]
+            self._set_rows(
+                "cur_tokens", ids, [self.rows[rid].cur_token for rid in ids]
+            )
         dt = time.perf_counter() - tik
         self.swap_pause_s += dt
         self.swaps_total += 1
@@ -1501,8 +1775,12 @@ class ContinuousBatchingEngine:
         before a decode dispatch (the chunk allocates nothing on the
         device), counting the tokens of chunks still in the ring.  Under
         pool pressure: reclaim cache entries, then parked rows, then
-        preempt the youngest decoding rows."""
+        preempt the youngest decoding rows.  With speculative decoding a
+        verify window may write ``max_draft_tokens + 1`` slots in one
+        dispatch, so coverage holds for either kind of dispatch."""
         W = self.chunk_size
+        if self._spec is not None:
+            W = max(W, self._spec.max_draft_tokens + 1)
         # every un-harvested chunk that snapshot a row may have advanced it
         # by W tokens the host has not folded in yet
         pend_counts: Dict[int, int] = {}
@@ -1673,7 +1951,304 @@ class ContinuousBatchingEngine:
         self.deep_decode_chunks_total += int(deep)
         self._enqueue_chunk((out_t, out_l, emitted, self.active), snapshot)
 
-    def _enqueue_chunk(self, arrs, snapshot):
+    # -- speculative decoding (paged path) ---------------------------------------
+
+    def _spec_row_state(self, row: _Row) -> spec_decode.SpecRowState:
+        if row.spec is None:
+            row.spec = spec_decode.SpecRowState()
+        return row.spec
+
+    def _dispatch_spec_step(self) -> bool:
+        """One speculative dispatch round, decided by a batch vote: either
+        every live row rides ONE verify window (rows with drafts verify
+        them; the others ride with an empty draft, whose first position is
+        a plain decode step), or every live row takes a plain decode
+        chunk, never a mix.  A verify pass costs
+        ``verify_cost_over_decode_step`` plain steps, so it wins iff the
+        rows' EMA-expected emission beats that per live row.  Rows that
+        keep missing fall back or cool down, so a wave without repetition
+        soon votes plain every step and keeps the pipeline's depth (the
+        ring is drained only when a row wants to draft).  True when
+        anything was dispatched."""
+        spec = self._spec
+        candidates = {
+            rid for rid, r in enumerate(self.rows)
+            if r is not None and not r.parked and not r.filling
+            and self._spec_row_state(r).wants_draft(self._step_seq)
+        }
+        # drafting reads the exact host history: fold in every chunk that
+        # covers a row about to draft
+        while self._ring and any(
+            rid in candidates for ch in self._ring for rid, _ in ch.snapshot
+        ):
+            self._harvest_oldest()
+        live: List[int] = []
+        drafts: Dict[int, List[int]] = {}
+        attempted: List[int] = []
+        expected = 0.0
+        for rid, row in enumerate(self.rows):
+            if row is None or row.parked or row.filling:
+                continue
+            live.append(rid)
+            st = self._spec_row_state(row)
+            if rid in candidates:
+                attempted.append(rid)
+                d = st.draft(row.prompt + row.generated, spec)
+                if d:
+                    drafts[rid] = d
+                    expected += 1.0 + st.ema * len(d)
+                    continue
+            expected += 1.0
+        if not live:
+            return False
+        spec_won = bool(drafts) and (
+            expected >= spec.verify_cost_over_decode_step * len(live)
+        )
+        # an attempt was productive only if it hit AND the batch voted for
+        # speculation: misses and lost votes both cool the row down
+        for rid in attempted:
+            self.rows[rid].spec.note_draft_result(
+                spec_won and rid in drafts, self._step_seq
+            )
+        if spec_won:
+            self._dispatch_verify_chunk(live, drafts)
+        else:
+            self._dispatch_chunk_paged()
+        return True
+
+    def _dispatch_verify_chunk(
+        self, live_rows: List[int], drafts: Dict[int, List[int]]
+    ):
+        """Dispatch ONE batched verify window over every live row
+        (:func:`~areal_tpu_torch.engine.spec_decode.paged_verify_chunk`):
+        rows in ``drafts`` verify their proposals, the others ride with an
+        empty draft.  The window width buckets to the step's longest
+        draft; the outputs enter the ring as an ordinary chunk and the
+        acceptance bookkeeping happens at harvest."""
+        snapshot = [(i, self.rows[i].epoch) for i in live_rows]
+        C = spec_window_bucket(1 + max(len(d) for d in drafts.values()))
+        draft_arr = np.zeros((self.max_batch, C - 1), np.int32)
+        draft_lens = np.zeros((self.max_batch,), np.int32)
+        parts = np.zeros((self.max_batch,), bool)
+        meta: Dict[int, Tuple[str, int]] = {}
+        for rid in live_rows:
+            parts[rid] = True
+            d = drafts.get(rid)
+            if not d:
+                continue
+            d = d[: C - 1]
+            draft_arr[rid, : len(d)] = d
+            draft_lens[rid] = len(d)
+            meta[rid] = (self.rows[rid].req.qid, len(d))
+        if self._tables_dirty:
+            self._tables = self._to_device(self._tables_np)
+            self._tables_dirty = False
+        (self.kv_lengths, out_t, out_l, emitted, self.cur_tokens,
+         self.active, self.budgets) = spec_decode.paged_verify_chunk(
+            self.params,
+            self.k_pool,
+            self.v_pool,
+            self.cfg,
+            self._tables,
+            self.kv_lengths,
+            self.cur_tokens,
+            self._to_device(draft_arr),
+            self._to_device(draft_lens),
+            self._to_device(parts),
+            self.active,
+            self.budgets,
+            max_draft=C - 1,
+            stop_fn=self._stop_fn,
+            sampling=self.sampling,
+            max_len=self.kv_cache_len,
+            k_scale=self.k_scale,
+            v_scale=self.v_scale,
+        )
+        self.spec_verify_chunks_total += 1
+        self.spec_drafted_total += int(draft_lens.sum())
+        self._enqueue_chunk(
+            (out_t, out_l, emitted, self.active), snapshot, spec_meta=meta
+        )
+
+    def spec_stats(self) -> Dict[str, int]:
+        """Cumulative speculative-decoding counters."""
+        return {
+            "drafted_total": self.spec_drafted_total,
+            "accepted_total": self.spec_accepted_total,
+            "rejected_total": self.spec_rejected_total,
+            "verify_chunks_total": self.spec_verify_chunks_total,
+            "draft_row_passes_total": self.spec_draft_row_passes_total,
+            "fallback_rows_total": self.spec_fallback_rows_total,
+        }
+
+    def drain_spec_accept_samples(self) -> List[float]:
+        """Pop the recent per-verify acceptance fractions (the server feeds
+        them to its acceptance-rate histogram)."""
+        out = list(self._spec_accept_samples)
+        self._spec_accept_samples.clear()
+        return out
+
+    # -- the dense cache -----------------------------------------------------------
+
+    def _prefill_rows(
+        self,
+        entries: List[Tuple[int, List[int]]],
+        seeds: Optional[List[int]] = None,
+    ):
+        """Batched prefill of ``(row_id, tokens)`` entries into the dense
+        cache; returns each entry's sampled next token and its logprob
+        (host lists).  Entries with the same tokens (a sampling group's
+        copies of one prompt) share one prefill.  ``seeds`` are the
+        entries' request sampler keys; None takes them from the resident
+        rows (the weight-swap recompute, whose samples are dropped)."""
+        if seeds is None:
+            seeds = [_qid_seed(self.rows[rid].req.qid) for rid, _ in entries]
+        uniq: Dict[Tuple[int, ...], int] = {}
+        src_idx = []
+        for _, seq in entries:
+            src_idx.append(uniq.setdefault(tuple(seq), len(uniq)))
+        T = min(
+            bucket_len(max(max(len(seq) for _, seq in entries), 1)),
+            self.kv_cache_len,
+        )
+        toks = np.zeros((len(uniq), T), np.int32)
+        lens = np.ones((len(uniq),), np.int32)
+        for key, i in uniq.items():
+            toks[i, : len(key)] = key
+            lens[i] = len(key)
+        tok, logp = _admit_rows(
+            self.params, self.cfg, self.cache,
+            self._to_device(toks),
+            self._to_device(lens),
+            self._to_device(np.asarray([rid for rid, _ in entries], np.int64)),
+            self._to_device(np.asarray(src_idx, np.int64)),
+            self._to_device(np.asarray(seeds, np.int64)),
+            self.seed, self.sampling,
+        )
+        self.prefill_calls += 1
+        self.prefill_tokens_total += int(lens.sum())
+        return tok.cpu().tolist(), logp.cpu().tolist()
+
+    def _admit(self):
+        """The dense cache's admission: resume parked continuations, then
+        prefill the queued prompts that fit into free rows (parked rows
+        are evicted for room, except those whose continuation is queued)
+        in one batch, and sample their first tokens."""
+        if self.hold_admissions:
+            return
+        for row_id, row in enumerate(self.rows):
+            if row is not None and row.parked and (
+                self._step_seq - row.park_step > self.park_ttl_steps
+            ):
+                self._release_row(row_id)
+        free = [i for i, r in enumerate(self.rows) if r is None]
+        to_admit: List[Tuple[int, model_api.APIGenerateInput, List[int], int]] = []
+        while True:
+            with self._lock:
+                if not self._pending:
+                    break
+                req = self._pending.pop(0)
+            if self._try_resume(req):
+                continue
+            if not free:
+                with self._lock:
+                    queued = {r.qid for r in self._pending}
+                evicted = self._evict_parked(keep_qids=queued)
+                if evicted is None:
+                    with self._lock:
+                        self._pending.insert(0, req)
+                    break
+                free.append(evicted)
+            prompt = list(req.input_ids or req.prompt_ids)
+            if len(prompt) + 1 >= self.kv_cache_len:
+                # no room: finish with no output so the client stops
+                row = _Row(
+                    req=req, prompt=prompt, generated=[], logprobs=[],
+                    version_start=self.version, no_eos=True,
+                )
+                self._finish(-1, row, started=False)
+                continue
+            max_new = req.gconfig.max_new_tokens
+            if len(prompt) + max_new > self.kv_cache_len:
+                max_new = max(1, self.kv_cache_len - len(prompt))
+            to_admit.append((free.pop(0), req, prompt, max_new))
+        if not to_admit:
+            return
+        t_admit = time.monotonic()
+        toks, logps = self._prefill_rows(
+            [(rid, prompt) for rid, _, prompt, _ in to_admit],
+            seeds=[_qid_seed(req.qid) for _, req, _, _ in to_admit],
+        )
+        t_first = time.monotonic()  # the first tokens on the host
+        started = []
+        for (row_id, req, prompt, max_new), tok, logp in zip(
+            to_admit, toks, logps
+        ):
+            row = _Row(
+                req=req, prompt=prompt, generated=[int(tok)],
+                logprobs=[float(logp)], version_start=self.version,
+                versions=[self.version],
+            )
+            self._slo_admitted(row, now=t_admit)
+            self._slo_first_token(row, now=t_first)
+            if tok in self.stop_tokens or max_new <= 1:
+                row.no_eos = tok not in self.stop_tokens
+                self._finish(row_id, row, started=False)
+                continue
+            row.cur_token = int(tok)
+            row.budget_left = max_new - 1
+            self._epoch_counter += 1
+            row.epoch = self._epoch_counter
+            self.rows[row_id] = row
+            started.append((row_id, int(tok), max_new - 1, req.qid))
+        if started:
+            ids = [a[0] for a in started]
+            self._set_rows("cur_tokens", ids, [a[1] for a in started])
+            self._set_rows("active", ids, [True] * len(ids))
+            self._set_rows("budgets", ids, [a[2] for a in started])
+            self._set_rows("row_seeds", ids, [_qid_seed(a[3]) for a in started])
+
+    def _attn_bucket(self, extra: int = 0) -> int:
+        """The dense chunk's bound on every row's length: a power of two of
+        the longest row (at least 256, at most ``kv_cache_len``), with
+        ``extra`` for lengths the host has not harvested yet (one chunk
+        per chunk in the ring)."""
+        longest = 0
+        for row in self.rows:
+            if row is not None and not row.parked:
+                longest = max(longest, len(row.prompt) + len(row.generated) + 1)
+        need = min(longest + extra, self.kv_cache_len)
+        p = 256
+        while p < need:
+            p <<= 1
+        return min(p, self.kv_cache_len)
+
+    def _dispatch_chunk(self):
+        """Enqueue one dense decode chunk and its output copy."""
+        snapshot = [
+            (i, r.epoch) for i, r in enumerate(self.rows)
+            if r is not None and not r.parked
+        ]
+        (self.cache, out_t, out_l, emitted, self.cur_tokens, self.active,
+         self.budgets) = decode_chunk(
+            self.params,
+            self.cfg,
+            self.cache,
+            self.cur_tokens,
+            self.active,
+            self.budgets,
+            self.chunk_size,
+            self._sample_fn,
+            self._stop_fn,
+            attn_len=self._attn_bucket(
+                extra=len(self._ring) * self.chunk_size
+            ),
+            row_seeds=self.row_seeds,
+        )
+        self.decode_chunks_total += 1
+        self._enqueue_chunk((out_t, out_l, emitted, self.active), snapshot)
+
+    def _enqueue_chunk(self, arrs, snapshot, spec_meta=None):
         """Append a dispatched chunk to the ring and start its output copy
         to pinned host memory, with an event recorded behind it."""
         if self.device.type == "cuda":
@@ -1688,7 +2263,9 @@ class ContinuousBatchingEngine:
         else:
             # copies: the engine updates its state tensors in place
             host, ready = tuple(x.clone() for x in arrs), None
-        self._ring.append(_InflightChunk(host=host, ready=ready, snapshot=snapshot))
+        self._ring.append(_InflightChunk(
+            host=host, ready=ready, snapshot=snapshot, spec_meta=spec_meta
+        ))
 
     def _drain_ring(self) -> int:
         """Harvest every in-flight chunk, oldest first."""
@@ -1709,12 +2286,26 @@ class ContinuousBatchingEngine:
         out_t, out_l, emitted, active = (x.numpy() for x in chunk.host)
         n_tokens = 0
         t_harvest = time.monotonic()  # the chunk's tokens reach the host
+        spec_meta = chunk.spec_meta
         for row_id, epoch in chunk.snapshot:
             row = self.rows[row_id]
             if row is None or row.parked or row.epoch != epoch:
                 continue  # slot freed (and maybe reused) since the dispatch
             cols = emitted[row_id]
             toks = out_t[row_id][cols].tolist()
+            if spec_meta is not None and row_id in spec_meta:
+                _, drafted = spec_meta[row_id]
+                # every emitted token but the last is a confirmed draft;
+                # the last is the verifier's own (correction or bonus)
+                n_acc = max(0, len(toks) - 1)
+                self.spec_draft_row_passes_total += 1
+                self.spec_accepted_total += n_acc
+                self.spec_rejected_total += max(0, drafted - n_acc)
+                self._spec_accept_samples.append(n_acc / max(drafted, 1))
+                if row.spec is not None and row.spec.observe(
+                    n_acc, drafted, self._spec
+                ):
+                    self.spec_fallback_rows_total += 1
             row.generated.extend(toks)
             row.logprobs.extend(out_l[row_id][cols].tolist())
             # the chunk ran under the served weights: a swap drains the
@@ -1761,9 +2352,11 @@ class ContinuousBatchingEngine:
             # is the pending one); inserting on park AND release lets the
             # next turn of a conversation, under any qid, prefill only its
             # new suffix
-            self._cache_insert(
-                (row.prompt + row.generated)[:-1], self._row_blocks[row_id]
-            )
+            if self.paged:
+                self._cache_insert(
+                    (row.prompt + row.generated)[:-1],
+                    self._row_blocks[row_id],
+                )
             if park:
                 row.parked = True
                 row.park_step = self._step_seq
@@ -1810,23 +2403,43 @@ class ContinuousBatchingEngine:
                 time.sleep(0.01)
             return self.decode_tokens_total - h0
         self._apply_pending_weights()
-        self._admit_paged()
-        self._advance_fill()
-        self._process_deferred_cancels()
-        self._ensure_decode_blocks()
+        if self.paged:
+            self._admit_paged()
+            self._advance_fill()
+            self._process_deferred_cancels()
+            self._ensure_decode_blocks()
+        else:
+            self._admit()
         dispatched = False
         if (
             self.n_decoding > 0
             and len(self._ring) < self.pipeline_depth
             and self._worth_dispatching()
         ):
-            self._dispatch_chunk_paged()
-            dispatched = True
+            if not self.paged:
+                self._dispatch_chunk()
+                dispatched = True
+            elif self._spec is not None:
+                dispatched = self._dispatch_spec_step()
+            else:
+                self._dispatch_chunk_paged()
+                dispatched = True
         if len(self._ring) >= self.pipeline_depth or (
             not dispatched and self._ring
         ):
             self._harvest_oldest()
         return self.decode_tokens_total - h0
+
+
+def _spec_tree(tree, cfg: TransformerConfig, device, name: str = ""):
+    """``tree``'s layout as :class:`~areal_tpu_torch.engine.checkpoint.
+    LeafSpec` leaves on ``device``: each leaf's shape in its serving dtype,
+    with no data."""
+    if isinstance(tree, dict):
+        return {k: _spec_tree(v, cfg, device, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_spec_tree(v, cfg, device, name) for v in tree]
+    return LeafSpec(tree.shape, serving_dtype(name, cfg), device)
 
 
 def _leaves(tree):

@@ -1,5 +1,5 @@
-"""Cross-request radix prefix cache over the paged KV pool (a copy of
-``areal_tpu/engine/prefix_cache.py`` without its host spill tier).
+"""Cross-request radix prefix cache over the paged KV pool (port of
+``areal_tpu/engine/prefix_cache.py``).
 
 A radix/trie index over TOKEN-ID prefixes whose nodes hold refcounted
 blocks of the engine's paged pool (:mod:`areal_tpu_torch.models.paged`):
@@ -31,19 +31,35 @@ Design, as in the reference:
   on the engine's step counter and a monotone node sequence, never on
   wall time.
 * **Weight swaps invalidate.**  Cached KV is valid only under the
-  weights that computed it: ``flush()`` drops every entry and moves
-  ``version`` so an insert of pre-swap KV is rejected.
+  weights that computed it: ``flush()`` drops every entry in both tiers
+  and moves ``version`` so an insert of pre-swap KV is rejected.
 
-Not ported: the host spill tier (``host_bytes_budget``, ``spill_fetch``,
-``begin_restore``/``complete_restore``) and the fleet export walk; the
-engine refuses a host budget.  :meth:`RadixPrefixCache.stats` keeps the
-reference's keys, the host tier's at 0.
+**Host spill tier** (``host_bytes_budget > 0``): a full-block node that
+eviction picks SPILLS instead of dying: its KV is copied to host memory
+(one batched ``spill_fetch``, the engine's
+:func:`~areal_tpu_torch.models.paged.gather_blocks_host`, per
+reclamation round) and its pool reference is released, while the node
+stays in the trie.  A match that reaches spilled nodes returns them as
+``restore_nodes``; the engine allocates blocks, scatters the payloads
+back (:meth:`begin_restore` / :meth:`complete_restore`) and requeues the
+admission, whose re-match the next engine step lands resident (a
+restored node is usable from its ``ready_step``).  The host tier has a
+byte budget (``block_bytes`` per block, the pool's real footprint: an
+int8 pool's bytes plus its scales) and its own LRU: a new spill into a
+full budget first trims a strictly LRU-older spilled leaf, and is
+dropped if there is none.  On any root-to-leaf path resident nodes
+precede spilled ones (a node spills only once none of its children is
+resident), so a spilled chain restores top-down.  An insert that meets a
+spilled node on its path adopts the donor's freshly computed block and
+drops the host copy.  Not ported: the fleet export walk (``export_walk``,
+peer prefix pulls; ROADMAP.md queue 1, item 8).
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass
@@ -56,12 +72,22 @@ class PrefixMatch:
     partial tail (or of a full child block); the caller COPIES that block
     into one it owns, since the donor may still append to it.
     ``n_tokens`` is the whole matched prefix
-    (``len(blocks) * page_size + tail_tokens``)."""
+    (``len(blocks) * page_size + tail_tokens``).
+
+    Host tier: ``restore_nodes`` are spilled nodes that would extend the
+    resident match by ``restore_tokens`` tokens once restored (the caller
+    starts the restore and requeues); ``pending`` marks a node on the path
+    whose restore is dispatched but not usable yet (the caller requeues
+    without a new restore).  With either set, the fields above cover only
+    the usable resident prefix and no tail was scanned."""
 
     blocks: List[int] = dataclasses.field(default_factory=list)
     n_tokens: int = 0
     tail_block: Optional[int] = None
     tail_tokens: int = 0
+    restore_nodes: List["_Node"] = dataclasses.field(default_factory=list)
+    restore_tokens: int = 0
+    pending: bool = False
 
 
 @dataclasses.dataclass
@@ -83,10 +109,13 @@ TAILS_PER_NODE = 4
 
 class _Node:
     """One full block of one cached sequence.  ``key`` is the block's
-    ``page_size``-token tuple; children extend the prefix by one block."""
+    ``page_size``-token tuple; children extend the prefix by one block.
+    A ``spilled`` node holds its KV in ``host_kv`` (the engine's host
+    payload) instead of a pool block; a restored node is usable from
+    engine step ``ready_step``."""
 
     __slots__ = ("key", "block", "children", "parent", "last_use", "seq",
-                 "tails")
+                 "tails", "spilled", "host_kv", "ready_step")
 
     def __init__(self, key, block, parent, last_use, seq):
         self.key: Tuple[int, ...] = key
@@ -97,6 +126,19 @@ class _Node:
         self.seq: int = seq  # insertion order: deterministic LRU tie-break
         # first token -> cached partial tail (at most TAILS_PER_NODE)
         self.tails: Dict[int, _TailEntry] = {}
+        self.spilled: bool = False
+        self.host_kv: Optional[Tuple[Any, ...]] = None
+        self.ready_step: int = 0
+
+
+def _lru_key(n: _Node) -> Tuple[int, int]:
+    return (n.last_use, n.seq)
+
+
+def _insort_lru(cands: List[_Node], node: _Node):
+    """Insert ``node`` into an LRU-sorted candidate list, keeping order
+    (the host-trim list one reclamation round shares)."""
+    bisect.insort(cands, node, key=_lru_key)
 
 
 class RadixPrefixCache:
@@ -106,7 +148,14 @@ class RadixPrefixCache:
     references to (the engine derives it from a pool fraction); ``0``
     disables insertion.  ``min_match_tokens`` suppresses matches shorter
     than the floor: pinning and copying a tail for a handful of cached
-    tokens costs more than it saves."""
+    tokens costs more than it saves.
+
+    ``host_bytes_budget > 0`` turns on the host spill tier (see the module
+    docstring): ``block_bytes`` is one block's storage footprint, the
+    budget's unit, and ``spill_fetch(blocks)`` the engine's batched
+    device-to-host gather, returning a tuple of per-block host tensors
+    indexed ``[i] -> blocks[i]`` that the cache keeps without looking
+    inside."""
 
     def __init__(
         self,
@@ -115,6 +164,9 @@ class RadixPrefixCache:
         acquire: Callable[[List[int]], None],
         release: Callable[[List[int]], None],
         min_match_tokens: int = 1,
+        host_bytes_budget: int = 0,
+        block_bytes: int = 0,
+        spill_fetch: Optional[Callable[[List[int]], Tuple[Any, ...]]] = None,
     ):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -123,10 +175,15 @@ class RadixPrefixCache:
         self.min_match_tokens = max(1, int(min_match_tokens))
         self._acquire = acquire
         self._release = release
+        self.host_bytes_budget = max(0, int(host_bytes_budget))
+        self.block_bytes = max(0, int(block_bytes))
+        self._spill_fetch = spill_fetch
         self._root = _Node(key=(), block=-1, parent=None, last_use=0, seq=0)
         self._seq = 0
         self.version = 0
         self.blocks_held = 0
+        self.host_bytes_held = 0
+        self.host_blocks_held = 0
         # cumulative stats
         self.hits_total = 0
         self.misses_total = 0
@@ -134,6 +191,17 @@ class RadixPrefixCache:
         self.insertions_total = 0
         self.evictions_total = 0
         self.flushes_total = 0
+        self.spilled_blocks_total = 0
+        self.restored_blocks_total = 0
+        self.host_dropped_blocks_total = 0
+
+    @property
+    def _host_enabled(self) -> bool:
+        return (
+            self.host_bytes_budget > 0
+            and self.block_bytes > 0
+            and self._spill_fetch is not None
+        )
 
     # -- lookup -------------------------------------------------------------
 
@@ -147,22 +215,45 @@ class RadixPrefixCache:
         match clears ``min_match_tokens``; callers that may re-match the
         same request (a requeued admission retries every engine step) pass
         ``record=False`` and call :meth:`record` once the match is
-        consumed, so the stats count served tokens, not attempts."""
+        consumed, so the stats count served tokens, not attempts.
+
+        A walk that reaches host-tier nodes returns a BLOCKED match
+        (``restore_nodes`` or ``pending`` set, see :class:`PrefixMatch`)
+        and records nothing: the caller requeues and matches again."""
         BS = self.page_size
         max_match = len(tokens) - 1
         node = self._root
         out = PrefixMatch()
         depth = 0
+        blocked = False
         while (depth + 1) * BS <= max_match:
             key = tuple(tokens[depth * BS : (depth + 1) * BS])
             child = node.children.get(key)
             if child is None:
                 break
             child.last_use = step
-            out.blocks.append(child.block)
+            if not blocked and not child.spilled and child.ready_step <= step:
+                out.blocks.append(child.block)
+            else:
+                # the resident run ends at the first spilled or not yet
+                # usable node; the rest counts as tokens a restore unlocks
+                blocked = True
+                if child.spilled:
+                    out.restore_nodes.append(child)
+                elif child.ready_step > step:
+                    out.pending = True
+                out.restore_tokens += BS
             node = child
             depth += 1
         out.n_tokens = len(out.blocks) * BS
+        if blocked:
+            # a restore is worth starting only when the whole match would
+            # clear the floor
+            if out.n_tokens + out.restore_tokens < self.min_match_tokens:
+                if record:
+                    self.misses_total += 1
+                return PrefixMatch()
+            return out
         # partial extension of the deepest matched node: one of its cached
         # partial tails, or the head of a FULL child block (a shorter or
         # diverging prompt reusing part of a longer cached sequence).  The
@@ -181,7 +272,10 @@ class RadixPrefixCache:
         if tail is not None:
             cands.append((tail.tokens, tail.block, None))
         for child in node.children.values():
-            if child.key[0] == first:
+            # a spilled block has no pool block to copy from, and a
+            # restoring one is not usable before its ready step
+            if (child.key[0] == first and not child.spilled
+                    and child.ready_step <= step):
                 cands.append((child.key, child.block, child))
         best_block, best_lcp, best_node = None, 0, None
         for t, blk, child in cands:
@@ -236,9 +330,11 @@ class RadixPrefixCache:
         ``[i*page_size, (i+1)*page_size)``; a trailing partial block (when
         ``len(tokens)`` is not page-aligned) is cached as a tail entry.
         Where a path node already exists its block is kept (its KV is the
-        same by construction) and only new segments take references.
-        Returns the number of blocks newly referenced.  Inserts from a
-        stale ``version`` (a swap raced the caller) are dropped."""
+        same by construction) and only new segments take references; a
+        spilled node on the path adopts the donor's block and drops its
+        host copy.  Returns the number of blocks newly referenced.
+        Inserts from a stale ``version`` (a swap raced the caller) are
+        dropped."""
         if self.capacity_blocks <= 0 or version != self.version:
             return 0
         BS = self.page_size
@@ -270,6 +366,16 @@ class RadixPrefixCache:
                 self.blocks_held += 1
                 added += 1
                 node.children[key] = child
+            elif child.spilled:
+                # the donor just computed this block on the device: adopt
+                # it and drop the host copy (resident beats spilled)
+                self._drop_host_payload(child)
+                child.block = int(blocks[i])
+                child.ready_step = 0
+                self._acquire([child.block])
+                self.blocks_held += 1
+                added += 1
+                child.last_use = step
             else:
                 child.last_use = step
             node = child
@@ -318,10 +424,12 @@ class RadixPrefixCache:
     # -- eviction -----------------------------------------------------------
 
     def _evictable(self, protect_step: Optional[int]) -> List[_Node]:
-        """Every node holding a block that may be reclaimed, LRU-first by
-        (last_use, seq): a node carrying tail entries (one candidate per
-        round: each selection drops its LRU tail), or a leaf node
-        (evicting a node with children would orphan their prefix)."""
+        """Every node holding a pool block that may be reclaimed, LRU-first
+        by (last_use, seq): a node carrying tail entries (one candidate per
+        round: each selection drops its LRU tail), or a resident node none
+        of whose children is resident (evicting a node with resident
+        children would orphan their prefix; spilled children survive a
+        spill of their parent, not its drop)."""
         out: List[_Node] = []
         stack = [self._root]
         while stack:
@@ -332,44 +440,185 @@ class RadixPrefixCache:
             if n.tails:
                 out.append(n)
                 continue
-            if n is self._root or n.children:
+            if n is self._root or n.spilled:
+                continue  # no pool block of its own
+            if any(not c.spilled for c in n.children.values()):
                 continue
             out.append(n)
-        out.sort(key=lambda n: (n.last_use, n.seq))
+        out.sort(key=_lru_key)
         return out
 
-    def _evict_node(self, victim: _Node):
-        """Drop ONE block from ``victim``: its LRU tail entry if it has
-        one, else the node itself."""
-        if victim.tails:
-            k = min(
-                victim.tails,
-                key=lambda f: (
-                    victim.tails[f].last_use, victim.tails[f].seq
-                ),
-            )
-            self._release([victim.tails.pop(k).block])
-        else:
-            self._release([victim.block])
+    def _drop_host_payload(self, node: _Node):
+        """Release a node's host-tier accounting (its payload and flag).
+        Keyed on ``spilled``: a victim marked mid-round counts its bytes
+        before the batched gather lands, and releases them if trimmed in
+        that window."""
+        if node.spilled:
+            node.spilled = False
+            node.host_kv = None
+            self.host_bytes_held -= self.block_bytes
+            self.host_blocks_held -= 1
+
+    def _drop_tails(self, n: _Node):
+        if n.tails:
+            self._release([t.block for t in n.tails.values()])
+            self.blocks_held -= len(n.tails)
+            self.evictions_total += len(n.tails)
+            n.tails.clear()
+
+    def _drop_node(self, victim: _Node):
+        """Remove ``victim`` from the trie and release its pool block; its
+        children (all spilled, by selection) lose their prefix with it, so
+        the whole spilled subtree's payloads and tail blocks go too."""
+        self._release([victim.block])
+        self.blocks_held -= 1
+        self.evictions_total += 1
+        if victim.parent is not None:
             del victim.parent.children[victim.key]
+        stack = list(victim.children.values())
+        victim.children.clear()
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            if n.spilled:
+                self._drop_host_payload(n)
+                self.host_dropped_blocks_total += 1
+            else:  # unreachable by the selection rule
+                self._release([n.block])
+                self.blocks_held -= 1
+                self.evictions_total += 1
+            self._drop_tails(n)
+
+    def _spilled_leaves_lru(self) -> List[_Node]:
+        """Spilled nodes without children, LRU-first: the host tier's trim
+        candidates (dropping one orphans nothing)."""
+        out: List[_Node] = []
+        stack = [self._root]
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            if n.spilled and not n.children:
+                out.append(n)
+        out.sort(key=_lru_key)
+        return out
+
+    def _trim_host_one(
+        self,
+        before: Optional[Tuple[int, int]] = None,
+        cands: Optional[List[_Node]] = None,
+    ) -> bool:
+        """Drop the LRU childless spilled node from the host tier; with
+        ``before``, only one strictly older than that (last_use, seq) key
+        (LRU across both tiers: a new spill never displaces a hotter host
+        entry).  ``cands`` is the round's shared LRU list (entries are
+        checked again before use, and a parent that became a childless
+        spilled leaf is put back in).  True iff one was dropped."""
+        if cands is None:
+            cands = self._spilled_leaves_lru()
+        while cands:
+            victim = cands[0]
+            if not (
+                victim.spilled
+                and not victim.children
+                and victim.parent is not None
+                and victim.parent.children.get(victim.key) is victim
+            ):
+                cands.pop(0)  # dropped or adopted since it was listed
+                continue
+            if before is not None and _lru_key(victim) >= before:
+                return False
+            cands.pop(0)
+            self._drop_host_payload(victim)
+            self.host_dropped_blocks_total += 1
+            self._drop_tails(victim)
+            parent = victim.parent
+            del parent.children[victim.key]
+            if parent.spilled and not parent.children:
+                _insort_lru(cands, parent)
+            return True
+        return False
+
+    def _spill_admissible(
+        self, victim: _Node, cands: Optional[List[_Node]] = None
+    ) -> bool:
+        """May ``victim``'s block enter the host tier?  Yes while the
+        budget has room; on a full budget only by trimming a strictly
+        LRU-older spilled entry first."""
+        if not self._host_enabled or victim.block < 0:
+            return False
+        while self.host_bytes_held + self.block_bytes > self.host_bytes_budget:
+            if not self._trim_host_one(before=_lru_key(victim), cands=cands):
+                return False
+        return True
+
+    def _evict_tail(self, victim: _Node):
+        """Drop ``victim``'s LRU tail entry."""
+        k = min(
+            victim.tails,
+            key=lambda f: (victim.tails[f].last_use, victim.tails[f].seq),
+        )
+        self._release([victim.tails.pop(k).block])
         self.blocks_held -= 1
         self.evictions_total += 1
 
     def evict(self, n_blocks: int, protect_step: Optional[int] = None) -> int:
-        """Reclaim up to ``n_blocks`` blocks LRU-first, releasing the
+        """Reclaim up to ``n_blocks`` pool blocks LRU-first, releasing the
         cache's references; returns how many were freed (0: nothing
-        evictable).  One trie walk serves a round; a round's evictions can
-        make parents evictable, so the walk repeats while short and
-        progressing.  Only the cache's own reference is dropped: blocks
-        pinned by live rows stay until those rows finish."""
+        evictable).  With the host tier on, a full-block victim SPILLS: it
+        is marked during selection, the round's victims are gathered to
+        host memory in one ``spill_fetch``, and then their pool references
+        are released.  Tail entries never spill (they are partial blocks
+        held by value), and a victim the budget refuses is dropped.  One
+        trie walk serves a round; a round's evictions can make parents
+        evictable, so the walk repeats while short and progressing.  Only
+        the cache's own reference is dropped: blocks pinned by live rows
+        stay until those rows finish."""
         freed = 0
+        spill_nodes: List[_Node] = []
+        spill_blocks: List[int] = []
+        # the round's host-trim LRU list, built at the first spill into a
+        # full budget and kept up to date after that
+        trim_cands: Optional[List[_Node]] = None
         while freed < n_blocks:
             cands = self._evictable(protect_step)
             if not cands:
                 break
             for victim in cands[: n_blocks - freed]:
-                self._evict_node(victim)
+                if victim.tails:
+                    self._evict_tail(victim)
+                    freed += 1
+                    continue
+                if (
+                    trim_cands is None
+                    and self._host_enabled
+                    and self.host_bytes_held + self.block_bytes
+                    > self.host_bytes_budget
+                ):
+                    trim_cands = self._spilled_leaves_lru()
+                if self._spill_admissible(victim, cands=trim_cands):
+                    # marked now, so the next walk sees its parent as
+                    # evictable; the payload comes with the batch below
+                    victim.spilled = True
+                    victim.ready_step = 0
+                    spill_nodes.append(victim)
+                    spill_blocks.append(victim.block)
+                    self.host_bytes_held += self.block_bytes
+                    self.host_blocks_held += 1
+                    self.blocks_held -= 1
+                    if trim_cands is not None and not victim.children:
+                        _insort_lru(trim_cands, victim)
+                else:
+                    self._drop_node(victim)
                 freed += 1
+        if spill_nodes:
+            payload = self._spill_fetch(spill_blocks)
+            for i, node in enumerate(spill_nodes):
+                if node.spilled:  # a later trim of this round may drop it
+                    # per-block copies: a view would keep the round's
+                    # whole gather buffer alive for one surviving block
+                    node.host_kv = tuple(a[i].clone() for a in payload)
+            self._release(spill_blocks)
+            self.spilled_blocks_total += len(spill_nodes)
         return freed
 
     def evict_one(self, protect_step: Optional[int] = None) -> bool:
@@ -377,16 +626,63 @@ class RadixPrefixCache:
         evictable."""
         return self.evict(1, protect_step=protect_step) == 1
 
+    # -- host-tier restore --------------------------------------------------
+
+    def begin_restore(self, nodes: Sequence[_Node]) -> List[Tuple[Any, ...]]:
+        """The host payloads of ``nodes`` (a match's ``restore_nodes``), in
+        order, for the engine's batched scatter."""
+        for n in nodes:
+            if not n.spilled or n.host_kv is None:
+                raise RuntimeError("restore of a node that is not spilled")
+        return [n.host_kv for n in nodes]
+
+    def complete_restore(
+        self, nodes: Sequence[_Node], blocks: Sequence[int], ready_step: int
+    ):
+        """Give restored ``nodes`` their pool ``blocks`` (the engine's
+        references pass to the cache) and make them usable from engine
+        step ``ready_step`` (the step after the restore's dispatch, so the
+        requeued admission matches them resident)."""
+        for node, blk in zip(nodes, blocks):
+            self._drop_host_payload(node)
+            node.block = int(blk)
+            node.ready_step = int(ready_step)
+        self.blocks_held += len(nodes)
+        self.restored_blocks_total += len(nodes)
+        if self.blocks_held > self.capacity_blocks:
+            # never trim what this restore touched (the triggering match
+            # stamped its path at ready_step - 1)
+            self.evict(
+                self.blocks_held - self.capacity_blocks,
+                protect_step=int(ready_step) - 1,
+            )
+
     def flush(self, new_version: Optional[int] = None):
-        """Drop every entry (weight swap: all cached KV is stale) and move
-        ``version`` (to ``new_version``, else +1) so inserts tagged with the
-        pre-swap version are rejected."""
-        blocks = self.held_blocks()
+        """Drop every entry in both tiers (weight swap: all cached KV is
+        stale, host copies included) and move ``version`` (to
+        ``new_version``, else +1) so inserts tagged with the pre-swap
+        version are rejected."""
+        blocks = [t.block for t in self._root.tails.values()]
+        stack = list(self._root.children.values())
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            if n.spilled:
+                self._drop_host_payload(n)
+                self.host_dropped_blocks_total += 1
+            else:
+                blocks.append(n.block)
+            blocks.extend(t.block for t in n.tails.values())
         if blocks:
             self._release(blocks)
         self._root.children.clear()
         self._root.tails.clear()
         self.blocks_held = 0
+        if self.host_bytes_held or self.host_blocks_held:
+            raise RuntimeError(
+                f"host tier not empty after a flush: {self.host_blocks_held}"
+                f" blocks, {self.host_bytes_held} bytes"
+            )
         self.version = (
             self.version + 1 if new_version is None else int(new_version)
         )
@@ -395,14 +691,16 @@ class RadixPrefixCache:
     # -- introspection ------------------------------------------------------
 
     def held_blocks(self) -> List[int]:
-        """Every block the cache holds a reference to, one entry per
-        reference (the engine's leak audit adds these to its rows')."""
+        """Every pool block the cache holds a reference to, one entry per
+        reference (the engine's leak audit adds these to its rows');
+        spilled nodes hold none."""
         out = [t.block for t in self._root.tails.values()]
         stack = list(self._root.children.values())
         while stack:
             n = stack.pop()
             stack.extend(n.children.values())
-            out.append(n.block)
+            if not n.spilled:
+                out.append(n.block)
             out.extend(t.block for t in n.tails.values())
         return out
 
@@ -410,25 +708,30 @@ class RadixPrefixCache:
         return self.blocks_held
 
     def stats(self) -> Dict[str, int]:
-        return dict(
-            self.zero_stats(),
-            hits_total=self.hits_total,
-            misses_total=self.misses_total,
-            cached_tokens_total=self.cached_tokens_total,
-            insertions_total=self.insertions_total,
-            evictions_total=self.evictions_total,
-            flushes_total=self.flushes_total,
-            blocks_held=self.blocks_held,
-            version=self.version,
-            min_match_tokens=self.min_match_tokens,
-            capacity_blocks=self.capacity_blocks,
-        )
+        return {
+            "hits_total": self.hits_total,
+            "misses_total": self.misses_total,
+            "cached_tokens_total": self.cached_tokens_total,
+            "insertions_total": self.insertions_total,
+            "evictions_total": self.evictions_total,
+            "flushes_total": self.flushes_total,
+            "blocks_held": self.blocks_held,
+            "version": self.version,
+            # the host spill tier (all 0 while host_bytes_budget is 0)
+            "spilled_blocks_total": self.spilled_blocks_total,
+            "restored_blocks_total": self.restored_blocks_total,
+            "host_dropped_blocks_total": self.host_dropped_blocks_total,
+            "host_bytes_held": self.host_bytes_held,
+            "host_blocks_held": self.host_blocks_held,
+            "min_match_tokens": self.min_match_tokens,
+            "capacity_blocks": self.capacity_blocks,
+            "host_bytes_budget": self.host_bytes_budget,
+        }
 
     @staticmethod
     def zero_stats() -> Dict[str, int]:
         """The all-zero stats a cache-disabled engine reports (the keys of
-        :meth:`stats`; those of the host tier, which is not ported, stay
-        0 in both)."""
+        :meth:`stats`)."""
         return {
             "hits_total": 0,
             "misses_total": 0,

@@ -28,7 +28,10 @@ _F32_LEAVES = ("scale", "bias")
 
 
 def serving_dtype(name: str, cfg: TransformerConfig) -> torch.dtype:
-    """The storage dtype of leaf ``name`` for serving."""
+    """The storage dtype of leaf ``name`` for serving (an int8 serving
+    tree's ``qw`` stays int8, its ``scale`` float32)."""
+    if name == "qw":
+        return torch.int8
     return torch.float32 if name in _F32_LEAVES else torch_dtype(cfg.dtype)
 
 

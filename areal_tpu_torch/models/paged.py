@@ -30,15 +30,16 @@ The reference's layer ``scan`` is a Python loop over
 layer's pool slice ``k_pool[l]`` (a view, no copy) to the kernel.
 :func:`copy_blocks` copies whole blocks inside the pool (the prefix
 cache's and a sampling group's copy-on-write tails), scales included.
-Not ported: the host-tier block spill and restore
-(``gather_blocks``/``restore_blocks``), whose engine feature is not
-ported either.
+:func:`gather_blocks_host` and :func:`restore_blocks_from_host` move
+whole blocks (scales included) between the pool and host memory for the
+prefix cache's host tier: pinned buffers and asynchronous copies on a
+card.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -51,6 +52,7 @@ from areal_tpu_torch.models.transformer import (
     _mlp_block,
     _norm,
     _proj,
+    merge_window_partials,
     rope_tables,
     torch_dtype,
 )
@@ -140,6 +142,104 @@ def copy_blocks(
             pool[:, dst] = pool[:, src]
 
 
+def _pool_parts(k_pool, v_pool, k_scale=None, v_scale=None):
+    """The pool's storage tensors: ``(k, v)``, with the scale pools after
+    them for an int8 pool."""
+    return (k_pool, v_pool) if k_scale is None else (
+        k_pool, v_pool, k_scale, v_scale
+    )
+
+
+@torch.no_grad()
+def gather_blocks_host(
+    k_pool: torch.Tensor,  # [L, NB, Hkv, BS, hd]
+    v_pool: torch.Tensor,
+    blocks: Sequence[int],
+    k_scale: Optional[torch.Tensor] = None,  # [L, NB, Hkv, BS] (int8 pool)
+    v_scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Copy whole pool blocks to host memory in one batch: host tensors
+    indexed ``[i] -> blocks[i]``, ``(k [n, L, Hkv, BS, hd], v)`` for an fp
+    pool and ``(k, v, k_scale [n, L, Hkv, BS], v_scale)`` for an int8 pool,
+    whose bytes and scales travel together so a round trip through
+    :func:`restore_blocks_from_host` is bit-identical.  On a card the
+    gather lands in pinned buffers by asynchronous copies, which this
+    waits for (the caller reads the bytes at once).  The reference pads
+    the batch to a power of two to reuse compiled shapes; nothing here
+    compiles, so it does not."""
+    parts = _pool_parts(k_pool, v_pool, k_scale, v_scale)
+    dev = k_pool.device
+    idx = torch.as_tensor(list(blocks), dtype=torch.long)
+    if dev.type != "cuda":
+        return tuple(p[:, idx].transpose(0, 1).contiguous() for p in parts)
+    idx = idx.pin_memory().to(dev, non_blocking=True)
+    out = []
+    for p in parts:
+        g = p[:, idx].transpose(0, 1)
+        host = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+        host.copy_(g, non_blocking=True)
+        out.append(host)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return tuple(out)
+
+
+def restore_blocks_from_host(
+    k_pool: torch.Tensor,  # [L, NB, Hkv, BS, hd], written in place
+    v_pool: torch.Tensor,
+    payloads: Sequence[Tuple[torch.Tensor, ...]],
+    dst: Sequence[int],
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+):
+    """Scatter per-block host payloads (one tuple per destination block, as
+    :func:`gather_blocks_host` produced them) into pool blocks ``dst`` in
+    one batch: on a card one asynchronous host-to-device copy per
+    component from pinned memory and one indexed write, both enqueued on
+    the current stream, so the restore runs under the work already queued
+    and whatever reads the pool later is ordered after it."""
+    if len(payloads) != len(dst) or not payloads:
+        raise ValueError(
+            f"{len(payloads)} payloads for {len(dst)} destination blocks"
+        )
+    stacked = tuple(
+        torch.stack([p[c] for p in payloads], dim=0)
+        for c in range(len(payloads[0]))
+    )
+    _restore_stacked(
+        _pool_parts(k_pool, v_pool, k_scale, v_scale), stacked, dst
+    )
+
+
+@torch.no_grad()
+def _restore_stacked(parts, components, dst):
+    """The restore's tail (the reference's ``_restore_padded``): each
+    stacked host component, indexed ``[i] -> dst[i]``, goes to the pool's
+    device (pinned, non-blocking, on the current stream) and into its
+    pool tensor at blocks ``dst``."""
+    if len(components) != len(parts):
+        raise ValueError(
+            f"{len(components)} payload components for a pool of "
+            f"{len(parts)} tensors"
+        )
+    dev = parts[0].device
+    idx = torch.as_tensor(list(dst), dtype=torch.long)
+    cuda = dev.type == "cuda"
+    if cuda:
+        idx = idx.pin_memory().to(dev, non_blocking=True)
+    for pool, c in zip(parts, components):
+        if c.dtype != pool.dtype or tuple(c.shape[1:]) != (
+            pool.shape[:1] + pool.shape[2:]
+        ):
+            raise ValueError(
+                f"payload {c.dtype} {tuple(c.shape)} does not fit pool "
+                f"{pool.dtype} {tuple(pool.shape)}"
+            )
+        src = c.pin_memory().to(dev, non_blocking=True) if cuda else c
+        pool[:, idx] = src.transpose(0, 1)
+
+
 def quantize_kv(vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric absmax int8 quantization over the trailing head_dim axis:
     ``(int8 values, float32 scales)``, the scales shaped like ``vals``
@@ -159,16 +259,19 @@ def quantize_kv(vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _prefix_partials(q, k_pool, v_pool, tables, lengths, layer: int,
-                     deep: bool = False, k_scale=None, v_scale=None):
+                     deep: bool = False, k_scale=None, v_scale=None,
+                     verify: bool = False):
     """Paged-attention partials over each row's cached prefix of layer
     ``layer``, through the deep kernel when ``deep``.  ``q`` is [B, Q, Hq,
-    hd]; int8 pools pass their scale pools.  Returns (acc, m, l)."""
-    fn = paged_flash_attention_deep if deep else paged_flash_attention
+    hd]; int8 pools pass their scale pools; ``verify`` marks a speculative
+    verify window's call (counted apart by the kernel's wrapper).  Returns
+    (acc, m, l)."""
     scales = () if k_scale is None else (k_scale[layer], v_scale[layer])
-    return fn(
-        q.contiguous(), k_pool[layer], v_pool[layer], tables, lengths,
-        *scales,
-    )
+    args = (q.contiguous(), k_pool[layer], v_pool[layer], tables, lengths,
+            *scales)
+    if deep:
+        return paged_flash_attention_deep(*args)
+    return paged_flash_attention(*args, verify=verify)
 
 
 def _scatter_slots_(pool, pid, off, vals, valid, slot_axis: int = -2):
@@ -229,6 +332,7 @@ def paged_window_forward(
     k_scale: Optional[torch.Tensor] = None,  # [L, NB, Hkv, BS] (int8 pool)
     v_scale: Optional[torch.Tensor] = None,
     store: Optional[torch.Tensor] = None,  # [F, C] bool, default ``valid``
+    verify: bool = False,
 ) -> torch.Tensor:
     """Forward a token window for F rows over their cached paged prefixes:
     in-window causal self-attention merged online with the paged
@@ -236,8 +340,10 @@ def paged_window_forward(
     the rows' pool blocks at the positions of ``store`` (a subset of
     ``valid``; the others are computed but dropped).  On an int8 pool
     the window KV is computed in model dtype and quantized at the
-    scatter.  Returns the final hidden states ``x [F, C, D]``
-    (pre-head)."""
+    scatter.  ``verify`` marks a speculative verify window
+    (``engine/spec_decode.py``), whose kernel launches the wrapper also
+    counts on ``verify_launches``.  Returns the final hidden states
+    ``x [F, C, D]`` (pre-head)."""
     F, C = tokens.shape
     L, NB, Hkv, BS, hd = k_pool.shape
     r = cfg.n_q_heads // Hkv
@@ -264,7 +370,7 @@ def paged_window_forward(
         q, k, v = _attn_qkv(cfg, lp, h, positions, rope_cs)
         acc_p, m_p, l_p = _prefix_partials(
             q, k_pool, v_pool, tables, read_lens, l,
-            k_scale=k_scale, v_scale=v_scale,
+            k_scale=k_scale, v_scale=v_scale, verify=verify,
         )
         qg = q.reshape(F, C, Hkv, r, hd)
         s_c = torch.einsum("fikrd,fjkd->fkrij", qg.float(), k.float()) * scale
@@ -408,29 +514,15 @@ def paged_decode_chunk(
             q, k, v = _attn_qkv(cfg, lp, h, positions, rope_cs)
             wk[l, i] = k[:, 0]
             wv[l, i] = v[:, 0]
-            qg = q.reshape(B, Hkv, r, hd)
-            s_win = (
-                torch.einsum("bkrd,wbkd->bkrw", qg.float(), wk[l].float())
-                * scale
-            )
-            s_win = torch.where(
-                mask_win, s_win, torch.full_like(s_win, _NEG_INF)
-            )  # [B, Hkv, r, W]
             acc, m_main, l_main = _prefix_partials(
                 q, k_pool, v_pool, tables, read_lens, l, deep=deep_kernel,
                 k_scale=k_scale, v_scale=v_scale,
             )
-            acc = acc.reshape(B, Hkv, r, hd)
-            m_main = m_main.reshape(B, Hkv, r)
-            l_main = l_main.reshape(B, Hkv, r)
-            m_tot = torch.maximum(m_main, s_win.amax(dim=-1))
-            p_win = torch.exp(s_win - m_tot[..., None])
-            alpha = torch.exp(m_main - m_tot)
-            num = acc * alpha[..., None] + torch.einsum(
-                "bkrw,wbkd->bkrd", p_win, wv[l].float()
-            )
-            den = l_main * alpha + p_win.sum(dim=-1)
-            attn = (num / den.clamp_min(1e-30)[..., None]).to(x.dtype)
+            attn = merge_window_partials(
+                acc.reshape(B, Hkv, r, hd), m_main.reshape(B, Hkv, r),
+                l_main.reshape(B, Hkv, r), q.reshape(B, Hkv, r, hd),
+                wk[l], wv[l], mask_win, scale,
+            ).to(x.dtype)
             attn = attn.reshape(B, 1, cfg.n_q_heads * hd)
             x = x + _proj(lp["attn"]["o"], attn)
             h2 = _norm(x, lp["mlp_norm"], cfg)

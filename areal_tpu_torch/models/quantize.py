@@ -1,5 +1,5 @@
-"""int8 serving-weight quantization, per-output-channel absmax (port of the
-publishing half of ``areal_tpu/models/quantize.py``).
+"""int8 serving-weight quantization, per-output-channel absmax (port of
+``areal_tpu/models/quantize.py``).
 
 Every matmul weight (attention q/k/v/o, the MLP's gate/up/down, an untied
 ``lm_head``) is stored as an ``int8`` tensor plus one float32 symmetric
@@ -10,9 +10,14 @@ with ``qw`` (int8) and ``scale`` (float32) beside any bias, so the tree
 flattens to the same "/"-joined key paths the snapshot manifest speaks.
 
 The trainer publishes this tree next to every full-precision snapshot
-(``engine/checkpoint.py save_quantized_params``).  Serving from it (the
-dequantizing projections and ``serving_weight_dtype="int8"``) is not
-ported yet (ROADMAP.md queue 1, item 8).
+(``engine/checkpoint.py save_quantized_params``), and an engine built with
+``serving_weight_dtype="int8"`` serves from it: every projection reads its
+weight through :func:`leaf_weight`, which dequantizes ``qw * scale`` at
+use in float32 and casts to the activation dtype, so the product itself is
+the full-precision path's and the only error is storage rounding.  The
+reference computes the same dequantize-then-matmul outside any Pallas
+kernel; on a card it is one elementwise pass and one ``torch.matmul`` per
+projection and step (a fused int8-weight GEMM is later work, ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+
+#: storage bits per quantized weight element (the metrics gauge)
+STORAGE_BITS = 8
 
 #: projection names whose "w" leaves quantize
 _PROJ_NAMES = ("q", "k", "v", "o", "gate", "up", "down")
@@ -52,11 +60,38 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     finite and dequantizes back to exact zeros."""
     w32 = w.detach().to(torch.float32)
     absmax = torch.amax(torch.abs(w32), dim=-2)
-    scale = torch.clamp(absmax, min=1e-12) / 127.0
+    # a true division on every device: a CUDA tensor divided by a Python
+    # number is multiplied by its reciprocal, which can round otherwise
+    scale = torch.clamp(absmax, min=1e-12) / torch.full_like(absmax, 127.0)
     q = torch.clamp(
         torch.round(w32 / scale.unsqueeze(-2)), -127, 127
     ).to(torch.int8)
     return q, scale
+
+
+def dequant_weight(qw: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """``qw * scale`` at use: the product in float32 (the scale's dtype),
+    cast to the activation ``dtype`` after, as the reference does."""
+    return (qw.to(torch.float32) * scale.to(torch.float32).unsqueeze(-2)).to(
+        dtype
+    )
+
+
+def is_quant_leaf(p) -> bool:
+    """True for a quantized projection dict (``qw``/``scale``)."""
+    return isinstance(p, dict) and "qw" in p
+
+
+def leaf_weight(p, dtype) -> torch.Tensor:
+    """The weight of a projection leaf in the compute ``dtype``, whether the
+    leaf is a tensor, a ``{"w": ...}`` dict or a quantized ``{"qw",
+    "scale"}`` dict: the one accessor through which every forward serves
+    both formats."""
+    if isinstance(p, dict):
+        if "qw" in p:
+            return dequant_weight(p["qw"], p["scale"], dtype)
+        p = p["w"]
+    return p.to(dtype)
 
 
 def _transform(tree, quant_fn, other_fn, prefix=()):
@@ -115,6 +150,15 @@ def quant_tree_struct(params: Dict[str, Any]) -> Dict[str, Any]:
         return torch.empty(tuple(leaf.shape), dtype=leaf.dtype, device="meta")
 
     return _transform(params, quant, other)
+
+
+def is_quantized_tree(params) -> bool:
+    """True iff the tree holds at least one quantized projection."""
+    if isinstance(params, (list, tuple)):
+        return any(is_quantized_tree(v) for v in params)
+    if not isinstance(params, dict):
+        return False
+    return "qw" in params or any(is_quantized_tree(v) for v in params.values())
 
 
 def quantized_leaf_count(params) -> int:

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from areal_tpu_torch.base.device import DeviceLike, resolve_device
+from areal_tpu_torch.models import quantize
 from areal_tpu_torch.models.config import TransformerConfig
 
 Params = Dict[str, Any]
@@ -191,7 +192,10 @@ def _activation(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def _proj(p: Params, y: torch.Tensor) -> torch.Tensor:
-    out = y @ p["w"].to(y.dtype)
+    # one accessor for both formats: a {"w"} weight, or an int8 serving
+    # weight {"qw", "scale"} dequantized at use (models/quantize.py); the
+    # bias sits beside either
+    out = y @ quantize.leaf_weight(p, y.dtype)
     if "b" in p:
         out = out + p["b"].to(y.dtype)
     return out
@@ -249,7 +253,7 @@ def _head(params: Params, cfg: TransformerConfig, x: torch.Tensor):
         # x @ embed.T without materializing the transpose
         logits = F.linear(x, params["embed"]["weight"].to(x.dtype))
     else:
-        logits = x @ params["lm_head"]["w"].to(x.dtype)
+        logits = x @ quantize.leaf_weight(params["lm_head"], x.dtype)
     return logits.to(torch_dtype(cfg.logits_dtype))
 
 
@@ -500,6 +504,53 @@ def flash_decode_attention(q, k, v, attended):
     return (acc / lsum[..., None]).to(q.dtype)[:, None]
 
 
+def windowed_prompt_attention(q, k, v, positions, seg_ids, window: int,
+                              block: int = 1024):
+    """Sliding-window causal attention of a prompt over itself in an empty
+    cache: q ``[B,T,Hq,hd]``, k/v ``[B,Hkv,T,hd]`` (slot s holding position
+    s), the reference's mask (``kv_pos <= p``, ``p - kv_pos < window``, real
+    queries) applied by :func:`cache_attention` one block of ``block``
+    queries at a time over the keys that block can see, so the scores never
+    take ``[T, T]`` memory.  Keys outside a block's range are masked in the
+    reference and contribute exactly zero there."""
+    B, T = q.shape[:2]
+    out = []
+    for t0 in range(0, T, block):
+        t1 = min(T, t0 + block)
+        lo = max(0, t0 - window + 1)
+        kv_pos = torch.arange(lo, t1, device=q.device)[None, None, :]
+        pos = positions[:, t0:t1, None]
+        mask = (
+            (kv_pos <= pos)
+            & (pos - kv_pos < window)
+            & (seg_ids[:, t0:t1] != 0)[:, :, None]
+        )
+        out.append(cache_attention(
+            q[:, t0:t1], k[:, :, lo:t1], v[:, :, lo:t1], mask
+        ))
+    return torch.cat(out, dim=1)
+
+
+def merge_window_partials(acc, m_main, l_main, qg, wk_l, wv_l, mask_win,
+                          scale: float) -> torch.Tensor:
+    """One decode query per row over its main cache and its chunk's window:
+    the main cache's un-normalised partials ``acc [B,Hkv,r,hd]``, ``m``,
+    ``l`` ``[B,Hkv,r]`` (from a kernel, or its plain version) merged online
+    with the scores of ``qg [B,Hkv,r,hd]`` against the window keys ``wk_l``
+    ``[W,B,Hkv,hd]`` under ``mask_win [B,1,1,W]``; float32 ``[B,Hkv,r,hd]``
+    normalised attention."""
+    s_win = torch.einsum("bkrd,wbkd->bkrw", qg.float(), wk_l.float()) * scale
+    s_win = torch.where(mask_win, s_win, torch.full_like(s_win, -1e30))
+    m_tot = torch.maximum(m_main, s_win.amax(dim=-1))
+    p_win = torch.exp(s_win - m_tot[..., None])
+    alpha = torch.exp(m_main - m_tot)
+    num = acc * alpha[..., None] + torch.einsum(
+        "bkrw,wbkd->bkrd", p_win, wv_l.float()
+    )
+    den = l_main * alpha + p_win.sum(dim=-1)
+    return num / den.clamp_min(1e-30)[..., None]
+
+
 def prefill(
     params: Params,
     cfg: TransformerConfig,
@@ -521,17 +572,20 @@ def prefill(
     self-attention over the prompt, which the flash kernel computes
     (padding queries give 0 where the reference averages; their keys and
     values lie beyond each row's length and are never attended).  A
-    non-empty cache and a sliding window are refused there."""
+    sliding-window model's prompt attention there is the reference's own
+    masked attention, in query blocks (:func:`windowed_prompt_attention`;
+    the flash kernel has no window, and the reference computes this
+    product outside any Pallas kernel too).  A non-empty cache is refused
+    there."""
     B, T = tokens.shape
     S = cache.max_len
     x = _embed(params, cfg, tokens, positions)
     on_cpu = x.device.type == "cpu"
-    _refuse_window_on_card(cfg, x, "prefill")
     if not on_cpu and not cache.empty:
         raise NotImplementedError(
-            "prefill into a non-empty KV cache on a card: only the dense "
-            "generation server sends one, and it is not ported (ROADMAP.md "
-            "queue 1, item 8)"
+            "prefill into a non-empty KV cache on a card: no caller sends "
+            "one (the dense engine prefills an empty cache of its own and "
+            "copies it into its rows)"
         )
     mask = None
     if on_cpu:
@@ -552,6 +606,11 @@ def prefill(
         _write_cache_rows(cache.v[l], v, cache.lengths)
         if on_cpu:
             attn = cache_attention(q, cache.k[l], cache.v[l], mask)
+        elif cfg.sliding_window is not None:
+            attn = windowed_prompt_attention(
+                q, cache.k[l], cache.v[l], positions, seg_ids,
+                cfg.sliding_window,
+            )
         else:
             from areal_tpu_torch.ops.flash_attention import flash_attention
 
@@ -623,3 +682,150 @@ def decode_step(
         x = x + _mlp_block(cfg, lp, h)
     lengths = cache.lengths + active.to(torch.int32)
     return _head(params, cfg, x)[:, 0], KVCache(cache.k, cache.v, lengths)
+
+
+def _window_gather(cache: KVCache, base_lens, G: int):
+    """Each row's last ``G`` cache slots below its length, newest first:
+    ``[L, B, Hkv, G, hd]`` k and v, buffer slot t holding cache slot
+    ``base - 1 - t`` (clamped to 0 past the row's start; those slots lie
+    beyond every read length).  Newest-first puts the slots a window
+    query may read at the front, so each step's read is the prefix
+    ``[0, attended)`` that ``flash_decode`` takes."""
+    B = base_lens.shape[0]
+    t = torch.arange(G, device=base_lens.device)
+    idx = torch.clamp(base_lens.long()[:, None] - 1 - t[None, :], min=0)
+    rows = torch.arange(B, device=base_lens.device)[:, None]
+
+    def g(c):
+        # c[:, rows, :, idx] is [B, G, L, Hkv, hd]
+        return c[:, rows, :, idx].permute(2, 0, 3, 1, 4).contiguous()
+
+    return g(cache.k), g(cache.v)
+
+
+@torch.no_grad()
+def decode_chunk(
+    params: Params,
+    cfg: TransformerConfig,
+    cache: KVCache,
+    cur_tokens: torch.Tensor,  # [B] int32 pending token (KV not cached yet)
+    active: torch.Tensor,  # [B] bool
+    budgets: torch.Tensor,  # [B] int32 remaining new tokens (incl. cur)
+    chunk_size: int,
+    sample_fn,  # (logits f32 [B,V], positions [B], row_seeds [B])
+    stop_fn,  # tokens [B] -> [B] bool
+    attn_len: Optional[int] = None,
+    row_seeds: Optional[torch.Tensor] = None,  # [B] per-request sampler keys
+):
+    """Generate up to ``chunk_size`` tokens for every active row over the
+    dense cache (the reference's ``decode_chunk``): in-chunk KV goes to a
+    ``[L, W, B, Hkv, hd]`` window, each step's query attends the main
+    cache's frozen prefix ``[0, base)`` and the window jointly, and the
+    window merges into the cache slots once per chunk.
+
+    The main cache's partials come from
+    :func:`~areal_tpu_torch.ops.decode_attention.flash_decode` (the kernel
+    on a card, its plain version on the CPU), merged online with the
+    window's (:func:`merge_window_partials`).  ``attn_len`` is the engine's
+    bound on every row's length through the chunk (the reference's
+    bucketed prefix); the kernel walks only each row's valid keys, so it
+    decides only the window-gather route below.
+
+    A sliding-window model (``chunk_size <= sliding_window``, checked)
+    reads each row's last ``Ww`` cache slots, gathered once per chunk
+    newest first (:func:`_window_gather`; ``Ww`` the window rounded up to
+    128 and capped at ``attn_len``): the slots a query at position p may
+    read, ``[max(0, p - window + 1), base)``, are then the buffer's prefix
+    ``[0, min(base, base + window - 1 - p))``, a length that falls by one
+    each step, and ``flash_decode`` reads that prefix.
+
+    Returns (cache, out_t [B,W], out_l [B,W], emitted [B,W], cur_tokens,
+    active, budgets); the cache's tensors are written in place."""
+    from areal_tpu_torch.models.paged import _scatter_slots_
+    from areal_tpu_torch.ops.decode_attention import flash_decode
+
+    win = cfg.sliding_window
+    if win is not None and chunk_size > win:
+        raise ValueError(
+            "chunked decode requires chunk_size <= sliding_window "
+            f"({chunk_size} > {win}); in-chunk KV must stay inside every "
+            "query's attention window"
+        )
+    B = cur_tokens.shape[0]
+    S = cache.max_len
+    Sa = S if attn_len is None else min(attn_len, S)
+    W = chunk_size
+    L, Hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    r = cfg.n_q_heads // Hkv
+    dev = cur_tokens.device
+    if row_seeds is None:
+        row_seeds = torch.zeros_like(cur_tokens)
+    base_lens = cache.lengths  # frozen: the main cache's valid prefix
+    scale = 1.0 / math.sqrt(hd)
+    if win is not None:
+        Ww = -(-min(win, Sa) // 128) * 128
+        attn_k, attn_v = _window_gather(cache, base_lens, min(Ww, Sa))
+    else:
+        attn_k, attn_v = cache.k, cache.v
+    wk = torch.zeros((L, W, B, Hkv, hd), dtype=cache.k.dtype, device=dev)
+    wv = torch.zeros_like(wk)
+    wvalid = torch.zeros((W, B), dtype=torch.bool, device=dev)
+    out_t = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    out_l = torch.zeros((B, W), dtype=torch.float32, device=dev)
+    emitted = torch.zeros((B, W), dtype=torch.bool, device=dev)
+    zero = torch.zeros_like(base_lens)
+    lengths_, cur = base_lens, cur_tokens
+    for i in range(W):
+        positions = lengths_[:, None]
+        x = _embed(params, cfg, cur[:, None].long(), positions)
+        rope_cs = (
+            None
+            if cfg.abs_position_embedding
+            else rope_tables(positions, cfg.rotary_base, cfg.head_dim)
+        )
+        wvalid[i] = active
+        mask_win = wvalid.T[:, None, None, :]  # [B, 1, 1, W]
+        if win is None:
+            read = base_lens
+        else:
+            read = torch.clamp(
+                torch.minimum(base_lens, base_lens + (win - 1) - lengths_),
+                min=0,
+            )
+        read = torch.where(active, read, zero).to(torch.int32).contiguous()
+        for l, lp in enumerate(params["layers"]):
+            h = _norm(x, lp["attn_norm"], cfg)
+            q, k, v = _attn_qkv(cfg, lp, h, positions, rope_cs)
+            wk[l, i] = k[:, 0].to(wk.dtype)
+            wv[l, i] = v[:, 0].to(wv.dtype)
+            acc, m_main, l_main = flash_decode(
+                q[:, 0].contiguous(), attn_k[l], attn_v[l], read
+            )
+            attn = merge_window_partials(
+                acc.reshape(B, Hkv, r, hd), m_main.reshape(B, Hkv, r),
+                l_main.reshape(B, Hkv, r), q.reshape(B, Hkv, r, hd),
+                wk[l], wv[l], mask_win, scale,
+            ).to(x.dtype)
+            x = x + _proj(lp["attn"]["o"], attn.reshape(B, 1, cfg.q_dim))
+            h2 = _norm(x, lp["mlp_norm"], cfg)
+            x = x + _mlp_block(cfg, lp, h2)
+        logits = _head(params, cfg, x)[:, 0]
+        tok, logp = sample_fn(logits.float(), lengths_ + 1, row_seeds)
+        tok = torch.where(active, tok, torch.zeros_like(tok))
+        out_t[:, i] = tok
+        out_l[:, i] = torch.where(active, logp, torch.zeros_like(logp))
+        emitted[:, i] = active
+        step = active.to(torch.int32)
+        lengths_ = lengths_ + step
+        budgets = budgets - step
+        active = active & ~stop_fn(tok) & (budgets > 0) & (lengths_ < S)
+        cur = tok
+    # merge the window into the rows' cache slots: one scatter per chunk
+    # (the cache [L, B, Hkv, S, hd] read as a pool of B blocks of S slots)
+    wvi = wvalid.to(torch.int32)
+    offs = base_lens[None, :] + torch.cumsum(wvi, dim=0) - wvi  # [W, B]
+    b_idx = torch.arange(B, device=dev)[None, :].expand(W, B)
+    for c, w in ((cache.k, wk), (cache.v, wv)):
+        _scatter_slots_(c, b_idx, offs, w.permute(1, 2, 0, 3, 4), wvalid)
+    new_cache = KVCache(cache.k, cache.v, lengths_)
+    return new_cache, out_t, out_l, emitted, cur, active, budgets

@@ -332,12 +332,14 @@ def n_tickets(symbol: str, B: int, Q: int, Hq: int, Hkv: int) -> int:
 
 
 def launch_paged(library, symbol, counter, q, k_pool, v_pool, tables,
-                 lengths, k_scale=None, v_scale=None):
+                 lengths, k_scale=None, v_scale=None, verify=False):
     """Check the arguments, launch the paged kernel ``symbol`` of
     ``library`` on the current stream and count the launch on
     ``counter`` (``int8_launches`` for an int8 pool, else ``launches``;
-    a launch of the prefill entry also on ``prefill_launches``).  Raises
-    on anything the kernel does not take, and when the launch fails."""
+    a launch of the prefill entry also on ``prefill_launches``, and a
+    speculative verify window's, ``verify``, also on
+    ``verify_launches``).  Raises on anything the kernel does not take,
+    and when the launch fails."""
     if q.device.type != "cuda":
         raise RuntimeError(
             f"{counter.__name__}'s kernel runs on CUDA tensors; got a "
@@ -379,6 +381,8 @@ def launch_paged(library, symbol, counter, q, k_pool, v_pool, tables,
         counter.launches += 1
     if symbol == PREFILL_ENTRY:
         counter.prefill_launches += 1
+    if verify:
+        counter.verify_launches += 1
     return acc, m, l
 
 
@@ -390,10 +394,13 @@ def paged_flash_attention(
     lengths: torch.Tensor,  # [B] int32
     k_scale: Optional[torch.Tensor] = None,  # [NB, Hkv, BS] f32 (int8 pool)
     v_scale: Optional[torch.Tensor] = None,
+    verify: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Un-normalised online-softmax partials over paged KV (see the module
     docstring).  CPU tensors take the plain version; any other device
-    launches the CUDA kernel or raises."""
+    launches the CUDA kernel or raises.  ``verify`` marks the call of a
+    speculative verify window, whose launch also counts on
+    ``verify_launches``."""
     if q.device.type == "cpu":
         return reference_paged_partials(
             q, k_pool, v_pool, tables, lengths, k_scale, v_scale
@@ -401,7 +408,7 @@ def paged_flash_attention(
     return launch_paged(
         "paged_attention", paged_entry(q.shape[1], q.dtype, k_pool.dtype),
         paged_flash_attention, q, k_pool, v_pool, tables, lengths, k_scale,
-        v_scale,
+        v_scale, verify=verify,
     )
 
 
@@ -434,10 +441,12 @@ def paged_flash_attention_deep(
 
 #: kernel launches since the counts were last set to 0, over fp pools
 #: (``launches``) and int8 pools (``int8_launches``), and of those the
-#: prefill entry's (``prefill_launches``, either pool); the plain version,
-#: and failed launches, do not count
+#: prefill entry's (``prefill_launches``, either pool) and the speculative
+#: verify windows' (``verify_launches``, either entry and pool); the plain
+#: version, and failed launches, do not count
 paged_flash_attention.launches = 0
 paged_flash_attention.int8_launches = 0
 paged_flash_attention.prefill_launches = 0
+paged_flash_attention.verify_launches = 0
 paged_flash_attention_deep.launches = 0
 paged_flash_attention_deep.int8_launches = 0

@@ -18,17 +18,24 @@ The API is a ZMQ ROUTER socket:
 ``format="params"`` names a snapshot that
 :func:`areal_tpu_torch.engine.checkpoint.save_params` wrote; any other
 format names an HF checkpoint directory of the served architecture
-(``models/hf``).  Not ported yet, each refused where a caller could ask
-for it: prefill/decode roles, segment transports and the KV fabric
-(ROADMAP.md queue 1, item 8), multi-process servers and meshes of more
-than one device (item 10), token streams, the compile watch and the
-``/metrics`` HTTP server (item 11).
+(``models/hf``).  A server with ``serving_weight_dtype="int8"`` restores
+the int8 sibling tree a publisher advertises in the snapshot's manifest
+(``serving_quant``), and otherwise the full tree, quantized on arrival
+(:meth:`GenerationServerWorker._negotiate_weight_format`).  The config's
+``spec_decode`` block, ``prefix_cache_host_bytes`` and ``cache_mode``
+("dense" and "auto", which serves a sliding-window model such as Mistral
+on the dense cache) pass to the engine.  Not ported yet, each refused
+where a caller could ask for it: prefill/decode roles, segment transports
+and the KV fabric (ROADMAP.md queue 1, item 8), multi-process servers and
+meshes of more than one device (item 10), token streams, the compile watch
+and the ``/metrics`` HTTP server (item 11).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import pickle
 import threading
 import time
@@ -137,8 +144,6 @@ def _check_config(config: system_api.GenServerConfig):
     if config.compile_quiet_after_steps > 0:
         raise _not_ported("the compile watch (compile_quiet_after_steps)",
                           item=11)
-    if getattr(config.spec_decode, "enabled", False):
-        raise _not_ported("speculative decoding (spec_decode)", item=8)
 
 
 class GenerationServerWorker(worker_base.Worker):
@@ -154,6 +159,7 @@ class GenerationServerWorker(worker_base.Worker):
             ContinuousBatchingEngine,
         )
         from areal_tpu_torch.engine.sampling import SamplingParams
+        from areal_tpu_torch.engine.spec_decode import resolve_spec_params
         from areal_tpu_torch.observability import get_registry, tracing
         from areal_tpu_torch.observability.latency import SLO_BUCKETS
 
@@ -195,6 +201,7 @@ class GenerationServerWorker(worker_base.Worker):
             prefix_cache_capacity_frac=config.prefix_cache_capacity_frac,
             prefix_cache_min_tokens=config.prefix_cache_min_match_tokens,
             prefix_cache_host_bytes=config.prefix_cache_host_bytes,
+            spec_decode_params=resolve_spec_params(config.spec_decode),
             slo_tracking=config.slo_tracking,
             server_name=config.worker_name,
         )
@@ -244,6 +251,36 @@ class GenerationServerWorker(worker_base.Worker):
             "kv_quant_diverged": reg.counter(
                 "areal_inference_kv_quant_divergence_diverged_total"
             ),
+            "weight_quant_checks": reg.counter(
+                "areal_inference_weight_quant_divergence_checks_total"
+            ),
+            "weight_quant_diverged": reg.counter(
+                "areal_inference_weight_quant_divergence_diverged_total"
+            ),
+            "prefix_host_spilled": reg.counter(
+                "areal_inference_prefix_host_spilled_blocks_total"
+            ),
+            "prefix_host_restored": reg.counter(
+                "areal_inference_prefix_host_restored_blocks_total"
+            ),
+            "prefix_host_dropped": reg.counter(
+                "areal_inference_prefix_host_dropped_blocks_total"
+            ),
+            "spec_drafted": reg.counter(
+                "areal_inference_spec_draft_tokens_total"
+            ),
+            "spec_accepted": reg.counter(
+                "areal_inference_spec_accepted_tokens_total"
+            ),
+            "spec_rejected": reg.counter(
+                "areal_inference_spec_rejected_tokens_total"
+            ),
+            "spec_verify_chunks": reg.counter(
+                "areal_inference_spec_verify_chunks_total"
+            ),
+            "spec_fallback_rows": reg.counter(
+                "areal_inference_spec_fallback_rows_total"
+            ),
             "swap_stage": reg.counter("areal_inference_swap_stage_seconds_total"),
             "swap_pause": reg.counter("areal_inference_swap_pause_seconds_total"),
             "swaps": reg.counter("areal_inference_weight_swaps_total"),
@@ -258,8 +295,22 @@ class GenerationServerWorker(worker_base.Worker):
             "prefix_blocks": reg.gauge("areal_inference_prefix_cache_blocks"),
             "kv_quant_bits": reg.gauge("areal_inference_kv_quant_storage_bits"),
             "kv_quant_blocks": reg.gauge("areal_inference_kv_quant_blocks"),
+            "weight_quant_bits": reg.gauge(
+                "areal_inference_weight_quant_storage_bits"
+            ),
+            "weight_quant_leaves": reg.gauge(
+                "areal_inference_weight_quant_leaves"
+            ),
+            "prefix_host_bytes": reg.gauge("areal_inference_prefix_host_bytes"),
+            "prefix_host_blocks": reg.gauge(
+                "areal_inference_prefix_host_blocks"
+            ),
             "mesh_devices": reg.gauge("areal_inference_mesh_devices"),
         }
+        self._obs_spec_accept = reg.histogram(
+            "areal_inference_spec_accept_rate",
+            buckets=(0.0, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0),
+        )
         self._obs_preempt_class = reg.counter("areal_gateway_preemptions_total")
         self._obs_preempt_class_last: Dict[str, int] = {}
         # request-level SLO digests as histograms over the fixed buckets
@@ -279,6 +330,8 @@ class GenerationServerWorker(worker_base.Worker):
         eng = self.engine
         pstats = eng.prefix_cache_stats()
         qstats = eng.kv_quant_stats()
+        wstats = eng.weight_quant_stats()
+        sstats = eng.spec_stats()
         totals = {
             "chunks": float(eng.decode_chunks_total),
             "gen_tokens": float(eng.gen_tokens_total),
@@ -289,6 +342,20 @@ class GenerationServerWorker(worker_base.Worker):
             "prefix_evictions": float(pstats["evictions_total"]),
             "kv_quant_checks": float(qstats["divergence_checks_total"]),
             "kv_quant_diverged": float(qstats["divergence_diverged_total"]),
+            "weight_quant_checks": float(wstats["divergence_checks_total"]),
+            "weight_quant_diverged": float(
+                wstats["divergence_diverged_total"]
+            ),
+            "prefix_host_spilled": float(pstats["spilled_blocks_total"]),
+            "prefix_host_restored": float(pstats["restored_blocks_total"]),
+            "prefix_host_dropped": float(
+                pstats["host_dropped_blocks_total"]
+            ),
+            "spec_drafted": float(sstats["drafted_total"]),
+            "spec_accepted": float(sstats["accepted_total"]),
+            "spec_rejected": float(sstats["rejected_total"]),
+            "spec_verify_chunks": float(sstats["verify_chunks_total"]),
+            "spec_fallback_rows": float(sstats["fallback_rows_total"]),
             "swap_stage": eng.swap_stage_s,
             "swap_pause": eng.swap_pause_s,
             "swaps": float(eng.swaps_total),
@@ -322,6 +389,12 @@ class GenerationServerWorker(worker_base.Worker):
         self._obs["prefix_blocks"].set(pstats["blocks_held"])
         self._obs["kv_quant_bits"].set(qstats["storage_bits"])
         self._obs["kv_quant_blocks"].set(qstats["quantized_blocks_held"])
+        self._obs["weight_quant_bits"].set(wstats["storage_bits"])
+        self._obs["weight_quant_leaves"].set(wstats["quantized_leaves"])
+        self._obs["prefix_host_bytes"].set(pstats["host_bytes_held"])
+        self._obs["prefix_host_blocks"].set(pstats["host_blocks_held"])
+        for frac in eng.drain_spec_accept_samples():
+            self._obs_spec_accept.observe(frac)
         self._obs["mesh_devices"].set(eng.mesh_devices)
 
     # -- API ---------------------------------------------------------------
@@ -432,12 +505,34 @@ class GenerationServerWorker(worker_base.Worker):
         self, path: str, manifest: Optional[Dict]
     ) -> Tuple[str, str, Optional[Dict]]:
         """``(format, restore_path, quant_leaves)`` of the snapshot tree
-        this server restores: always the full-precision tree, since int8
-        serving weights (and the quantized sibling trees a publisher may
-        advertise for them) are not ported."""
-        if self.config.serving_weight_dtype == "int8":
-            raise _not_ported("int8 serving weights", item=8)
-        return "full", path, None
+        this server restores, format ``"int8"`` or ``"full"``.  A server
+        with ``serving_weight_dtype="int8"`` takes the int8 sibling tree
+        the publisher advertised in the manifest (about half the bytes to
+        stage); a publisher that wrote none, a snapshot without a manifest
+        or an advertised tree that is gone falls back to the full tree,
+        with one log line, quantized on arrival.  An ``"auto"`` server
+        ignores the advertisement."""
+        if self.config.serving_weight_dtype != "int8":
+            return "full", path, None
+        qinfo = ((manifest or {}).get("serving_quant") or {}).get("int8")
+        if not (isinstance(qinfo, dict) and qinfo.get("dir")):
+            self.logger.info(
+                "serving_weight_dtype='int8' but snapshot %s advertises no "
+                "int8 serving tree%s: restoring the full-precision tree and "
+                "quantizing it on arrival", path,
+                "" if manifest is not None else " (no manifest)",
+            )
+            return "full", path, None
+        qpath = os.path.join(
+            os.path.dirname(os.path.abspath(path)), qinfo["dir"]
+        )
+        if not os.path.isdir(qpath):
+            self.logger.info(
+                "the advertised int8 serving tree %s is gone: restoring the "
+                "full-precision tree and quantizing it on arrival", qpath,
+            )
+            return "full", path, None
+        return "int8", qpath, qinfo.get("leaves")
 
     def _load_update_params(self, payload: Dict, staged: bool):
         """Restore the snapshot named by an update payload.  The staged
@@ -452,13 +547,19 @@ class GenerationServerWorker(worker_base.Worker):
         from areal_tpu_torch.engine import checkpoint
 
         manifest = checkpoint.read_manifest(path)
-        fmt, restore_path, _ = self._negotiate_weight_format(path, manifest)
+        fmt, restore_path, quant_leaves = self._negotiate_weight_format(
+            path, manifest
+        )
         template = self.engine.weight_restore_template(fmt)
         if not staged:
             return self.engine.prepare_weights(
                 checkpoint.load_params_like(template, restore_path)
             )
-        leaves = (manifest or {}).get("leaves")
+        # the layout check of the tree this restore reads: the int8 tree's
+        # own leaves, or the manifest's
+        leaves = quant_leaves if fmt == "int8" else (manifest or {}).get(
+            "leaves"
+        )
         if leaves:
             problems = checkpoint.validate_manifest(template, {"leaves": leaves})
             if problems:
@@ -633,6 +734,10 @@ class GenerationServerWorker(worker_base.Worker):
                 for k, v in eng.prefix_cache_stats().items()
             },
             **{f"kv_quant_{k}": v for k, v in eng.kv_quant_stats().items()},
+            **{f"weight_quant_{k}": v
+               for k, v in eng.weight_quant_stats().items()},
+            **{f"spec_{k}": v for k, v in eng.spec_stats().items()},
+            "cache_mode": "paged" if eng.paged else "dense",
             "role": self._role,
             "prefill_backlog_tokens": eng.prefill_backlog_tokens(),
             "segment_transport": self._transport_name,
@@ -644,7 +749,7 @@ class GenerationServerWorker(worker_base.Worker):
             "preempted_by_class": dict(eng.preempted_by_class),
             # on a card, this process's own allocator's gauges
             **(monitor.device_memory_stats()
-               if self.engine.k_pool.device.type == "cuda" else {}),
+               if eng.device.type == "cuda" else {}),
         }
 
     # -- poll ---------------------------------------------------------------

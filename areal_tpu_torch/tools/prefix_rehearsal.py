@@ -1,5 +1,5 @@
-"""Rehearse ``chip_smoke.py``'s prefix-cache, generation-server and HF
-phases on the CPU, at tiny widths, before a chip call.
+"""Rehearse ``chip_smoke.py``'s prefix-cache, generation-server, HF and
+serving-features phases on the CPU, at tiny widths, before a chip call.
 
 Run from the repository root::
 
@@ -7,6 +7,7 @@ Run from the repository root::
     python areal_tpu_torch/tools/prefix_rehearsal.py pressure
     python areal_tpu_torch/tools/prefix_rehearsal.py server
     python areal_tpu_torch/tools/prefix_rehearsal.py hf
+    python areal_tpu_torch/tools/prefix_rehearsal.py features
 
 ``phase`` runs ``chip_smoke.prefix_phase`` on both pools at tiny sizes
 (groups of 4, pages of 16), with the paged kernels replaced by wrappers
@@ -25,6 +26,11 @@ control) with the same counting wrappers, pages of 16 and decode chunks of
 stage's check that decoding went on during the restore can pass.  ``hf``
 runs ``chip_smoke.hf_phase`` on a qwen2-shaped tiny model (qkv biases,
 tied embedding) with the counting wrappers, into a temporary directory.
+``features`` runs ``chip_smoke.serving_features_phase`` on that model
+(and a 2-layer tiny sliding-window model in Mistral's place) at 4 rows x
+256 tokens of KV, pages of 16, with the paged kernels, ``flash_decode``
+and the flash forward replaced by counting wrappers of their plain
+versions; its logprob limits, set for the full-width model, are lifted.
 """
 
 from __future__ import annotations
@@ -50,8 +56,10 @@ def counting(real, std: bool):
     """``real`` (a paged kernel's wrapper, which runs its plain version on
     the CPU) with the launch counts its kernel keeps on the card."""
 
-    def f(q, k_pool, v_pool, tables, lengths, k_scale=None, v_scale=None):
+    def f(q, k_pool, v_pool, tables, lengths, k_scale=None, v_scale=None,
+          verify=False):
         out = real(q, k_pool, v_pool, tables, lengths, k_scale, v_scale)
+        f.verify_launches += int(verify)
         if k_pool.dtype == torch.int8:
             f.int8_launches += 1
         else:
@@ -62,6 +70,7 @@ def counting(real, std: bool):
         return out
 
     f.launches = f.int8_launches = f.prefill_launches = 0
+    f.verify_launches = 0
     f.__name__ = real.__name__
     return f
 
@@ -107,6 +116,45 @@ def main() -> int:
                 dev, "cpu", f"{tmp}/qwen2", prompt_lens=(37, 20, 9),
                 new_tokens=8, max_batch=4, kv_cache_len=256, page_size=16,
                 chunk_size=4, cache_mode="paged", prefill_chunk_tokens=32)
+    elif mode == "features":
+        import dataclasses
+
+        from areal_tpu_torch.ops import decode_attention as tda
+        from areal_tpu_torch.ops import flash_attention as tfa
+
+        real_fd, real_fa = tda.flash_decode, tfa.flash_attention
+
+        def flash_decode(*a, **k):
+            flash_decode.launches += 1
+            return real_fd(*a, **k)
+
+        def flash_attention(*a, **k):
+            flash_attention.fwd_launches += 1
+            return real_fa(*a, **k)
+
+        flash_decode.launches = 0
+        flash_attention.fwd_launches = flash_attention.bwd_launches = 0
+        tda.flash_decode, tfa.flash_attention = flash_decode, flash_attention
+        pa.paged_flash_attention = paged.paged_flash_attention = counting(
+            pa.paged_flash_attention, True)
+        qcfg = tiny_config(dtype="bfloat16", vocab_size=256,
+                           use_attention_bias=True, tied_embedding=True)
+        mcfg = dataclasses.replace(
+            tiny_config(dtype="bfloat16", vocab_size=128), sliding_window=24)
+        loose = (1.0, 10.0)
+        # the tiny model's int8 drift, between its sound reading (about
+        # 3e-3 / 1.2e-2) and its x1.25 control's (about 9e-2 / 1.9e-1)
+        w8_tiny = (2e-2, 6e-2)
+        res = cs.serving_features_phase(
+            qcfg, init_params(qcfg, cs.SEED, dev, dtype=torch.float32), dev,
+            "cpu", prompt_lens=(30, 100, 77, 51), new_tokens=12,
+            max_batch=4, kv_cache_len=256, page_size=16, prefill_chunk=32,
+            chunk_size=4, spill_prompt=4 * 16 + 1, spill_new=6,
+            spill_pool_blocks=24, dense_kv=128, dense_lens=(30, 90, 77, 51),
+            dense_new=12, mistral_cfg=mcfg, mistral_prompt=100,
+            mistral_kv=256, mistral_new=10, stage_chunk_bytes=4096,
+            w8_tol=w8_tiny, prox_tol=loose, int8_tol=loose)
+        print({k: v for k, v in res.items() if k != "spec"})
     elif mode == "phase":
         cs.TOL_INT8_MEAN = cs.TOL_INT8_MAX = 1.0
         for kv in ("auto", "int8"):
@@ -137,7 +185,8 @@ def main() -> int:
               f"decode chunks, "
               f"{eng.prefix_cache_stats()['evictions_total']} cache evictions")
     else:
-        print(f"unknown mode {mode!r} (phase | pressure | server | hf)",
+        print(f"unknown mode {mode!r} (phase | pressure | server | hf | "
+              "features)",
               file=sys.stderr)
         return 2
     print(f"done in {time.perf_counter() - tik:.1f} s")

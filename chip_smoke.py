@@ -24,7 +24,8 @@ from a seed, float32 master weights and their bf16 serving copy):
    pools at decode and prefill-chunk shapes (a prefill chunk runs its
    tensor-core entry: 8 rows of Q=512, and one row of Q=512 after a
    31000-token prefix, and 4 rows of Q=512 after prefixes of 1000, 1255,
-   257 and 0 tokens, ending mid-page), the deep kernel on both
+   257 and 0 tokens, ending mid-page, and a speculative verify window:
+   8 rows of Q=8 over prefixes of mixed lengths), the deep kernel on both
    pools at the prefill-chunk shape and at decode over 16 rows of up to
    32768 tokens (lengths 0, 1, BS-1, BS, BS+1, full and between; each
    deep call logs the body it runs, tensor cores or CUDA cores, and its
@@ -383,11 +384,61 @@ REMAT_STEPS = 2
 #: cached prefixes of the mid-page prefill-entry case: a cache hit leaves
 #: a fill's start anywhere in a page
 MID_PAGE_PREFIXES = (1000, 1255, 257, 0)
+# the cached prefixes of a verify window's rows in the kernel phase: a row
+# sitting the window out (0), prefixes inside the first page, at and past
+# a page's end, mid-page and up to the longest a 4096-token row can verify
+VERIFY_PREFIXES = (0, 1, 255, 257, 777, 1544, 3017, 4088)
 #: the cached prefix of the long prefill-chunk shape (the long wave's
 #: largest prompt is 31000 tokens)
 LONG_PREFILL_PREFIX = 31000
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
+# The serving-features phase: int8 serving weights, speculative decoding,
+# the prefix cache's host tier and the dense cache, on the CUT_LAYERS copy
+# of the HF directory at 8 rows x 4096 tokens of KV
+FEAT_PROMPT_LENS = (300, 1000, 777, 513, 640, 900, 450, 1024)
+FEAT_NEW_TOKENS = 48
+SPEC_MAX_DRAFT = 7
+# two full pages and one token: a match stops at a page boundary
+SPILL_PROMPT = 2 * PAGE_SIZE + 1
+SPILL_NEW_TOKENS = 16
+SPILL_POOL_BLOCKS = 32
+DENSE_KV_CACHE_LEN = 2048
+DENSE_PROMPT_LENS = (300, 1500, 777, 1024, 513, 1200, 900, 1100)
+DENSE_NEW_TOKENS = 64
+# the Mistral-7B-v0.1 configuration cut to 2 layers, a prompt past its
+# 4096-token window
+MISTRAL_LAYERS = 2
+MISTRAL_PROMPT = 6000
+MISTRAL_KV_CACHE_LEN = 8192
+MISTRAL_NEW_TOKENS = 48
+# int8 against bf16 serving weights: |teacher-forced logprob gap| on the
+# bf16 engine's greedy tokens (mean, max), about 3x the sound readings on
+# an H100 (8.149e-4 / 3.908e-3, and 1.391e-3 / 3.917e-3 on other greedy
+# tokens: the bf16 stream itself moves between processes at near-ties).
+# The control, every int8 scale W8_DRIFT_CONTROL times too large, read
+# 1.627e-2 / 4.693e-2 and 1.814e-2 / 5.086e-2, about 4x above.  This gate
+# bounds the drift that quantization adds; it cannot see a small
+# mis-scale (one step, 1/127: 9.878e-4; one scale a matrix or the scales
+# in reversed channel order: 8.251e-4 / 8.300e-4), which the exact
+# dequantization gate below catches (tools/w8_controls.py; PERF.md
+# section 6, PR 15)
+TOL_W8_MEAN = 4e-3
+TOL_W8_MAX = 1.2e-2
+W8_DRIFT_CONTROL = 1.25
+# the exact dequantization gate's control: every scale one step too large,
+# which moved the teacher-forced logprobs by 7.336e-4 / 3.906e-3 and
+# 1.091e-3 / 7.812e-3 (mean, max) against the host's dequantization,
+# where the sound tree reads 0
+W8_STEP_CONTROL = 1 + 1 / 127
+# the window-gather decode of the Mistral configuration against the plain
+# windowed forward (mean, max): the plain path rounds its probabilities to
+# bf16 before the product with V over ~4096 keys, the kernel does not; the
+# first chip run measured 2.947e-3 / 1.566e-2, and the same forward
+# without the window 0.385 / 0.948, which must fail these
+TOL_WINDOW_MEAN = 1e-2
+TOL_WINDOW_MAX = 5e-2
+
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 
@@ -719,15 +770,21 @@ def compare_kernel(name, B, Q, lengths, device, *, fn=None, int8=False,
 def kernel_phase(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
                  Q_prefill=PREFILL_CHUNK, long_prefix=LONG_PREFILL_PREFIX,
                  long_MB=LONG_KV_CACHE_LEN // PAGE_SIZE, timing_iters=20,
-                 mid_page=MID_PAGE_PREFIXES, **shape):
+                 mid_page=MID_PAGE_PREFIXES, verify=VERIFY_PREFIXES,
+                 **shape):
     """The standard paged kernel at decode (Q=1, B=8) and prefill-chunk
     (Q=prefill chunk, its tensor-core entry) shapes, with lengths 0, 1,
     BS-1, BS, BS+1, a full table and two in between, at one prefill chunk
-    after a ``long_prefix``-token prefix, and at prefill chunks after the
+    after a ``long_prefix``-token prefix, at prefill chunks after the
     prefixes of ``mid_page`` (ending inside a page, as a prefix-cache hit
-    leaves them); bf16 pools, then the int8
-    branch; then the deep kernel (bf16 and int8 pools) at the
-    prefill-chunk and decode shapes.  The decode shape is timed L2-cold."""
+    leaves them), and at a speculative verify window's shape (a row a
+    prefix of ``verify``, Q = ``SPEC_MAX_DRAFT`` + 1: the pending token
+    and the drafts, each query over the whole prefix, as
+    ``paged_window_forward`` reads it; a length-0 row is one that sits the
+    window out), which bf16 q sends to the tensor-core entry too; bf16
+    pools, then the int8 branch; then the deep kernel (bf16 and int8
+    pools) at the prefill-chunk and decode shapes.  The decode shape is
+    timed L2-cold."""
     from areal_tpu_torch.ops import paged_attention as pa
     from areal_tpu_torch.tools.kernel_ab import cold_layers, touched_bytes
 
@@ -760,6 +817,13 @@ def kernel_phase(device, *, BS=PAGE_SIZE, MB=KV_CACHE_LEN // PAGE_SIZE,
             Q_prefill, list(mid_page), device, int8=int8, **kw)
         if pa.paged_flash_attention.prefill_launches == 0:
             raise AssertionError(f"{tag}prefill calls did not run the "
+                                 "tensor-core prefill entry")
+        pa.paged_flash_attention.prefill_launches = 0
+        out[f"{key}verify"] = compare_kernel(
+            f"{tag}verify window", len(verify), SPEC_MAX_DRAFT + 1,
+            list(verify), device, int8=int8, **kw)
+        if pa.paged_flash_attention.prefill_launches == 0:
+            raise AssertionError(f"{tag}verify-window calls did not run the "
                                  "tensor-core prefill entry")
     for int8 in (False, True):
         tag = "_int8" if int8 else ""
@@ -1959,9 +2023,9 @@ def long_context_phase(cfg, master, params, device, card, *,
     real = paged._prefix_partials
 
     def broken(q, k_pool, v_pool, tables, lengths, layer, deep=False,
-               k_scale=None, v_scale=None):
+               k_scale=None, v_scale=None, verify=False):
         return real(q, k_pool, v_pool, tables, lengths, layer, deep=deep,
-                    k_scale=k_scale, v_scale=v_scale * 2)
+                    k_scale=k_scale, v_scale=v_scale * 2, verify=verify)
 
     eng = engine("int8", DEEP_MIN_CONTEXT)
     paged._prefix_partials = broken
@@ -2004,18 +2068,24 @@ class LaunchGate:
     """The paged kernels' launch counts on one engine path: set to 0 just
     before the path (:meth:`start`), read just after (:meth:`check`), and
     held against the work the engine dispatched in between, from its own
-    counters: every fill chunk and every decode step runs the kernel once
-    per layer; a fill chunk on the prefill entry unless its widest row is
-    one token; decode chunks on the deep kernel when routed there."""
+    counters: every fill chunk, every decode step and every speculative
+    verify window runs the kernel once per layer; a fill chunk on the
+    prefill entry unless its widest row is one token, and a verify window
+    (two tokens or more) always on it, where the tensor-core prefill entry
+    takes the dtypes (``tensor_cores``: bf16 q; float32 runs the decode
+    entry throughout); decode chunks on the deep kernel when routed there.
+    Verify windows' launches also count on ``verify_launches``."""
 
-    def __init__(self, eng, L, int8):
+    def __init__(self, eng, L, int8, tensor_cores=True):
         self.eng, self.L, self.int8 = eng, L, int8
-        self.total = dict(std=0, deep=0, prefill=0)
+        self.tensor_cores = tensor_cores
+        self.total = dict(std=0, deep=0, prefill=0, verify=0)
 
     def _work(self):
         e = self.eng
         return (e.prefill_calls, e.one_token_fill_calls,
-                e.decode_chunks_total, e.deep_decode_chunks_total)
+                e.decode_chunks_total, e.deep_decode_chunks_total,
+                e.spec_verify_chunks_total)
 
     def start(self):
         from areal_tpu_torch.ops import paged_attention as pa
@@ -2023,31 +2093,35 @@ class LaunchGate:
         for fn in (pa.paged_flash_attention, pa.paged_flash_attention_deep):
             fn.launches = fn.int8_launches = 0
         pa.paged_flash_attention.prefill_launches = 0
+        pa.paged_flash_attention.verify_launches = 0
         self.w0 = self._work()
 
     def check(self, what):
         from areal_tpu_torch.ops import paged_attention as pa
 
         std, deep = pa.paged_flash_attention, pa.paged_flash_attention_deep
-        fills, one, chunks, deep_chunks = (
+        fills, one, chunks, deep_chunks, verifies = (
             b - a for a, b in zip(self.w0, self._work()))
         L, W = self.L, self.eng.chunk_size
         key, other = (("int8_launches", "launches") if self.int8
                       else ("launches", "int8_launches"))
         got = dict(std=getattr(std, key), deep=getattr(deep, key),
-                   prefill=std.prefill_launches)
-        want = dict(std=L * (fills + W * (chunks - deep_chunks)),
-                    deep=L * W * deep_chunks, prefill=L * (fills - one))
+                   prefill=std.prefill_launches, verify=std.verify_launches)
+        want = dict(std=L * (fills + W * (chunks - deep_chunks) + verifies),
+                    deep=L * W * deep_chunks,
+                    prefill=(L * (fills - one + verifies)
+                             if self.tensor_cores else 0),
+                    verify=L * verifies)
         log(f"{what}: {fills} fill chunks ({one} of one token), {chunks} "
-            f"decode chunks ({deep_chunks} deep); paged launches {got}, "
-            f"expected {want}")
+            f"decode chunks ({deep_chunks} deep), {verifies} verify windows; "
+            f"paged launches {got}, expected {want}")
         if (got != want or getattr(std, other) or getattr(deep, other)
                 or got["std"] == 0):
             raise AssertionError(f"{what}: kernel launches {got} do not match "
                                  f"the dispatched work {want}")
         for k in self.total:
             self.total[k] += got[k]
-        return dict(fills=fills, chunks=chunks)
+        return dict(fills=fills, chunks=chunks, verifies=verifies)
 
 
 def prefix_phase(cfg, master, params, device, card, *, kv_dtype="auto",
@@ -2937,6 +3011,826 @@ def hf_phase(cfg, master, device, card, hf_dir, *, prompt_lens=HF_PROMPT_LENS,
                 load_s=t_load, stage_s=t_stage, gap=gap, phase_s=secs)
 
 
+def forced_logprobs(params, cfg, outs):
+    """Teacher-forced logprobs of each output's tokens under ``params``
+    (any serving tree, an int8 one included: every projection reads its
+    weight through ``quantize.leaf_weight``), one row at a time through
+    the training forward (the flash kernel on a card): a flat array in
+    the order of the outputs' tokens."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.models.transformer import logprobs_of_labels
+
+    dev = params["embed"]["weight"].device
+    out = []
+    with torch.no_grad():
+        for o in outs:
+            seq = list(o.prompt_ids) + list(o.output_ids)
+            T = len(seq)
+            toks = torch.tensor([seq], dtype=torch.long, device=dev)
+            pos = torch.arange(T, device=dev)[None]
+            seg = torch.ones((1, T), dtype=torch.int32, device=dev)
+            lp = logprobs_of_labels(params, cfg, toks, pos, seg)[0]
+            out.append(lp[len(o.prompt_ids) - 1:].float().cpu().numpy())
+    return np.concatenate(out)
+
+
+def _gap(a, b):
+    import numpy as np
+
+    d = np.abs(np.asarray(a) - np.asarray(b))
+    return float(d.mean()), float(d.max())
+
+
+def _served(outs):
+    import numpy as np
+
+    return np.concatenate([np.asarray(o.output_logprobs, np.float32)
+                           for o in outs])
+
+
+def _stub_server(engine, dtype, stage_chunk_bytes):
+    """The generation server's restore path (its format negotiation and its
+    staged restore) on ``engine``, without its sockets."""
+    import types
+
+    from areal_tpu_torch.base import logging_
+    from areal_tpu_torch.system.generation_server import (
+        GenerationServerWorker as W,
+    )
+
+    stub = type("Stub", (), {
+        "_negotiate_weight_format": W._negotiate_weight_format,
+        "_load_update_params": W._load_update_params,
+    })()
+    stub.engine = engine
+    stub.config = types.SimpleNamespace(serving_weight_dtype=dtype,
+                                        stage_chunk_bytes=stage_chunk_bytes)
+    stub.logger = logging_.getLogger("serving_features")
+    return stub
+
+
+def _map_quant_leaves(tree, fn):
+    """``tree`` with every int8 projection leaf (``qw``/``scale``) replaced
+    by ``fn(leaf)``; the other leaves are shared, not copied."""
+    from areal_tpu_torch.models import quantize
+
+    if isinstance(tree, (list, tuple)):
+        return [_map_quant_leaves(v, fn) for v in tree]
+    if quantize.is_quant_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_quant_leaves(v, fn) for k, v in tree.items()}
+    return tree
+
+
+def _scales_times(tree, factor):
+    """An int8 serving tree dequantized at ``factor`` times its scales: a
+    mis-scaled dequantization, as a control."""
+    return _map_quant_leaves(tree, lambda p: dict(p, scale=p["scale"]
+                                                  * factor))
+
+
+def _host_dequantized(tree, device):
+    """The plain version of the card's dequantization at use: every int8
+    projection of ``tree`` dequantized by numpy on the host (``qw`` times
+    its output channel's scale in float32, then bf16), moved to
+    ``device`` as a ``{"w": ...}`` leaf beside its bias."""
+    import numpy as np
+    import torch
+
+    def deq(p):
+        w = (np.asarray(p["qw"].cpu(), np.float32)
+             * np.asarray(p["scale"].cpu(), np.float32)[..., None, :])
+        out = {k: v for k, v in p.items() if k not in ("qw", "scale")}
+        out["w"] = torch.from_numpy(w).to(torch.bfloat16).to(device)
+        return out
+
+    return _map_quant_leaves(tree, deq)
+
+
+def publish_snapshot(master, path, version):
+    """Publish ``master`` as the loop's model worker does: the tree cast to
+    bf16, its int8 sibling tree, and a manifest advertising both.
+    Returns (seconds, bytes written)."""
+    import os
+
+    import torch
+
+    from areal_tpu_torch.engine import checkpoint
+
+    tik = time.perf_counter()
+    checkpoint.save_params(master, path, cast_dtype=torch.bfloat16)
+    qpath = checkpoint.quant_snapshot_path(path)
+    qavals = checkpoint.save_quantized_params(
+        master, qpath, cast_dtype=torch.bfloat16)
+    meta = _tree_map(lambda t: torch.empty(tuple(t.shape), dtype=torch.bfloat16,
+                                           device="meta"), master)
+    checkpoint.write_manifest(meta, path, version=version, serving_quant={
+        "int8": checkpoint.quant_manifest_entry(qavals, qpath)})
+    return time.perf_counter() - tik, _dir_bytes(path) + _dir_bytes(qpath)
+
+
+def mistral_config(n_layers):
+    """Mistral-7B-v0.1's published configuration (hidden 4096, 32 query
+    and 8 KV heads, MLP 14336, vocabulary 32000, a sliding window of 4096,
+    RoPE base 10000) as ``transformers`` builds it, through the port's HF
+    registry, cut to ``n_layers`` layers, in bf16."""
+    import dataclasses
+
+    import transformers
+
+    from areal_tpu_torch.models.hf.registry import family_from_architecture
+
+    hf = transformers.MistralConfig(
+        hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=8, vocab_size=32000,
+        sliding_window=4096, rope_theta=10000.0, rms_norm_eps=1e-5,
+        max_position_embeddings=32768, tie_word_embeddings=False,
+    ).to_dict()
+    hf["architectures"] = ["MistralForCausalLM"]
+    cfg = family_from_architecture("MistralForCausalLM").config_from_hf(hf)
+    return dataclasses.replace(cfg, n_layers=n_layers, dtype="bfloat16")
+
+
+def serving_features_phase(
+    cfg, master, device, card, *, prompt_lens=FEAT_PROMPT_LENS,
+    new_tokens=FEAT_NEW_TOKENS, max_batch=MAX_BATCH,
+    kv_cache_len=KV_CACHE_LEN, page_size=PAGE_SIZE,
+    prefill_chunk=PREFILL_CHUNK, chunk_size=CHUNK_SIZE,
+    max_draft=SPEC_MAX_DRAFT, spill_prompt=SPILL_PROMPT,
+    spill_new=SPILL_NEW_TOKENS, spill_pool_blocks=SPILL_POOL_BLOCKS,
+    dense_kv=DENSE_KV_CACHE_LEN, dense_lens=DENSE_PROMPT_LENS,
+    dense_new=DENSE_NEW_TOKENS, mistral_cfg=None,
+    mistral_prompt=MISTRAL_PROMPT, mistral_kv=MISTRAL_KV_CACHE_LEN,
+    mistral_new=MISTRAL_NEW_TOKENS, stage_chunk_bytes=256 << 20,
+    w8_tol=(TOL_W8_MEAN, TOL_W8_MAX), prox_tol=(TOL_PROX_MEAN, TOL_PROX_MAX),
+    int8_tol=(TOL_INT8_MEAN, TOL_INT8_MAX),
+    window_tol=(TOL_WINDOW_MEAN, TOL_WINDOW_MAX)):
+    """The engine's serving features (``cfg`` and ``master``: the 14-layer
+    copy of the HF directory, loaded as float32 master weights):
+
+    A. int8 serving weights: the card's ``quantize_weight`` bit for bit
+       with the CPU's on every matrix; an int8 engine's greedy wave
+       against a bf16 engine's (resident bytes, decode tokens/s, the
+       teacher-forced logprob gap on the bf16 engine's tokens with a
+       mis-scaled control, its own served logprobs against the int8
+       forward); the int8 forward bit for bit with the forward over the
+       weights numpy dequantized on the host, and a one-step mis-scaled
+       control; an int8 wave on an int8 pool; staged swaps from a
+       published int8 sibling tree and from a full tree (quantized on
+       arrival), each staged tree bit-equal to the engine's own
+       quantization of the published weights.
+    B. speculative decoding: a float32 arm whose spec-on tokens (drafting
+       by itself, then set drafts all correct, then wrong at their first
+       token) equal spec-off's (float32 q runs the paged kernel's decode
+       entry, verify windows included); a bf16 arm, whose verify windows
+       run the tensor-core prefill entry, with its served logprobs held
+       against the forward and its first divergence from spec off
+       reported with the logit margin there; every arm's launches
+       against the dispatched fills, decode chunks and verify windows;
+       the card's verify cost in decode steps.
+    C. the prefix cache's host tier: a group spilled under a small bf16
+       pool and restored, tokens equal to an arm whose pool keeps it; the
+       leak audit (an int8 pool's spill is held on the CPU only).
+    D. the dense cache: Qwen at a 2048-token cache against the paged
+       engine on the same prompts, ``flash_decode`` launches against the
+       dispatched decode steps; the Mistral-7B-v0.1 configuration at full
+       width (``mistral_cfg``, random weights) with a prompt past its
+       window, on the window-gather path, against the plain windowed
+       forward."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.engine import checkpoint
+    from areal_tpu_torch.engine.sampling import SamplingParams
+    from areal_tpu_torch.engine.spec_decode import (
+        SpecDecodeParams,
+        SpecRowState,
+    )
+    from areal_tpu_torch.models import quantize
+    from areal_tpu_torch.models.convert import serving_params
+    from areal_tpu_torch.models.transformer import (
+        KVCache,
+        init_params,
+        prefill,
+    )
+    from areal_tpu_torch.ops import decode_attention as tda
+    from areal_tpu_torch.ops import flash_attention as tfa
+    from areal_tpu_torch.ops import paged_attention as tpa
+
+    L = cfg.n_layers
+    greedy = SamplingParams(greedy=True)
+    res = dict(launches=dict(
+        fp=dict(std=0, deep=0, prefill=0, verify=0),
+        int8=dict(std=0, deep=0, prefill=0, verify=0),
+        flash_decode=0, flash_fwd=0))
+    t_phase = time.perf_counter()
+    params = serving_params(master, cfg)
+    prompts = make_prompts(cfg.vocab_size, prompt_lens, SEED + 71)
+    engine_kw = dict(max_batch=max_batch, kv_cache_len=kv_cache_len,
+                     page_size=page_size, prefill_chunk_tokens=prefill_chunk,
+                     chunk_size=chunk_size)
+
+    def gated_wave(eng, reqs, what, int8_pool=False, tensor_cores=True):
+        gate = LaunchGate(eng, L, int8_pool, tensor_cores=tensor_cores)
+        gate.start()
+        outs, secs = serve(eng, reqs)
+        gate.check(what)
+        bucket = res["launches"]["int8" if int8_pool else "fp"]
+        for k, v in gate.total.items():
+            bucket[k] += v
+        return outs, secs
+
+    def decode_tps(outs, secs):
+        return sum(len(o.output_ids) for o in outs) / secs
+
+    # -- A. int8 serving weights --------------------------------------------
+    tik = time.perf_counter()
+    n_mat = 0
+    for lp in params["layers"]:
+        for blk, names in (("attn", "qkvo"), ("mlp", ("gate", "up", "down"))):
+            for n in names:
+                w = lp[blk][n]["w"]
+                qd, sd = quantize.quantize_weight(w)
+                # the CPU quantizes the same values, widened on the card
+                # (a bf16 weight widens to float32 exactly)
+                qc, sc = quantize.quantize_weight(w.float().cpu())
+                nq = int((qd.cpu() != qc).sum())
+                ns = int((sd.cpu().view(torch.int32)
+                          != sc.view(torch.int32)).sum())
+                if nq or ns:
+                    raise AssertionError(
+                        f"quantize_weight on the card differs from the CPU's "
+                        f"({blk}/{n} {tuple(w.shape)}: {nq} int8 values, "
+                        f"{ns} scales)")
+                n_mat += 1
+    log(f"features: quantize_weight on the card is bit-identical to the "
+        f"CPU's on all {n_mat} matrices of the {L} layers (bf16 weights, int8 "
+        f"values and float32 scales) ({time.perf_counter() - tik:.1f} s)")
+
+    bf = build_engine(cfg, params, device, greedy, **engine_kw)
+    q8 = build_engine(cfg, params, device, greedy,
+                      serving_weight_dtype="int8", **engine_kw)
+    for eng in (bf, q8):  # warm-up, not timed
+        serve(eng, requests([p[:64] for p in prompts[:2]], 4, "warm"))
+    reqs = requests(prompts, new_tokens, "feat")
+    bf_outs, bf_secs = gated_wave(bf, reqs, "features, bf16 weights")
+    q8_outs, q8_secs = gated_wave(q8, reqs, "features, int8 weights")
+    check_outputs(q8_outs, cfg, new_tokens, "int8 weights")
+    wb, wq = bf.weight_quant_stats(), q8.weight_quant_stats()
+    if not (wq["quantized"] and wq["storage_bits"] == 8
+            and not wb["quantized"]):
+        raise AssertionError(f"weight formats: bf16 {wb}, int8 {wq}")
+    lp_bf = forced_logprobs(bf.params, cfg, bf_outs)
+    lp_q8_on_bf = forced_logprobs(q8.params, cfg, bf_outs)
+    gap_w8 = _gap(lp_q8_on_bf, lp_bf)
+    # the card's dequantization at use against numpy's on the host: the
+    # same forward over both trees, bit for bit; the controls (scales one
+    # step, and a quarter, too large) must fail their gates
+    lp_host = forced_logprobs(_host_dequantized(q8.params, device), cfg,
+                              bf_outs)
+    gap_deq = _gap(lp_q8_on_bf, lp_host)
+    gap_deq_ctrl = _gap(forced_logprobs(
+        _scales_times(q8.params, W8_STEP_CONTROL), cfg, bf_outs), lp_host)
+    gap_w8_ctrl = _gap(forced_logprobs(
+        _scales_times(q8.params, W8_DRIFT_CONTROL), cfg, bf_outs), lp_bf)
+    del lp_host
+    gap_q8 = _gap(_served(q8_outs), forced_logprobs(q8.params, cfg, q8_outs))
+    gap_bf = _gap(_served(bf_outs), lp_bf)
+    agree, first = zip(*(_first_divergence(a.output_ids, b.output_ids)
+                         for a, b in zip(q8_outs, bf_outs)))
+    res["int8"] = dict(
+        bf16_bytes=wb["param_bytes"], int8_bytes=wq["param_bytes"],
+        ratio=wb["param_bytes"] / wq["param_bytes"],
+        bf16_tps=decode_tps(bf_outs, bf_secs),
+        int8_tps=decode_tps(q8_outs, q8_secs), gap_w8=gap_w8,
+        gap_w8_control=gap_w8_ctrl, gap_dequant=gap_deq,
+        gap_dequant_control=gap_deq_ctrl,
+        agree=sum(agree), tokens=sum(len(o.output_ids) for o in bf_outs))
+    log(f"features, int8 weights on {card}: resident weights "
+        f"{wb['param_bytes']} B bf16, {wq['param_bytes']} B int8 "
+        f"({res['int8']['ratio']:.3f}x smaller; {wq['quantized_leaves']} "
+        f"projections a layer stack, the tied embedding stays bf16); a wave "
+        f"of {len(reqs)} x {new_tokens} tokens: bf16 {bf_secs:.2f} s "
+        f"({res['int8']['bf16_tps']:.1f} tok/s), int8 {q8_secs:.2f} s "
+        f"({res['int8']['int8_tps']:.1f} tok/s, wall incl. prefill); "
+        f"greedy tokens agree {sum(agree)}/{res['int8']['tokens']} (first "
+        f"divergences {list(first)})")
+    if not _gap_gate("int8 weights: teacher-forced logprobs of the bf16 "
+                     "engine's tokens, int8 against bf16", gap_w8, *w8_tol,
+                     phase="features"):
+        raise AssertionError("int8 serving weights drift past their limit")
+    if _gap_gate(f"control: the int8 scales x {W8_DRIFT_CONTROL} against "
+                 "bf16, which must fail", gap_w8_ctrl, *w8_tol,
+                 phase="features"):
+        raise AssertionError("the int8 drift gate cannot see a mis-scale")
+    if not _gap_gate("int8 weights: the card's dequantization at use "
+                     "against numpy's on the host, bit for bit", gap_deq,
+                     0.0, 0.0, phase="features"):
+        raise AssertionError("the card's dequantization differs from the "
+                             "host's")
+    if _gap_gate(f"control: the int8 scales x {W8_STEP_CONTROL:.6f} (one "
+                 "step) against the host's dequantization, which must fail",
+                 gap_deq_ctrl, 0.0, 0.0, phase="features"):
+        raise AssertionError("the dequantization gate cannot see a one-step "
+                             "mis-scale")
+    for what, gap in (("int8 engine served against its forward", gap_q8),
+                      ("bf16 engine served against its forward", gap_bf)):
+        if not _gap_gate(what, gap, *prox_tol, phase="features"):
+            raise AssertionError(f"{what}: logprobs disagree")
+    q8.note_weight_divergence_check(res["int8"]["tokens"],
+                                    res["int8"]["tokens"] - sum(agree))
+    audit_pool(bf, "features, bf16 weights")
+    del bf
+    # int8 weights over an int8 pool
+    q8k = build_engine(cfg, params, device, greedy,
+                       serving_weight_dtype="int8", kv_cache_dtype="int8",
+                       **engine_kw)
+    outs, _ = gated_wave(q8k, requests(prompts, 16, "feat-kv8"),
+                         "features, int8 weights over an int8 pool",
+                         int8_pool=True)
+    gap = _gap(_served(outs), forced_logprobs(q8k.params, cfg, outs))
+    if not _gap_gate("int8 weights over an int8 pool, served against the "
+                     "int8 forward", gap, *int8_tol, phase="features"):
+        raise AssertionError("int8 weights over an int8 pool disagree")
+    audit_pool(q8k, "features, int8 weights over an int8 pool")
+    del q8k
+
+    # staged swaps: from the published int8 sibling tree and from a full
+    # tree, each staged while a wave decodes
+    root = tempfile.mkdtemp(prefix="chip_smoke_w8_")
+    try:
+        w1 = _perturbed(master, SEED + 55)
+        want = q8._serving_copy(_tree_map(lambda t: t.to(torch.bfloat16), w1))
+        srv = _stub_server(q8, "int8", stage_chunk_bytes)
+        swaps = {}
+        for version, with_int8 in ((1, True), (2, False)):
+            snap = os.path.join(root, f"v{version}")
+            if with_int8:
+                pub_s, pub_b = publish_snapshot(w1, snap, version)
+            else:
+                # the same full tree under a manifest that advertises no
+                # int8 tree (a publisher without it), its tensors linked
+                os.makedirs(snap)
+                os.symlink(os.path.join(root, "v1", checkpoint.TENSORS_NAME),
+                           os.path.join(snap, checkpoint.TENSORS_NAME))
+                manifest = checkpoint.read_manifest(os.path.join(root, "v1"))
+                manifest.pop("serving_quant")
+                with open(os.path.join(snap, checkpoint.MANIFEST_NAME),
+                          "w") as f:
+                    json.dump(manifest, f)
+                pub_s, pub_b = 0.0, 0
+            for r in requests(prompts, 16, f"swap{version}"):
+                q8.submit(r)
+            for _ in range(3):
+                q8.step()  # rows decoding while the tree stages
+            fmt, rpath, _ = srv._negotiate_weight_format(
+                snap, checkpoint.read_manifest(snap))
+            tik = time.perf_counter()
+            staged = srv._load_update_params(
+                dict(path=snap, format="params", version=version), True)
+            q8.stage_weights(staged, version, owned=True)
+            stage_s = time.perf_counter() - tik
+            same = all(a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in zip(_leaves(staged), _leaves(want)))
+            p0 = q8.swap_pause_s
+            q8.commit_staged(expected_version=version)
+            q8.step()  # the apply
+            pause_s = q8.swap_pause_s - p0
+            while q8.has_work:
+                q8.step()
+            q8.drain_results()
+            swaps[fmt] = dict(publish_s=pub_s, publish_bytes=pub_b,
+                              stage_s=stage_s, commit_s=pause_s,
+                              restored_bytes=_dir_bytes(rpath),
+                              bit_equal=same)
+            published = (f"published in {pub_s:.2f} s ({pub_b} B with the "
+                         f"int8 tree)" if with_int8 else
+                         "v1's tensors under a manifest without the int8 tree")
+            log(f"features, int8 engine, staged swap to v{version} from the "
+                f"{fmt} tree ({os.path.basename(rpath)}, "
+                f"{_dir_bytes(rpath)} B read; {published}): stage "
+                f"{stage_s:.2f} s while 16-token "
+                f"rows decode, commit (the apply: ring drain, flip, cache "
+                f"flush, recompute) {pause_s:.3f} s; staged tree bit-equal "
+                f"to the engine's quantization of the published weights: "
+                f"{same}")
+            if not same or q8.version != version:
+                raise AssertionError(f"staged swap from the {fmt} tree")
+        if set(swaps) != {"int8", "full"}:
+            raise AssertionError(f"negotiated formats {sorted(swaps)}")
+        outs, _ = serve(q8, requests(prompts[:4], 16, "after-swap"))
+        gap = _gap(_served(outs), forced_logprobs(q8.params, cfg, outs))
+        if not _gap_gate("int8 engine after the swaps, served against the "
+                         "forward of the swapped-in weights", gap,
+                         *prox_tol, phase="features"):
+            raise AssertionError("int8 engine after the swaps disagrees")
+        res["swap"] = swaps
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    audit_pool(q8, "features, int8 weights")
+    del q8
+    log(f"features: int8 weights done at {time.perf_counter() - t_phase:.1f} s")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- B. speculative decoding --------------------------------------------
+    spec_res = {}
+
+    def forced_drafts(refs, mutate):
+        def draft(self, history, sp):
+            for prompt, ref in refs.items():
+                if tuple(history[: len(prompt)]) == prompt:
+                    pos = len(history) - len(prompt)
+                    return mutate(list(ref[pos: pos + sp.max_draft_tokens]))
+            return []
+        return draft
+
+    real_draft = SpecRowState.draft
+    spec = SpecDecodeParams(enabled=True, max_draft_tokens=max_draft)
+    for dtype in ("float32", "bfloat16"):
+        scfg = dataclasses.replace(cfg, dtype=dtype)
+        sparams = params if dtype == "bfloat16" else serving_params(master,
+                                                                    scfg)
+        tc = dtype == "bfloat16"
+        if tc:
+            # section A's bf16 engine served these requests spec off
+            ref, off_s = bf_outs, bf_secs
+        else:
+            off = build_engine(scfg, sparams, device, greedy, **engine_kw)
+            ref, off_s = gated_wave(off, requests(prompts, new_tokens,
+                                                  "spec"),
+                                    f"spec {dtype}, spec off",
+                                    tensor_cores=tc)
+            audit_pool(off, f"spec {dtype}, spec off")
+            del off
+        refs = {tuple(p): o.output_ids for p, o in zip(prompts, ref)}
+        arms = (("drafting", None), ("all correct", lambda c: c),
+                ("wrong first", lambda c: [(t + 1) % cfg.vocab_size
+                                           for t in c]))
+        if dtype == "bfloat16":
+            arms = arms[:2]  # the float32 arm holds the rejections exact
+        for arm, mutate in arms:
+            SpecRowState.draft = (real_draft if mutate is None
+                                  else forced_drafts(refs, mutate))
+            try:
+                eng = build_engine(scfg, sparams, device, greedy,
+                                   spec_decode_params=spec, **engine_kw)
+                outs, secs = gated_wave(
+                    eng, requests(prompts, new_tokens, "spec"),
+                    f"spec {dtype}, {arm}", tensor_cores=tc)
+            finally:
+                SpecRowState.draft = real_draft
+            st = eng.spec_stats()
+            same, firsts = zip(*(_first_divergence(a.output_ids, b.output_ids)
+                                 for a, b in zip(outs, ref)))
+            n_tok = sum(len(o.output_ids) for o in ref)
+            ok = all(f is None for f in firsts)
+            v = max(st["verify_chunks_total"], 1)
+            log(f"spec {dtype}, {arm}: {st['verify_chunks_total']} verify "
+                f"windows ({st['draft_row_passes_total']} row passes), "
+                f"{st['drafted_total']} drafted, {st['accepted_total']} "
+                f"accepted ({st['accepted_total'] / v:.2f} a window), "
+                f"{st['fallback_rows_total']} rows fell back; {secs:.2f} s "
+                f"against {off_s:.2f} s spec off; tokens equal to spec off "
+                f"{sum(same)}/{n_tok}")
+            entry = dict(stats=st, secs=secs, off_secs=off_s, agree=sum(same),
+                         tokens=n_tok)
+            if tc:
+                # the verify windows' logprobs, from the prefill entry,
+                # against the training forward on the same tokens
+                gap = _gap(_served(outs), forced_logprobs(sparams, scfg, outs))
+                entry["gap"] = gap
+                if not _gap_gate(f"spec {dtype}, {arm}, served against the "
+                                 "forward", gap, *prox_tol, phase="features"):
+                    raise AssertionError(f"spec {dtype}, {arm}: logprobs "
+                                         "disagree")
+            if dtype == "float32":
+                if not ok:
+                    raise AssertionError(
+                        f"spec float32, {arm}: tokens differ from spec off "
+                        f"(first divergences {list(firsts)})")
+                if mutate is not None and st["verify_chunks_total"] == 0:
+                    raise AssertionError(f"spec float32, {arm}: no verify")
+                if arm == "all correct" and st["accepted_total"] < (
+                        0.7 * st["drafted_total"]):
+                    raise AssertionError(f"spec float32, {arm}: {st}")
+                if arm == "wrong first" and (st["accepted_total"]
+                                             or not st["rejected_total"]):
+                    raise AssertionError(f"spec float32, {arm}: {st}")
+            elif not ok:
+                # where the two attention entries part at a near-tie: the
+                # top two logits of the spec-off stream there
+                i = next(j for j, f in enumerate(firsts) if f is not None)
+                o, f = ref[i], firsts[i]
+                seq = list(o.prompt_ids) + list(o.output_ids[:f])
+                with torch.no_grad():
+                    T = len(seq)
+                    x = torch.tensor([seq], device=device)
+                    cache = KVCache.zeros(scfg, 1, T, device)
+                    logits, _ = prefill(
+                        sparams, scfg, x, torch.arange(T, device=device)[None],
+                        torch.ones((1, T), dtype=torch.int32, device=device),
+                        cache, last_pos=torch.tensor([T - 1], device=device))
+                top = torch.topk(logits[0, 0].float(), 2).values.tolist()
+                entry.update(first_row=i, first_at=f,
+                             margin=top[0] - top[1])
+                log(f"spec bf16, {arm}: first divergence in row {i} at "
+                    f"token {f}; the spec-off stream's top two logits there "
+                    f"{top[0]:.4f} / {top[1]:.4f} (margin "
+                    f"{top[0] - top[1]:.4f})")
+            spec_res[(dtype, arm)] = entry
+            audit_pool(eng, f"spec {dtype}, {arm}")
+            del eng
+        del sparams
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    # the verify pass's cost in plain decode steps, bf16, 8 live rows
+    eng = build_engine(cfg, params, device, greedy, spec_decode_params=spec,
+                       **engine_kw)
+    cost_reqs = requests(prompts, kv_cache_len, "cost")  # budgets capped
+    for r in cost_reqs:
+        eng.submit(r)
+    for _ in range(10000):
+        if (eng.n_decoding == len(prompts) and not eng._filling
+                and not eng.n_pending):
+            break
+        eng.step()
+    else:
+        raise AssertionError("spec cost: the rows never all decoded")
+    eng._drain_ring()
+    live = [i for i, r in enumerate(eng.rows) if r is not None]
+    t_dec, t_ver = [], []
+    for _ in range(3):
+        for kind in ("decode", "verify"):
+            _sync(device)
+            tik = time.perf_counter()
+            if kind == "decode":
+                eng._dispatch_chunk_paged()
+            else:
+                eng._dispatch_verify_chunk(
+                    live, {i: [eng.rows[i].cur_token] * max_draft
+                           for i in live})
+            eng._drain_ring()
+            _sync(device)
+            (t_dec if kind == "decode" else t_ver).append(
+                time.perf_counter() - tik)
+    step_s = float(np.median(t_dec)) / chunk_size
+    cost = float(np.median(t_ver)) / step_s
+    spec_res["cost"] = dict(verify_s=float(np.median(t_ver)), step_s=step_s,
+                            cost=cost)
+    log(f"spec on {card}: a verify window of {max_draft + 1} over "
+        f"{len(live)} rows takes {np.median(t_ver) * 1e3:.2f} ms, a decode "
+        f"step {step_s * 1e3:.2f} ms (a {chunk_size}-step chunk over "
+        f"{chunk_size}): verify_cost_over_decode_step {cost:.3f} (the "
+        f"default, set on a TPU, is "
+        f"{SpecDecodeParams().verify_cost_over_decode_step})")
+    for r in cost_reqs:
+        eng.cancel(r.qid)
+    eng.drain_results()
+    audit_pool(eng, "spec, verify cost")
+    del eng
+    res["spec"] = spec_res
+    log(f"features: speculative decoding done at "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # -- C. the prefix cache's host tier (a bf16 pool; the int8 pool's
+    # spill is held on the CPU) -----------------------------------------------
+    spill_res = {}
+    group_a = make_prompts(cfg.vocab_size, (spill_prompt,) * max_batch,
+                           SEED + 81)
+    group_b = make_prompts(cfg.vocab_size, (spill_prompt,) * max_batch,
+                           SEED + 82)
+    outs_by_arm = {}
+    for arm in ("host tier", "no spill"):
+        kw = dict(engine_kw, prefix_cache=True)
+        if arm == "host tier":
+            kw.update(kv_pool_tokens=spill_pool_blocks * page_size,
+                      prefix_cache_host_bytes=4 << 30)
+        else:
+            kw.update(prefix_cache_capacity_frac=1.0)
+        eng = build_engine(cfg, params, device, greedy, **kw)
+        eng.park_ttl_steps = 0
+        for tag, group in (("a", group_a), ("b", group_b)):
+            serve(eng, requests(group, spill_new, f"spill-{tag}"))
+        # group A again, one request at a time: the fills and decode steps
+        # then have the same shapes in both arms, so their products round
+        # alike and the tokens can be held equal
+        p0 = eng.prefill_tokens_total
+        gate = LaunchGate(eng, L, False)
+        gate.start()
+        outs, secs = [], 0.0
+        for r in requests(group_a, spill_new, "spill-again"):
+            (o,), dt = serve(eng, [r])
+            outs.append(o)
+            secs += dt
+        gate.check(f"host tier, {arm}, group A again")
+        for k, v in gate.total.items():
+            res["launches"]["fp"][k] += v
+        st = eng.prefix_cache_stats()
+        prefilled = eng.prefill_tokens_total - p0
+        outs_by_arm[arm] = outs
+        spill_res[arm] = dict(
+            prefilled=prefilled,
+            saved=len(group_a) * spill_prompt - prefilled,
+            spilled=st["spilled_blocks_total"],
+            restored=st["restored_blocks_total"],
+            spill_bytes=eng.host_spill_bytes_total,
+            restore_bytes=eng.host_restore_bytes_total,
+            restore_s=eng.host_restore_seconds_total, secs=secs)
+        log(f"host tier, {arm} ({eng.n_blocks} blocks, the cache's capacity "
+            f"{st['capacity_blocks']}): group A again prefilled {prefilled} "
+            f"of {len(group_a) * spill_prompt} prompt tokens; "
+            f"{st['spilled_blocks_total']} blocks spilled "
+            f"({eng.host_spill_bytes_total} B in "
+            f"{eng.host_spill_rounds_total} rounds), "
+            f"{st['restored_blocks_total']} restored "
+            f"({eng.host_restore_bytes_total} B in "
+            f"{eng.host_restore_rounds_total} rounds, "
+            f"{eng.host_restore_seconds_total * 1e3:.1f} ms on the host), "
+            f"{st['host_dropped_blocks_total']} dropped")
+        if arm == "host tier" and not (st["spilled_blocks_total"]
+                                       and st["restored_blocks_total"]):
+            raise AssertionError(f"host tier: nothing spilled or restored: "
+                                 f"{st}")
+        audit_pool(eng, f"host tier, {arm}")
+        del eng
+    same, firsts = zip(*(_first_divergence(a.output_ids, b.output_ids)
+                         for a, b in zip(outs_by_arm["host tier"],
+                                         outs_by_arm["no spill"])))
+    if any(f is not None for f in firsts) or (
+            spill_res["host tier"]["prefilled"]
+            != spill_res["no spill"]["prefilled"]):
+        raise AssertionError(
+            f"host tier: the restored group's tokens differ from the arm "
+            f"that kept it (first divergences {list(firsts)})")
+    log(f"host tier: the spilled and restored group's tokens equal those of "
+        f"the arm whose pool kept it ({sum(same)} tokens)")
+    # one synchronous round trip of 16 blocks, timed
+    eng = build_engine(cfg, params, device, greedy, **engine_kw)
+    blocks = list(range(16))
+    _sync(device)
+    tik = time.perf_counter()
+    host = eng._spill_gather(blocks)
+    gather_s = time.perf_counter() - tik
+    tik = time.perf_counter()
+    eng._scatter_host_payloads(
+        [tuple(a[i] for a in host) for i in range(16)], list(range(16, 32)))
+    _sync(device)
+    restore_s = time.perf_counter() - tik
+    nbytes = sum(a.numel() * a.element_size() for a in host)
+    spill_res["round_trip"] = dict(blocks=16, bytes=nbytes, gather_s=gather_s,
+                                   restore_s=restore_s)
+    log(f"host tier on {card}: 16 blocks ({nbytes} B) gathered to pinned host "
+        f"memory in {gather_s * 1e3:.2f} ms, restored in "
+        f"{restore_s * 1e3:.2f} ms (synchronised)")
+    del eng, host
+    res["spill"] = spill_res
+    log(f"features: host tier done at {time.perf_counter() - t_phase:.1f} s")
+
+    # -- D. the dense cache -------------------------------------------------
+    dprompts = make_prompts(cfg.vocab_size, dense_lens, SEED + 91)
+    dres = {}
+    for mode in ("paged", "dense"):
+        eng = build_engine(cfg, params, device, greedy,
+                           **dict(engine_kw, cache_mode=mode,
+                                  kv_cache_len=dense_kv))
+        serve(eng, requests([p[:64] for p in dprompts[:2]], 4, "warm"))
+        if mode == "paged":
+            outs, secs = gated_wave(eng, requests(dprompts, dense_new, "dn"),
+                                    "dense comparison, paged engine")
+        else:
+            tda.flash_decode.launches = 0
+            tfa.flash_attention.fwd_launches = 0
+            p0 = tpa.paged_flash_attention.launches
+            c0, f0 = eng.decode_chunks_total, eng.prefill_calls
+            outs, secs = serve(eng, requests(dprompts, dense_new, "dn"))
+            chunks = eng.decode_chunks_total - c0
+            fills = eng.prefill_calls - f0
+            got = (tda.flash_decode.launches,
+                   tfa.flash_attention.fwd_launches)
+            # an admission's prompts prefill an empty cache: the flash
+            # kernel on a card (the CPU's plain path is the masked product)
+            want = (L * chunk_size * chunks,
+                    L * fills if device.type == "cuda" else 0)
+            log(f"dense engine ({dense_kv}-token cache): {fills} batched "
+                f"prefills, {chunks} decode chunks; flash_decode launches "
+                f"{got[0]} (expected {want[0]}), flash forward {got[1]} "
+                f"(expected {want[1]})")
+            if got != want or tpa.paged_flash_attention.launches != p0:
+                raise AssertionError(f"dense engine launches {got} against "
+                                     f"the dispatched work {want}")
+            res["launches"]["flash_decode"] += got[0]
+            res["launches"]["flash_fwd"] += got[1]
+        check_outputs(outs, cfg, dense_new, f"dense comparison, {mode}")
+        gap = _gap(_served(outs), forced_logprobs(eng.params, cfg, outs))
+        if not _gap_gate(f"{mode} engine at a {dense_kv}-token cache, served "
+                         "against the forward", gap, *prox_tol, phase="features"):
+            raise AssertionError(f"{mode} engine logprobs disagree")
+        dres[mode] = dict(outs=outs, secs=secs, tps=decode_tps(outs, secs))
+        if mode == "paged":
+            audit_pool(eng, "dense comparison, paged engine")
+        elif eng.close() != {} or eng.preempted_total != 0:
+            raise AssertionError("dense engine audit")
+        del eng
+    same, firsts = zip(*(_first_divergence(a.output_ids, b.output_ids)
+                         for a, b in zip(dres["dense"]["outs"],
+                                         dres["paged"]["outs"])))
+    log(f"dense against paged on {card}, {len(dprompts)} prompts "
+        f"{list(dense_lens)} x {dense_new} new tokens: dense "
+        f"{dres['dense']['secs']:.2f} s ({dres['dense']['tps']:.1f} tok/s), "
+        f"paged {dres['paged']['secs']:.2f} s ({dres['paged']['tps']:.1f} "
+        f"tok/s), walls with the prefill; tokens agree "
+        f"{sum(same)}/{sum(len(o.output_ids) for o in dres['paged']['outs'])}")
+    res["dense"] = {k: dict(secs=v["secs"], tps=v["tps"])
+                    for k, v in dres.items()}
+    log(f"features: dense Qwen done at {time.perf_counter() - t_phase:.1f} s")
+    del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the sliding-window model through the dense cache
+    mcfg = mistral_cfg or mistral_config(MISTRAL_LAYERS)
+    tik = time.perf_counter()
+    mparams = init_params(mcfg, SEED, device)
+    n_m = sum(t.numel() for t in _leaves(mparams))
+    eng = build_engine(mcfg, mparams, device, greedy, cache_mode="auto",
+                       max_batch=1, kv_cache_len=mistral_kv,
+                       chunk_size=chunk_size)
+    if eng.paged:
+        raise AssertionError("a sliding-window model resolved to the pool")
+    (mprompt,) = make_prompts(mcfg.vocab_size, (mistral_prompt,), SEED + 93)
+    tda.flash_decode.launches = 0
+    c0 = eng.decode_chunks_total
+    # each chunk's attn_len, read while the row is live: the gather reads
+    # the window rounded up to 128, capped at attn_len
+    attn_lens, bucket = [], eng._attn_bucket
+
+    def recorded_bucket(extra=0):
+        attn_lens.append(bucket(extra))
+        return attn_lens[-1]
+
+    eng._attn_bucket = recorded_bucket
+    (mo,), msecs = serve(eng, requests([mprompt], mistral_new, "mistral"))
+    chunks = eng.decode_chunks_total - c0
+    fd = tda.flash_decode.launches
+    Ww = sorted({min(-(-min(mcfg.sliding_window, a) // 128) * 128, a)
+                 for a in attn_lens})
+    log(f"features, {mcfg.n_layers}-layer Mistral-7B-v0.1 configuration "
+        f"({n_m / 1e9:.3f} B parameters, random, window "
+        f"{mcfg.sliding_window}), a {mistral_prompt}-token prompt, "
+        f"{len(mo.output_ids)} new tokens in {msecs:.2f} s; {chunks} decode "
+        f"chunks (attn_len {sorted(set(attn_lens))}) read each row's last "
+        f"{Ww} cache slots (window gather); "
+        f"flash_decode launches {fd} (expected "
+        f"{mcfg.n_layers * chunk_size * chunks})")
+    if fd != mcfg.n_layers * chunk_size * chunks or fd == 0:
+        raise AssertionError("the window-gather path's flash_decode launches")
+    res["launches"]["flash_decode"] += fd
+    check_outputs([mo], mcfg, mistral_new, "mistral")
+
+    def plain_logprobs(c):
+        seq = list(mo.prompt_ids) + list(mo.output_ids)
+        T = len(seq)
+        with torch.no_grad():
+            logits, _ = prefill(
+                mparams, c, torch.tensor([seq], device=device),
+                torch.arange(T, device=device)[None],
+                torch.ones((1, T), dtype=torch.int32, device=device),
+                KVCache.zeros(c, 1, T, device))
+            lp = torch.log_softmax(logits[0].float(), dim=-1)
+            tgt = torch.tensor(seq[1:], device=device)
+            out = lp[:-1].gather(1, tgt[:, None])[:, 0]
+        return out[len(mo.prompt_ids) - 1:].cpu().numpy()
+
+    gap = _gap(np.asarray(mo.output_logprobs), plain_logprobs(mcfg))
+    gap_global = _gap(np.asarray(mo.output_logprobs), plain_logprobs(
+        dataclasses.replace(mcfg, sliding_window=None)))
+    if not _gap_gate("Mistral window-gather decode against the plain windowed "
+                     "forward", gap, *window_tol, phase="features"):
+        raise AssertionError("the window-gather path disagrees")
+    if _gap_gate("control: the same tokens against the forward without the "
+                 "window (global attention), which must fail", gap_global,
+                 *window_tol, phase="features"):
+        raise AssertionError("the window gate cannot tell a window from "
+                             "none")
+    res["mistral"] = dict(secs=msecs, chunks=chunks, launches=fd, gap=gap,
+                          gap_global=gap_global,
+                          setup_s=time.perf_counter() - tik - msecs)
+    del eng, mparams
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    res["secs"] = time.perf_counter() - t_phase
+    log(f"features phase: {res['secs']:.1f} s")
+    return res
+
+
 def package_line() -> str:
     """Which of the data path's and the control plane's packages import on
     this machine, with their versions."""
@@ -3523,7 +4417,7 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
         raise AssertionError(f"{tag}: flash launches {got_fa}, expected "
                              f"{want_fa}")
     gate = LaunchGate(eng, L, False)
-    gate.w0 = (0, 0, 0, 0)
+    gate.w0 = (0, 0, 0, 0, 0)
     if cuda:
         work = gate.check(f"{tag}, the server's whole run")
     else:
@@ -5528,6 +6422,7 @@ def main() -> int:
     try:
         from areal_tpu_torch.models.config import qwen25_15b_config
         from areal_tpu_torch.models.convert import serving_params
+        from areal_tpu_torch.models.hf.registry import load_hf_model
         from areal_tpu_torch.models.transformer import init_params
         from areal_tpu_torch.ops import _build
     except ImportError as e:
@@ -5613,6 +6508,16 @@ def main() -> int:
         log(f"HF directory of the first {CUT_LAYERS} layers for the sync-PPO "
             f"phase and phases 8 and 9: {cut_bytes / 1e9:.3f} GB in "
             f"{time.perf_counter() - tik:.1f} s")
+        tik = time.perf_counter()
+        feat_cfg, feat_master = load_hf_model(cut_dir, device=device)
+        log(f"features: the {feat_cfg.n_layers}-layer HF directory loaded as "
+            f"float32 master weights in {time.perf_counter() - tik:.1f} s")
+        features = serving_features_phase(feat_cfg, feat_master, device, card)
+        del feat_master
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"serving-features phase done at "
+            f"{time.perf_counter() - t_start:.1f} s")
         # the loop's trainer and server take the card to themselves
         del master, cut_master, eng["outs"], long
         gc.collect()
@@ -5649,7 +6554,7 @@ def main() -> int:
 
     entries = kernel_entries(kern, long_kern, eng, long_launches, flash,
                              train, prefix, server, hf, sync, training, loop,
-                             procs)
+                             procs, features)
     if parent is not None:
         torch.cuda.empty_cache()
         parent_ab(parent)
@@ -5670,7 +6575,7 @@ def main() -> int:
 
 
 def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
-                   hf, sync, training, loop, procs):
+                   hf, sync, training, loop, procs, features):
     """The ``{"kernels": [...]}`` line's entries: every kernel, with its
     launches on the main paths (the engine's greedy wave, the long-context
     arms, the prefix-cache phase, the generation server, the server that
@@ -5701,13 +6606,15 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
         return max(src[k]["max_abs_err"] for k in keys)
 
     fp_prefix, int8_prefix = (prefix[k]["launches"] for k in ("auto", "int8"))
+    feat_fp, feat_i8 = (features["launches"][k] for k in ("fp", "int8"))
     entries = [
         entry("paged_flash_attention", paged_src, paged_ref,
               eng["launches"] + arm_launches("std", False) + fp_prefix["std"]
               + server["launches"]["std"] + hf["launches"]["std"]
-              + loop["launches"]["std"] + procs["launches"]["std"],
+              + loop["launches"]["std"] + procs["launches"]["std"]
+              + feat_fp["std"],
               max(errs("decode", "prefill", "prefill_long",
-                       "prefill_mid_page"),
+                       "prefill_mid_page", "verify"),
                   errs("standard_bf16", src=long_kern)),
               kern["decode"],
               launches_by_path=dict(
@@ -5717,35 +6624,42 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
                   generation_server=server["launches"]["std"],
                   hf_swap=hf["launches"]["std"],
                   async_ppo=loop["launches"]["std"],
-                  async_ppo_processes=procs["launches"]["std"]),
+                  async_ppo_processes=procs["launches"]["std"],
+                  serving_features=feat_fp["std"]),
               prefill_entry_launches=(eng["prefill_launches"]
                                       + arm_launches("prefill", False)
                                       + fp_prefix["prefill"]
                                       + server["launches"]["prefill"]
                                       + hf["launches"]["prefill"]
                                       + loop["launches"]["prefill"]
-                                      + procs["launches"]["prefill"]),
+                                      + procs["launches"]["prefill"]
+                                      + feat_fp["prefill"]),
+              verify_window_launches=feat_fp["verify"],
               prefill={k: kern["prefill"][k] for k in timed},
               prefill_long={k: kern["prefill_long"][k] for k in timed},
               prefill_mid_page={k: kern["prefill_mid_page"][k]
                                 for k in timed},
+              verify={k: kern["verify"][k] for k in timed},
               long_decode={k: long_kern["standard_bf16"][k] for k in timed}),
         entry("paged_flash_attention_int8", paged_src,
               "areal_tpu/ops/paged_attention.py:116",
-              arm_launches("std", True) + int8_prefix["std"],
+              arm_launches("std", True) + int8_prefix["std"] + feat_i8["std"],
               max(errs("int8_decode", "int8_prefill", "int8_prefill_long",
-                       "int8_prefill_mid_page"),
+                       "int8_prefill_mid_page", "int8_verify"),
                   errs("standard_int8", src=long_kern)),
               long_kern["standard_int8"],
               launches_by_path=dict(long_context=arm_launches("std", True),
-                                    prefix_cache=int8_prefix["std"]),
+                                    prefix_cache=int8_prefix["std"],
+                                    serving_features=feat_i8["std"]),
               prefill_entry_launches=(arm_launches("prefill", True)
-                                      + int8_prefix["prefill"]),
+                                      + int8_prefix["prefill"]
+                                      + feat_i8["prefill"]),
               decode={k: kern["int8_decode"][k] for k in timed},
               prefill={k: kern["int8_prefill"][k] for k in timed},
               prefill_long={k: kern["int8_prefill_long"][k] for k in timed},
               prefill_mid_page={k: kern["int8_prefill_mid_page"][k]
-                                for k in timed}),
+                                for k in timed},
+              verify={k: kern["int8_verify"][k] for k in timed}),
         entry("paged_flash_attention_deep", deep_src, deep_ref,
               arm_launches("deep", False),
               max(errs("deep_prefill", "deep_decode"),
@@ -5761,16 +6675,19 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
               decode={k: kern["deep_int8_decode"][k] for k in timed},
               prefill={k: kern["deep_int8_prefill"][k] for k in timed}),
         entry("flash_decode", deep_src, "areal_tpu/ops/decode_attention.py:150",
-              sync["launches"]["decode"],
+              sync["launches"]["decode"] + features["launches"]["flash_decode"],
               max(long_kern["flash_decode"]["max_abs_err"],
                   sync["flash_decode"]["max_abs_err"]),
               sync["flash_decode"],
-              launches_by_path=dict(sync_ppo=sync["launches"]["decode"]),
+              launches_by_path=dict(
+                  sync_ppo=sync["launches"]["decode"],
+                  dense_serving=features["launches"]["flash_decode"]),
               long={k: long_kern["flash_decode"][k]
                     for k in timed + ("library_ms",)},
               note="library_ms is scaled_dot_product_attention on the same "
                    "full rows"),
     ]
+    feat_fa = dict(fwd=features["launches"]["flash_fwd"], bwd=0)
     for kind in ("fwd", "bwd"):
         main_shape, long_shape = flash["packed"][kind], flash["long"][kind]
         entries.append(dict(
@@ -5780,12 +6697,13 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
             replaces="areal_tpu/ops/flash_attention.py:36",
             launches=(train["launches"][kind] + sync["launches"][kind]
                       + training["launches"][kind] + loop["launches"][kind]
-                      + procs["launches"][kind]),
+                      + procs["launches"][kind] + feat_fa[kind]),
             launches_by_path=dict(train=train["launches"][kind],
                                   sync_ppo=sync["launches"][kind],
                                   training=training["launches"][kind],
                                   async_ppo=loop["launches"][kind],
-                                  async_ppo_processes=procs["launches"][kind]),
+                                  async_ppo_processes=procs["launches"][kind],
+                                  dense_serving=feat_fa[kind]),
             max_abs_err=max(r[kind]["max_abs_err"] for r in flash.values()),
             **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms", "shape")},

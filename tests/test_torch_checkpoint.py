@@ -253,8 +253,11 @@ def test_shape_mismatch_at_restore_names_the_leaf(tmp_path, trees):
 
 def test_out_of_slice_parts_are_refused(tmp_path, trees):
     """The int8 sibling tree is published and advertised (its manifest
-    entry names its dir and int8 layout), but serving it is not ported:
-    an engine refuses the int8 format, as does a server asking for it."""
+    entry names its dir and int8 layout), and an int8 engine serves it:
+    the tree restores onto the engine's int8 template (the layout the
+    entry advertises, checked as the staged restore checks it) and equals
+    the engine's own quantization of the same weights; an ``"auto"``
+    engine's int8 template has that layout too."""
     from areal_tpu_torch.engine.inference_server import (
         ContinuousBatchingEngine,
     )
@@ -275,9 +278,17 @@ def test_out_of_slice_parts_are_refused(tmp_path, trees):
     eng = ContinuousBatchingEngine(
         cfg, params, max_batch=2, kv_cache_len=64, cache_mode="paged",
         page_size=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.weight_restore_template("int8")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ContinuousBatchingEngine(
-            cfg, params, max_batch=2, kv_cache_len=64, cache_mode="paged",
-            page_size=16, device="cpu", serving_weight_dtype="int8")
+    assert tck.validate_manifest(eng.weight_restore_template("int8"),
+                                 {"leaves": entry["leaves"]}) == []
+    qeng = ContinuousBatchingEngine(
+        cfg, params, max_batch=2, kv_cache_len=64, cache_mode="paged",
+        page_size=16, device="cpu", serving_weight_dtype="int8")
+    template = qeng.weight_restore_template("int8")
+    assert template is qeng.params
+    assert tck.validate_manifest(template, {"leaves": entry["leaves"]}) == []
+    restored = qeng.prepare_weights(tck.load_params_staged(
+        template, qpath, chunk_bytes=4096))
+    ours = qeng._serving_copy(
+        tck._tree_map(lambda t: t.to(torch.bfloat16), params))
+    for (kp, a), (_, b) in zip(tck._flatten(restored), tck._flatten(ours)):
+        assert a.dtype == b.dtype and torch.equal(a, b), kp

@@ -119,10 +119,11 @@ def _tiny():
 def test_auto_mode_consults_dispatch_table():
     cfg, params = _tiny()
     common = dict(max_batch=2, kv_cache_len=128, chunk_size=4, device="cpu")
-    # 128 < the default 2048 threshold: auto resolves to the dense cache,
-    # which the port does not have
-    with pytest.raises(NotImplementedError, match="dense"):
-        ContinuousBatchingEngine(cfg, params, cache_mode="auto", **common)
+    # 128 < the default 2048 threshold: auto resolves to the dense cache
+    dense_eng = ContinuousBatchingEngine(cfg, params, cache_mode="auto",
+                                         **common)
+    assert not dense_eng.paged
+    assert tuple(dense_eng.cache.k.shape[1:4]) == (2, cfg.n_kv_heads, 128)
     paged_eng = ContinuousBatchingEngine(
         cfg, params, cache_mode="auto",
         dispatch_table=PagedDispatchTable(
@@ -134,13 +135,12 @@ def test_auto_mode_consults_dispatch_table():
     # the measured table moved the crossover: the engine built its pool
     assert paged_eng.k_pool.shape[1] == paged_eng.n_blocks
     assert paged_eng.dispatch_table.paged_min_cache_len == 64
-    # an explicit dense mode stays refused whatever the table says
-    with pytest.raises(NotImplementedError, match="dense"):
-        ContinuousBatchingEngine(
-            cfg, params, cache_mode="dense",
-            dispatch_table=PagedDispatchTable(paged_min_cache_len=64),
-            **common,
-        )
+    # an explicit dense mode stays dense whatever the table says
+    assert not ContinuousBatchingEngine(
+        cfg, params, cache_mode="dense",
+        dispatch_table=PagedDispatchTable(paged_min_cache_len=64),
+        **common,
+    ).paged
 
 
 class _Row:

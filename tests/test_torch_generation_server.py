@@ -408,22 +408,49 @@ def test_engine_cancel_releases_rows():
     dict(num_processes=2),
     dict(mesh_spec=type("Mesh", (), {"world_size": 2})()),
     dict(compile_quiet_after_steps=8),
-    dict(spec_decode=type("Spec", (), {"enabled": True})()),
+    dict(spec_decode="spec"),
     dict(serving_weight_dtype="int8"),
     dict(prefix_cache_host_bytes=1 << 20),
     dict(cache_mode="dense"),
 ], ids=["prefill", "decode", "processes", "mesh", "compile_watch", "spec",
         "int8_weights", "host_tier", "dense"])
 def test_out_of_slice_options_are_refused(kw):
+    """The P/D roles, multi-process servers, meshes and the compile watch
+    are refused; speculative decoding, int8 weights, the host tier and the
+    dense cache configure a server whose engine holds them."""
     from areal_tpu_torch.api.config import ModelAbstraction
-    from areal_tpu_torch.api.system_api import GenServerConfig
+    from areal_tpu_torch.api.system_api import GenServerConfig, SpecDecodeConfig
+    from areal_tpu_torch.base import constants, name_resolve
     from areal_tpu_torch.system.generation_server import GenerationServerWorker
 
+    if kw.get("spec_decode") == "spec":
+        kw = dict(spec_decode=SpecDecodeConfig(enabled=True))
     cfg = GenServerConfig(
         model=ModelAbstraction("random", dict(MODEL_ARGS)), device="cpu",
-        **dict(SERVER, **kw))
-    with pytest.raises(NotImplementedError):
-        GenerationServerWorker().configure(cfg)
+        **dict(SERVER, worker_name="gen_server_options", **kw))
+    key = next(iter(kw))
+    if key not in ("spec_decode", "serving_weight_dtype",
+                   "prefix_cache_host_bytes", "cache_mode"):
+        with pytest.raises(NotImplementedError):
+            GenerationServerWorker().configure(cfg)
+        return
+    name_resolve.reconfigure("memory")
+    constants.set_experiment_trial_names(EXPR, "options")
+    worker = GenerationServerWorker()
+    worker.configure(cfg)
+    try:
+        eng, m = worker.engine, worker.metrics()
+        if key == "spec_decode":
+            assert eng._spec is not None and m["spec_verify_chunks_total"] == 0
+        elif key == "serving_weight_dtype":
+            assert m["weight_quant_quantized"] == 1
+            assert m["weight_quant_storage_bits"] == 8
+        elif key == "prefix_cache_host_bytes":
+            assert m["prefix_cache_host_bytes_budget"] == 1 << 20
+        else:
+            assert m["cache_mode"] == "dense" and m["preempted_total"] == 0
+    finally:
+        worker._exit_hook()
 
 
 def test_registration_round_trip():

@@ -463,18 +463,23 @@ def test_experiment_with_save_freq_steps_sets_up():
 
 @pytest.mark.parametrize("cache_mode", ["auto", "paged"])
 def test_serving_a_sliding_window_model_is_refused(cache_mode):
-    """The paged cache serves global attention; a window needs the dense
-    cache path, which is not ported (item 8)."""
+    """The paged cache serves global attention: asked for a window, it is
+    refused (as the reference refuses it); ``"auto"`` resolves a window to
+    the dense cache, which serves it."""
     from areal_tpu_torch.engine.inference_server import (
         ContinuousBatchingEngine,
     )
     from areal_tpu_torch.models.config import tiny_config
 
     cfg = tiny_config(vocab_size=32, sliding_window=4)
-    with pytest.raises(NotImplementedError, match="sliding-window.*item 8"):
-        ContinuousBatchingEngine(
-            cfg, tt.init_params(cfg, 0, "cpu"), kv_cache_len=4096,
-            cache_mode=cache_mode, page_size=16, device="cpu")
+    make = lambda: ContinuousBatchingEngine(  # noqa: E731
+        cfg, tt.init_params(cfg, 0, "cpu"), kv_cache_len=4096,
+        cache_mode=cache_mode, page_size=16, chunk_size=4, device="cpu")
+    if cache_mode == "paged":
+        with pytest.raises(ValueError, match="sliding-window"):
+            make()
+    else:
+        assert not make().paged
 
 
 def test_hf_entry_points_default_to_cuda(llama_dir, monkeypatch):

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from areal_tpu_torch.engine.inference_server import ContinuousBatchingEngine
+from areal_tpu_torch.engine.sampling import SamplingParams
+from areal_tpu_torch.engine.spec_decode import SpecDecodeParams
 from areal_tpu_torch.engine.train_engine import TrainEngine
 from areal_tpu_torch.models.config import tiny_config
 from areal_tpu_torch.models.convert import params_from_jax
@@ -104,6 +106,19 @@ TRAINING_MODULES = [
 ]
 
 
+#: the serving features' modules: speculative decoding, the prefix cache's
+#: host tier, the paged and dense forwards, int8 serving weights, the
+#: kernels' wrappers they call and the card-only tools that measure them
+SERVING_FEATURE_MODULES = [
+    f"areal_tpu_torch.{m}" for m in (
+        "engine.spec_decode", "engine.prefix_cache", "engine.dispatch",
+        "engine.batching", "engine.sampling", "models.paged",
+        "ops.paged_attention", "ops.decode_attention",
+        "tools.features_rehearsal", "tools.w8_controls",
+    )
+]
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     prev = torch.get_num_threads()
@@ -125,7 +140,7 @@ def test_no_jax_and_no_reference_package_imported():
         "assert not bad, bad\n"
         "assert len(mods) >= 12, mods\n"
         f"missing = sorted(set("
-        f"{sorted(SERVING_MODULES + LOOP_MODULES + HF_MODULES + LAUNCH_MODULES + SYNC_MODULES + TRAINING_MODULES)!r}) "
+        f"{sorted(SERVING_MODULES + LOOP_MODULES + HF_MODULES + LAUNCH_MODULES + SYNC_MODULES + TRAINING_MODULES + SERVING_FEATURE_MODULES)!r}) "
         "- set(mods))\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"
@@ -153,7 +168,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("module", LOOP_MODULES + SERVING_MODULES + HF_MODULES
-                         + LAUNCH_MODULES + SYNC_MODULES + TRAINING_MODULES)
+                         + LAUNCH_MODULES + SYNC_MODULES + TRAINING_MODULES
+                         + SERVING_FEATURE_MODULES)
 def test_no_module_imports_jax_or_the_reference_anywhere(module):
     rel = module.replace(".", "/")
     path = REPO / f"{rel}.py"
@@ -399,7 +415,7 @@ def test_kernel_source_targets_hopper():
     [
         dict(prefix_cache=True, prefix_cache_host_bytes=1 << 20),
         dict(serving_weight_dtype="int8"),
-        dict(spec_decode_params=object()),
+        dict(spec_decode_params=SpecDecodeParams(enabled=True)),
         dict(handoff_streaming=True),
         dict(mesh=object()),
         dict(cache_mode="dense"),
@@ -407,12 +423,34 @@ def test_kernel_source_targets_hopper():
     ids=lambda kw: next(iter(kw)),
 )
 def test_out_of_slice_options_are_refused(kw):
+    """P/D handoff streaming (item 8) and meshes (item 10) are refused; the
+    host tier, int8 weights, speculative decoding and the dense cache are
+    served and hold what was asked for."""
     cfg, params = _tiny_engine_args()
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(
+
+    def make(**more):
+        return ContinuousBatchingEngine(
             cfg, params, max_batch=2, kv_cache_len=128, page_size=16,
-            device="cpu", **dict(dict(cache_mode="paged"), **kw),
+            device="cpu", **dict(dict(cache_mode="paged"), **kw, **more),
         )
+
+    key = next(iter(kw))
+    if key in ("handoff_streaming", "mesh"):
+        with pytest.raises(NotImplementedError,
+                           match="item 8" if key == "handoff_streaming"
+                           else "item 10"):
+            make()
+    elif key == "prefix_cache":
+        stats = make().prefix_cache_stats()
+        assert stats["host_bytes_budget"] == 1 << 20
+    elif key == "serving_weight_dtype":
+        assert make().weight_quant_stats()["quantized"] == 1
+    elif key == "spec_decode_params":
+        # exact under greedy sampling only, as in the reference
+        assert make()._spec is None
+        assert make(sampling=SamplingParams(greedy=True))._spec is not None
+    else:
+        assert not make().paged
 
 
 def test_moe_config_is_refused():
