@@ -104,7 +104,6 @@ def _load_hf(args, device: DeviceLike, dtype: Optional[torch.dtype]):
     """(config, params, family name) of an ``hf`` abstraction."""
     from areal_tpu_torch.models.convert import serving_params
     from areal_tpu_torch.models.hf.registry import load_hf_config, load_hf_model
-    from areal_tpu_torch.ops.flash_attention import HEAD_DIMS
 
     # every TransformerConfig field is a post-load override; unknown keys
     # are typos and must fail BEFORE the multi-GB checkpoint read
@@ -122,21 +121,6 @@ def _load_hf(args, device: DeviceLike, dtype: Optional[torch.dtype]):
     # the overrides are checked (TransformerConfig.__post_init__) before
     # the read too
     hf_cfg = dataclasses.replace(hf_cfg, **post)
-    if dtype == torch.float32 and device.type == "cuda":
-        # a trainer's first step would fail in the flash kernel
-        if hf_cfg.sliding_window is not None:
-            raise NotImplementedError(
-                f"training {family.name} (sliding_window "
-                f"{hf_cfg.sliding_window}) on a card: the flash kernel has no "
-                "window (ROADMAP.md section 2, 'window in the flash kernel's "
-                "index mask')"
-            )
-        if hf_cfg.head_dim not in HEAD_DIMS:
-            raise NotImplementedError(
-                f"training {family.name} (head_dim {hf_cfg.head_dim}) on a "
-                f"card: the flash kernels build head_dim {HEAD_DIMS} "
-                "(ROADMAP.md section 2, 'flash kernels at head_dim 256')"
-            )
     model_cfg, params = load_hf_model(
         args["path"], is_critic=args.get("is_critic", False),
         dtype=args.get("dtype"), device=device,

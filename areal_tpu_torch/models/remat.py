@@ -146,15 +146,15 @@ def _qkv(cfg, lp, rope_cs, x):
     return tf._attn_qkv(cfg, lp, h, None, rope_cs)
 
 
-def _attn(cfg, seg_ids, mask, q, k, v):
+def _attn(cfg, seg_ids, q, k, v):
     """The attention (the flash kernel's autograd function): attn_out."""
     B, T = q.shape[:2]
-    out = _tf()._attention_dispatch(q, k, v, cfg, seg_ids, mask)
+    out = _tf()._attention_dispatch(q, k, v, cfg, seg_ids)
     return out.reshape(B, T, cfg.q_dim)
 
 
-def _attn_block(cfg, lp, seg_ids, rope_cs, mask, x):
-    return _attn(cfg, seg_ids, mask, *_qkv(cfg, lp, rope_cs, x))
+def _attn_block(cfg, lp, seg_ids, rope_cs, x):
+    return _attn(cfg, seg_ids, *_qkv(cfg, lp, rope_cs, x))
 
 
 def _o_proj(lp, x, attn_out):
@@ -179,32 +179,31 @@ def _ckpt(fn, *args):
 # -- the policies ----------------------------------------------------------------
 
 
-def _layer_none(cfg, x, lp, seg_ids, rope_cs, mask):
-    return _ckpt(functools.partial(_tf()._layer, cfg), x, lp, seg_ids,
-                 rope_cs, mask)
+def _layer_none(cfg, x, lp, seg_ids, rope_cs):
+    return _ckpt(functools.partial(_tf()._layer, cfg), x, lp, seg_ids, rope_cs)
 
 
-def _layer_attn_out(cfg, x, lp, seg_ids, rope_cs, mask):
-    a = _ckpt(functools.partial(_attn_block, cfg, lp, seg_ids, rope_cs, mask), x)
+def _layer_attn_out(cfg, x, lp, seg_ids, rope_cs):
+    a = _ckpt(functools.partial(_attn_block, cfg, lp, seg_ids, rope_cs), x)
     return _ckpt(functools.partial(_post, cfg, lp), x, a)
 
 
-def _layer_mlp(cfg, x, lp, seg_ids, rope_cs, mask):
-    a = _ckpt(functools.partial(_attn_block, cfg, lp, seg_ids, rope_cs, mask), x)
+def _layer_mlp(cfg, x, lp, seg_ids, rope_cs):
+    a = _ckpt(functools.partial(_attn_block, cfg, lp, seg_ids, rope_cs), x)
     x2 = _ckpt(functools.partial(_o_proj, lp), x, a)
     return x2 + _ckpt(functools.partial(_mlp, cfg, lp), x2)
 
 
-def _layer_qkv_attn(cfg, x, lp, seg_ids, rope_cs, mask):
+def _layer_qkv_attn(cfg, x, lp, seg_ids, rope_cs):
     q, k, v = _ckpt(functools.partial(_qkv, cfg, lp, rope_cs), x)
-    a = _attn(cfg, seg_ids, mask, q, k, v)
+    a = _attn(cfg, seg_ids, q, k, v)
     return _ckpt(functools.partial(_post, cfg, lp), x, a)
 
 
-def _layer_offload_qkv(cfg, x, lp, seg_ids, rope_cs, mask):
+def _layer_offload_qkv(cfg, x, lp, seg_ids, rope_cs):
     q, k, v = _ckpt(functools.partial(_qkv, cfg, lp, rope_cs), x)
     with _OffloadSaved(keep=(x, seg_ids)):
-        a = _attn(cfg, seg_ids, mask, q, k, v)
+        a = _attn(cfg, seg_ids, q, k, v)
         # the reentrant form saves its inputs through the hooks (the other
         # form would hold attn_out on the card for its recompute)
         return checkpoint(functools.partial(_post, cfg, lp), x, a,
@@ -221,12 +220,12 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _layer_dots(cfg, x, lp, seg_ids, rope_cs, mask):
+def _layer_dots(cfg, x, lp, seg_ids, rope_cs):
     # a selective checkpoint sees aten operators only: the flash kernel,
     # launched through ctypes, is not one, so it runs again in the
     # backward as the reference's does (neither policy saves attention)
     return checkpoint(
-        functools.partial(_tf()._layer, cfg), x, lp, seg_ids, rope_cs, mask,
+        functools.partial(_tf()._layer, cfg), x, lp, seg_ids, rope_cs,
         use_reentrant=False, context_fn=functools.partial(
             create_selective_checkpoint_contexts, _dots_policy))
 
@@ -243,8 +242,8 @@ assert tuple(_LAYERS) == POLICY_NAMES
 
 
 def policy_for(name: str) -> Callable:
-    """The layer function of a policy: ``(cfg, x, lp, seg_ids, rope_cs,
-    mask) -> y``."""
+    """The layer function of a policy: ``(cfg, x, lp, seg_ids, rope_cs)
+    -> y``."""
     try:
         return _LAYERS[name]
     except KeyError:

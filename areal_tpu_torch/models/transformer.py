@@ -262,63 +262,26 @@ def _head(params: Params, cfg: TransformerConfig, x: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def make_attention_mask(
-    seg_q: torch.Tensor,
-    pos_q: torch.Tensor,
-    seg_kv: torch.Tensor,
-    pos_kv: torch.Tensor,
-    sliding_window: Optional[int] = None,
-) -> torch.Tensor:
-    """[B, Tq, Tkv] bool mask: same segment, causal by position, non-pad;
-    optional sliding window (the reference's mask; the training forward
-    builds it only for a sliding-window model on the CPU, the flash kernel
-    applies the rule without a window by index)."""
-    same = seg_q[:, :, None] == seg_kv[:, None, :]
-    causal = pos_q[:, :, None] >= pos_kv[:, None, :]
-    valid = (seg_q[:, :, None] != 0) & (seg_kv[:, None, :] != 0)
-    mask = same & causal & valid
-    if sliding_window is not None:
-        mask &= pos_q[:, :, None] - pos_kv[:, None, :] < sliding_window
-    return mask
-
-
-def reference_attention(q, k, v, mask, logits_dtype=torch.float32):
-    """Attention under an explicit mask: q [B,T,Hq,hd], k/v [B,S,Hkv,hd],
-    mask [B,T,S] (the reference's ``reference_attention``: masked rows
-    average V uniformly)."""
-    B, T, Hq, hd = q.shape
-    rep = Hq // k.shape[2]
-    k = k.repeat_interleave(rep, dim=2)
-    v = v.repeat_interleave(rep, dim=2)
-    scores = torch.einsum(
-        "bthd,bshd->bhts", q.to(logits_dtype), k.to(logits_dtype)
-    ) / math.sqrt(hd)
-    scores = torch.where(mask[:, None], scores, torch.full_like(scores, -1e30))
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)
-
-
-def _attention_dispatch(q, k, v, cfg: TransformerConfig, seg_ids, mask):
+def _attention_dispatch(q, k, v, cfg: TransformerConfig, seg_ids):
     """Self-attention of the training forward: the flash kernel's wrapper
-    (the CUDA kernel on a card, its plain version on the CPU), or, for a
-    sliding-window model on the CPU, masked dense attention under ``mask``
-    (the reference's semantics: it never sends a window to its flash
-    kernel)."""
+    (the CUDA kernel on a card, its plain version on the CPU), with the
+    model's sliding window if it has one.  The reference masks dense
+    attention for a window instead (it never sends one to its kernel): the
+    same function, which on a card would need a [B, T, T] mask."""
     from areal_tpu_torch.ops.flash_attention import flash_attention
 
-    if cfg.sliding_window is not None:
-        return reference_attention(q, k, v, mask)
     return flash_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), seg_ids
+        q.contiguous(), k.contiguous(), v.contiguous(), seg_ids,
+        window=cfg.sliding_window,
     )
 
 
-def _layer(cfg: TransformerConfig, x, lp: Params, seg_ids, rope_cs, mask):
+def _layer(cfg: TransformerConfig, x, lp: Params, seg_ids, rope_cs):
     """One transformer block of the training forward (no KV cache)."""
     B, T, _ = x.shape
     h = _norm(x, lp["attn_norm"], cfg)
     q, k, v = _attn_qkv(cfg, lp, h, None, rope_cs)
-    attn = _attention_dispatch(q, k, v, cfg, seg_ids, mask)
+    attn = _attention_dispatch(q, k, v, cfg, seg_ids)
     x = x + _proj(lp["attn"]["o"], attn.reshape(B, T, cfg.q_dim))
     h = _norm(x, lp["mlp_norm"], cfg)
     return x + _mlp_block(cfg, lp, h)
@@ -333,25 +296,13 @@ def _run_layers(params: Params, cfg: TransformerConfig, x, positions, seg_ids):
         if cfg.abs_position_embedding
         else rope_tables(positions, cfg.rotary_base, cfg.head_dim)
     )
-    mask = None
-    if cfg.sliding_window is not None:
-        if x.is_cuda:
-            # the dense [B, T, T] path would stand in for the kernel
-            raise NotImplementedError(
-                f"sliding_window {cfg.sliding_window} on a card: the flash "
-                "kernel has no window (ROADMAP.md section 2, 'window in the "
-                "flash kernel's index mask')"
-            )
-        mask = make_attention_mask(
-            seg_ids, positions, seg_ids, positions, cfg.sliding_window
-        )
     layer = _layer
     if cfg.remat and torch.is_grad_enabled():
         from areal_tpu_torch.models.remat import policy_for
 
         layer = policy_for(cfg.remat_policy)
     for lp in params["layers"]:
-        x = layer(cfg, x, lp, seg_ids, rope_cs, mask)
+        x = layer(cfg, x, lp, seg_ids, rope_cs)
     return x
 
 
@@ -468,15 +419,6 @@ def cache_attention(q, k, v, mask):
     return out.reshape(B, T, Hq, hd)
 
 
-def _refuse_window_on_card(cfg: TransformerConfig, x: torch.Tensor, what):
-    if cfg.sliding_window is not None and x.device.type != "cpu":
-        raise NotImplementedError(
-            f"{what} with sliding_window {cfg.sliding_window} on a card: "
-            "the flash kernels have no window (ROADMAP.md section 2, "
-            "'window in the flash kernel's index mask')"
-        )
-
-
 def _write_cache_rows(cache_l: torch.Tensor, new: torch.Tensor, start):
     """Write ``new`` ``[B, T, Hkv, hd]`` into ``cache_l`` ``[B, Hkv, S, hd]``
     at each row's slots ``start[b] + [0, T)``, the start clamped so the
@@ -504,31 +446,19 @@ def flash_decode_attention(q, k, v, attended):
     return (acc / lsum[..., None]).to(q.dtype)[:, None]
 
 
-def windowed_prompt_attention(q, k, v, positions, seg_ids, window: int,
-                              block: int = 1024):
-    """Sliding-window causal attention of a prompt over itself in an empty
-    cache: q ``[B,T,Hq,hd]``, k/v ``[B,Hkv,T,hd]`` (slot s holding position
-    s), the reference's mask (``kv_pos <= p``, ``p - kv_pos < window``, real
-    queries) applied by :func:`cache_attention` one block of ``block``
-    queries at a time over the keys that block can see, so the scores never
-    take ``[T, T]`` memory.  Keys outside a block's range are masked in the
-    reference and contribute exactly zero there."""
-    B, T = q.shape[:2]
-    out = []
-    for t0 in range(0, T, block):
-        t1 = min(T, t0 + block)
-        lo = max(0, t0 - window + 1)
-        kv_pos = torch.arange(lo, t1, device=q.device)[None, None, :]
-        pos = positions[:, t0:t1, None]
-        mask = (
-            (kv_pos <= pos)
-            & (pos - kv_pos < window)
-            & (seg_ids[:, t0:t1] != 0)[:, :, None]
-        )
-        out.append(cache_attention(
-            q[:, t0:t1], k[:, :, lo:t1], v[:, :, lo:t1], mask
-        ))
-    return torch.cat(out, dim=1)
+def window_decode_attention(q, k, v, lengths, window: int):
+    """One query per row at position ``lengths`` (its key and value
+    already in slot ``lengths``), q ``[B, 1, Hq, hd]``, over the slots
+    ``[max(0, p - window + 1), p]`` of k/v ``[B, Hkv, S, hd]``: each row's
+    last ``window`` slots (rounded up to 128, at most S) gathered newest
+    first (:func:`_window_gather`), so they are the prefix ``[0, min(p + 1,
+    window))`` that :func:`flash_decode_attention` reads.  :func:`decode_step`'s
+    attention on a card for a sliding-window model; the same function as
+    :func:`cache_attention` under the reference's windowed mask."""
+    G = min(-(-window // 128) * 128, k.shape[2])
+    wk, wv = _window_gather(KVCache(k[None], v[None], lengths), lengths + 1, G)
+    return flash_decode_attention(q, wk[0], wv[0],
+                                  torch.clamp(lengths + 1, max=window))
 
 
 def merge_window_partials(acc, m_main, l_main, qg, wk_l, wv_l, mask_win,
@@ -569,14 +499,10 @@ def prefill(
     position p attends slots ``<= p`` (the reference's mask).  On the CPU
     that is the plain :func:`cache_attention`.  Off the CPU only an empty
     cache (:meth:`KVCache.zeros`) is prefilled, and its attention is causal
-    self-attention over the prompt, which the flash kernel computes
-    (padding queries give 0 where the reference averages; their keys and
-    values lie beyond each row's length and are never attended).  A
-    sliding-window model's prompt attention there is the reference's own
-    masked attention, in query blocks (:func:`windowed_prompt_attention`;
-    the flash kernel has no window, and the reference computes this
-    product outside any Pallas kernel too).  A non-empty cache is refused
-    there."""
+    self-attention over the prompt, windowed for a sliding-window model,
+    which the flash kernel computes (padding queries give 0 where the
+    reference averages; their keys and values lie beyond each row's length
+    and are never attended).  A non-empty cache is refused there."""
     B, T = tokens.shape
     S = cache.max_len
     x = _embed(params, cfg, tokens, positions)
@@ -606,16 +532,12 @@ def prefill(
         _write_cache_rows(cache.v[l], v, cache.lengths)
         if on_cpu:
             attn = cache_attention(q, cache.k[l], cache.v[l], mask)
-        elif cfg.sliding_window is not None:
-            attn = windowed_prompt_attention(
-                q, cache.k[l], cache.v[l], positions, seg_ids,
-                cfg.sliding_window,
-            )
         else:
             from areal_tpu_torch.ops.flash_attention import flash_attention
 
             attn = flash_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(), seg32
+                q.contiguous(), k.contiguous(), v.contiguous(), seg32,
+                window=cfg.sliding_window,
             )
         x = x + _proj(lp["attn"]["o"], attn.reshape(B, T, cfg.q_dim))
         h = _norm(x, lp["mlp_norm"], cfg)
@@ -643,7 +565,9 @@ def decode_step(
     On the CPU the attention is the plain :func:`cache_attention`; off the
     CPU it launches ``flash_decode`` (the hand-written kernel) on the
     layer's cache ``[B, Hkv, S, hd]`` with lengths + 1 and normalises its
-    partials, ``acc / l``, or raises; a sliding window is refused there."""
+    partials, ``acc / l``, or raises.  A sliding-window model's query at
+    position p reads slots ``[max(0, p - window + 1), p]``, which
+    :func:`window_decode_attention` gathers for ``flash_decode``."""
     B = tokens.shape[0]
     S = cache.max_len
     if active is None:
@@ -651,12 +575,12 @@ def decode_step(
     positions = cache.lengths[:, None].long()  # [B, 1]
     x = _embed(params, cfg, tokens[:, None].long(), positions)
     on_cpu = x.device.type == "cpu"
-    _refuse_window_on_card(cfg, x, "decode_step")
+    win = cfg.sliding_window
     if on_cpu:
         kv_pos = torch.arange(S, device=x.device)[None, :]
         mask = kv_pos <= positions
-        if cfg.sliding_window is not None:
-            mask &= positions - kv_pos < cfg.sliding_window
+        if win is not None:
+            mask &= positions - kv_pos < win
         mask = mask[:, None, :]  # [B, 1, S]
     else:
         attended = cache.lengths + 1
@@ -675,8 +599,11 @@ def decode_step(
         cache.v[l][rows, :, slot] = v[:, 0].to(cache.v.dtype)
         if on_cpu:
             attn = cache_attention(q, cache.k[l], cache.v[l], mask)
-        else:
+        elif win is None:
             attn = flash_decode_attention(q, cache.k[l], cache.v[l], attended)
+        else:
+            attn = window_decode_attention(q, cache.k[l], cache.v[l],
+                                           cache.lengths, win)
         x = x + _proj(lp["attn"]["o"], attn.reshape(B, 1, cfg.q_dim))
         h = _norm(x, lp["mlp_norm"], cfg)
         x = x + _mlp_block(cfg, lp, h)

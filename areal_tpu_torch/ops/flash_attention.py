@@ -1,14 +1,20 @@
-"""Causal, segment-masked flash attention over packed rows (port of
-``areal_tpu/ops/flash_attention.py``).
+"""Causal, segment-masked flash attention over packed rows, with an
+optional sliding window (port of ``areal_tpu/ops/flash_attention.py``).
 
 :func:`flash_attention` ``(q [B,T,Hq,hd], k/v [B,T,Hkv,hd], seg_ids [B,T]
-int32) -> [B,T,Hq,hd]``: query i attends key j iff ``seg[i] == seg[j] !=
-0`` and ``j <= i`` (causal by index within the row, which equals the
-reference's position-causal mask on the layouts ``pad_batch`` and
-``pack_batch`` build: contiguous segments whose positions rise from 0),
-with scale ``1/sqrt(hd)``.  A padding query (seg 0) gets output 0 and
-zero gradients; the reference's ``reference_attention`` averages V
-uniformly there instead, which no loss ever reads.
+int32, window=None) -> [B,T,Hq,hd]``: query i attends key j iff ``seg[i]
+== seg[j] != 0``, ``j <= i`` and, with a ``window``, ``i - j < window``
+(causal and windowed by index within the row, which equals the
+reference's position masks, ``pos_q >= pos_kv`` and ``pos_q - pos_kv <
+window``, on the layouts ``pad_batch`` and ``pack_batch`` build:
+contiguous segments whose positions rise from 0), with scale
+``1/sqrt(hd)``, at head dims 64, 128 and 256.  A padding query (seg 0)
+gets output 0 and zero gradients; the reference's
+``reference_attention`` averages V uniformly there instead, which no
+loss ever reads.  The reference sends no window to its kernel (it masks
+dense attention for a sliding-window model); the port computes that
+function in its kernel, since the dense ``[B, T, T]`` path does not fit
+a card at the family's lengths.
 
 On CUDA tensors it launches the hand-written Hopper kernels
 (``csrc/flash_attention.cu``: forward, ``dq`` and ``dk/dv`` backward,
@@ -35,7 +41,7 @@ import torch
 from areal_tpu_torch.ops import _build
 
 #: head dims the kernels are built for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 #: token granularity of the kernel's segment-range workspace
 _RANGE_TILE = 32
 #: the backward's kernels, as bits of the C entry's ``parts`` (a backward
@@ -44,14 +50,19 @@ BWD_PARTS = {"D": 1, "dq": 2, "dkdv": 4, "reduce": 8}
 _BWD_ALL = 15
 
 
-def attention_mask(seg_ids: torch.Tensor) -> torch.Tensor:
-    """[B, T, T] bool: query i attends key j (same nonzero segment, j <= i)."""
+def attention_mask(seg_ids: torch.Tensor, window=None) -> torch.Tensor:
+    """[B, T, T] bool: query i attends key j (same nonzero segment, j <= i
+    and, with a ``window``, i - j < window)."""
     T = seg_ids.shape[1]
     idx = torch.arange(T, device=seg_ids.device)
     same = (seg_ids[:, :, None] == seg_ids[:, None, :]) & (
         seg_ids[:, :, None] != 0
     )
-    return same & (idx[:, None] >= idx[None, :])
+    dist = idx[:, None] - idx[None, :]
+    ok = dist >= 0
+    if window is not None:
+        ok = ok & (dist < window)
+    return same & ok
 
 
 def reference_flash_attention(
@@ -60,14 +71,16 @@ def reference_flash_attention(
     v: torch.Tensor,
     seg_ids: torch.Tensor,
     return_lse: bool = False,
+    window=None,
 ):
     """Plain PyTorch version of :func:`flash_attention` (same contract),
     computed in float32 and returned in q's dtype; with ``return_lse`` also
     the logsumexp ``[B, Hq, T]`` float32 (``+inf`` on padding queries)."""
+    _check_window(window)
     B, T, Hq, hd = q.shape
     Hkv = k.shape[2]
     r = Hq // Hkv
-    mask = attention_mask(seg_ids)[:, None, None]  # [B, 1, 1, T, T]
+    mask = attention_mask(seg_ids, window)[:, None, None]  # [B, 1, 1, T, T]
     qg = q.float().reshape(B, T, Hkv, r, hd)
     s = torch.einsum("btgrd,bsgd->bgrts", qg, k.float()) / math.sqrt(hd)
     s = torch.where(mask, s, torch.full_like(s, -1e30))
@@ -88,10 +101,10 @@ def _kernels():
     """The built library's C entry points (built at the first call)."""
     cdll = _build.load_library("flash_attention").cdll
     fwd = cdll.flash_attention_fwd
-    fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fwd.restype = ctypes.c_int
     bwd = cdll.flash_attention_bwd
-    bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     bwd.restype = ctypes.c_int
     err = cdll.flash_attention_error_string
     err.argtypes = [ctypes.c_int]
@@ -99,7 +112,15 @@ def _kernels():
     return fwd, bwd, err
 
 
-def _check(q, k, v, seg_ids):
+def _check_window(window):
+    if window is not None and (
+        isinstance(window, bool) or not isinstance(window, int) or window < 1
+    ):
+        raise ValueError(f"window must be None or a positive int; got {window!r}")
+
+
+def _check(q, k, v, seg_ids, window):
+    _check_window(window)
     if q.device.type != "cuda":
         raise RuntimeError(
             f"flash_attention's kernels run on CUDA tensors; got a "
@@ -143,8 +164,8 @@ def _raise_on(rc: int, what: str):
         )
 
 
-def _launch_fwd(q, k, v, seg_ids):
-    _check(q, k, v, seg_ids)
+def _launch_fwd(q, k, v, seg_ids, window=None):
+    _check(q, k, v, seg_ids, window)
     fwd = _kernels()[0]
     B, T, Hq, hd = q.shape
     out = torch.empty_like(q)
@@ -156,14 +177,15 @@ def _launch_fwd(q, k, v, seg_ids):
     rc = fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ids.data_ptr(),
         ranges.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        B, T, Hq, k.shape[2], hd, stream,
+        B, T, Hq, k.shape[2], hd, window or 0, stream,
     )
     _raise_on(rc, "forward")
     flash_attention.fwd_launches += 1
     return out, lse, ranges
 
 
-def _launch_bwd(q, k, v, seg_ids, ranges, out, lse, dout, parts=_BWD_ALL):
+def _launch_bwd(q, k, v, seg_ids, ranges, out, lse, dout, window=None,
+                parts=_BWD_ALL):
     bwd = _kernels()[1]
     dout = dout.contiguous()
     if dout.dtype != q.dtype or dout.shape != q.shape:
@@ -182,7 +204,8 @@ def _launch_bwd(q, k, v, seg_ids, ranges, out, lse, dout, parts=_BWD_ALL):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ids.data_ptr(),
         ranges.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         D.data_ptr(), dk_ws.data_ptr(), dv_ws.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, T, Hq, k.shape[2], hd, parts, stream,
+        dk.data_ptr(), dv.data_ptr(), B, T, Hq, k.shape[2], hd, window or 0,
+        parts, stream,
     )
     _raise_on(rc, "backward")
     flash_attention.bwd_launches += 1
@@ -191,24 +214,29 @@ def _launch_bwd(q, k, v, seg_ids, ranges, out, lse, dout, parts=_BWD_ALL):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seg_ids):
-        out, lse, ranges = _launch_fwd(q, k, v, seg_ids)
+    def forward(ctx, q, k, v, seg_ids, window):
+        out, lse, ranges = _launch_fwd(q, k, v, seg_ids, window)
         ctx.save_for_backward(q, k, v, seg_ids, ranges, out, lse)
+        ctx.window = window
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, seg_ids, ranges, out, lse = ctx.saved_tensors
-        dq, dk, dv = _launch_bwd(q, k, v, seg_ids, ranges, out, lse, dout)
-        return dq, dk, dv, None
+        dq, dk, dv = _launch_bwd(q, k, v, seg_ids, ranges, out, lse, dout,
+                                 ctx.window)
+        return dq, dk, dv, None, None
 
 
-def flash_attention_with_lse(q, k, v, seg_ids) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_with_lse(
+    q, k, v, seg_ids, window=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse [B, Hq, T] f32)`` without autograd: the forward kernel's
     two outputs (plain version on CPU tensors)."""
     if q.device.type == "cpu":
-        return reference_flash_attention(q, k, v, seg_ids, return_lse=True)
-    out, lse, _ = _launch_fwd(q, k, v, seg_ids)
+        return reference_flash_attention(q, k, v, seg_ids, return_lse=True,
+                                         window=window)
+    out, lse, _ = _launch_fwd(q, k, v, seg_ids, window)
     return out, lse
 
 
@@ -217,13 +245,15 @@ def flash_attention(
     k: torch.Tensor,  # [B, T, Hkv, hd]
     v: torch.Tensor,  # [B, T, Hkv, hd]
     seg_ids: torch.Tensor,  # [B, T] int32, 0 = padding
+    window=None,  # sliding window in keys (query i sees i - window < j)
 ) -> torch.Tensor:
-    """Causal, segment-masked attention, differentiable in q, k and v (see
-    the module docstring).  CPU tensors take the plain version; any other
-    device launches the CUDA kernels or raises."""
+    """Causal, segment-masked attention, windowed when ``window`` is an
+    int, differentiable in q, k and v (see the module docstring).  CPU
+    tensors take the plain version; any other device launches the CUDA
+    kernels or raises."""
     if q.device.type == "cpu":
-        return reference_flash_attention(q, k, v, seg_ids)
-    return _FlashAttention.apply(q, k, v, seg_ids)
+        return reference_flash_attention(q, k, v, seg_ids, window=window)
+    return _FlashAttention.apply(q, k, v, seg_ids, window)
 
 
 #: kernel launches since the counts were last set to 0: one forward launch

@@ -53,10 +53,15 @@ from a seed, float32 master weights and their bf16 serving copy):
    that the gate must fail;
 4. holds the flash-attention forward and backward kernels against their
    plain version on packed, long and ragged rows (T from 32 to 16384, not
-   always a multiple of a tile), with a bit-identical repeat of the
-   backward, and times them on the packed and long rows beside
-   ``torch.nn.functional.scaled_dot_product_attention`` as a yardstick,
-   the backward also by part (D, dq, dk/dv with its reduction);
+   always a multiple of a tile) at Qwen2.5-1.5B's heads, at Gemma-2B's
+   (head_dim 256, 8 query heads on 1 KV head) and at Mistral-7B's with
+   its window of 4096 (and small windows over ragged rows), with a
+   bit-identical repeat of the forward and backward and, for a window, a
+   control (the kernel without the window) that must fail, and times
+   them on the packed and long rows of each beside
+   ``torch.nn.functional.scaled_dot_product_attention`` (a boolean mask)
+   as a yardstick, the backward also by part (D, dq, dk/dv with its
+   reduction);
 5. serves the recipe's group traffic through the radix prefix cache, on a
    bf16 pool and on an int8 pool, with keyed sampling at temperature 1
    (16 rows, 32768-token KV): a group of 16 over one 1000-token prompt
@@ -171,7 +176,16 @@ launches against its micro-batches; then, at 4 layers on one 16384-token
 row, one step under each remat policy (its gradient norm against
 ``none``'s, its peak memory and step time) and two steps each of float32
 Adam, bf16 ``mu``, bf16 ``nu`` and the factored second moment
-(``opt_state_bytes``, the second update against float32 Adam's).  The
+(``opt_state_bytes``, the second update against float32 Adam's).  After
+it, the family phase (``family_phase``) runs ``SFTExperiment`` two steps
+each on Gemma-2B's published widths (18 layers, head_dim 256, one packed
+row of 8192 tokens) and on Mistral-7B-v0.1's (2 layers, window 4096, one
+packed row of 16384 tokens whose segments outrun the window), each from
+an HF directory the port's ``save_hf_model`` wrote from seeded weights,
+with the route check against the plain attention and a control that must
+fail it (rows as one segment; the attention without the window), and one
+greedy generation of the Mistral configuration through ``decode_step``'s
+window gather after a 6000-token prompt.  The
 long-context, prefix-cache and generation-server phases serve the model's
 first CUT_LAYERS layers, and the sync-PPO phase and phases 8 and 9 load a
 copy of the HF directory cut to them.
@@ -412,6 +426,19 @@ MISTRAL_LAYERS = 2
 MISTRAL_PROMPT = 6000
 MISTRAL_KV_CACHE_LEN = 8192
 MISTRAL_NEW_TOKENS = 48
+#: the family phase (``family_phase``): SFT of Gemma-2B's widths (all 18
+#: of its layers) on one packed row of 8192 tokens, and of
+#: Mistral-7B-v0.1's widths at MISTRAL_LAYERS layers on one packed row of
+#: 16384 whose segments are longer than its window of 4096, two steps
+#: each; then one short greedy generation of the Mistral configuration
+#: through the dense cache's ``decode_step`` (the window gather) after a
+#: prompt longer than the window
+GEMMA_LAYERS = 18
+GEMMA_SFT_LENS = (3000, 2500, 1500, 1192)
+MISTRAL_SFT_LENS = (9000, 5000, 2384)
+FAMILY_SFT_STEPS = 2
+WINDOW_GEN_PROMPT = 6000
+WINDOW_GEN_NEW = 16
 # int8 against bf16 serving weights: |teacher-forced logprob gap| on the
 # bf16 engine's greedy tokens (mean, max), about 3x the sound readings on
 # an H100 (8.149e-4 / 3.908e-3, and 1.391e-3 / 3.917e-3 on other greedy
@@ -431,11 +458,14 @@ W8_DRIFT_CONTROL = 1.25
 # 1.091e-3 / 7.812e-3 (mean, max) against the host's dequantization,
 # where the sound tree reads 0
 W8_STEP_CONTROL = 1 + 1 / 127
-# the window-gather decode of the Mistral configuration against the plain
-# windowed forward (mean, max): the plain path rounds its probabilities to
-# bf16 before the product with V over ~4096 keys, the kernel does not; the
-# first chip run measured 2.947e-3 / 1.566e-2, and the same forward
-# without the window 0.385 / 0.948, which must fail these
+# the window-gather decode of the Mistral configuration against the
+# windowed forward (mean, max).  Before the flash kernel took the window,
+# that forward was masked dense attention on the card, which rounds its
+# probabilities to bf16 before the product with V over ~4096 keys: 2.947e-3
+# / 1.566e-2, and the same forward without the window 0.385 / 0.948, which
+# must fail these; now it is the flash kernel with the window (the family
+# phase's decode_step read 1.978e-3 / 1.562e-2, its no-window control
+# 0.251 / 0.430)
 TOL_WINDOW_MEAN = 1e-2
 TOL_WINDOW_MAX = 5e-2
 
@@ -502,6 +532,19 @@ TOL_FA_GRAD = 2e-2
 #: if a gate does not see it
 TOL_TRAIN_HIDDEN = 5e-2
 TOL_TRAIN_LOGPROB = 1e-2
+#: the logprob gate of the family phase's route checks.  A logprob's error
+#: is about the hidden state's relative error times the logits' scale:
+#: Mistral's untied random head (uniform in +-1/sqrt(4096)) gives logits of
+#: standard deviation near 0.58 over unit-RMS hidden states, ~10x the tied
+#: embeddings' of Qwen and Gemma (uniform in +-1/sqrt(V): near 0.05-0.06),
+#: against which TOL_TRAIN_LOGPROB was set.  Read on an H100 (the family
+#: phase's first run):
+#: Mistral's kernels 6.98e-3 hidden (under TOL_TRAIN_HIDDEN, which stays)
+#: and 1.568e-2 logprob, its no-window control 1.07 and 2.01; Gemma's
+#: kernels 1.19e-2 and 1.95e-3, its segment control 1.49 and 0.272.  The
+#: limit is 3.2x above Mistral's sound reading and 5.4x below the nearer
+#: control's
+TOL_FAMILY_LOGPROB = 5e-2
 #: the packed SFT run's first loss (a token mean over the same batch in
 #: rows of 16384) against the run in rows of the longest sequence: the
 #: same sums in other layouts
@@ -524,20 +567,31 @@ TOL_MOMENT_DELTA = 2e-2
 #: the factored second moment's change against Adam's: the same signs,
 #: other magnitudes (the rank-1 estimate of g^2)
 MIN_FACTORED_COS = 0.5
-#: the flash phase's layouts: (name, B, T, segment lengths per row).  The
-#: first two are timed for the kernels line; the others cover T below one
-#: 64-token tile, T not a multiple of a tile, segments of one token and
-#: rows that end in padding.
+#: the flash phase's heads: (Hq, Hkv, head_dim, sliding window) of
+#: Qwen2.5-1.5B, Gemma-2B and Mistral-7B-v0.1 (window 4096)
+QWEN_HEADS = (12, 2, 128, None)
+GEMMA_HEADS = (8, 1, 256, None)
+MISTRAL_HEADS = (32, 8, 128, 4096)
+#: the flash phase's layouts: (name, B, T, segment lengths per row,
+#: heads).  The timed ones (FLASH_TIMED) go into the kernels line; the
+#: others cover T below one 64-token tile, T not a multiple of a tile,
+#: segments of one token, rows that end in padding and, windowed, a window
+#: narrower than a tile and one that ends inside a tile, across segments
 FLASH_LAYOUTS = (
-    ("packed", 2, 4096, ((1000, 2000, 1096), (3128,))),
-    ("long", 1, 16384, ((16384,),)),
-    ("ragged", 2, 200, ((50, 100), (33,))),
-    ("short", 1, 32, ((32,),)),
-    ("odd", 2, 257, ((257,), (120, 1, 64))),
-    ("mid", 2, 1000, ((999,), (1, 500, 300))),
+    ("packed", 2, 4096, ((1000, 2000, 1096), (3128,)), QWEN_HEADS),
+    ("long", 1, 16384, ((16384,),), QWEN_HEADS),
+    ("ragged", 2, 200, ((50, 100), (33,)), QWEN_HEADS),
+    ("short", 1, 32, ((32,),), QWEN_HEADS),
+    ("odd", 2, 257, ((257,), (120, 1, 64)), QWEN_HEADS),
+    ("mid", 2, 1000, ((999,), (1, 500, 300)), QWEN_HEADS),
+    ("hd256_packed", 2, 4096, ((1000, 2000, 1096), (3128,)), GEMMA_HEADS),
+    ("hd256_long", 1, 8192, ((8192,),), GEMMA_HEADS),
+    ("hd256_odd", 2, 257, ((257,), (120, 1, 64)), (8, 1, 256, 70)),
+    ("window_long", 1, 16384, ((16384,),), MISTRAL_HEADS),
+    ("window_odd", 2, 333, ((333,), (120, 1, 100, 90)), (32, 8, 128, 37)),
 )
 #: layouts whose times go into the kernels line
-FLASH_TIMED = ("packed", "long")
+FLASH_TIMED = ("packed", "long", "hd256_packed", "hd256_long", "window_long")
 
 #: the async-PPO recipe's actor settings (training/configs/async_ppo.yaml)
 PPO_RECIPE = dict(
@@ -1426,7 +1480,7 @@ def anatomy_phase(cfg, params, device, *, lens=PROMPT_LENS,
 # ---------------------------------------------------------------------------
 
 
-def flash_inputs(B, T, rows, device, Hq=12, Hkv=2, hd=128, seed=SEED):
+def flash_inputs(B, T, rows, device, Hq, Hkv, hd, seed=SEED):
     """bf16 q [B,T,Hq,hd], k/v [B,T,Hkv,hd], dO like q, and int32 seg_ids
     [B,T] with the given segment lengths per row (the rest padding)."""
     import torch
@@ -1447,7 +1501,7 @@ def flash_inputs(B, T, rows, device, Hq=12, Hkv=2, hd=128, seed=SEED):
             rnd(B, T, Hq, hd), seg.to(device))
 
 
-def plain_flash(q, k, v, seg, dout=None):
+def plain_flash(q, k, v, seg, dout=None, window=None):
     """The plain version, one query head at a time (at T = 16384 a whole
     [B, Hq, T, T] score tensor and its backward would not fit): (out, lse)
     and, with ``dout``, float32 (dq, dk, dv) by autograd."""
@@ -1467,7 +1521,8 @@ def plain_flash(q, k, v, seg, dout=None):
             if dout is not None:
                 for a in args:
                     a.requires_grad_(True)
-            out, lse = reference_flash_attention(*args, seg, return_lse=True)
+            out, lse = reference_flash_attention(*args, seg, return_lse=True,
+                                                 window=window)
             if dout is not None:
                 out.backward(dout[:, :, h:h + 1].float())
                 grads[0][:, :, h] = args[0].grad[:, :, 0]
@@ -1478,21 +1533,31 @@ def plain_flash(q, k, v, seg, dout=None):
     return torch.cat(outs, dim=2), torch.cat(lses, dim=1), grads
 
 
-def flash_bound(q, k, seg, backward: bool):
-    """(bytes ms, operations ms) of one forward or backward call at this
-    data: the causal pairs inside segments (what the function attends)
-    times 4 (forward: QK^T, PV) or 10 (backward: QK^T recomputed, dO V^T,
-    P^T dO, dS^T Q, dS K) flops per head-dim element per query head, over
-    989 TFLOP/s; and each input read once and each output written once,
-    over 3.35 TB/s."""
+def attended_pairs(seg, window=None) -> int:
+    """The (query, key) pairs the function attends at this data: in a
+    segment of L tokens, query i sees min(i + 1, window) keys, so
+    L (L + 1) / 2 without a window and W (W + 1) / 2 + (L - W) W past it."""
     import torch
 
-    B, T, Hq, hd = q.shape
     pairs = 0
-    for b in range(B):
+    for b in range(seg.shape[0]):
         _, counts = torch.unique_consecutive(seg[b][seg[b] != 0],
                                              return_counts=True)
-        pairs += int((counts * (counts + 1) // 2).sum())
+        for L in counts.tolist():
+            W = L if window is None else min(L, window)
+            pairs += W * (W + 1) // 2 + (L - W) * W
+    return pairs
+
+
+def flash_bound(q, k, seg, backward: bool, window=None):
+    """(bytes ms, operations ms) of one forward or backward call at this
+    data: the pairs it attends (:func:`attended_pairs`: causal, inside
+    segments and inside the window) times 4 (forward: QK^T, PV) or 10
+    (backward: QK^T recomputed, dO V^T, P^T dO, dS^T Q, dS K) flops per
+    head-dim element per query head, over 989 TFLOP/s; and each input read
+    once and each output written once, over 3.35 TB/s."""
+    B, T, Hq, hd = q.shape
+    pairs = attended_pairs(seg, window)
     item = q.element_size()
     qb, kb = q.numel() * item, k.numel() * item
     lse_b, seg_b = B * Hq * T * 4, seg.numel() * 4
@@ -1509,32 +1574,47 @@ def _rel_l2(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def compare_flash(name, B, T, rows, device, timing_iters=10, timed=True):
-    """Forward and backward kernels vs the plain version on one layout;
-    returns {"fwd": {...}, "bwd": {...}} measurements (with ``timed``
-    false, the largest absolute errors alone)."""
+def _flash_out_errors(out, ref_out, real):
+    """(relative L2 distance of out over real tokens, the largest one
+    real token's)."""
+    d_out = (out.float() - ref_out)[real]
+    return (float(d_out.norm() / ref_out[real].norm()),
+            float((d_out.flatten(1).norm(dim=1)
+                   / ref_out[real].flatten(1).norm(dim=1)).max()))
+
+
+def compare_flash(name, B, T, rows, heads, device, timing_iters=10,
+                  timed=True):
+    """Forward and backward kernels vs the plain version on one layout at
+    ``heads`` = (Hq, Hkv, hd, window); returns {"fwd": {...}, "bwd":
+    {...}} measurements (with ``timed`` false, the largest absolute errors
+    alone).  A windowed layout also runs its control: the forward kernel
+    without the window must fail the out gates against the windowed plain
+    version."""
     import torch
     import torch.nn.functional as F
 
     from areal_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, dout, seg = flash_inputs(B, T, rows, device)
+    Hq, Hkv, hd, window = heads
+    q, k, v, dout, seg = flash_inputs(B, T, rows, device, Hq, Hkv, hd)
     real = seg != 0
-    out, lse = fa.flash_attention_with_lse(q, k, v, seg)
+    out, lse = fa.flash_attention_with_lse(q, k, v, seg, window)
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
-    fa.flash_attention(qs, ks, vs, seg).backward(dout)
+    fa.flash_attention(qs, ks, vs, seg, window).backward(dout)
     grads = [t.grad for t in (qs, ks, vs)]
-    # the backward again: bit-identical (no atomics)
+    # the forward and backward again: bit-identical (no atomics)
+    out2, lse2 = fa.flash_attention_with_lse(q, k, v, seg, window)
     qs2, ks2, vs2 = (t.clone().requires_grad_(True) for t in (q, k, v))
-    fa.flash_attention(qs2, ks2, vs2, seg).backward(dout)
-    repeat = all(torch.equal(a, b.grad) for a, b in zip(grads, (qs2, ks2, vs2)))
-    ref_out, ref_lse, ref_grads = plain_flash(q, k, v, seg, dout)
+    fa.flash_attention(qs2, ks2, vs2, seg, window).backward(dout)
+    repeat = (torch.equal(out, out2) and torch.equal(lse, lse2)
+              and all(torch.equal(a, b.grad)
+                      for a, b in zip(grads, (qs2, ks2, vs2))))
+    ref_out, ref_lse, ref_grads = plain_flash(q, k, v, seg, dout, window)
     _sync(device)
 
     d_out = (out.float() - ref_out)[real]
-    err_out = float(d_out.norm() / ref_out[real].norm())
-    err_tok = float((d_out.flatten(1).norm(dim=1)
-                     / ref_out[real].flatten(1).norm(dim=1)).max())
+    err_out, err_tok = _flash_out_errors(out, ref_out, real)
     abs_fwd = max(float(d_out.abs().max()),
                   float((lse - ref_lse).transpose(1, 2)[real].abs().max()))
     abs_bwd = max(float((a.float() - b).abs().max())
@@ -1544,23 +1624,37 @@ def compare_flash(name, B, T, rows, device, timing_iters=10, timed=True):
         torch.isposinf(lse.transpose(1, 2)[~real]).all())
     err_g = [_rel_l2(a, b) for a, b in zip(grads, ref_grads)]
     finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
-    log(f"flash {name}: B={B} T={T} segments {[list(r) for r in rows]}: out "
+    shape = (f"B={B} T={T} Hq={Hq} Hkv={Hkv} hd={hd} window={window} bf16 "
+             f"segments {[list(r) for r in rows]}")
+    log(f"flash {name}: {shape}: out "
         f"rel L2 {err_out:.3e} (tol {TOL_FA_OUT}), worst token's rel L2 "
         f"{err_tok:.3e} (tol {TOL_FA_OUT_TOKEN}), lse {err_lse:.3e} "
         f"(tol {TOL_FA_LSE}), dq/dk/dv rel L2 "
         f"{' '.join(f'{e:.3e}' for e in err_g)} (tol {TOL_FA_GRAD}), padding "
-        f"exact {pad_ok}, repeat backward bit-identical {repeat}")
+        f"exact {pad_ok}, repeat forward and backward bit-identical {repeat}")
     if not (finite and pad_ok and repeat and err_out <= TOL_FA_OUT
             and err_tok <= TOL_FA_OUT_TOKEN and err_lse <= TOL_FA_LSE
             and max(err_g) <= TOL_FA_GRAD):
         raise AssertionError(f"flash_attention ({name}) disagrees with its "
                              "plain version")
+    control = None
+    if window is not None:
+        # the control: the kernel without the window, against the windowed
+        # plain version, must fail the out gates
+        out_nw, _ = fa.flash_attention_with_lse(q, k, v, seg)
+        control = _flash_out_errors(out_nw, ref_out, real)
+        log(f"flash {name}: control, the kernel without the window: out rel "
+            f"L2 {control[0]:.3e}, worst token's {control[1]:.3e}")
+        if control[0] <= TOL_FA_OUT and control[1] <= TOL_FA_OUT_TOKEN:
+            raise AssertionError(f"flash {name}: the no-window control "
+                                 f"{control} passes the gates")
     if not timed:
-        return {"fwd": dict(max_abs_err=abs_fwd),
+        return {"fwd": dict(max_abs_err=abs_fwd, control=control),
                 "bwd": dict(max_abs_err=abs_bwd)}
 
-    # timings: kernels, plain version, and SDPA with the same mask
-    mask = fa.attention_mask(seg)[:, None]
+    # timings: kernels, plain version, and SDPA with the same mask (a
+    # boolean [B, 1, T, T] mask, the window in it)
+    mask = fa.attention_mask(seg, window)[:, None]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def sdpa(*a):
@@ -1575,44 +1669,55 @@ def compare_flash(name, B, T, rows, device, timing_iters=10, timed=True):
         return lambda: o.backward(g, retain_graph=True)
 
     res = {}
-    ms_f = time_ms(lambda: fa.flash_attention_with_lse(q, k, v, seg),
+    ms_f = time_ms(lambda: fa.flash_attention_with_lse(q, k, v, seg, window),
                    timing_iters, device)
-    ms_b = time_ms(bwd_timer(lambda *a: fa.flash_attention(*a, seg)),
+    ms_b = time_ms(bwd_timer(lambda *a: fa.flash_attention(*a, seg, window)),
                    timing_iters, device)
     # the backward's kernels one at a time, on the forward's outputs
-    _, lse_k, ranges = fa._launch_fwd(q, k, v, seg)
+    _, lse_k, ranges = fa._launch_fwd(q, k, v, seg, window)
     parts = {
         part: time_ms(lambda bit=bit: fa._launch_bwd(
-            q, k, v, seg, ranges, out, lse_k, dout, parts=bit),
+            q, k, v, seg, ranges, out, lse_k, dout, window, parts=bit),
             timing_iters, device)
         for part, bit in fa.BWD_PARTS.items()
     }
     log(f"flash {name} bwd by kernel (ms per call): "
         + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
         + f"; sum {sum(parts.values()):.4f}")
-    plain_f = time_ms(lambda: plain_flash(q, k, v, seg), 2, device)
-    plain_fb = time_ms(lambda: plain_flash(q, k, v, seg, dout), 2, device)
+    plain_f = time_ms(lambda: plain_flash(q, k, v, seg, window=window), 2,
+                      device)
+    plain_fb = time_ms(lambda: plain_flash(q, k, v, seg, dout, window), 2,
+                       device)
     try:
         lib_f = time_ms(lambda: sdpa(qt, kt, vt), timing_iters, device)
         lib_b = time_ms(bwd_timer(lambda a, b, c: sdpa(
             a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2))),
             timing_iters, device)
-    except (torch.OutOfMemoryError, TypeError) as e:  # the yardstick only
+        # the attention kernels only (the mask's fill and where kernels
+        # run too), their names cut to 100 characters
+        sdpa_backend = ", ".join(
+            n[:100] for n in sdpa_kernels(lambda: sdpa(qt, kt, vt),
+                                          device).split(", ")
+            if any(w in n.lower() for w in ("sdpa", "fmha", "attention",
+                                            "flash", "efficient", "not ")))
+    except (torch.OutOfMemoryError, TypeError, RuntimeError) as e:
+        # the yardstick only
         log(f"flash {name}: SDPA yardstick failed ({e}); library_ms null")
         lib_f = lib_b = None
+        sdpa_backend = f"failed: {e}"
+    log(f"flash {name}: SDPA (boolean mask) ran {sdpa_backend}")
     for kind, ms, plain_ms, lib_ms, err in (
         ("fwd", ms_f, plain_f, lib_f, abs_fwd),
         ("bwd", ms_b, max(plain_fb - plain_f, 0.0), lib_b, abs_bwd),
     ):
-        t_bytes, t_ops = flash_bound(q, k, seg, kind == "bwd")
+        t_bytes, t_ops = flash_bound(q, k, seg, kind == "bwd", window)
         bound_ms = max(t_bytes, t_ops)
         res[kind] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=lib_ms,
-            shape=f"B={B} T={T} Hq=12 Hkv=2 hd=128 bf16 segments "
-                  f"{[list(r) for r in rows]}",
+            library_ms=lib_ms, shape=shape, sdpa_kernels=sdpa_backend,
             **({"parts_ms": parts} if kind == "bwd" else {}),
+            **({"control": control} if kind == "fwd" else {}),
         )
         log(f"flash {name} {kind}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"SDPA {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
@@ -1625,9 +1730,13 @@ def compare_flash(name, B, T, rows, device, timing_iters=10, timed=True):
 
 
 def flash_phase(device, layouts=FLASH_LAYOUTS, timing_iters=10):
-    return {name: compare_flash(name, B, T, rows, device, timing_iters,
-                                timed=name in FLASH_TIMED)
-            for name, B, T, rows in layouts}
+    res = {}
+    for name, B, T, rows, heads in layouts:
+        tik = time.perf_counter()
+        res[name] = compare_flash(name, B, T, rows, heads, device,
+                                  timing_iters, timed=name in FLASH_TIMED)
+        log(f"flash {name}: {time.perf_counter() - tik:.1f} s")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3154,6 +3263,30 @@ def mistral_config(n_layers):
     return dataclasses.replace(cfg, n_layers=n_layers, dtype="bfloat16")
 
 
+def gemma_config(n_layers):
+    """Gemma-2B's published configuration (``google/gemma-2b``
+    ``config.json``: hidden 2048, MLP 16384, 8 query heads and 1 KV head
+    of 256, vocabulary 256000, gelu, tied embeddings, RMSNorm eps 1e-6,
+    RoPE base 10000, 18 layers) as ``transformers`` builds it, through the
+    port's HF registry, cut to ``n_layers`` layers, in bf16."""
+    import dataclasses
+
+    import transformers
+
+    from areal_tpu_torch.models.hf.registry import family_from_architecture
+
+    hf = transformers.GemmaConfig(
+        hidden_size=2048, intermediate_size=16384, num_hidden_layers=18,
+        num_attention_heads=8, num_key_value_heads=1, head_dim=256,
+        vocab_size=256000, hidden_act="gelu", rms_norm_eps=1e-6,
+        rope_theta=10000.0, max_position_embeddings=8192,
+        tie_word_embeddings=True,
+    ).to_dict()
+    hf["architectures"] = ["GemmaForCausalLM"]
+    cfg = family_from_architecture("GemmaForCausalLM").config_from_hf(hf)
+    return dataclasses.replace(cfg, n_layers=n_layers, dtype="bfloat16")
+
+
 def serving_features_phase(
     cfg, master, device, card, *, prompt_lens=FEAT_PROMPT_LENS,
     new_tokens=FEAT_NEW_TOKENS, max_batch=MAX_BATCH,
@@ -3198,8 +3331,8 @@ def serving_features_phase(
        engine on the same prompts, ``flash_decode`` launches against the
        dispatched decode steps; the Mistral-7B-v0.1 configuration at full
        width (``mistral_cfg``, random weights) with a prompt past its
-       window, on the window-gather path, against the plain windowed
-       forward."""
+       window, on the window-gather path, against the windowed forward
+       (the prefill's flash kernel with the window)."""
     import dataclasses
     import shutil
     import tempfile
@@ -3812,7 +3945,7 @@ def serving_features_phase(
     gap = _gap(np.asarray(mo.output_logprobs), plain_logprobs(mcfg))
     gap_global = _gap(np.asarray(mo.output_logprobs), plain_logprobs(
         dataclasses.replace(mcfg, sliding_window=None)))
-    if not _gap_gate("Mistral window-gather decode against the plain windowed "
+    if not _gap_gate("Mistral window-gather decode against the windowed "
                      "forward", gap, *window_tol, phase="features"):
         raise AssertionError("the window-gather path disagrees")
     if _gap_gate("control: the same tokens against the forward without the "
@@ -4995,10 +5128,10 @@ def sync_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
 
 # -- the training phase: SFT, DPO, the reward model, the options -----------
 
-def training_inputs(tmp, vocab):
+def training_inputs(tmp, vocab, sft_lens=SFT_LENS):
     """The training phase's data, in ``tmp``: :func:`async_inputs`'
     word-level tokenizer (one token a word), a ``prompt_answer`` jsonl with
-    one row per length of SFT_LENS (prompt + answer + EOS tokens, the
+    one row per length of ``sft_lens`` (prompt + answer + EOS tokens, the
     prompt a quarter of it) and an ``rw_pair`` jsonl with one row per
     ``(prompt words, ((chosen words, rejected words), ...))`` of
     PAIR_ROWS, the words drawn from numpy seed SEED.  Returns (tokenizer
@@ -5015,7 +5148,7 @@ def training_inputs(tmp, vocab):
 
     sft_path = os.path.join(tmp, "sft.jsonl")
     with open(sft_path, "w") as f:
-        for i, n in enumerate(SFT_LENS):
+        for i, n in enumerate(sft_lens):
             p = max(1, n // 4)
             f.write(json.dumps(dict(id=f"s{i}", prompt=words(p),
                                     answer=words(n - p - 1))) + "\n")
@@ -5030,7 +5163,7 @@ def training_inputs(tmp, vocab):
     return tok_dir, sft_path, pair_path
 
 
-def per_head_plain_attention(q, k, v, seg_ids):
+def per_head_plain_attention(q, k, v, seg_ids, window=None):
     """The flash wrapper's plain version (``reference_flash_attention``),
     one query head at a time: its float32 [B, 1, T, T] scores at T = 16384
     take 1 GiB a head instead of 12."""
@@ -5041,19 +5174,21 @@ def per_head_plain_attention(q, k, v, seg_ids):
     r = q.shape[2] // k.shape[2]
     return torch.cat([reference_flash_attention(
         q[:, :, h:h + 1], k[:, :, h // r:h // r + 1], v[:, :, h // r:h // r + 1],
-        seg_ids) for h in range(q.shape[2])], dim=2)
+        seg_ids, window=window) for h in range(q.shape[2])], dim=2)
 
 
 def train_route_check(engine, sample, mb_spec, token_key, control):
     """The first micro-batch of a train step, as the engine lays it out,
     through the model's forward three times under ``no_grad``: with the
-    flash kernels, with the plain attention, and, for ``control``, with
-    the kernels given every row as one segment (a fault that packing
-    shows: a token attends to the sequences before it in its row).  Per
-    real token, the relative L2 distance of the final hidden state to the
-    plain route's, and, for an actor, |logprob - plain| of each transition
-    inside a segment; their maxima for the kernels and the control.  The
-    launches here are not counted."""
+    flash kernels, with the plain attention (the model's window in it),
+    and with a ``control`` that must fail the gates: True, the kernels
+    given every row as one segment (a fault that packing shows: a token
+    attends to the sequences before it in its row), or ``"no_window"``,
+    the plain attention without the model's sliding window (a fault only
+    rows longer than the window show); a false one runs none.  Per real token, the relative L2 distance of the final hidden
+    state to the plain route's, and, for an actor, |logprob - plain| of
+    each transition inside a segment; their maxima for the kernels and
+    the control.  The launches here are not counted."""
     import torch
 
     from areal_tpu_torch.models.transformer import head_weight, hidden_states
@@ -5095,14 +5230,19 @@ def train_route_check(engine, sample, mb_spec, token_key, control):
 
     out = dict(kernel=distance(*route(fa)), rows=tuple(tokens.shape),
                segments=int(seg.amax(dim=1).sum()), tokens=int(real.sum()))
+    if control is True:
+        def wrong(q, k, v, s, window=None):
+            return fa(q, k, v, (s != 0).to(s.dtype), window=window)
+    elif control == "no_window":
+        def wrong(q, k, v, s, window=None):
+            return per_head_plain_attention(q, k, v, s)
+    elif control:
+        raise ValueError(f"unknown control {control!r}")
     if control:
-        def merged(q, k, v, s):
-            return fa(q, k, v, (s != 0).to(s.dtype))
-
         # the wrapper counts on the module's flash_attention, this function
         # while it stands there
-        merged.fwd_launches = merged.bwd_launches = 0
-        out["control"] = distance(*route(merged))
+        wrong.fwd_launches = wrong.bwd_launches = 0
+        out["control"] = distance(*route(wrong))
     fa.fwd_launches, fa.bwd_launches = c0
     return out
 
@@ -5527,6 +5667,296 @@ def training_phase(cfg, device, card, hf_dir):
                 runs={k: dict(s=v["s"], peak_gib=v["peak_gib"],
                               walls=[s["time_perf/e2e"] for s in v["hist"]])
                       for k, v in results.items()})
+
+
+# -- the family phase: Gemma (head_dim 256) and Mistral (a window) -------
+
+
+def family_arms():
+    """The family phase's arms: (name, HF family, config, SFT lengths,
+    route-check control: True for rows as one segment, ``"no_window"``
+    for the attention without the window; whether a short generation
+    runs)."""
+    return [
+        dict(name="gemma", family="gemma", cfg=gemma_config(GEMMA_LAYERS),
+             lens=GEMMA_SFT_LENS, control=True, generate=False),
+        dict(name="mistral", family="mistral",
+             cfg=mistral_config(MISTRAL_LAYERS), lens=MISTRAL_SFT_LENS,
+             control="no_window", generate=True),
+    ]
+
+
+def window_generation(cfg, master, device, *, prompt_len=WINDOW_GEN_PROMPT,
+                      new_tokens=WINDOW_GEN_NEW):
+    """One greedy generation of a sliding-window model through sync PPO's
+    dense-cache loop (``engine/generation.py generate_loop``: ``prefill``,
+    then ``decode_step``, whose card route gathers each layer's window for
+    ``flash_decode``) after a prompt longer than the window, on the bf16
+    serving copy of ``master``.  Gates: one flash forward launch a layer
+    (the prefill, windowed), one ``flash_decode`` launch a layer and
+    decode step; the generated tokens' logprobs against the teacher-forced
+    windowed forward (the flash kernel) within TOL_WINDOW_MEAN /
+    TOL_WINDOW_MAX, and the same tokens against the forward without the
+    window, the control, must fail them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.engine import generation as gen_mod
+    from areal_tpu_torch.engine.sampling import SamplingParams
+    from areal_tpu_torch.models.convert import serving_params
+    from areal_tpu_torch.ops import decode_attention as da
+    from areal_tpu_torch.ops import flash_attention as fa_mod
+
+    fa = fa_mod.flash_attention
+    params = serving_params(master, cfg)
+    (prompt,) = make_prompts(cfg.vocab_size, (prompt_len,), SEED + 95)
+    toks = torch.tensor([prompt], dtype=torch.long, device=device)
+    lens = torch.tensor([prompt_len], dtype=torch.int32, device=device)
+    c0 = (fa.fwd_launches, da.flash_decode.launches)
+    gen_mod.counters.decode_steps = 0
+    _sync(device)
+    tik = time.perf_counter()
+    out_t, out_l, n_gen, _ = gen_mod.generate_loop(
+        params, cfg, toks, lens, SEED, new_tokens, 0, (),
+        SamplingParams(greedy=True), cache_len=prompt_len + new_tokens)
+    _sync(device)
+    secs = time.perf_counter() - tik
+    steps = gen_mod.counters.decode_steps
+    got = (fa.fwd_launches - c0[0], da.flash_decode.launches - c0[1])
+    want = (cfg.n_layers, cfg.n_layers * steps)
+    n = int(n_gen[0])
+    served = out_l[0, :n].cpu().numpy()
+
+    def forced(c):
+        from types import SimpleNamespace
+
+        out = SimpleNamespace(prompt_ids=prompt,
+                              output_ids=out_t[0, :n].tolist())
+        return forced_logprobs(params, c, [out])
+
+    gap = _gap(served, forced(cfg))
+    gap_global = _gap(served, forced(dataclasses.replace(
+        cfg, sliding_window=None)))
+    log(f"family/mistral generation: a {prompt_len}-token prompt (window "
+        f"{cfg.sliding_window}), {n} greedy tokens in {secs:.2f} s through "
+        f"prefill and {steps} decode steps; flash forward / flash_decode "
+        f"launches {got} (expected {want})")
+    if got != want or n != new_tokens:
+        raise AssertionError(f"family/mistral generation: launches {got} "
+                             f"(expected {want}), {n} tokens")
+    window_tol = (TOL_WINDOW_MEAN, TOL_WINDOW_MAX)
+    if not _gap_gate("windowed decode_step against the windowed forward",
+                     gap, *window_tol, phase="family"):
+        raise AssertionError("the windowed decode step disagrees")
+    if _gap_gate("control: the same tokens against the forward without the "
+                 "window, which must fail", gap_global, *window_tol,
+                 phase="family"):
+        raise AssertionError("the window gate cannot tell a window from "
+                             "none")
+    del params
+    return dict(secs=secs, launches=dict(fwd=got[0], decode=got[1]),
+                gap=gap, gap_global=gap_global, tokens=n)
+
+
+def family_phase(device, card, arms=None, *, steps=FAMILY_SFT_STEPS,
+                 gen_kw=None):
+    """SFT of the families the flash kernel gained last, at their
+    published widths, through the port's entry point (``SFTExperiment``
+    from ``training/configs/sft.yaml``, ``run_experiment_local``, remat on)
+    from an HF directory that the port's own export (``save_hf_model``)
+    writes from seeded float32 weights: Gemma-2B (head_dim 256, 8 query
+    heads on 1 KV head) and Mistral-7B-v0.1 (window 4096) cut to
+    MISTRAL_LAYERS layers, each on one packed row (``pack_capacity`` its
+    tokens; Mistral's segments longer than the window), ``steps`` steps.
+    Gates per arm: finite losses; the first train micro-batch through
+    :func:`train_route_check` within TOL_TRAIN_HIDDEN / TOL_FAMILY_LOGPROB
+    of the plain attention, and the arm's control (Gemma: rows as one
+    segment; Mistral: the plain attention without the window) outside
+    both; the run's flash launches equal to 2 forward and 1 backward a
+    layer and micro-batch (remat ``none``).  The Mistral arm first runs
+    :func:`window_generation` on the same seeded weights.  Reports each
+    arm's export, step walls, peak memory, launches and first loss."""
+    import gc
+
+    import torch
+
+    from areal_tpu_torch.api.cli_args import parse_cli
+    from areal_tpu_torch.apps.local_runner import run_experiment_local
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.engine.train_engine import TrainEngine
+    from areal_tpu_torch.experiments.sft_exp import SFTExperiment
+    from areal_tpu_torch.models.hf.registry import save_hf_model
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.ops import flash_attention as fa_mod
+    from areal_tpu_torch.system import model_worker as mw
+
+    arms = family_arms() if arms is None else arms
+    tag = "family"
+    t_phase = time.perf_counter()
+    fa = fa_mod.flash_attention
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_family_")
+    env0 = {k: os.environ.get(k) for k in ("AREAL_LOG_ROOT", "AREAL_SAVE_ROOT")}
+    os.environ["AREAL_LOG_ROOT"] = os.path.join(tmp, "logs")
+    os.environ["AREAL_SAVE_ROOT"] = os.path.join(tmp, "save")
+    name_resolve.reconfigure("memory")
+    sft_yaml = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "training", "configs", "sft.yaml")
+    originals, mfcs, checks = [], [], {}
+    current = {}
+
+    def patch(owner, name, make):
+        orig = getattr(owner, name)
+        originals.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def on_rpc(orig):
+        def f(self, req):
+            c0 = (fa.fwd_launches, fa.bwd_launches)
+            out = orig(self, req)
+            if req.data["handle_name"] == "train_step":
+                mfcs.append(dict(
+                    arm=current["name"], n_mbs=int(out["stats"]["n_mbs"]),
+                    delta=(fa.fwd_launches - c0[0], fa.bwd_launches - c0[1])))
+            return out
+        return f
+
+    def on_train_batch(orig):
+        def f(self, sample, loss_fn, mb_spec, token_key="packed_input_ids"):
+            name = current["name"]
+            if name not in checks:
+                checks[name] = train_route_check(
+                    self, sample, mb_spec, token_key,
+                    control=current["control"])
+            return orig(self, sample, loss_fn, mb_spec, token_key)
+        return f
+
+    def within(d):
+        return (d["hidden"] <= TOL_TRAIN_HIDDEN
+                and d.get("logprob", 0.0) <= TOL_FAMILY_LOGPROB)
+
+    results = {}
+    launches = dict(fwd=0, bwd=0, decode=0)
+    try:
+        patch(mw.ModelWorker, "_handle_model_rpc", on_rpc)
+        patch(TrainEngine, "train_batch", on_train_batch)
+        for arm in arms:
+            name, cfg, lens = arm["name"], arm["cfg"], arm["lens"]
+            current.update(name=name, control=arm["control"])
+            res = results[name] = {}
+            adir = os.path.join(tmp, name)
+            master = init_params(cfg, SEED, device, dtype=torch.float32)
+            n_params = sum(t.numel() for t in _leaves(master))
+            if arm["generate"]:
+                res["generation"] = window_generation(cfg, master, device,
+                                                      **(gen_kw or {}))
+                launches["fwd"] += res["generation"]["launches"]["fwd"]
+                launches["decode"] += res["generation"]["launches"]["decode"]
+            tik = time.perf_counter()
+            save_hf_model(os.path.join(adir, "hf"), arm["family"], cfg,
+                          master)
+            res["export_s"] = time.perf_counter() - tik
+            res["export_bytes"] = _dir_bytes(os.path.join(adir, "hf"))
+            del master
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            tok_dir, sft_path, _ = training_inputs(adir, cfg.vocab_size,
+                                                   sft_lens=lens)
+            pack = sum(lens)
+            exp = parse_cli(SFTExperiment, [
+                "--config", sft_yaml, "mesh_spec=d1",
+                "experiment_name=chipsmoke-family", f"trial_name={name}",
+                f"tokenizer_path={tok_dir}",
+                f"model.args.path={os.path.join(adir, 'hf')}",
+                f"dataset.args.dataset_path={sft_path}",
+                f"dataset.args.max_length={max(lens)}",
+                f"train_bs_n_seqs={len(lens)}", f"optimizer.lr={SFT_LR}",
+                f"mb_spec.max_tokens_per_mb={pack}",
+                f"exp_ctrl.total_train_epochs={steps}",
+                f"exp_ctrl.benchmark_steps={steps}",
+                "exp_ctrl.save_freq_steps=null",
+                "exp_ctrl.ckpt_freq_steps=null"]
+                + (["force_cpu_devices=1"] if device.type == "cpu" else []))
+            xcfg = exp.initial_setup()
+            for w in xcfg.model_workers:
+                for sh in w.shards:
+                    if sh.backend.type_ == "train":
+                        sh.backend.args["pack_capacity"] = pack
+            c0 = (fa.fwd_launches, fa.bwd_launches)
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            tik = time.perf_counter()
+            hist = run_experiment_local(xcfg, timeout=900.0).stats_history
+            res["run_s"] = time.perf_counter() - tik
+            res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                               if device.type == "cuda" else 0.0)
+            got = (fa.fwd_launches - c0[0], fa.bwd_launches - c0[1])
+            recs = [r for r in mfcs if r["arm"] == name]
+            want = (sum(2 * cfg.n_layers * r["n_mbs"] for r in recs),
+                    sum(cfg.n_layers * r["n_mbs"] for r in recs))
+            launches["fwd"] += got[0]
+            launches["bwd"] += got[1]
+            losses = [h["trainDefault/loss"] for h in hist]
+            walls = [h["time_perf/e2e"] for h in hist]
+            chk = checks.get(name)
+            res.update(losses=losses, walls=walls, launches=got, check=chk,
+                       n_params=n_params, layers=cfg.n_layers,
+                       tokens=sum(lens))
+            log(f"{tag}/{name}: {cfg.n_layers} layers, hidden "
+                f"{cfg.hidden_dim}, heads {cfg.n_q_heads}/{cfg.n_kv_heads} "
+                f"of {cfg.head_dim}, window {cfg.sliding_window}, vocabulary "
+                f"{cfg.vocab_size}: {n_params / 1e9:.3f} B parameters "
+                f"(random, seed {SEED}), exported as a {arm['family']} HF "
+                f"directory ({res['export_bytes'] / 1e9:.3f} GB float32) in "
+                f"{res['export_s']:.1f} s; SFT on one packed row of "
+                f"{sum(lens)} tokens (segments {list(lens)}): {len(hist)} "
+                f"steps in {res['run_s']:.1f} s (model load included); step "
+                f"walls {[round(w, 3) for w in walls]} s; losses "
+                f"{[f'{l:.6f}' for l in losses]}; peak device memory "
+                f"{res['peak_gib']:.2f} GiB; flash launches fwd/bwd {got} "
+                f"(expected {want}); first micro-batch {chk and chk['rows']} "
+                f"against the plain attention: kernels "
+                f"{chk and chk['kernel']}, control ("
+                f"{'segments' if arm['control'] is True else arm['control']}) "
+                f"{chk and chk.get('control')} (tol hidden "
+                f"{TOL_TRAIN_HIDDEN}, logprob {TOL_FAMILY_LOGPROB}), on {card}")
+            if len(hist) != steps or not all(math.isfinite(l)
+                                             for l in losses):
+                raise AssertionError(f"{tag}/{name}: losses {losses}")
+            if got != want:
+                raise AssertionError(f"{tag}/{name}: flash launches {got}, "
+                                     f"expected {want}")
+            if chk is None or not within(chk["kernel"]):
+                raise AssertionError(f"{tag}/{name}: the kernels against "
+                                     f"the plain attention: {chk}")
+            ctl = chk["control"]
+            if (ctl["hidden"] <= TOL_TRAIN_HIDDEN
+                    or ctl.get("logprob", 1.0) <= TOL_FAMILY_LOGPROB):
+                raise AssertionError(f"{tag}/{name}: the control {ctl} "
+                                     "passes a gate")
+            shutil.rmtree(adir, ignore_errors=True)
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        for owner, attr, orig in reversed(originals):
+            setattr(owner, attr, orig)
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"{tag}: phase {secs:.1f} s ("
+        + ", ".join(f"{k}: export {r['export_s']:.1f}, SFT {r['run_s']:.1f}"
+                    + (f", generation {r['generation']['secs']:.1f}"
+                       if "generation" in r else "")
+                    for k, r in results.items())
+        + f" s), on {card}")
+    return dict(arms=results, launches=launches, phase_s=secs)
 
 
 # -- the processes phase: one process per worker ---------------------------
@@ -6536,6 +6966,12 @@ def main() -> int:
         log(f"training phase done at {time.perf_counter() - t_start:.1f} s; "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
             f"after it")
+        family = family_phase(device, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"family phase done at {time.perf_counter() - t_start:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+            f"after it")
         loop = async_ppo_phase(cut_cfg, device, card, cut_dir,
                                train_bs=LOOP_TRAIN_BS,
                                new_tokens=LOOP_NEW_TOKENS, steps=LOOP_STEPS,
@@ -6554,7 +6990,7 @@ def main() -> int:
 
     entries = kernel_entries(kern, long_kern, eng, long_launches, flash,
                              train, prefix, server, hf, sync, training, loop,
-                             procs, features)
+                             procs, features, family)
     if parent is not None:
         torch.cuda.empty_cache()
         parent_ab(parent)
@@ -6575,16 +7011,18 @@ def main() -> int:
 
 
 def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
-                   hf, sync, training, loop, procs, features):
+                   hf, sync, training, loop, procs, features, family):
     """The ``{"kernels": [...]}`` line's entries: every kernel, with its
     launches on the main paths (the engine's greedy wave, the long-context
     arms, the prefix-cache phase, the generation server, the server that
     swapped in the HF directory and the async-PPO loop; sync PPO's
     generation for ``flash_decode``; the trainer's steps, sync PPO's, the
     training phase's (SFT, DPO, rw and the options arm, remat recomputes
-    included) and the loop's for the flash kernels), its comparison's
-    largest absolute
-    error, and its time, plain time and bound at its main-path shape."""
+    included), the family phase's SFT of Gemma and Mistral, its windowed
+    generation, and the loop's for the flash kernels), its comparison's
+    largest absolute error, and its time, plain time and bound at its
+    main-path shape (the flash kernels also at head_dim 256 and with a
+    window)."""
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "shape")
 
     def entry(name, source, replaces, launches, err, main, **extra):
@@ -6675,19 +7113,23 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
               decode={k: kern["deep_int8_decode"][k] for k in timed},
               prefill={k: kern["deep_int8_prefill"][k] for k in timed}),
         entry("flash_decode", deep_src, "areal_tpu/ops/decode_attention.py:150",
-              sync["launches"]["decode"] + features["launches"]["flash_decode"],
+              sync["launches"]["decode"] + features["launches"]["flash_decode"]
+              + family["launches"]["decode"],
               max(long_kern["flash_decode"]["max_abs_err"],
                   sync["flash_decode"]["max_abs_err"]),
               sync["flash_decode"],
               launches_by_path=dict(
                   sync_ppo=sync["launches"]["decode"],
-                  dense_serving=features["launches"]["flash_decode"]),
+                  dense_serving=features["launches"]["flash_decode"],
+                  window_decode_step=family["launches"]["decode"]),
               long={k: long_kern["flash_decode"][k]
                     for k in timed + ("library_ms",)},
               note="library_ms is scaled_dot_product_attention on the same "
                    "full rows"),
     ]
     feat_fa = dict(fwd=features["launches"]["flash_fwd"], bwd=0)
+    shape_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms", "sdpa_kernels")
     for kind in ("fwd", "bwd"):
         main_shape, long_shape = flash["packed"][kind], flash["long"][kind]
         entries.append(dict(
@@ -6697,21 +7139,25 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
             replaces="areal_tpu/ops/flash_attention.py:36",
             launches=(train["launches"][kind] + sync["launches"][kind]
                       + training["launches"][kind] + loop["launches"][kind]
-                      + procs["launches"][kind] + feat_fa[kind]),
+                      + procs["launches"][kind] + feat_fa[kind]
+                      + family["launches"][kind]),
             launches_by_path=dict(train=train["launches"][kind],
                                   sync_ppo=sync["launches"][kind],
                                   training=training["launches"][kind],
                                   async_ppo=loop["launches"][kind],
                                   async_ppo_processes=procs["launches"][kind],
-                                  dense_serving=feat_fa[kind]),
+                                  dense_serving=feat_fa[kind],
+                                  family_phase=family["launches"][kind]),
             max_abs_err=max(r[kind]["max_abs_err"] for r in flash.values()),
-            **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms", "shape")},
-            long={k: long_shape[k] for k in ("shape", "ms", "plain_ms",
-                                             "bound_ms", "bound_by",
-                                             "library_ms")},
+            **{k: main_shape[k] for k in shape_keys},
+            long={k: long_shape[k] for k in shape_keys},
+            **{name: {k: flash[name][kind][k] for k in shape_keys}
+               for name in ("hd256_packed", "hd256_long", "window_long")},
             **({"parts_ms": main_shape["parts_ms"],
-                "long_parts_ms": long_shape["parts_ms"]}
+                "long_parts_ms": long_shape["parts_ms"],
+                **{f"{name}_parts_ms": flash[name][kind]["parts_ms"]
+                   for name in ("hd256_packed", "hd256_long",
+                                "window_long")}}
                if kind == "bwd" else {}),
         ))
     return entries

@@ -129,9 +129,12 @@ def test_chunk_wider_than_the_window_is_refused():
 
 
 def test_windowed_prompt_attention_is_the_masked_product():
-    """A card's sliding-window prefill of an empty cache (query blocks,
-    each over the keys it can see) equals the reference's masked
-    attention at every real query."""
+    """A card's sliding-window prefill of an empty cache (the flash
+    kernel's wrapper over the prompt with the window; its plain version
+    here) equals the reference's masked attention over the cache at every
+    real query."""
+    from areal_tpu_torch.ops.flash_attention import flash_attention
+
     rng = np.random.default_rng(2)
     B, T, Hq, Hkv, hd, window = 2, 37, 4, 2, 8, 10
     q = torch.from_numpy(rng.standard_normal((B, T, Hq, hd)).astype(
@@ -144,7 +147,8 @@ def test_windowed_prompt_attention_is_the_masked_product():
     mask = ((kv_pos <= pos[:, :, None]) & (seg != 0)[:, :, None]
             & (pos[:, :, None] - kv_pos < window))
     want = tt.cache_attention(q, k, v, mask)
-    got = tt.windowed_prompt_attention(q, k, v, pos, seg, window, block=8)
+    got = flash_attention(q, k.transpose(1, 2).contiguous(),
+                          v.transpose(1, 2).contiguous(), seg, window=window)
     real = seg.bool()
     np.testing.assert_allclose(got[real].numpy(), want[real].numpy(),
                                rtol=1e-5, atol=1e-5)

@@ -9,9 +9,10 @@ logprobs to 1e-4, with a stop token, ``min_new_tokens`` and group
 expansion (the cases of ``tests/engine/test_generation.py``), and
 ``generate_for_sample``'s four keys are equal.  A card's attention paths
 (``flash_decode`` for decode, the flash kernel for the prefill of an empty
-cache) compute, in their plain versions, what the CPU's masked product
-does; and a card refuses what they do not cover (a non-empty cache's
-prefill, a sliding window) before any launch.
+cache, the window gather for a sliding-window decode step) compute, in
+their plain versions, what the CPU's masked product does; and a card
+refuses what they do not cover (a non-empty cache's prefill) before any
+launch.
 """
 
 import jax
@@ -132,6 +133,45 @@ def test_prefill_and_decode_match_the_jax_package(window):
                         _t(seg2), tc)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
     _close_cache(tc, jc)
+
+
+@pytest.mark.parametrize("window,S,lens", [(6, 64, (20, 9, 3)),
+                                           (130, 320, (200, 140, 5))],
+                         ids=["window6", "window130"])
+def test_window_decode_route_is_the_reference_windowed_step(window, S, lens,
+                                                             monkeypatch):
+    """A card's sliding-window decode step (each layer's window gathered
+    newest first into ``flash_decode``'s prefix, ``window_decode_attention``;
+    its plain version here) gives the JAX package's windowed
+    ``decode_step`` logits and cache to 1e-4, for rows longer and shorter
+    than the window, a window under 128 slots and one over it."""
+    jcfg, jp, cfg, tp = _pair(sliding_window=window)
+    prompts = _prompts(lens, seed=4)
+    toks, pos, seg, _ = _padded(prompts, max(lens))
+    jc = jt.KVCache.zeros(jcfg, len(lens), S)
+    tc = tt.KVCache.zeros(cfg, len(lens), S, device="cpu")
+    _, jc = jt.prefill(jp, jcfg, toks, pos, seg, jc)
+    _, tc = tt.prefill(tp, cfg, _t(toks, torch.long), _t(pos, torch.long),
+                       _t(seg), tc)
+    routed = []
+
+    def card_route(q, k, v, mask):
+        # the query's position is its row's last attendable slot
+        slots = torch.arange(k.shape[2])
+        lengths = (mask[:, 0] * slots).amax(dim=-1).to(torch.int32)
+        routed.append(q.shape[0])
+        return tt.window_decode_attention(q, k, v, lengths, window)
+
+    monkeypatch.setattr(tt, "cache_attention", card_route)
+    rng = np.random.default_rng(5)
+    for step in range(3):
+        nxt = rng.integers(1, VOCAB, len(lens)).astype(np.int32)
+        jl, jc = jt.decode_step(jp, jcfg, jnp.asarray(nxt), jc)
+        tl, tc = tt.decode_step(tp, cfg, _t(nxt), tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                                   atol=TOL, err_msg=f"step {step}")
+        _close_cache(tc, jc)
+    assert len(routed) == 3 * cfg.n_layers
 
 
 def test_prefill_last_pos_gives_each_rows_last_logits(models):
@@ -354,11 +394,12 @@ def _counted(monkeypatch):
                                   "window_prefill"])
 def test_a_card_refuses_before_any_launch(what, monkeypatch):
     """Off the CPU (``meta`` tensors stand for a card's here), a prefill
-    into a written cache and a sliding-window decode step are refused by
-    name before any kernel wrapper is called.  A sliding-window prompt's
-    prefill is served there by the reference's masked attention in query
-    blocks (the flash kernel has no window), which calls no kernel
-    wrapper either."""
+    into a written cache is refused by name before any kernel wrapper is
+    called.  A sliding-window model goes to the kernels there: its
+    prompt's prefill to the flash forward's wrapper (with the window), its
+    decode step to ``flash_decode``'s over the gathered window, and each
+    wrapper refuses a tensor that is not on a card rather than compute
+    the plain product."""
     calls = _counted(monkeypatch)
     cfg, p = _meta_model(sliding_window=4 if "window" in what else None)
     cache = tt.KVCache.zeros(cfg, 2, 64, device="meta")
@@ -369,13 +410,15 @@ def test_a_card_refuses_before_any_launch(what, monkeypatch):
         cache.empty = False
         with pytest.raises(NotImplementedError, match="non-empty KV cache"):
             tt.prefill(p, cfg, toks, pos, seg, cache)
+        assert calls == []
     elif what == "window_decode":
-        with pytest.raises(NotImplementedError, match="sliding_window 4"):
+        with pytest.raises(RuntimeError, match="CUDA tensors"):
             tt.decode_step(p, cfg, toks[:, 0], cache)
+        assert calls == ["_launch"]
     else:
-        logits, _ = tt.prefill(p, cfg, toks, pos, seg, cache)
-        assert tuple(logits.shape) == (2, 4, cfg.vocab_size)
-    assert calls == []
+        with pytest.raises(RuntimeError, match="CUDA tensors"):
+            tt.prefill(p, cfg, toks, pos, seg, cache)
+        assert calls == ["_launch_fwd"]
 
 
 def test_a_card_goes_to_the_kernels_and_never_falls_back(monkeypatch):

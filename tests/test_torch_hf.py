@@ -375,37 +375,35 @@ def test_make_model_hf_refusals(hf, args, err, what, tmp_path, monkeypatch):
 
 def test_training_at_head_dim_256_is_refused_on_a_card(tmp_path,
                                                        monkeypatch):
-    """Gemma's head_dim of 256 is served (the paged kernel builds it) but
-    not trained on a card: the flash kernels build 64 and 128."""
+    """Gemma's head_dim of 256 is trained on a card now (the flash kernels
+    build 64, 128 and 256): a trainer's card load gets as far as the read,
+    as a server's and the CPU's do."""
+    from areal_tpu_torch.ops.flash_attention import HEAD_DIMS
+
+    assert 256 in HEAD_DIMS
     path = _config_dir(tmp_path, architectures=["GemmaForCausalLM"],
                        hidden_size=512, num_attention_heads=2,
                        num_key_value_heads=1, head_dim=256)
     _no_read(monkeypatch)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     gemma = ModelAbstraction("hf", {"path": path})
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
-        backend.make_model(gemma, None, device="cuda", dtype=torch.float32)
-    # a server, and a trainer on the CPU, get as far as the read
-    for device, dtype in (("cuda", None), ("cpu", torch.float32)):
+    for device, dtype in (("cuda", torch.float32), ("cuda", None),
+                          ("cpu", torch.float32)):
         with pytest.raises(AssertionError, match="read"):
             backend.make_model(gemma, None, device=device, dtype=dtype)
 
 
-
 def test_sliding_window_training_is_refused_on_a_card(tmp_path, monkeypatch):
-    """The flash kernel has no window, and the masked dense path is only
-    the CPU's: a trainer's load of a sliding-window model on a card is
-    refused before the read; a server's load and the CPU's get as far as
-    the read (the paged engine refuses to serve it)."""
+    """The flash kernel takes the window now: a trainer's load of a
+    sliding-window model on a card gets as far as the read, as a server's
+    load and the CPU's do."""
     path = _config_dir(tmp_path, architectures=["MistralForCausalLM"],
                        sliding_window=4)
     _no_read(monkeypatch)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     mistral = ModelAbstraction("hf", {"path": path})
-    with pytest.raises(NotImplementedError,
-                       match="window in the flash kernel's index mask"):
-        backend.make_model(mistral, None, device="cuda", dtype=torch.float32)
-    for device, dtype in (("cuda", None), ("cpu", torch.float32)):
+    for device, dtype in (("cuda", torch.float32), ("cuda", None),
+                          ("cpu", torch.float32)):
         with pytest.raises(AssertionError, match="read"):
             backend.make_model(mistral, None, device=device, dtype=dtype)
 

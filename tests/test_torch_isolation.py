@@ -91,8 +91,8 @@ SYNC_MODULES = [
 ]
 
 #: the rest of the training surface: SFT, DPO, reward-model and null
-#: experiments, their datasets and interfaces, the optimizer options and
-#: the remat policies
+#: experiments, their datasets and interfaces, the optimizer options, the
+#: remat policies and the card-only tool that times the flash kernels
 TRAINING_MODULES = [
     f"areal_tpu_torch.{m}" for m in (
         "data", "data.prompt_answer_dataset", "data.rw_paired_dataset",
@@ -102,6 +102,7 @@ TRAINING_MODULES = [
         "experiments.dpo_exp", "experiments.rm_exp", "experiments.null_exp",
         "apps.main_sft", "apps.main_dpo", "engine.optimizer",
         "engine.train_engine", "models.remat", "tools.training_rehearsal",
+        "tools.flash_ab",
     )
 ]
 

@@ -273,11 +273,11 @@ def test_remat_policy_recomputes_what_it_names(policy, monkeypatch):
     calls = []
     plain = fa_mod.flash_attention
 
-    def flash(*a):
+    def flash(*a, **kw):
         calls.append(1)
         inside.append(1)
         try:
-            return plain(*a)
+            return plain(*a, **kw)
         finally:
             inside.pop()
 
