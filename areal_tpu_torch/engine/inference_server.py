@@ -75,11 +75,26 @@ Design, as in the reference:
   admission wave, group prompts prefilled once, and decode chunks of
   ``models/transformer.py decode_chunk``, whose main-cache attention is
   the ``flash_decode`` kernel on a card.
+* Prefill/decode disaggregation (paged): a request whose metadata names
+  ``handoff_to`` parks right after its fill and first token, and its KV
+  leaves as a handoff unit (:meth:`ContinuousBatchingEngine.export_handoff`
+  / :meth:`~ContinuousBatchingEngine.import_handoff`) or, with
+  ``handoff_streaming``, as numbered segments exported as each fill chunk
+  completes (:meth:`~ContinuousBatchingEngine.drain_handoff_segments` /
+  :meth:`~ContinuousBatchingEngine.import_handoff_segment`); the decode
+  peer parks the row, and the continuation resumes there with no
+  prefill.  A request whose metadata names ``kv_source`` (a peer owning a
+  longer cached prefix) pulls that prefix
+  (:meth:`~ContinuousBatchingEngine.export_prefix` /
+  :meth:`~ContinuousBatchingEngine.import_prefix_segment`) instead of
+  prefilling it.  Every import fails closed on a version, layout or
+  sequence mismatch, a dead peer (a step-keyed TTL) or pool pressure,
+  giving back every block it took.  Payloads are host tensors (an int8
+  pool's bytes with their scales), bit-identical through the import.
 
 Left out so far, each rejected explicitly where a caller could ask for it:
-P/D handoff and fleet prefix pulls (ROADMAP.md queue 1, item 8), token
-streams (item 11), tensor-parallel meshes (item 10), MoE models, and the
-HBM ledger.
+token streams (ROADMAP.md queue 1, item 11), tensor-parallel meshes (item
+10), MoE models, and the HBM ledger.
 """
 
 from __future__ import annotations
@@ -121,6 +136,29 @@ def _qid_seed(qid: str) -> int:
     """Per-request sampler-key identity: deterministic across processes and
     unique per request."""
     return zlib.crc32(qid.encode()) & 0x7FFFFFFF
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _wire_payload(seg: Dict[str, Any]) -> Tuple[torch.Tensor, ...]:
+    """A segment's payload once its bytes are on the host: an exported
+    segment's copies may still be in flight on the card (its ``ready``
+    event is waited for)."""
+    ready = seg.get("ready")
+    if ready is not None:
+        ready.synchronize()
+    return tuple(seg.get("payload") or ())
+
+
+def wire_segment(seg: Dict[str, Any]) -> Dict[str, Any]:
+    """An exported segment as it goes over the wire: its payload's copies
+    waited for, without the local ``ready`` event and ``dest`` routing
+    key.  The payload stays host torch tensors, which pickle carries."""
+    wire = {k: v for k, v in seg.items() if k not in ("ready", "dest")}
+    wire["payload"] = _wire_payload(seg)
+    return wire
 
 
 def _not_ported(what: str, item: Optional[int] = None) -> NotImplementedError:
@@ -280,6 +318,7 @@ class ContinuousBatchingEngine:
         spec_decode_params=None,
         slo_tracking: bool = True,
         handoff_streaming: bool = False,
+        prefix_pull_min_tokens: int = 256,
         mesh=None,
         server_name: str = "",
         tokenizer=None,
@@ -332,9 +371,18 @@ class ContinuousBatchingEngine:
         :meth:`slo_stats`); ``server_name`` labels them.  A ``tokenizer``'s
         EOS token joins ``stop_tokens``.
 
-        Refused with ``NotImplementedError``: ``handoff_streaming=True``
-        (P/D handoff, ROADMAP.md queue 1, item 8) and ``mesh`` (item
-        10)."""
+        ``handoff_streaming`` (paged) streams a handoff row's KV to its
+        decode peer as the fill goes: each fill chunk's newly full blocks
+        are gathered (one coalesced buffer a segment) and queued for export
+        (:meth:`drain_handoff_segments`), and the final segment carries the
+        tail block, the first token and the request's state, so the decode
+        side's resume gap is one chunk, not the whole prompt.  Off, the
+        whole row leaves at once (:meth:`export_handoff`).
+        ``prefix_pull_min_tokens`` is the least prefix gap (a peer's cached
+        prefix beyond the local match) worth a pull instead of a prefill.
+
+        Refused with ``NotImplementedError``: ``mesh`` (ROADMAP.md queue
+        1, item 10)."""
         if cache_mode not in ("auto", "dense", "paged"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
         self.dispatch_table = dispatch_table or PagedDispatchTable()
@@ -365,9 +413,6 @@ class ContinuousBatchingEngine:
                 "serving_weight_dtype must be 'auto' or 'int8', got "
                 f"{serving_weight_dtype!r}"
             )
-        if handoff_streaming:
-            raise _not_ported("streamed P/D KV handoff (handoff_streaming=True)",
-                              item=8)
         if mesh is not None:
             raise _not_ported("tensor-parallel serving (mesh)", item=10)
         if pipeline_depth < 1:
@@ -537,6 +582,42 @@ class ContinuousBatchingEngine:
         self.aborted_fills_total = 0
         # preemptions by the victim's priority class
         self.preempted_by_class: Dict[str, int] = {}
+
+        # prefill/decode disaggregation: exports (the prefill role),
+        # imports and their rejects by reason (the decode role), payload
+        # bytes and host seconds on both sides
+        self.handoff_exports_total = 0
+        self.handoff_imports_total = 0
+        self.handoff_bytes_total = 0
+        self.handoff_seconds_total = 0.0
+        self.handoff_import_rejects: Dict[str, int] = {}
+        # the streamed handoff: segments exported and imported, and
+        # streams the exporter cut short (EOS at the first token, a
+        # weight swap restarting the fill)
+        self._handoff_streaming = bool(handoff_streaming)
+        self.handoff_segment_exports_total = 0
+        self.handoff_segment_imports_total = 0
+        self.handoff_segment_aborts_total = 0
+        #: outbound segments (the engine appends, the server drains and
+        #: pushes each stream in order)
+        self._handoff_segments: List[Dict[str, Any]] = []
+        #: export state per streaming qid: {dest, seq, exported}
+        self._handoff_streams: Dict[str, Dict[str, Any]] = {}
+        #: import side, streams partly received: qid -> {blocks, next_seq,
+        #: received, version, step, total}.  The record owns its blocks
+        #: until the final segment parks the row or a failure frees them;
+        #: the TTL bounds how long a dead peer's half-stream holds them
+        self._handoff_pending: Dict[str, Dict[str, Any]] = {}
+        self.handoff_pending_ttl_steps = 512
+        # peer prefix pulls (the puller's side): one record per qid,
+        # requested -> pulling -> done | failed; intents wait in
+        # _prefix_pull_requests until the server drains them
+        self.prefix_pull_min_tokens = max(1, int(prefix_pull_min_tokens))
+        self._prefix_pulls: Dict[str, Dict[str, Any]] = {}
+        self._prefix_pull_requests: List[Dict[str, Any]] = []
+        self.prefix_peer_pulls_total = 0
+        self.prefix_peer_pull_bytes_total = 0
+        self.prefix_peer_pull_rejects: Dict[str, int] = {}
 
     # -- paged-cache state ----------------------------------------------------
 
@@ -848,13 +929,661 @@ class ContinuousBatchingEngine:
             return RadixPrefixCache.zero_stats()
         return self._prefix_cache.stats()
 
+    # -- prefill/decode disaggregation: the KV handoff ---------------------------
+
+    def _payload_fits(self, payload, n: int) -> bool:
+        """Does ``payload`` (one tensor per pool component, ``n`` blocks)
+        fit this pool's components, block geometry and dtypes?"""
+        parts = paged._pool_parts(self.k_pool, self.v_pool, self.k_scale,
+                                  self.v_scale)
+        return (
+            len(payload) == len(parts)
+            and all(c.shape[0] == n and c.dtype == p.dtype
+                    and tuple(c.shape[1:]) == tuple(p.shape[:1] + p.shape[2:])
+                    for c, p in zip(payload, parts))
+        )
+
+    def export_handoff(self, qid: str) -> Optional[Dict[str, Any]]:
+        """The prefill role's half of a handoff: a PARKED row's state and
+        every one of its pool blocks gathered to host tensors (an int8
+        pool's bytes with their scales, bit-identical on restore).  The row
+        is released; its blocks stay only through the prefix cache's own
+        references (the park inserted them), so a sibling landing here
+        later still reuses the prefix.  None when no parked row carries
+        ``qid`` (a weight swap or the TTL released it: the decode side
+        prefills) or on a dense engine."""
+        if not self.paged:
+            return None
+        for row_id, row in enumerate(self.rows):
+            if row is None or not row.parked or row.req.qid != qid:
+                continue
+            blocks = list(self._row_blocks[row_id])
+            if not blocks:
+                return None
+            tik = time.perf_counter()
+            payload = paged.gather_blocks_host(
+                self.k_pool, self.v_pool, blocks, self.k_scale, self.v_scale
+            )
+            unit = {
+                "qid": qid,
+                "req": row.req,
+                "prompt": list(row.prompt),
+                "generated": list(row.generated),
+                "logprobs": list(row.logprobs),
+                # the weights this KV was computed under: the importer must
+                # serve the same version or fail closed
+                "version": self.version,
+                "page_size": self.page_size,
+                "kv_cache_dtype": self.kv_cache_dtype,
+                "payload": payload,
+            }
+            self._release_row(row_id)
+            n_bytes = _nbytes(payload)
+            self.handoff_exports_total += 1
+            self.handoff_bytes_total += n_bytes
+            self.handoff_seconds_total += time.perf_counter() - tik
+            self.tracer.event(
+                qid, "engine.handoff_export", row=row_id, blocks=len(blocks),
+                bytes=n_bytes, version=self.version,
+            )
+            return unit
+        return None
+
+    def _reject_handoff(self, qid: str, reason: str) -> Tuple[bool, str]:
+        self.handoff_import_rejects[reason] = (
+            self.handoff_import_rejects.get(reason, 0) + 1
+        )
+        self.tracer.event(qid, "engine.handoff_import", ok=False,
+                          reason=reason)
+        logger.info("handoff import of %s rejected: %s", qid, reason)
+        return False, reason
+
+    def _free_row_for_import(self) -> Optional[int]:
+        """A row slot for an imported row: a free one, else the longest
+        parked one whose continuation is not queued, else any parked one.
+        Live work is never evicted for an import (its fallback is a plain
+        prefill)."""
+        rid = next((i for i, r in enumerate(self.rows) if r is None), None)
+        if rid is None:
+            with self._lock:
+                queued = {r.qid for r in self._pending}
+            rid = self._evict_parked(keep_qids=queued)
+        if rid is None:
+            rid = self._evict_parked()
+        return rid
+
+    def _park_imported(self, req, prompt, generated, logprobs, blocks,
+                       rid: int):
+        """Make an imported row parked in slot ``rid`` on ``blocks``: its
+        continuation resumes through :meth:`_try_resume` with no prefill.
+        The pool holds KV for everything but the pending last token, and
+        the prefix enters the radix cache."""
+        row = _Row(
+            req=req, prompt=prompt, generated=generated,
+            logprobs=list(logprobs), version_start=self.version, no_eos=True,
+            cur_token=int(generated[-1]), parked=True,
+            park_step=self._step_seq,
+        )
+        self._epoch_counter += 1
+        row.epoch = self._epoch_counter
+        self.rows[rid] = row
+        self._set_row_blocks(rid, blocks)
+        self._set_rows("kv_lengths", [rid], [len(prompt) + len(generated) - 1])
+        self._cache_insert((prompt + generated)[:-1], blocks)
+
+    def import_handoff(self, unit: Dict[str, Any]) -> Tuple[bool, str]:
+        """The decode role's half: scatter a handoff unit's payload into
+        freshly allocated blocks (one batched copy, enqueued behind the
+        decode chunks) and park the row, so the continuation (routed here
+        by the manager) resumes with no prefill; the prefix also enters
+        this engine's radix cache.  Fails closed, giving back what it took:
+        a unit computed under another weight version (``version``), a
+        mismatch of page size, dtype, context or block geometry
+        (``layout``), no generated token (``empty``), no row (``capacity``)
+        or no blocks (``pool``) for it.  Returns ``(ok, reason)``."""
+        t0 = time.perf_counter()
+        qid = unit.get("qid", "?")
+        if not self.paged:
+            return self._reject_handoff(qid, "dense")
+        if (unit.get("page_size") != self.page_size
+                or unit.get("kv_cache_dtype") != self.kv_cache_dtype):
+            return self._reject_handoff(qid, "layout")
+        if unit.get("version") != self.version:
+            return self._reject_handoff(qid, "version")
+        prompt = list(unit["prompt"])
+        generated = list(unit["generated"])
+        if not generated:
+            return self._reject_handoff(qid, "empty")
+        payload = unit["payload"]
+        n = payload[0].shape[0]
+        if (n > self.blocks_per_row
+                or len(prompt) + len(generated) + 1 >= self.kv_cache_len
+                or not self._payload_fits(payload, n)):
+            return self._reject_handoff(qid, "layout")
+        rid = self._free_row_for_import()
+        if rid is None:
+            return self._reject_handoff(qid, "capacity")
+        with self._lock:
+            queued = {r.qid for r in self._pending}
+        blocks = self._alloc_blocks_reclaiming(n, keep_qids=queued)
+        if blocks is None:
+            return self._reject_handoff(qid, "pool")
+        try:
+            self._scatter_stacked(payload, blocks)
+        except Exception:  # noqa: BLE001 - free the blocks, fail closed
+            self._free_block_list(blocks)
+            logger.exception("handoff import scatter failed for %s", qid)
+            return self._reject_handoff(qid, "scatter")
+        self._park_imported(unit["req"], prompt, generated, unit["logprobs"],
+                            blocks, rid)
+        n_bytes = _nbytes(payload)
+        self.handoff_imports_total += 1
+        self.handoff_bytes_total += n_bytes
+        self.handoff_seconds_total += time.perf_counter() - t0
+        self.tracer.event(qid, "engine.handoff_import", ok=True, row=rid,
+                          blocks=n, bytes=n_bytes, version=self.version)
+        return True, ""
+
+    # -- the streamed handoff ------------------------------------------------------
+    #
+    # The prefill engine exports each fill chunk's newly full blocks as a
+    # numbered segment as soon as the chunk is enqueued, the server pushes
+    # the segments while later chunks fill, and the decode engine allocates
+    # the row's blocks at segment 0 and scatters each segment as it comes;
+    # the final segment (the tail block, the first token, the request's
+    # state) parks the row.  Every segment carries the exporter's weight
+    # version and is checked: a version skew, a sequence gap, an abort or a
+    # dead peer (the TTL) frees the partial blocks, and the continuation
+    # prefills.
+
+    def _gather_blocks_device(self, blocks: List[int]):
+        """Start one gather of ``blocks`` to pinned host tensors without
+        waiting: ``(payload, ready)``.  The copies are enqueued on the
+        stream behind the fill chunk that wrote the blocks, and ``ready``
+        (None on the CPU) is recorded behind them; whoever reads the bytes
+        (the server's push thread) waits on it first."""
+        return paged.gather_blocks_host_async(
+            self.k_pool, self.v_pool, blocks, self.k_scale, self.v_scale
+        )
+
+    def _queue_handoff_segment(self, qid: str, st: Dict[str, Any],
+                               blocks: List[int], total: int, final: bool,
+                               row: Optional[_Row] = None):
+        """Gather ``blocks`` (none on the final segment of a page-aligned
+        prompt) and queue one numbered segment for export."""
+        tik = time.perf_counter()
+        payload, ready = self._gather_blocks_device(blocks) if blocks else (
+            (), None)
+        seg: Dict[str, Any] = {
+            "qid": qid,
+            "dest": st["dest"],
+            "seq": st["seq"],
+            "block_start": st["exported"],
+            "n_blocks": len(blocks),
+            "total_blocks": total,
+            "version": self.version,
+            "page_size": self.page_size,
+            "kv_cache_dtype": self.kv_cache_dtype,
+            "final": final,
+            "payload": payload,
+        }
+        if ready is not None:
+            seg["ready"] = ready
+        if final:
+            seg["req"] = row.req
+            seg["prompt"] = list(row.prompt)
+            seg["generated"] = list(row.generated)
+            seg["logprobs"] = list(row.logprobs)
+        self._handoff_segments.append(seg)
+        n_bytes = _nbytes(payload)
+        self.handoff_segment_exports_total += 1
+        self.handoff_bytes_total += n_bytes
+        self.handoff_seconds_total += time.perf_counter() - tik
+        if final:
+            self.handoff_exports_total += 1
+        self.tracer.event(qid, "engine.handoff_segment", seq=st["seq"],
+                          blocks=len(blocks), bytes=n_bytes, final=final,
+                          version=self.version)
+        st["seq"] += 1
+        st["exported"] += len(blocks)
+
+    def _emit_handoff_segments(self, f: _Fill):
+        """Export the blocks a fill chunk just completed, for every handoff
+        target of the fill: full blocks below ``fill_pos`` are never
+        written again (the partial tail travels with the final segment)."""
+        full_final = min(min(f.fill_pos, len(f.tokens)) // self.page_size,
+                         len(f.blocks))
+        if full_final <= 0:
+            return
+        for tgt in f.targets:
+            if tgt.resume is not None:
+                continue
+            dest = (tgt.req.metadata or {}).get("handoff_to")
+            if not dest:
+                continue
+            qid = tgt.req.qid
+            st = self._handoff_streams.setdefault(
+                qid, {"dest": dest, "seq": 0, "exported": 0})
+            if st["exported"] >= full_final:
+                continue
+            self._queue_handoff_segment(
+                qid, st, f.blocks[st["exported"]:full_final],
+                total=len(f.blocks), final=False,
+            )
+
+    def _emit_final_handoff_segment(self, rid: int, row: _Row):
+        """The stream's last segment (the blocks not exported yet, the
+        first token, the request's state); the row is then released, its
+        prefix kept by the radix cache's own references."""
+        qid = row.req.qid
+        st = self._handoff_streams.pop(qid, None)
+        if st is None:
+            # no chunk completed a block: the whole handoff is this segment
+            st = {"dest": (row.req.metadata or {}).get("handoff_to"),
+                  "seq": 0, "exported": 0}
+        blocks = self._row_blocks[rid]
+        self._queue_handoff_segment(qid, st, blocks[st["exported"]:],
+                                    total=len(blocks), final=True, row=row)
+        self._release_row(rid)
+
+    def _abort_handoff_stream(self, qid: str, reason: str = ""):
+        """Cut an export stream short (EOS at the first token, a weight swap
+        restarting the fill): queue an abort, so the decode peer frees its
+        partial blocks at once (its TTL is the backstop for a dead
+        sender)."""
+        st = self._handoff_streams.pop(qid, None)
+        if st is None or st["seq"] == 0:
+            return  # nothing left this server
+        self._handoff_segments.append({
+            "qid": qid, "dest": st["dest"], "seq": st["seq"], "abort": True,
+            "version": self.version,
+        })
+        self.handoff_segment_aborts_total += 1
+        self.tracer.event(qid, "engine.handoff_segment", seq=st["seq"],
+                          abort=True, reason=reason)
+
+    def drain_handoff_segments(self) -> List[Dict[str, Any]]:
+        """Pop the outbound segments (the server's poll loop; in-process
+        drivers hand them straight to the decode engine).  On a card a
+        segment's payload is being copied: read it after its ``ready``
+        event (:func:`wire_segment` waits and drops the event)."""
+        out = self._handoff_segments
+        self._handoff_segments = []
+        return out
+
+    def _scatter_stacked(self, components, blocks: List[int]):
+        """One batched scatter of a coalesced payload into ``blocks``,
+        enqueued behind the decode chunks already on the stream."""
+        paged.restore_blocks_host_stacked(
+            self.k_pool, self.v_pool, components, blocks, self.k_scale,
+            self.v_scale,
+        )
+
+    def _release_pending_handoff(self, qid: str, reason: str = ""):
+        """Free a partly imported stream's blocks (fail closed: the
+        continuation prefills).  ``reason`` counts a reject; none means a
+        benign replacement (a restarted segment 0)."""
+        pend = self._handoff_pending.pop(qid, None)
+        if pend is None:
+            return
+        self._free_block_list(pend["blocks"])
+        if reason:
+            self._reject_handoff(qid, reason)
+
+    def import_handoff_segment(self, seg: Dict[str, Any]) -> Tuple[bool, str]:
+        """Import ONE segment of a streamed handoff.  Segment 0 allocates all
+        ``total_blocks`` of the row; each segment's payload is scattered in
+        one batched copy; the final segment checks that every block came,
+        parks the row and enters its prefix in the radix cache, and the
+        continuation resumes with no prefill.  Fails closed per segment,
+        freeing the partial blocks: the reasons of :meth:`import_handoff`,
+        plus a sequence gap or an unknown stream (``stream``) and the
+        exporter's abort (``abort``); the TTL sweep adds ``expired``.  A
+        segment 0 for a stream already pending replaces it."""
+        t0 = time.perf_counter()
+        qid = seg.get("qid", "?")
+        if seg.get("abort"):
+            if qid in self._handoff_pending:
+                self._release_pending_handoff(qid, reason="abort")
+            return True, ""  # an abort of an unknown stream is a no-op
+        if not self.paged:
+            return self._reject_handoff(qid, "dense")
+        if (seg.get("page_size") != self.page_size
+                or seg.get("kv_cache_dtype") != self.kv_cache_dtype):
+            self._release_pending_handoff(qid)
+            return self._reject_handoff(qid, "layout")
+        if seg.get("version") != self.version:
+            # every segment must match the served weights: a swap
+            # mid-stream invalidates what was already scattered
+            self._release_pending_handoff(qid)
+            return self._reject_handoff(qid, "version")
+        seq = int(seg.get("seq", -1))
+        payload = _wire_payload(seg)
+        n = int(seg.get("n_blocks", 0))
+        pend = self._handoff_pending.get(qid)
+        if seq == 0:
+            if pend is not None:
+                self._release_pending_handoff(qid)  # a restarted stream
+            total = int(seg.get("total_blocks", 0))
+            if not 0 < total <= self.blocks_per_row:
+                return self._reject_handoff(qid, "layout")
+            with self._lock:
+                queued = {r.qid for r in self._pending}
+            blocks = self._alloc_blocks_reclaiming(total, keep_qids=queued)
+            if blocks is None:
+                return self._reject_handoff(qid, "pool")
+            pend = {"blocks": blocks, "next_seq": 0, "received": 0,
+                    "version": seg.get("version"), "step": self._step_seq,
+                    "total": total}
+            self._handoff_pending[qid] = pend
+        elif (pend is None or pend["next_seq"] != seq
+              or pend["version"] != seg.get("version")
+              or pend["total"] != int(seg.get("total_blocks", -1))):
+            self._release_pending_handoff(qid)
+            return self._reject_handoff(qid, "stream")
+        start = int(seg.get("block_start", -1))
+        if start != pend["received"] or start + n > pend["total"]:
+            self._release_pending_handoff(qid)
+            return self._reject_handoff(qid, "stream")
+        if n:
+            # geometry first: a peer of another model config is rejected
+            # before the scatter could raise
+            if not self._payload_fits(payload, n):
+                self._release_pending_handoff(qid)
+                return self._reject_handoff(qid, "layout")
+            try:
+                self._scatter_stacked(payload, pend["blocks"][start:start + n])
+            except Exception:  # noqa: BLE001 - free and fail closed
+                logger.exception("handoff segment scatter failed for %s", qid)
+                self._release_pending_handoff(qid)
+                return self._reject_handoff(qid, "scatter")
+        pend["received"] += n
+        pend["next_seq"] = seq + 1
+        pend["step"] = self._step_seq
+        n_bytes = _nbytes(payload)
+        final = bool(seg.get("final"))
+
+        def count_segment():
+            # counted once ACCEPTED: a final segment rejected below must not
+            # leave the segment counters looking balanced
+            self.handoff_segment_imports_total += 1
+            self.handoff_bytes_total += n_bytes
+            self.tracer.event(qid, "engine.handoff_segment_import", seq=seq,
+                              blocks=n, bytes=n_bytes, final=final,
+                              version=self.version)
+
+        if not final:
+            count_segment()
+            self.handoff_seconds_total += time.perf_counter() - t0
+            return True, ""
+        if pend["received"] != pend["total"]:
+            self._release_pending_handoff(qid)
+            return self._reject_handoff(qid, "stream")
+        prompt = list(seg.get("prompt") or [])
+        generated = list(seg.get("generated") or [])
+        if not generated:
+            self._release_pending_handoff(qid)
+            return self._reject_handoff(qid, "empty")
+        n_kv = len(prompt) + len(generated) - 1
+        if (len(prompt) + len(generated) + 1 >= self.kv_cache_len
+                or -(-n_kv // self.page_size) > pend["total"]):
+            self._release_pending_handoff(qid)
+            return self._reject_handoff(qid, "layout")
+        rid = self._free_row_for_import()
+        if rid is None:
+            self._release_pending_handoff(qid)
+            return self._reject_handoff(qid, "capacity")
+        del self._handoff_pending[qid]  # the row owns the blocks now
+        self._park_imported(seg["req"], prompt, generated,
+                            seg.get("logprobs") or [], pend["blocks"], rid)
+        count_segment()
+        self.handoff_imports_total += 1
+        self.handoff_seconds_total += time.perf_counter() - t0
+        self.tracer.event(qid, "engine.handoff_import", ok=True, row=rid,
+                          blocks=pend["total"], streamed=True,
+                          version=self.version)
+        return True, ""
+
+    def handoff_stats(self) -> Dict[str, Any]:
+        """Cumulative KV-handoff counters."""
+        return {
+            "exports_total": self.handoff_exports_total,
+            "imports_total": self.handoff_imports_total,
+            "bytes_total": self.handoff_bytes_total,
+            "seconds_total": self.handoff_seconds_total,
+            "import_rejects": dict(self.handoff_import_rejects),
+            "segment_exports_total": self.handoff_segment_exports_total,
+            "segment_imports_total": self.handoff_segment_imports_total,
+            "segment_aborts_total": self.handoff_segment_aborts_total,
+            "pending_streams": len(self._handoff_pending),
+        }
+
+    # -- the fleet KV fabric: peer prefix pulls -------------------------------------
+    #
+    # When the manager's schedule answer names a peer owning a longer cached
+    # prefix (``kv_source``), the admission registers a pull instead of a
+    # prefill and requeues, step by step.  The server runs the owner's
+    # ``export_prefix`` off its poll thread and feeds the segments back
+    # through :meth:`import_prefix_segment`, under the streamed handoff's
+    # rules; the final segment enters the pulled blocks in the radix cache,
+    # so the requeued admission's next match lands on them.  Any reject
+    # frees the partial blocks and the admission prefills: the fabric saves
+    # prefill work and never decides a token.
+
+    def export_prefix(self, qid: str, tokens: List[int]):
+        """The owner's side: the longest cached full-block run of
+        ``tokens`` as numbered segments in the stacked wire format (the
+        streamed handoff's, without the row's state).  Resident blocks are
+        gathered in one batch; spilled ones ship their host payloads.
+        ``[]`` when nothing is cached (the puller prefills)."""
+        if not self.paged or self._prefix_cache is None or len(tokens) < 2:
+            return []
+        entries = self._prefix_cache.export_walk(tokens, step=self._step_seq)
+        if not entries:
+            return []
+        dev_ids = [v for kind, v in entries if kind == "device"]
+        dev = paged.gather_blocks_host(
+            self.k_pool, self.v_pool, dev_ids, self.k_scale, self.v_scale
+        ) if dev_ids else None
+        per_block, di = [], 0
+        for kind, v in entries:
+            if kind == "device":
+                per_block.append(tuple(a[di] for a in dev))
+                di += 1
+            else:
+                per_block.append(v)
+        total = len(per_block)
+        # segments of a fill chunk's blocks, as the streamed handoff cuts
+        seg_blocks = max(1, self.prefill_chunk_tokens // self.page_size)
+        segs = []
+        for start in range(0, total, seg_blocks):
+            n = min(seg_blocks, total - start)
+            seg = {
+                "qid": qid,
+                "seq": len(segs),
+                "block_start": start,
+                "n_blocks": n,
+                "total_blocks": total,
+                "version": self.version,
+                "page_size": self.page_size,
+                "kv_cache_dtype": self.kv_cache_dtype,
+                "final": start + n == total,
+                "payload": paged.stack_host_payloads(
+                    per_block[start:start + n]),
+            }
+            if seg["final"]:
+                seg["n_tokens"] = total * self.page_size
+            segs.append(seg)
+        self.tracer.event(qid, "engine.prefix_export", blocks=total,
+                          tokens=total * self.page_size, segments=len(segs),
+                          version=self.version)
+        return segs
+
+    def _reject_prefix_pull(self, qid: str, reason: str) -> Tuple[bool, str]:
+        """Fail one pull closed: free its partly imported blocks (the radix
+        cache never saw them) and mark it failed, so the requeued admission
+        prefills at its next step."""
+        rec = self._prefix_pulls.get(qid)
+        if rec is not None:
+            if rec.get("blocks"):
+                self._free_block_list(rec["blocks"])
+                rec["blocks"] = []
+            rec["state"] = "failed"
+            rec["step"] = self._step_seq
+        self.prefix_pull_rejects_inc(reason)
+        self.tracer.event(qid, "engine.prefix_pull", ok=False, reason=reason)
+        logger.info("prefix pull for %s rejected: %s", qid, reason)
+        return False, reason
+
+    def prefix_pull_rejects_inc(self, reason: str):
+        self.prefix_peer_pull_rejects[reason] = (
+            self.prefix_peer_pull_rejects.get(reason, 0) + 1
+        )
+
+    def prefix_pull_failed(self, qid: str, reason: str = "rpc"):
+        """The server's pull RPC failed or the owner had nothing."""
+        if qid in self._prefix_pulls:
+            self._reject_prefix_pull(qid, reason)
+
+    def drain_prefix_pull_requests(self) -> List[Dict[str, Any]]:
+        """Pop the queued pull intents ``{qid, source, tokens}`` (the
+        server's poll loop; in-process drivers hand them to the owner's
+        :meth:`export_prefix`)."""
+        out = self._prefix_pull_requests
+        self._prefix_pull_requests = []
+        for req in out:
+            rec = self._prefix_pulls.get(req["qid"])
+            if rec is not None and rec["state"] == "requested":
+                rec["state"] = "pulling"
+        return out
+
+    def _maybe_pull_prefix(self, req, prompt: List[int]) -> bool:
+        """The admission's fabric gate: when the request names a peer
+        owning a longer prefix (``kv_source``) and the local match falls
+        short by at least a page and ``prefix_pull_min_tokens``, register a
+        pull and tell the caller to requeue.  True while the pull is in
+        flight; False once it landed (the next match hits the pulled
+        blocks), failed, or was not worth it (the hint is consumed, so it
+        never loops)."""
+        meta = req.metadata or {}
+        source = meta.get("kv_source")
+        if not source or not self.paged or self._prefix_cache is None:
+            return False
+        qid = req.qid
+        rec = self._prefix_pulls.get(qid)
+        if rec is not None:
+            if rec["state"] in ("requested", "pulling"):
+                return True
+            del self._prefix_pulls[qid]
+            meta.pop("kv_source", None)
+            return False
+        resident = self._match_prefix(prompt).n_tokens
+        if len(prompt) - 1 - resident < max(self.page_size,
+                                            self.prefix_pull_min_tokens):
+            meta.pop("kv_source", None)
+            return False
+        self._prefix_pulls[qid] = {
+            "state": "requested", "step": self._step_seq, "source": source,
+            "tokens": list(prompt), "blocks": [], "bytes": 0,
+        }
+        self._prefix_pull_requests.append(
+            {"qid": qid, "source": source, "tokens": list(prompt)})
+        self.tracer.event(qid, "engine.prefix_pull", source=source,
+                          prompt_len=len(prompt), resident=resident)
+        return True
+
+    def import_prefix_segment(self, seg: Dict[str, Any]) -> Tuple[bool, str]:
+        """Import ONE segment of a prefix pull, under the streamed handoff's
+        rules: segment 0 allocates all ``total_blocks``; every segment must
+        match the served version; a gap, a misfit payload, pool pressure or
+        a failed scatter frees the partial blocks and the admission
+        prefills.  The final segment enters the prefix in the radix cache,
+        which takes its own references; the pull's are dropped, so the
+        blocks end owned as a locally filled prefix's are."""
+        t0 = time.perf_counter()
+        qid = seg.get("qid", "?")
+        if not self.paged:
+            return self._reject_prefix_pull(qid, "dense")
+        rec = self._prefix_pulls.get(qid)
+        if rec is None or rec["state"] not in ("requested", "pulling"):
+            # a late segment of a pull already settled: nothing to free
+            return self._reject_prefix_pull(qid, "stream")
+        if (seg.get("page_size") != self.page_size
+                or seg.get("kv_cache_dtype") != self.kv_cache_dtype):
+            return self._reject_prefix_pull(qid, "layout")
+        if seg.get("version") != self.version:
+            return self._reject_prefix_pull(qid, "version")
+        seq = int(seg.get("seq", -1))
+        payload = _wire_payload(seg)
+        n = int(seg.get("n_blocks", 0))
+        if seq == 0:
+            if rec.get("blocks"):
+                return self._reject_prefix_pull(qid, "stream")
+            total = int(seg.get("total_blocks", 0))
+            if not 0 < total <= self.blocks_per_row:
+                return self._reject_prefix_pull(qid, "layout")
+            with self._lock:
+                queued = {r.qid for r in self._pending}
+            blocks = self._alloc_blocks_reclaiming(total, keep_qids=queued)
+            if blocks is None:
+                return self._reject_prefix_pull(qid, "pool")
+            rec.update(blocks=blocks, next_seq=0, received=0,
+                       version=seg.get("version"), total=total)
+        elif (not rec.get("blocks") or rec.get("next_seq") != seq
+              or rec.get("version") != seg.get("version")
+              or rec.get("total") != int(seg.get("total_blocks", -1))):
+            return self._reject_prefix_pull(qid, "stream")
+        start = int(seg.get("block_start", -1))
+        if start != rec["received"] or start + n > rec["total"]:
+            return self._reject_prefix_pull(qid, "stream")
+        if n:
+            if not self._payload_fits(payload, n):
+                return self._reject_prefix_pull(qid, "layout")
+            try:
+                self._scatter_stacked(payload, rec["blocks"][start:start + n])
+            except Exception:  # noqa: BLE001 - free and fail closed
+                logger.exception("prefix pull scatter failed for %s", qid)
+                return self._reject_prefix_pull(qid, "scatter")
+        rec["received"] += n
+        rec["next_seq"] = seq + 1
+        rec["step"] = self._step_seq
+        rec["bytes"] += _nbytes(payload)
+        if not seg.get("final"):
+            self.handoff_seconds_total += time.perf_counter() - t0
+            return True, ""
+        if rec["received"] != rec["total"]:
+            return self._reject_prefix_pull(qid, "stream")
+        n_tokens = int(seg.get("n_tokens") or rec["total"] * self.page_size)
+        key = list(rec["tokens"][:n_tokens])
+        blocks, rec["blocks"] = rec["blocks"], []
+        # the cache takes its own references; dropping the pull's leaves it
+        # the only owner (and, if a flush raced the insert, frees them)
+        self._cache_insert(key, blocks)
+        self._free_block_list(blocks)
+        rec["state"] = "done"
+        rec["step"] = self._step_seq
+        self.prefix_peer_pulls_total += 1
+        self.prefix_peer_pull_bytes_total += rec["bytes"]
+        self.handoff_seconds_total += time.perf_counter() - t0
+        self.tracer.event(qid, "engine.prefix_pull", ok=True,
+                          blocks=rec["total"], tokens=len(key),
+                          bytes=rec["bytes"], version=self.version)
+        return True, ""
+
+    def prefix_peer_stats(self) -> Dict[str, Any]:
+        """Cumulative prefix-pull counters (the puller's side)."""
+        return {
+            "pulls_total": self.prefix_peer_pulls_total,
+            "pull_bytes_total": self.prefix_peer_pull_bytes_total,
+            "pull_rejects": dict(self.prefix_peer_pull_rejects),
+            "pending_pulls": len(self._prefix_pulls),
+        }
+
     # -- public API --------------------------------------------------------------
 
     def submit(self, req: model_api.APIGenerateInput) -> str:
         if (req.metadata or {}).get("stream"):
             raise _not_ported("token streaming (metadata['stream'])", item=11)
-        if (req.metadata or {}).get("handoff_to"):
-            raise _not_ported("P/D KV handoff (metadata['handoff_to'])", item=8)
         with self._lock:
             self._pending.append(req)
             self._result_events[req.qid] = threading.Event()
@@ -1208,8 +1937,9 @@ class ContinuousBatchingEngine:
     def close(self) -> Dict[str, int]:
         """Leak audit by refcount: every pool block's refcount must equal
         the references held to it by the rows (decoding, filling and
-        parked; a fill's blocks are its first target's row blocks) and the
-        prefix cache, and the free stack must hold exactly the blocks
+        parked; a fill's blocks are its first target's row blocks), the
+        prefix cache and the partly imported handoff streams and prefix
+        pulls, and the free stack must hold exactly the blocks
         nobody references, once each.  Returns ``{"kv_blocks": n}`` for
         the n blocks that disagree, ``{}`` when none does.  With no parked
         rows and a flushed cache, a whole pool is free.  Idempotent.  A
@@ -1223,6 +1953,10 @@ class ContinuousBatchingEngine:
             np.add.at(
                 want, np.asarray(self._prefix_cache.held_blocks(), np.int64), 1
             )
+        # partly imported handoff streams and pulls own their blocks
+        for rec in list(self._handoff_pending.values()) + list(
+                self._prefix_pulls.values()):
+            np.add.at(want, np.asarray(rec.get("blocks") or [], np.int64), 1)
         free = np.zeros(self.n_blocks, np.int64)
         np.add.at(free, np.asarray(self._free_blocks, np.int64), 1)
         bad = (want != self._block_ref) | (free != (want == 0))
@@ -1332,6 +2066,17 @@ class ContinuousBatchingEngine:
         # tagged with the old version
         if self._prefix_cache is not None:
             self._prefix_cache.flush(new_version=self.version)
+        # handoff state is bound to a version on both sides: export streams
+        # restart with their fills (the abort tells the peer to drop the
+        # old half-stream), partly imported streams and in-flight pulls hold
+        # KV of the old weights and fail closed
+        for qid in list(self._handoff_streams):
+            self._abort_handoff_stream(qid, reason="weight_swap")
+        for qid in list(self._handoff_pending):
+            self._release_pending_handoff(qid, reason="version")
+        for qid, rec in list(self._prefix_pulls.items()):
+            if rec["state"] in ("requested", "pulling"):
+                self._reject_prefix_pull(qid, "version")
         # filling rows restart from scratch under the new weights (their
         # rows and blocks stay; a cache-matched fill_pos resets too: its
         # prefix blocks are rewritten like any others)
@@ -1523,6 +2268,10 @@ class ContinuousBatchingEngine:
         completed, idxs = [], []
         for i, (f, take) in enumerate(batch):
             f.fill_pos += take
+            if self._handoff_streaming and f.targets:
+                # the chunk completed some full blocks: export them now,
+                # while the rest of the prompt fills
+                self._emit_handoff_segments(f)
             if f.fill_pos == len(f.tokens):
                 completed.append(f)
                 idxs.append(i)
@@ -1657,9 +2406,24 @@ class ContinuousBatchingEngine:
                     row.no_eos = tok not in self.stop_tokens
                     self._finish(tgt.row_id, row, started=False)
                     self._release_row(tgt.row_id)
+                    if self._handoff_streaming:
+                        # the request ends at its first token: segments
+                        # already sent have no final one
+                        self._abort_handoff_stream(tgt.req.qid, reason="eos")
                     continue
                 row.cur_token = int(tok)
                 row.budget_left = tgt.max_new - 1
+                if (row.req.metadata or {}).get("handoff_to"):
+                    # the prefill role: park right after the fill and the
+                    # first token; the row decodes on its decode peer.  A
+                    # park after decode chunks has its device length from
+                    # them; this one is stamped here
+                    row.no_eos = True
+                    self._set_rows("kv_lengths", [tgt.row_id], [len(f.tokens)])
+                    self._finish(tgt.row_id, row, park=True)
+                    if self._handoff_streaming:
+                        self._emit_final_handoff_segment(tgt.row_id, row)
+                    continue
                 self._epoch_counter += 1
                 row.epoch = self._epoch_counter
                 activation.append(
@@ -1687,6 +2451,18 @@ class ContinuousBatchingEngine:
                 self._step_seq - row.park_step > self.park_ttl_steps
             ):
                 self._release_row(row_id)
+        # a dead peer's half-received stream, or a pull whose owner went
+        # silent, would hold its blocks forever: the same step-keyed TTL
+        # frees them (the continuation prefills)
+        for qid, pend in list(self._handoff_pending.items()):
+            if self._step_seq - pend["step"] > self.handoff_pending_ttl_steps:
+                self._release_pending_handoff(qid, reason="expired")
+        for qid, rec in list(self._prefix_pulls.items()):
+            if self._step_seq - rec["step"] > self.handoff_pending_ttl_steps:
+                if rec["state"] in ("requested", "pulling"):
+                    self._reject_prefix_pull(qid, "expired")
+                else:  # settled but never collected by an admission
+                    del self._prefix_pulls[qid]
         free = [i for i, r in enumerate(self.rows) if r is None]
 
         def queued_qids():
@@ -1742,6 +2518,12 @@ class ContinuousBatchingEngine:
                 max_new = max(1, self.kv_cache_len - len(prompt))
             key = tuple(prompt)
             fill = next((f for f in self._filling if f.key == key), None)
+            if fill is None and self._maybe_pull_prefix(req, prompt):
+                # a peer pull in flight: requeue until the pulled prefix is
+                # in the radix cache (or the pull failed and it prefills)
+                with self._lock:
+                    self._pending.insert(0, req)
+                break
             rid = take_row()
             if rid is None:
                 with self._lock:

@@ -51,8 +51,13 @@ dropped if there is none.  On any root-to-leaf path resident nodes
 precede spilled ones (a node spills only once none of its children is
 resident), so a spilled chain restores top-down.  An insert that meets a
 spilled node on its path adopts the donor's freshly computed block and
-drops the host copy.  Not ported: the fleet export walk (``export_walk``,
-peer prefix pulls; ROADMAP.md queue 1, item 8).
+drops the host copy.
+
+**Fleet export** (:meth:`RadixPrefixCache.export_walk`): a peer server
+pulling a hot prefix from this one walks the same path and gets the
+per-block KV from both tiers in place: resident blocks by id (the engine
+gathers them in one batch) and spilled ones as their host payloads, which
+already are the wire format.
 """
 
 from __future__ import annotations
@@ -316,6 +321,41 @@ class RadixPrefixCache:
             self.cached_tokens_total += m.n_tokens
         else:
             self.misses_total += 1
+
+    def export_walk(
+        self, tokens: Sequence[int], step: int
+    ) -> List[Tuple[str, Any]]:
+        """The longest cached full-block run covering ``tokens``, for a
+        peer's prefix pull: ordered per-block entries, ``("device",
+        block_id)`` for a resident block and ``("host", payload)`` for a
+        spilled one.  Unlike :meth:`match` both tiers export in place (no
+        restore, no pin, no hit or miss counted).  The walk stops at the
+        first gap: a missing child, a restore not usable yet
+        (``ready_step`` after ``step``) or a spilled node whose payload was
+        trimmed.  It refreshes the LRU order along the exported path, and
+        is capped at ``len(tokens) - 1`` like every match, so the puller
+        keeps a suffix token to prefill."""
+        BS = self.page_size
+        max_match = len(tokens) - 1
+        node = self._root
+        out: List[Tuple[str, Any]] = []
+        depth = 0
+        while (depth + 1) * BS <= max_match:
+            child = node.children.get(tuple(tokens[depth * BS : (depth + 1) * BS]))
+            if child is None:
+                break
+            if child.spilled:
+                if child.host_kv is None:
+                    break
+                out.append(("host", child.host_kv))
+            elif child.ready_step > step:
+                break
+            else:
+                out.append(("device", child.block))
+            child.last_use = step
+            node = child
+            depth += 1
+        return out
 
     # -- insertion ----------------------------------------------------------
 

@@ -33,7 +33,11 @@ cache's and a sampling group's copy-on-write tails), scales included.
 :func:`gather_blocks_host` and :func:`restore_blocks_from_host` move
 whole blocks (scales included) between the pool and host memory for the
 prefix cache's host tier: pinned buffers and asynchronous copies on a
-card.
+card.  The P/D handoff and the peer prefix pulls move the same payloads
+between servers: :func:`gather_blocks_host_async` starts a segment's
+gather without waiting, :func:`stack_host_payloads` coalesces per-block
+payloads into one tensor per component (the wire format), and
+:func:`restore_blocks_host_stacked` scatters such a segment.
 """
 
 from __future__ import annotations
@@ -150,7 +154,6 @@ def _pool_parts(k_pool, v_pool, k_scale=None, v_scale=None):
     )
 
 
-@torch.no_grad()
 def gather_blocks_host(
     k_pool: torch.Tensor,  # [L, NB, Hkv, BS, hd]
     v_pool: torch.Tensor,
@@ -162,16 +165,37 @@ def gather_blocks_host(
     indexed ``[i] -> blocks[i]``, ``(k [n, L, Hkv, BS, hd], v)`` for an fp
     pool and ``(k, v, k_scale [n, L, Hkv, BS], v_scale)`` for an int8 pool,
     whose bytes and scales travel together so a round trip through
-    :func:`restore_blocks_from_host` is bit-identical.  On a card the
-    gather lands in pinned buffers by asynchronous copies, which this
-    waits for (the caller reads the bytes at once).  The reference pads
-    the batch to a power of two to reuse compiled shapes; nothing here
-    compiles, so it does not."""
+    :func:`restore_blocks_from_host` is bit-identical.  Waits for the copies
+    (the caller reads the bytes at once).  The reference pads the batch to
+    a power of two to reuse compiled shapes; nothing here compiles, so it
+    does not."""
+    out, ready = gather_blocks_host_async(k_pool, v_pool, blocks, k_scale,
+                                          v_scale)
+    if ready is not None:
+        ready.synchronize()
+    return out
+
+
+@torch.no_grad()
+def gather_blocks_host_async(
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    blocks: Sequence[int],
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> Tuple[Tuple[torch.Tensor, ...], Optional["torch.cuda.Event"]]:
+    """:func:`gather_blocks_host` without the wait: ``(host tensors,
+    ready)``.  On a card the gather and the copies into pinned buffers are
+    enqueued on the current stream, behind the work already there (the
+    fill chunk that wrote the blocks), and ``ready`` is an event recorded
+    behind them: the bytes may be read only after ``ready.synchronize()``.
+    Later pool writes are ordered after the gather on the same stream.  On
+    the CPU the copies are made at once and ``ready`` is None."""
     parts = _pool_parts(k_pool, v_pool, k_scale, v_scale)
     dev = k_pool.device
     idx = torch.as_tensor(list(blocks), dtype=torch.long)
     if dev.type != "cuda":
-        return tuple(p[:, idx].transpose(0, 1).contiguous() for p in parts)
+        return tuple(p[:, idx].transpose(0, 1).contiguous() for p in parts), None
     idx = idx.pin_memory().to(dev, non_blocking=True)
     out = []
     for p in parts:
@@ -179,10 +203,9 @@ def gather_blocks_host(
         host = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
         host.copy_(g, non_blocking=True)
         out.append(host)
-    done = torch.cuda.Event()
-    done.record()
-    done.synchronize()
-    return tuple(out)
+    ready = torch.cuda.Event()
+    ready.record()
+    return tuple(out), ready
 
 
 def restore_blocks_from_host(
@@ -209,6 +232,48 @@ def restore_blocks_from_host(
     )
     _restore_stacked(
         _pool_parts(k_pool, v_pool, k_scale, v_scale), stacked, dst
+    )
+
+
+def stack_host_payloads(
+    payloads: Sequence[Tuple[torch.Tensor, ...]],
+) -> Tuple[torch.Tensor, ...]:
+    """Per-block payload tuples (each as :func:`gather_blocks_host` indexed
+    ``[i]``, or a host-tier entry) stacked into ONE tensor per component,
+    indexed ``[i] -> payloads[i]``: the segmented-handoff wire format that
+    :func:`restore_blocks_host_stacked` scatters.  An exporter can mix
+    gathered device blocks and host-tier payloads in one segment."""
+    if not payloads:
+        raise ValueError("no payloads to stack")
+    return tuple(
+        torch.stack([p[c] for p in payloads], dim=0)
+        for c in range(len(payloads[0]))
+    )
+
+
+def restore_blocks_host_stacked(
+    k_pool: torch.Tensor,  # [L, NB, Hkv, BS, hd], written in place
+    v_pool: torch.Tensor,
+    components: Sequence[torch.Tensor],
+    dst: Sequence[int],
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+):
+    """:func:`restore_blocks_from_host` for a payload that arrives as one
+    tensor per pool component, ``(k [n, L, Hkv, BS, hd], v[, k_scale
+    [n, L, Hkv, BS], v_scale])`` indexed ``[i] -> dst[i]`` (the shape of
+    :func:`gather_blocks_host`'s output): a streamed segment scatters its
+    coalesced blocks with no per-block split and re-stack.  Enqueued on the
+    current stream like every pool write."""
+    if not dst:
+        raise ValueError("no destination blocks")
+    for c in components:
+        if c.shape[0] != len(dst):
+            raise ValueError(
+                f"payload of {c.shape[0]} blocks for {len(dst)} destinations"
+            )
+    _restore_stacked(
+        _pool_parts(k_pool, v_pool, k_scale, v_scale), components, dst
     )
 
 

@@ -13,7 +13,26 @@ The API is a ZMQ ROUTER socket:
   version already applied or queued is acknowledged) ->
   ``{"num_interrupted", "version"}`` / ``{"staged", "stage_seconds"}``;
 * ``("pause" | "resume", {})``, ``("stream_cancel", {"qid"})``;
-* ``("metrics", {})`` -> the engine's counters, swap times and SLO digests.
+* ``("metrics", {})`` -> the engine's counters, swap times and SLO digests;
+* prefill/decode disaggregation and the KV fabric, between servers:
+  ``("import_handoff", {"unit"})``, ``("import_handoff_segment",
+  {"segment"})`` -> ``{"imported", "reason"}``, and ``("export_prefix",
+  {"qid", "tokens"})`` -> ``{"segments"}`` (empty, with a ``reason``, when
+  nothing is cached).
+
+A server registers under a role (``unified``, ``prefill`` or ``decode``)
+that the gserver manager routes by.  A request whose metadata names
+``handoff_to`` parks after its fill and first token; the server pushes its
+KV to that decode server, streamed as numbered segments while later fill
+chunks run (``handoff_streaming``, the default) or as one unit, and holds
+the client's reply until the last segment is pushed, so the continuation
+finds the row parked there.  A request whose metadata names ``kv_source``
+pulls its cached prefix from that peer (``export_prefix``) before it
+prefills the rest.  Segments travel over the ``host-numpy`` transport: a
+segment's payload is host torch tensors (the pool's dtype, an int8 pool's
+scales beside its bytes), which pickle carries over the peer's ZMQ
+socket; the name is the fleet's vocabulary, kept for the manager's
+routing.  ``tpu-d2d`` is a recognised transport with no backend.
 
 ``format="params"`` names a snapshot that
 :func:`areal_tpu_torch.engine.checkpoint.save_params` wrote; any other
@@ -25,10 +44,9 @@ the int8 sibling tree a publisher advertises in the snapshot's manifest
 ``spec_decode`` block, ``prefix_cache_host_bytes`` and ``cache_mode``
 ("dense" and "auto", which serves a sliding-window model such as Mistral
 on the dense cache) pass to the engine.  Not ported yet, each refused
-where a caller could ask for it: prefill/decode roles, segment transports
-and the KV fabric (ROADMAP.md queue 1, item 8), multi-process servers and
-meshes of more than one device (item 10), token streams, the compile watch
-and the ``/metrics`` HTTP server (item 11).
+where a caller could ask for it: multi-process servers and meshes of more
+than one device (ROADMAP.md queue 1, item 10), token streams, the compile
+watch and the ``/metrics`` HTTP server (item 11).
 """
 
 from __future__ import annotations
@@ -39,6 +57,7 @@ import os
 import pickle
 import threading
 import time
+from collections import deque
 from typing import Dict, Optional, Tuple
 
 import zmq
@@ -52,14 +71,16 @@ from areal_tpu_torch.base import (
     names,
     network,
 )
-from areal_tpu_torch.engine.inference_server import _not_ported
+from areal_tpu_torch.engine.inference_server import _not_ported, wire_segment
 from areal_tpu_torch.system import worker_base
 
-#: serving roles a generation server may register under (only "unified"
-#: is served by the port)
+#: serving roles a generation server may register under: ``prefill``
+#: servers fill prompts and hand the rows' KV to a ``decode`` peer;
+#: ``unified`` (the default) does both
 SERVER_ROLES = ("prefill", "decode", "unified")
 
-#: segment transports a generation server may register
+#: segment transports a generation server may register (``tpu-d2d`` is
+#: recognised and has no backend)
 SEGMENT_TRANSPORTS = ("host-numpy", "tpu-d2d")
 
 #: config fields an HF directory swapped into a server may differ in from
@@ -69,6 +90,14 @@ _RUN_OPTIONS = ("dtype", "logits_dtype", "remat", "remat_policy")
 #: the mesh-spec field of a one-device registration (the JAX package's
 #: default ``MeshSpec``, so registrations read the same in both packages)
 ONE_DEVICE_SPEC = "d1f1m1p1s1e1"
+
+#: how long a poll whose engine step dispatched no device work waits for
+#: a request (or a push, pull or stage of its own to settle) before the
+#: next step.  The engine's clock counts steps: a server that stepped an
+#: idle engine every 2 ms would expire a decode peer's half-received
+#: stream (``handoff_pending_ttl_steps`` = 512) after about a second,
+#: shorter than a busy prefill server may take between two segments
+IDLE_WAIT_S = 0.05
 
 
 def format_server_registration(
@@ -113,6 +142,79 @@ def parse_server_registration(
     return addr, max(1, devices), spec, role, transport
 
 
+class SegmentTransport:
+    """The wire mechanics of ONE streamed KV segment.  The protocol
+    (numbering, version checks, TTLs, aborts, fail-closed rejects) lives in
+    the engine and the server; a transport only moves a segment to a peer.
+    ``submit`` runs off the poll thread and returns a future of ``bool``
+    (False: the peer rejected it or the push failed; the stream's remainder
+    is dropped and the decode server prefills)."""
+
+    name = "abstract"
+
+    def __init__(self, worker: "GenerationServerWorker"):
+        self._worker = worker
+
+    def submit(self, qid: str, dest: str, seg: Dict):
+        """Push ``seg`` to ``dest``; returns a Future[bool]."""
+        raise NotImplementedError
+
+
+class HostNumpyTransport(SegmentTransport):
+    """The default transport: the push thread waits for the segment's
+    device-to-host copies (:func:`~areal_tpu_torch.engine.inference_server.
+    wire_segment`), so the poll thread never blocks on them, and sends the
+    host tensors over the peer's ``import_handoff_segment`` RPC."""
+
+    name = "host-numpy"
+
+    def submit(self, qid: str, dest: str, seg: Dict):
+        worker = self._worker
+        client = worker._peer_client(dest)
+        log = worker.logger
+        timeout = worker.config.handoff_request_timeout
+
+        def push() -> bool:
+            try:
+                resp = client.call("import_handoff_segment",
+                                   {"segment": wire_segment(seg)},
+                                   timeout=timeout)
+                if isinstance(resp, dict) and resp.get("imported"):
+                    return True
+                log.warning(
+                    "handoff segment %s/%s rejected by %s (%s); the decode "
+                    "server prefills", qid, seg.get("seq"), dest,
+                    resp.get("reason") if isinstance(resp, dict) else resp,
+                )
+            except Exception as e:  # noqa: BLE001 - fail closed
+                log.warning(
+                    "handoff segment %s/%s to %s failed (%r); the decode "
+                    "server prefills", qid, seg.get("seq"), dest, e,
+                )
+            return False
+
+        return worker._pool().submit(push)
+
+
+def make_segment_transport(
+    name: str, worker: "GenerationServerWorker"
+) -> SegmentTransport:
+    """The segment transport ``name`` for ``worker``.  ``tpu-d2d`` is a
+    recognised capability with no backend, so asking for it is a
+    configuration error, not a silent fallback that would mislead the
+    fleet's directory."""
+    if name == "host-numpy":
+        return HostNumpyTransport(worker)
+    if name in SEGMENT_TRANSPORTS:
+        raise ValueError(
+            f"segment transport {name!r} has no backend in this build"
+        )
+    raise ValueError(
+        f"unknown segment transport {name!r}; expected one of "
+        f"{SEGMENT_TRANSPORTS}"
+    )
+
+
 def _check_config(config: system_api.GenServerConfig):
     """Refuse, before anything is built, what the port does not serve."""
     role = config.role or "unified"
@@ -120,18 +222,7 @@ def _check_config(config: system_api.GenServerConfig):
         raise ValueError(
             f"unknown server role {role!r}; expected prefill | decode | unified"
         )
-    if role != "unified":
-        raise _not_ported(f"the {role!r} serving role (P/D handoff)", item=8)
-    transport = config.segment_transport or "host-numpy"
-    if transport not in SEGMENT_TRANSPORTS:
-        raise ValueError(
-            f"unknown segment transport {transport!r}; expected one of "
-            f"{SEGMENT_TRANSPORTS}"
-        )
-    if transport != "host-numpy":
-        raise ValueError(
-            f"segment transport {transport!r} has no backend in this build"
-        )
+    make_segment_transport(config.segment_transport or "host-numpy", None)
     if config.num_processes > 1:
         raise _not_ported(
             f"multi-process serving (num_processes={config.num_processes})",
@@ -172,8 +263,13 @@ class GenerationServerWorker(worker_base.Worker):
         device = config.device
         if device is None and config.device_idx is not None:
             device = f"cuda:{config.device_idx}"
-        self._role = "unified"
-        self._transport_name = "host-numpy"
+        # the serving role the manager routes by; the handoff itself is
+        # driven per request by the ``handoff_to`` metadata
+        self._role = config.role or "unified"
+        self._transport_name = config.segment_transport or "host-numpy"
+        self._segment_transport = make_segment_transport(
+            self._transport_name, self
+        )
         model = make_model(config.model, None, None, tokenizer=tokenizer,
                            device=device)
         self.engine = ContinuousBatchingEngine(
@@ -204,6 +300,8 @@ class GenerationServerWorker(worker_base.Worker):
             spec_decode_params=resolve_spec_params(config.spec_decode),
             slo_tracking=config.slo_tracking,
             server_name=config.worker_name,
+            handoff_streaming=config.handoff_streaming,
+            prefix_pull_min_tokens=config.prefix_pull_min_tokens,
         )
         del model
 
@@ -214,12 +312,35 @@ class GenerationServerWorker(worker_base.Worker):
         expr, tr = constants.experiment_name(), constants.trial_name()
         name_resolve.add(
             names.gen_server(expr, tr, config.worker_name),
-            format_server_registration(self.addr, config.mesh_spec),
+            format_server_registration(
+                self.addr, config.mesh_spec, role=self._role,
+                transport=self._transport_name,
+            ),
             replace=True,
         )
         # qid -> ROUTER identity awaiting the result
         self._waiting: Dict[str, bytes] = {}
         self._update_reply_idents = []  # clients awaiting update_weights
+        self._import_reply_idents = []  # clients awaiting import_handoff
+        self._segment_reply_idents = []  # ... import_handoff_segment
+        # P/D handoff: the decode server of each handoff request, peer
+        # clients made on first use, and the pushes in flight on a small
+        # thread pool (a slow or dead peer never stalls the poll loop; the
+        # client's reply waits for the push, bounded by the RPC's timeout)
+        self._handoff_dest: Dict[str, str] = {}
+        self._peer_clients: Dict[str, "GenServerClient"] = {}
+        self._handoff_pool = None
+        self._handoff_futs: Dict[str, object] = {}
+        self._handoff_out: Dict[str, object] = {}
+        # the streamed handoff: segments queued per stream and pushed in
+        # order, one in flight a stream; the reply to a handoff request
+        # waits for its final segment's push ("gate"); a failed push drops
+        # the stream's remainder (the peer's TTL frees its blocks)
+        self._handoff_streaming = bool(config.handoff_streaming)
+        self._stream_push: Dict[str, Dict] = {}
+        # peer prefix pulls in flight: the owner's export_prefix RPC runs
+        # on the same pool and its segments come back as commands
+        self._pull_futs: Dict[str, object] = {}
         # the in-flight staged restore (update_weights mode="stage"): a
         # background thread restores the snapshot into a staged tree while
         # decode continues; its reply is deferred until the tree is on the
@@ -287,6 +408,31 @@ class GenerationServerWorker(worker_base.Worker):
             "swaps_staged": reg.counter(
                 "areal_inference_weight_swaps_staged_total"
             ),
+            "handoff_exports": reg.counter(
+                "areal_inference_handoff_exports_total"
+            ),
+            "handoff_imports": reg.counter(
+                "areal_inference_handoff_imports_total"
+            ),
+            "handoff_bytes": reg.counter("areal_inference_handoff_bytes_total"),
+            "handoff_seconds": reg.counter(
+                "areal_inference_handoff_seconds_total"
+            ),
+            "handoff_segment_exports": reg.counter(
+                "areal_inference_handoff_segment_exports_total"
+            ),
+            "handoff_segment_imports": reg.counter(
+                "areal_inference_handoff_segment_imports_total"
+            ),
+            "handoff_segment_aborts": reg.counter(
+                "areal_inference_handoff_segment_aborts_total"
+            ),
+            "prefix_peer_pulls": reg.counter(
+                "areal_inference_prefix_peer_pulls_total"
+            ),
+            "prefix_peer_pull_bytes": reg.counter(
+                "areal_inference_prefix_peer_pull_bytes_total"
+            ),
             "inflight": reg.gauge("areal_inference_inflight_rows"),
             "pending": reg.gauge("areal_inference_pending_requests"),
             "version": reg.gauge("areal_inference_weight_version"),
@@ -313,6 +459,15 @@ class GenerationServerWorker(worker_base.Worker):
         )
         self._obs_preempt_class = reg.counter("areal_gateway_preemptions_total")
         self._obs_preempt_class_last: Dict[str, int] = {}
+        # handoff import rejects and failed prefix pulls, by reason
+        self._obs_handoff_rejects = reg.counter(
+            "areal_inference_handoff_import_rejects_total"
+        )
+        self._obs_handoff_rejects_last: Dict[str, int] = {}
+        self._obs_pull_rejects = reg.counter(
+            "areal_inference_prefix_peer_pull_rejects_total"
+        )
+        self._obs_pull_rejects_last: Dict[str, int] = {}
         # request-level SLO digests as histograms over the fixed buckets
         self._obs_slo = {
             "admission_wait_s": reg.histogram(
@@ -332,6 +487,8 @@ class GenerationServerWorker(worker_base.Worker):
         qstats = eng.kv_quant_stats()
         wstats = eng.weight_quant_stats()
         sstats = eng.spec_stats()
+        hstats = eng.handoff_stats()
+        fstats = eng.prefix_peer_stats()
         totals = {
             "chunks": float(eng.decode_chunks_total),
             "gen_tokens": float(eng.gen_tokens_total),
@@ -360,12 +517,32 @@ class GenerationServerWorker(worker_base.Worker):
             "swap_pause": eng.swap_pause_s,
             "swaps": float(eng.swaps_total),
             "swaps_staged": float(eng.swaps_staged_total),
+            "handoff_exports": float(hstats["exports_total"]),
+            "handoff_imports": float(hstats["imports_total"]),
+            "handoff_bytes": float(hstats["bytes_total"]),
+            "handoff_seconds": float(hstats["seconds_total"]),
+            "handoff_segment_exports": float(hstats["segment_exports_total"]),
+            "handoff_segment_imports": float(hstats["segment_imports_total"]),
+            "handoff_segment_aborts": float(hstats["segment_aborts_total"]),
+            "prefix_peer_pulls": float(fstats["pulls_total"]),
+            "prefix_peer_pull_bytes": float(fstats["pull_bytes_total"]),
         }
         for key, total in totals.items():
             delta = total - self._obs_last.get(key, 0.0)
             if delta > 0:
                 self._obs[key].inc(delta)
                 self._obs_last[key] = total
+        for counter, last, by_reason in (
+            (self._obs_handoff_rejects, self._obs_handoff_rejects_last,
+             hstats["import_rejects"]),
+            (self._obs_pull_rejects, self._obs_pull_rejects_last,
+             fstats["pull_rejects"]),
+        ):
+            for reason, total in by_reason.items():
+                delta = total - last.get(reason, 0)
+                if delta > 0:
+                    counter.inc(delta, reason=reason)
+                    last[reason] = total
         for cls, total in eng.preempted_by_class.items():
             delta = total - self._obs_preempt_class_last.get(cls, 0)
             if delta > 0:
@@ -413,6 +590,11 @@ class GenerationServerWorker(worker_base.Worker):
                 cmd, payload = pickle.loads(msg)
                 if cmd == "generate":
                     self._waiting[payload.qid] = ident
+                    dest = (payload.metadata or {}).get("handoff_to")
+                    if dest:
+                        # a prefill-stage request: its KV goes to this
+                        # decode server before the reply (_reply_finished)
+                        self._handoff_dest[payload.qid] = dest
                     batch.append((cmd, payload))
                     continue  # reply when the result is ready
                 elif cmd == "stream_cancel":
@@ -431,13 +613,21 @@ class GenerationServerWorker(worker_base.Worker):
                     resp = "resumed"
                 elif cmd == "metrics":
                     resp = self.metrics()
+                elif cmd == "import_handoff":
+                    # a pool scatter: applied in the batch, replied after
+                    self._import_reply_idents.append(ident)
+                    batch.append((cmd, payload))
+                    continue
+                elif cmd == "import_handoff_segment":
+                    self._segment_reply_idents.append(ident)
+                    batch.append((cmd, payload))
+                    continue
+                elif cmd == "export_prefix":
+                    # the owner's side of a pull: a gather, answered at
+                    # once like ``metrics`` (no engine state changes)
+                    resp = self._export_prefix(payload)
                 elif cmd in ("generate_stream", "stream_poll"):
                     raise _not_ported(f"token streams ({cmd!r})", item=11)
-                elif cmd in ("import_handoff", "import_handoff_segment",
-                             "export_prefix"):
-                    raise _not_ported(
-                        f"P/D handoff and the KV fabric ({cmd!r})", item=8
-                    )
                 else:
                     resp = {"error": f"unknown command {cmd}"}
             except Exception as e:  # noqa: BLE001
@@ -477,6 +667,31 @@ class GenerationServerWorker(worker_base.Worker):
                 if self._update_reply_idents:
                     ident = self._update_reply_idents.pop(0)
                     self._sock.send_multipart([ident, b"", pickle.dumps(resp)])
+            elif cmd in ("import_handoff", "import_handoff_segment"):
+                try:
+                    if cmd == "import_handoff":
+                        ok, reason = self.engine.import_handoff(payload["unit"])
+                    else:
+                        ok, reason = self.engine.import_handoff_segment(
+                            payload["segment"])
+                    resp = {"imported": ok, "reason": reason}
+                except Exception as e:  # noqa: BLE001 - the peer prefills
+                    self.logger.exception("%s failed", cmd)
+                    resp = {"error": repr(e)}
+                idents = (self._import_reply_idents if cmd == "import_handoff"
+                          else self._segment_reply_idents)
+                if idents:
+                    self._sock.send_multipart(
+                        [idents.pop(0), b"", pickle.dumps(resp)])
+            elif cmd == "import_prefix_segment":
+                # one pulled segment (the engine fails closed on any skew
+                # and the admission prefills)
+                try:
+                    self.engine.import_prefix_segment(payload["segment"])
+                except Exception:  # noqa: BLE001 - fail closed
+                    self.logger.exception("prefix segment import failed")
+            elif cmd == "prefix_pull_failed":
+                self.engine.prefix_pull_failed(payload["qid"])
             elif cmd == "stream_cancel":
                 self.engine.cancel(payload["qid"])
             elif cmd == "pause":
@@ -485,11 +700,185 @@ class GenerationServerWorker(worker_base.Worker):
                 self.engine.resume()
 
     def _reply_finished(self):
+        # a settled monolithic push frees its request's reply
+        for qid in list(self._handoff_futs):
+            if not self._handoff_futs[qid].done():
+                continue
+            del self._handoff_futs[qid]
+            out = self._handoff_out.pop(qid)
+            self._sock.send_multipart(
+                [self._waiting.pop(qid), b"", pickle.dumps(out)])
         for qid in list(self._waiting):
+            if qid in self._handoff_futs:
+                continue  # the reply waits for the push
+            st = self._stream_push.get(qid)
+            if st is not None and st["gate"]:
+                # the final segment is queued or in flight: reply once it
+                # settles, so the continuation cannot overtake the park on
+                # the decode server
+                continue
             out = self.engine.try_get_result(qid)
             if out is not None:
+                dest = self._handoff_dest.pop(qid, None)
+                if (dest is not None and not self._handoff_streaming
+                        and out.no_eos and out.output_ids
+                        and self._begin_handoff(qid, dest, out)):
+                    continue
                 ident = self._waiting.pop(qid)
                 self._sock.send_multipart([ident, b"", pickle.dumps(out)])
+
+    def _begin_handoff(self, qid: str, dest: str, out) -> bool:
+        """Export the parked row's KV (on the poll thread, the engine's)
+        and start the ``import_handoff`` push to ``dest`` on the handoff
+        pool.  True when a push is in flight (the reply waits for it).
+        Every failure is closed: the peer rejects a skewed unit, a dead one
+        times out, and the continuation prefills on the decode server."""
+        unit = self.engine.export_handoff(qid)
+        if unit is None:
+            return False  # released by a swap or the TTL: the peer prefills
+        client = self._peer_client(dest)
+
+        def push():
+            try:
+                resp = client.call("import_handoff", {"unit": unit},
+                                   timeout=self.config.handoff_request_timeout)
+                if not (isinstance(resp, dict) and resp.get("imported")):
+                    self.logger.warning(
+                        "handoff of %s rejected by %s (%s); the decode "
+                        "server prefills", qid, dest,
+                        resp.get("reason") if isinstance(resp, dict) else resp,
+                    )
+            except Exception as e:  # noqa: BLE001 - fail closed
+                self.logger.warning(
+                    "handoff of %s to %s failed (%r); the decode server "
+                    "prefills", qid, dest, e,
+                )
+
+        self._handoff_out[qid] = out
+        self._handoff_futs[qid] = self._pool().submit(push)
+        return True
+
+    # -- the streamed handoff and the prefix pulls ----------------------------
+
+    def _pool(self):
+        if self._handoff_pool is None:
+            import concurrent.futures as cf
+
+            self._handoff_pool = cf.ThreadPoolExecutor(
+                max_workers=2, thread_name_prefix="kv-handoff"
+            )
+        return self._handoff_pool
+
+    def _peer_client(self, dest: str) -> "GenServerClient":
+        """The RPC client of a peer server, made on first use."""
+        if dest not in self._peer_clients:
+            self._peer_clients[dest] = GenServerClient(
+                dest, timeout=self.config.handoff_request_timeout
+            )
+        return self._peer_clients[dest]
+
+    def _submit_segment_push(self, qid: str, st: Dict, seg: Dict):
+        """Push ONE segment over the server's segment transport; returns
+        its future (bool ok)."""
+        return self._segment_transport.submit(
+            qid, seg.get("dest") or st["dest"], seg)
+
+    def _export_prefix(self, payload: Dict) -> Dict:
+        """The owner's side of a peer pull: the longest cached full-block
+        prefix of the peer's tokens as numbered segments."""
+        try:
+            segs = self.engine.export_prefix(payload.get("qid", "?"),
+                                             payload.get("tokens") or [])
+        except Exception as e:  # noqa: BLE001 - the puller prefills
+            self.logger.exception("prefix export failed")
+            return {"segments": [], "reason": repr(e)}
+        if not segs:
+            return {"segments": [], "reason": "miss"}
+        return {"segments": segs}
+
+    def _pump_prefix_pulls(self):
+        """Start the owner's ``export_prefix`` RPC for each pull the engine
+        registered, on the handoff pool (a dead or slow owner never stalls
+        the poll loop; the engine's TTL bounds the requeued admission's
+        wait).  Each resolves to the owner's segments, or to None on any
+        failure (the pull fails closed)."""
+        for req in self.engine.drain_prefix_pull_requests():
+            qid, source = req["qid"], req["source"]
+            client = self._peer_client(source)
+            timeout = self.config.handoff_request_timeout
+            log = self.logger
+
+            def pull(qid=qid, source=source, tokens=req["tokens"],
+                     client=client):
+                try:
+                    resp = client.call("export_prefix",
+                                       {"qid": qid, "tokens": tokens},
+                                       timeout=timeout)
+                    segs = (resp.get("segments") if isinstance(resp, dict)
+                            else None)
+                    if segs:
+                        return segs
+                    log.info(
+                        "prefix pull %s from %s returned nothing (%s); "
+                        "prefilling locally", qid, source,
+                        resp.get("reason") if isinstance(resp, dict) else resp,
+                    )
+                except Exception as e:  # noqa: BLE001 - fail closed
+                    log.warning("prefix pull %s from %s failed (%r); "
+                                "prefilling locally", qid, source, e)
+                return None
+
+            self._pull_futs[qid] = self._pool().submit(pull)
+
+    def _drain_pull_commands(self):
+        """Settled pulls as commands for this poll's batch: the owner's
+        segments in order, or one failure."""
+        cmds = []
+        for qid in list(self._pull_futs):
+            fut = self._pull_futs[qid]
+            if not fut.done():
+                continue
+            del self._pull_futs[qid]
+            segs = fut.result()
+            if segs:
+                cmds.extend(("import_prefix_segment", {"segment": seg})
+                            for seg in segs)
+            else:
+                cmds.append(("prefix_pull_failed", {"qid": qid}))
+        return cmds
+
+    def _pump_handoff_streams(self):
+        """Each poll: queue the engine's new segments per stream, settle
+        finished pushes, and keep one push in flight a stream (segments
+        must arrive in order; a failure drops the stream's remainder, the
+        decode side's TTL frees its blocks and the continuation prefills
+        there)."""
+        for seg in self.engine.drain_handoff_segments():
+            st = self._stream_push.setdefault(seg["qid"], {
+                "queue": deque(), "fut": None, "failed": False,
+                "gate": False, "dest": seg.get("dest"),
+            })
+            if seg.get("final"):
+                st["gate"] = True  # the client's reply waits for this one
+            if not st["failed"]:
+                st["queue"].append(seg)
+        for qid in list(self._stream_push):
+            st = self._stream_push[qid]
+            fut = st["fut"]
+            if fut is not None:
+                if not fut.done():
+                    continue
+                st["fut"] = None
+                if not fut.result():
+                    st["failed"] = True
+                    st["queue"].clear()
+            if st["queue"]:
+                st["fut"] = self._submit_segment_push(
+                    qid, st, st["queue"].popleft())
+            else:
+                # drained or failed: dropping the record opens the reply
+                # gate; a stream still filling makes a new one
+                del self._stream_push[qid]
 
     def _update_weights(self, payload: Dict) -> int:
         """Restore new weights and hot-swap them (the full-reload path: the
@@ -738,9 +1127,14 @@ class GenerationServerWorker(worker_base.Worker):
                for k, v in eng.weight_quant_stats().items()},
             **{f"spec_{k}": v for k, v in eng.spec_stats().items()},
             "cache_mode": "paged" if eng.paged else "dense",
+            # P/D: the role, the prefill backlog the manager's admission
+            # routes on, the handoff and prefix-pull counters
             "role": self._role,
             "prefill_backlog_tokens": eng.prefill_backlog_tokens(),
+            **{f"handoff_{k}": v for k, v in eng.handoff_stats().items()},
             "segment_transport": self._transport_name,
+            **{f"prefix_peer_{k}": v
+               for k, v in eng.prefix_peer_stats().items()},
             **{f"swap_{k}": v for k, v in eng.swap_stats().items()},
             "slo": eng.slo_stats(),
             "slo_digests": eng.slo_digests(),
@@ -756,12 +1150,49 @@ class GenerationServerWorker(worker_base.Worker):
 
     def _poll(self) -> worker_base.PollResult:
         batch = self._serve_api()
+        # start the owner RPCs of new pulls; settled ones join this batch
+        self._pump_prefix_pulls()
+        batch.extend(self._drain_pull_commands())
         self._apply_commands(batch)
-        n = self.engine.step()
+        eng = self.engine
+        work0 = (eng.prefill_calls, eng.decode_chunks_total,
+                 eng.spec_verify_chunks_total)
+        n = eng.step()
+        # new segments enter their queues (and gate their replies) before
+        # the replies of this step's results go out
+        self._pump_handoff_streams()
         self._reply_finished()
         self._reply_staged()
         self._export_engine_metrics()
+        if not eng.inflight_chunks and work0 == (
+                eng.prefill_calls, eng.decode_chunks_total,
+                eng.spec_verify_chunks_total):
+            self._idle_wait()
         return worker_base.PollResult(sample_count=n)
+
+    def _idle_wait(self):
+        """Wait up to ``IDLE_WAIT_S`` for a request on the socket or for a
+        push, pull or stage of this server's to settle, in 2 ms slices, so
+        an idle engine is not stepped (and its step clock not advanced)
+        hundreds of times a second, and the poll thread leaves Python's
+        lock to the threads that have work."""
+        futs = [f for f in (list(self._handoff_futs.values())
+                            + list(self._pull_futs.values())
+                            + [st["fut"] for st in self._stream_push.values()])
+                if f is not None]
+        if any(f.done() for f in futs) or any(
+                st["queue"] and st["fut"] is None
+                for st in self._stream_push.values()):
+            return
+        staging = self._staging
+        deadline = time.monotonic() + IDLE_WAIT_S
+        while time.monotonic() < deadline:
+            if self._sock.poll(timeout=2):
+                return
+            if any(f.done() for f in futs) or (
+                    staging is not None and not staging["replied"]
+                    and staging["done"].is_set()):
+                return
 
     def _exit_hook(self):
         rec = getattr(self, "_staging", None)
@@ -772,6 +1203,11 @@ class GenerationServerWorker(worker_base.Worker):
             leaked = eng.close()
             if leaked:
                 self.logger.warning("leak audit at exit: %s", leaked)
+        for client in getattr(self, "_peer_clients", {}).values():
+            client.close()  # ends a push in flight promptly
+        pool = getattr(self, "_handoff_pool", None)
+        if pool is not None:
+            pool.shutdown(wait=True)
         sock = getattr(self, "_sock", None)
         if sock is not None:
             sock.close(linger=0)

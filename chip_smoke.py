@@ -98,6 +98,18 @@ from a seed, float32 master weights and their bf16 serving copy):
    of each version, the paged launches against the engine's work, the
    SLO digests and swap counters of the metrics reply, and the leak audit
    are checked; it prints the publish, stage and pause seconds;
+   then the P/D phase (``pd_phase``, ``tools/pd_rehearsal.py`` alone)
+   runs a ``prefill`` and a ``decode`` GenerationServerWorker behind the
+   gserver manager on the same layers: the engine phase's prompts, 32 new
+   tokens each, are filled on the prefill server, streamed to the decode
+   server as numbered segments while later chunks fill, and resumed
+   there with no prefill; it gates the segments (chunk-sized, every byte
+   the same from the export through the wire to a re-gather), logprobs
+   against the trainer forward and a unified engine (a K block scaled on
+   arrival must fail it), a version-skewed segment's reject, the paged
+   launches of both servers, the leak audits; an int8 pair's segments
+   bit for bit; and a peer prefix pull between two unified servers (the
+   manager's ``kv_source`` hint, 15 pulled pages, their prefill saved);
    then the HF phase (``hf_phase``) writes the seeded weights as a bf16
    ``Qwen2ForCausalLM`` directory (one ``model.safetensors``, written with
    ``safetensors.torch``), loads it through ``make_model(type_="hf")``
@@ -300,6 +312,26 @@ SERVER_NEW_TOKENS = 384
 SERVER_CONT_NEW_TOKENS = 64
 #: the leaf whose shape the bad-manifest control alters
 SERVER_BAD_LEAF = "layers/0/mlp/down/w"
+#: the P/D phase (``pd_phase``): a prefill and a decode server at the
+#: engine phase's settings (8 rows x 4096, pages of 256, fill chunks of
+#: 512) on the CUT_LAYERS copy, PROMPT_LENS with this many new tokens each
+#: (greedy); the controls' prompt (one page and a tail, so the block they
+#: alter on arrival holds most of its keys) and the K scale of the first
+#: (random weights attend almost uniformly: on an H100 80GB HBM3 at 700 W
+#: a K block scaled 1.25x read within the serving gate, mean 4.9e-4, max
+#: 2.0e-3, so that control is logged and the gate is held to a zeroed
+#: block, a segment whose bytes never landed); the int8
+#: arm's prompt and continuation; the fabric arm's shared prefix (pages,
+#: and a partial page: 8 rows x 4096 tokens leave no room for a 4096-token
+#: prefix and a suffix) and the suffix of the request that pulls it
+PD_NEW_TOKENS = 32
+PD_CONTROL_LEN = 300
+PD_K_SCALE = 1.25
+PD_INT8_PROMPT = 1000
+PD_INT8_NEW = 8
+PD_FABRIC_PAGES = 15
+PD_FABRIC_TAIL = 60
+PD_FABRIC_SUFFIX = 100
 #: the HF phase: the seeded weights written as a Qwen2ForCausalLM
 #: directory in bf16 (one model.safetensors, as published checkpoints
 #: come), loaded by make_model, and swapped (format "hf", staged) into a
@@ -2183,18 +2215,21 @@ class LaunchGate:
     (two tokens or more) always on it, where the tensor-core prefill entry
     takes the dtypes (``tensor_cores``: bf16 q; float32 runs the decode
     entry throughout); decode chunks on the deep kernel when routed there.
-    Verify windows' launches also count on ``verify_launches``."""
+    Verify windows' launches also count on ``verify_launches``.  ``eng``
+    may be a list of engines that run at once in one process (a prefill
+    and a decode server): their work adds up."""
 
     def __init__(self, eng, L, int8, tensor_cores=True):
-        self.eng, self.L, self.int8 = eng, L, int8
+        self.engs = list(eng) if isinstance(eng, (list, tuple)) else [eng]
+        self.eng, self.L, self.int8 = self.engs[0], L, int8
         self.tensor_cores = tensor_cores
         self.total = dict(std=0, deep=0, prefill=0, verify=0)
 
     def _work(self):
-        e = self.eng
-        return (e.prefill_calls, e.one_token_fill_calls,
-                e.decode_chunks_total, e.deep_decode_chunks_total,
-                e.spec_verify_chunks_total)
+        return tuple(sum(w) for w in zip(*(
+            (e.prefill_calls, e.one_token_fill_calls, e.decode_chunks_total,
+             e.deep_decode_chunks_total, e.spec_verify_chunks_total)
+            for e in self.engs)))
 
     def start(self):
         from areal_tpu_torch.ops import paged_attention as pa
@@ -2528,11 +2563,7 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
     from areal_tpu_torch.models.convert import serving_params
     from areal_tpu_torch.models.transformer import init_params
     from areal_tpu_torch.ops import paged_attention as pa
-    from areal_tpu_torch.system.generation_server import (
-        GenerationServerWorker,
-        GenServerClient,
-        parse_server_registration,
-    )
+    from areal_tpu_torch.system.generation_server import GenServerClient
 
     tag = "server"
     t_phase = time.perf_counter()
@@ -2573,28 +2604,8 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
             device=None if device.type == "cuda" else str(device),
             **server_kw)
         tik = time.perf_counter()
-        worker = GenerationServerWorker()
-        failed = []
-
-        def run_server():
-            try:
-                worker.run(config)
-            except Exception as e:  # noqa: BLE001 - raised below
-                failed.append(e)
-
-        thread = threading.Thread(target=run_server, daemon=True,
-                                  name="gen-server")
-        thread.start()
-        key = names.gen_server("chipsmoke", "server", "gen_server_0")
-        while True:
-            try:
-                addr = parse_server_registration(name_resolve.get(key))[0]
-                break
-            except name_resolve.NameEntryNotFoundError:
-                if not thread.is_alive() or time.perf_counter() - tik > 300:
-                    raise AssertionError(
-                        f"{tag}: the server did not start: {failed}")
-                time.sleep(0.01)
+        worker, thread, addr, failed = start_server(config, "chipsmoke",
+                                                    "server", tag)
         client = GenServerClient(addr, timeout=600)
         eng = worker.engine
         log(f"{tag}: GenerationServerWorker at {addr} in "
@@ -2852,6 +2863,529 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
     return res
 
 
+def start_server(config, expr, trial, what):
+    """A GenerationServerWorker for ``config`` in a daemon thread (memory
+    name_resolve, trial names set by the caller), once it registered:
+    ``(worker, thread, addr, failed)``, ``failed`` holding what the
+    worker's run raised.  A server that dies before it registers, or takes
+    more than 300 s, is stopped and fails the phase."""
+    import threading
+
+    from areal_tpu_torch.base import name_resolve, names
+    from areal_tpu_torch.system.generation_server import (
+        GenerationServerWorker,
+        parse_server_registration,
+    )
+
+    worker = GenerationServerWorker()
+    failed = []
+
+    def run():
+        try:
+            worker.run(config)
+        except Exception as e:  # noqa: BLE001 - raised by the caller
+            failed.append(e)
+
+    thread = threading.Thread(target=run, daemon=True,
+                              name=f"gen-server-{config.worker_name}")
+    thread.start()
+    key = names.gen_server(expr, trial, config.worker_name)
+    tik = time.perf_counter()
+    while True:
+        try:
+            return (worker, thread,
+                    parse_server_registration(name_resolve.get(key))[0],
+                    failed)
+        except name_resolve.NameEntryNotFoundError:
+            if not thread.is_alive() or time.perf_counter() - tik > 300:
+                worker.exit()
+                raise AssertionError(
+                    f"{what}: {config.worker_name} did not start: {failed}")
+            time.sleep(0.01)
+
+
+def _start_manager(expr, trial, **manager_kw):
+    """The gserver manager in a thread and a client of it."""
+    import threading
+
+    from areal_tpu_torch.api.system_api import GserverManagerConfig
+    from areal_tpu_torch.base import name_resolve, names
+    from areal_tpu_torch.system.gserver_manager import (
+        GserverManager,
+        GserverManagerClient,
+    )
+
+    manager = GserverManager()
+    thread = threading.Thread(target=manager.run, daemon=True,
+                              name="gserver-manager", args=(
+                                  GserverManagerConfig(**manager_kw),))
+    thread.start()
+    name_resolve.wait(names.gen_server_manager(expr, trial), timeout=120)
+    return manager, thread, GserverManagerClient(expr, trial, timeout=120.0)
+
+
+def _same_bytes(a, b) -> bool:
+    """Two tensors of one dtype and shape with the same bits."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    bits = {4: torch.int32, 2: torch.int16, 1: torch.int8}[a.element_size()]
+    return torch.equal(a.contiguous().view(bits), b.contiguous().view(bits))
+
+
+def pd_phase(cfg, device, card, *, prompt_lens=PROMPT_LENS,
+             new_tokens=PD_NEW_TOKENS, control_len=PD_CONTROL_LEN,
+             int8_prompt=PD_INT8_PROMPT, int8_new=PD_INT8_NEW,
+             fabric_pages=PD_FABRIC_PAGES, fabric_tail=PD_FABRIC_TAIL,
+             fabric_suffix=PD_FABRIC_SUFFIX, max_batch=MAX_BATCH,
+             kv_cache_len=KV_CACHE_LEN, page_size=PAGE_SIZE,
+             prefill_chunk=PREFILL_CHUNK, chunk_size=CHUNK_SIZE,
+             tol_mean=TOL_PROX_MEAN, tol_max=TOL_PROX_MAX):
+    """Prefill/decode disaggregation and the KV fabric through the servers
+    a user runs, on ``cfg`` (random weights from ``SEED``, greedy):
+
+    1. a ``prefill`` and a ``decode`` GenerationServerWorker in threads,
+       the gserver manager and a ``PartialRolloutManager`` client; the
+       engine phase's prompts, ``new_tokens`` each.  The manager routes
+       each to the prefill server with ``handoff_to``; the prefill server
+       streams the row's KV to the decode server as numbered segments
+       while later chunks fill and replies once the last is pushed; the
+       continuation resumes on the decode server.  Gates: every row
+       resumed there with no prefill (its ``prefill_tokens_total`` stays
+       0, so no prefill entry launches there); every segment but a
+       stream's last holds at most a fill chunk's pages, and all full
+       pages go before the last; each segment's payload is bit-identical
+       from the prefill side's export through the wire to a re-gather of
+       the blocks it landed in; logprobs within the serving gate of the
+       trainer forward, and against a unified engine's on the tokens they
+       share (token agreement printed); the paged launches of both
+       servers against their dispatched work (:class:`LaunchGate`).
+    2. controls: a ``control_len``-token request whose first imported
+       block is zeroed on arrival must fail the logprob gate (one whose
+       block's K is scaled by ``PD_K_SCALE`` is logged beside it); a
+       segment of another weight version, sent over RPC
+       mid-stream, is rejected (``version``) and frees what its stream
+       took; the leak audit of both servers' pools after they stop.
+    3. int8: the same handoff between two engines on int8 pools: the
+       segments' bytes and scales bit-identical through the import, and a
+       few tokens resumed with no prefill.
+    4. the fabric: two unified servers; a shared prefix of
+       ``fabric_pages`` pages and ``fabric_tail`` tokens served on one,
+       then the manager routes the same session's next request (the
+       prefix and ``fabric_suffix`` tokens of its own) to the other with
+       ``kv_source`` naming the first, which pulls the prefix's
+       ``fabric_pages`` full pages instead of prefilling them.  Gates: one
+       pull of that many blocks, prefill work down by that many pages'
+       tokens, logprobs within the serving gate, the launch gate and the
+       leak audits.
+
+    Prints the handoff's and the pull's bytes and seconds, the segments,
+    and the decode side's resume gap (final segment imported to the row
+    resumed).  On one card both servers share the SMs: these are the
+    mechanics' costs, not a P/D speed-up."""
+    import asyncio
+
+    import torch
+
+    from areal_tpu_torch.api.config import ModelAbstraction
+    from areal_tpu_torch.api.model_api import (
+        APIGenerateInput,
+        GenerationHyperparameters,
+    )
+    from areal_tpu_torch.api.system_api import GenServerConfig
+    from areal_tpu_torch.base import constants, name_resolve
+    from areal_tpu_torch.engine.sampling import SamplingParams
+    from areal_tpu_torch.models import paged
+    from areal_tpu_torch.models.convert import serving_params
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system import generation_server as gs
+    from areal_tpu_torch.system.generation_server import GenServerClient
+    from areal_tpu_torch.system.partial_rollout import PartialRolloutManager
+
+    tag = "pd"
+    t_phase = time.perf_counter()
+    res = {}
+    greedy = SamplingParams(greedy=True)
+    params0 = serving_params(init_params(cfg, SEED, device,
+                                         dtype=torch.float32), cfg)
+    gconf = GenerationHyperparameters(max_new_tokens=new_tokens, greedy=True)
+    common = dict(
+        model=ModelAbstraction("random", {"config": cfg, "seed": SEED}),
+        max_concurrent_batch=max_batch, kv_cache_len=kv_cache_len,
+        page_size=page_size, prefill_chunk_tokens=prefill_chunk,
+        chunk_size=chunk_size, cache_mode="paged", greedy=True,
+        device=None if device.type == "cuda" else str(device))
+
+    def generate(prm, jobs):
+        """``[(qid, prompt)]`` through the client, concurrently."""
+        async def go():
+            return await asyncio.gather(*[prm._gen_one(q, p)
+                                          for q, p in jobs])
+        return list(asyncio.run(go()))
+
+    def serving_gap(outs, what):
+        return _gap_gate(what, _gap(forced_logprobs(params0, cfg, outs),
+                                    _served(outs)),
+                         tol_mean, tol_max, phase=tag)
+
+    def stop(servers, manager=None, mthread=None, clients=()):
+        for c in clients:
+            if c is not None:
+                c.close()
+        if manager is not None:
+            manager.exit()
+            mthread.join(60)
+        for w, *_ in servers:
+            w.exit()
+        for _, t, _, failed in servers:
+            t.join(120)
+            if t.is_alive() or failed:
+                raise AssertionError(f"{tag}: {t.name} did not stop cleanly: "
+                                     f"{failed}")
+
+    # -- 1-2. the P/D fleet ---------------------------------------------------
+    expr = "chipsmoke"
+    name_resolve.reconfigure("memory")
+    constants.set_experiment_trial_names(expr, "pd")
+    tik = time.perf_counter()
+    servers = [start_server(GenServerConfig(
+        worker_name=f"gen_server_{i}", role=role, **common), expr, "pd", tag)
+        for i, role in enumerate(("prefill", "decode"))]
+    P, D = (s[0].engine for s in servers)
+    d_addr = servers[1][2]
+    manager = mthread = mclient = prm = pclient = dclient = None
+    # observe the wire: the prefill side's payloads as its push thread
+    # sends them, and every segment the decode engine imports
+    sent, got, checks, t_final, t_resume = {}, [], [], {}, {}
+    # the controls' qids and what each does to its first imported block
+    controls = {"pdctlk-0": "K scaled", "pdctlz-0": "zeroed"}
+    real_wire, real_import = gs.wire_segment, D.import_handoff_segment
+    real_resume = D._try_resume
+
+    def wire(seg):
+        out = real_wire(seg)
+        sent[(seg["qid"], seg["seq"])] = out.get("payload") or ()
+        return out
+
+    def import_segment(seg):
+        ok, reason = real_import(seg)
+        qid, n = seg.get("qid"), int(seg.get("n_blocks") or 0)
+        got.append(dict(qid=qid, seq=seg.get("seq"), n=n,
+                        final=bool(seg.get("final")), ok=ok, reason=reason,
+                        version=seg.get("version"), wire=seg))
+        if ok and n:
+            # the blocks it landed in, re-gathered, against what came
+            start = int(seg["block_start"])
+            if seg.get("final"):
+                rid = next(i for i, r in enumerate(D.rows)
+                           if r is not None and r.req.qid == qid)
+                blocks = D._row_blocks[rid][start:start + n]
+            else:
+                blocks = D._handoff_pending[qid]["blocks"][start:start + n]
+            back = paged.gather_blocks_host(D.k_pool, D.v_pool, blocks,
+                                            D.k_scale, D.v_scale)
+            exported = sent.get((qid, seg["seq"]))
+            if exported is not None:
+                checks.append(all(
+                    _same_bytes(a, b) and _same_bytes(a, c)
+                    for a, b, c in zip(seg["payload"], back, exported)))
+            if qid in controls and seg["seq"] == 0:
+                if controls[qid] == "zeroed":
+                    for pool in (D.k_pool, D.v_pool):
+                        pool[:, blocks[0]] = 0
+                else:
+                    D.k_pool[:, blocks[0]] *= PD_K_SCALE
+        if ok and seg.get("final"):
+            t_final[qid] = time.perf_counter()
+        return ok, reason
+
+    def try_resume(req):
+        ok = real_resume(req)
+        if ok and req.qid not in t_resume:
+            t_resume[req.qid] = time.perf_counter()
+        return ok
+
+    gs.wire_segment = wire
+    D.import_handoff_segment = import_segment
+    D._try_resume = try_resume
+    try:
+        manager, mthread, mclient = _start_manager(
+            expr, "pd", worker_name="gserver_manager", n_servers=2)
+        prm = PartialRolloutManager(mclient, gconf,
+                                    new_tokens_per_chunk=new_tokens,
+                                    request_timeout=600.0)
+        log(f"{tag}: a prefill and a decode GenerationServerWorker, the "
+            f"gserver manager and a PartialRolloutManager in "
+            f"{time.perf_counter() - tik:.1f} s: {P.max_batch} rows x "
+            f"{P.kv_cache_len} tokens each, pages of {P.page_size}, fill "
+            f"chunks of {P.prefill_chunk_tokens}, decode chunks of "
+            f"{P.chunk_size}, streamed handoff {P._handoff_streaming}, "
+            f"{cfg.n_layers} layers")
+        prompts = make_prompts(cfg.vocab_size, prompt_lens, SEED + 61)
+        jobs = [(f"pd{i}-0", p) for i, p in enumerate(prompts)]
+        launches = LaunchGate([P, D], cfg.n_layers, False)
+        launches.start()
+        tik = time.perf_counter()
+        outs = generate(prm, jobs)
+        t_wave = time.perf_counter() - tik
+        check_outputs(outs, cfg, new_tokens, f"{tag} wave")
+        if any(len(o.output_ids) != new_tokens for o in outs):
+            raise AssertionError(f"{tag}: an answer stopped short")
+        pclient = GenServerClient(servers[0][2], timeout=60)
+        mp = pclient.call("metrics", {})
+        dclient = GenServerClient(d_addr, timeout=60)
+        md = dclient.call("metrics", {})
+        streams = {}
+        for g in got:
+            streams.setdefault(g["qid"], []).append(g)
+        per_chunk = prefill_chunk // page_size
+        seg_line = []
+        for (q, p) in jobs:
+            segs = streams.get(q, [])
+            data = [g for g in segs if not g["final"]]
+            full = len(p) // page_size
+            if (not segs or not segs[-1]["final"]
+                    or [g["seq"] for g in segs] != list(range(len(segs)))
+                    or not all(g["ok"] for g in segs)
+                    or any(not 1 <= g["n"] <= per_chunk for g in data)
+                    or sum(g["n"] for g in data) != full
+                    or len(data) < -(-full // per_chunk)):
+                raise AssertionError(f"{tag} {q}: segments {[(g['seq'], g['n'], g['final'], g['reason']) for g in segs]}")
+            seg_line.append(f"{len(p)}:{'+'.join(str(g['n']) for g in segs)}")
+        gaps = [t_resume[q] - t_final[q] for q, _ in jobs]
+        n_wave = len(got)
+        log(f"{tag}: {len(jobs)} requests ({sum(prompt_lens)} prompt tokens, "
+            f"{new_tokens} new each) in {t_wave:.2f} s; segments per "
+            f"stream (prompt: blocks per segment) {' '.join(seg_line)}; "
+            f"prefill server: {mp['handoff_segment_exports_total']} segments,"
+            f" {mp['handoff_bytes_total'] / 1e6:.1f} MB, "
+            f"{mp['handoff_seconds_total']:.3f} s of host time, "
+            f"{mp['handoff_exports_total']} streams, "
+            f"{mp['prefill_tokens_total']} tokens prefilled; decode server: "
+            f"{md['handoff_segment_imports_total']} segments, "
+            f"{md['handoff_bytes_total'] / 1e6:.1f} MB, "
+            f"{md['handoff_seconds_total']:.3f} s, "
+            f"{md['handoff_imports_total']} imports, rejects "
+            f"{md['handoff_import_rejects']}, "
+            f"{md['prefill_tokens_total']} tokens prefilled, "
+            f"{D.resumed_total} resumes; resume gap (final segment imported "
+            f"to the row resumed) {min(gaps) * 1e3:.1f}-"
+            f"{max(gaps) * 1e3:.1f} ms; on {card}")
+        if (md["prefill_tokens_total"] != 0 or D.prefill_calls != 0
+                or D.resumed_total != len(jobs)
+                or md["handoff_imports_total"] != len(jobs)
+                or mp["handoff_exports_total"] != len(jobs)
+                or md["handoff_import_rejects"]
+                or md["handoff_segment_imports_total"]
+                != mp["handoff_segment_exports_total"]
+                or mp["prefill_tokens_total"] != sum(prompt_lens)):
+            raise AssertionError(f"{tag}: handoff counters {mp} / {md}")
+        n_checked = len(checks)
+        log(f"{tag}: {n_checked} segments with blocks: the prefill side's "
+            f"export, the bytes that arrived and a re-gather of the blocks "
+            f"they landed in are bit-identical: {all(checks)}")
+        if n_checked != sum(g["n"] > 0 for g in got) or not all(checks):
+            raise AssertionError(f"{tag}: a segment's bytes changed on the way")
+        res["gap"] = _gap(forced_logprobs(params0, cfg, outs), _served(outs))
+        if not _gap_gate("handed-off answers", res["gap"], tol_mean, tol_max,
+                         phase=tag):
+            raise AssertionError(f"{tag}: handed-off logprobs off the forward")
+        # 2. the controls: a scaled K block, a skewed segment over RPC
+        ctl_prompt = make_prompts(cfg.vocab_size, [control_len], SEED + 62)[0]
+        ctl_k, ctl_z = generate(prm, [(q, ctl_prompt) for q in controls])
+        res["k_scaled_gap"] = _gap(forced_logprobs(params0, cfg, [ctl_k]),
+                                   _served([ctl_k]))
+        _gap_gate(f"control: the first imported block's K x{PD_K_SCALE} "
+                  f"(logged)", res["k_scaled_gap"], tol_mean, tol_max,
+                  phase=tag)
+        res["control_gap"] = _gap(forced_logprobs(params0, cfg, [ctl_z]),
+                                  _served([ctl_z]))
+        if _gap_gate("control: the first imported block zeroed (must fail)",
+                     res["control_gap"], tol_mean, tol_max, phase=tag):
+            raise AssertionError(f"{tag}: the logprob gate did not see a "
+                                 "zeroed block")
+        longest = max(jobs, key=lambda j: len(j[1]))[0]
+        seg0, seg1 = (g["wire"] for g in streams[longest][:2])
+        replies = [dclient.call("import_handoff_segment", {"segment": dict(
+            seg, qid="pdskew-0", **({"version": 99} if i else {}))})
+            for i, seg in enumerate((seg0, seg1))]
+        md = dclient.call("metrics", {})
+        log(f"{tag}: control: segment 0 of a copied stream then its segment "
+            f"1 at version 99, over RPC: {replies}; rejects "
+            f"{md['handoff_import_rejects']}, pending streams "
+            f"{md['handoff_pending_streams']}")
+        if (replies != [{"imported": True, "reason": ""},
+                        {"imported": False, "reason": "version"}]
+                or md["handoff_import_rejects"] != {"version": 1}
+                or md["handoff_pending_streams"] != 0):
+            raise AssertionError(f"{tag}: the version control: {replies}")
+        launches.check(f"{tag}, both servers, wave and controls")
+        # a unified engine on the same weights and prompts (after the
+        # launch gate: its launches are not the fleet's)
+        uni = build_engine(cfg, params0, device, greedy,
+                           max_batch=max_batch, kv_cache_len=kv_cache_len,
+                           page_size=page_size, prefill_chunk_tokens=prefill_chunk,
+                           chunk_size=chunk_size)
+        ref, _ = serve(uni, [APIGenerateInput(
+            qid=q, prompt_ids=p, input_ids=p, gconfig=gconf)
+            for q, p in jobs])
+        del uni
+        agree, lp_a, lp_b = 0, [], []
+        for o, r in zip(outs, ref):
+            same, first = _first_divergence(o.output_ids, r.output_ids)
+            agree += same
+            k = len(o.output_ids) if first is None else first
+            lp_a += o.output_logprobs[:k]
+            lp_b += r.output_logprobs[:k]
+        res["unified_gap"] = _gap(lp_a, lp_b)
+        res["agree"] = (agree, len(jobs) * new_tokens)
+        log(f"{tag}: against a unified engine on the same weights: tokens "
+            f"agree at {agree} of {len(jobs) * new_tokens} positions")
+        if not _gap_gate("handed-off against unified logprobs up to each "
+                         "row's first divergence", res["unified_gap"],
+                         tol_mean, tol_max, phase=tag):
+            raise AssertionError(f"{tag}: handed-off logprobs off the "
+                                 f"unified engine's")
+
+    finally:
+        gs.wire_segment = real_wire
+        stop(servers, manager, mthread, [prm, mclient, pclient, dclient])
+    for eng, what in ((P, "prefill server"), (D, "decode server")):
+        audit_pool(eng, f"{tag}, {what}")
+    res["handoff"] = dict(
+        bytes=mp["handoff_bytes_total"], segments=n_wave,
+        export_s=mp["handoff_seconds_total"],
+        import_s=md["handoff_seconds_total"],
+        resume_gap_ms=(min(gaps) * 1e3, max(gaps) * 1e3), wave_s=t_wave)
+    res["launches"] = dict(launches.total)
+    del servers, P, D
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- 3. int8 pools ---------------------------------------------------------
+    eng_kw = dict(max_batch=max_batch, kv_cache_len=kv_cache_len,
+                  page_size=page_size, prefill_chunk_tokens=prefill_chunk,
+                  chunk_size=chunk_size, kv_cache_dtype="int8",
+                  prefix_cache=True)
+    P8 = build_engine(cfg, params0, device, greedy, handoff_streaming=True,
+                      **eng_kw)
+    D8 = build_engine(cfg, params0, device, greedy, **eng_kw)
+    gate8 = LaunchGate([P8, D8], cfg.n_layers, True)
+    gate8.start()
+    p8 = make_prompts(cfg.vocab_size, [int8_prompt], SEED + 63)[0]
+    P8.submit(APIGenerateInput(
+        qid="pd8-0", prompt_ids=p8, input_ids=p8, metadata={"handoff_to": "D"},
+        gconfig=GenerationHyperparameters(max_new_tokens=int8_new + 1,
+                                          greedy=True)))
+    segs8 = []
+    while P8.has_work:
+        P8.step()
+        for seg in P8.drain_handoff_segments():
+            segs8.append(seg)
+            ok, reason = D8.import_handoff_segment(seg)
+            if not ok:
+                raise AssertionError(f"{tag}, int8: segment {seg['seq']}: "
+                                     f"{reason}")
+    first = P8.drain_results()["pd8-0"]
+    rid = next(i for i, r in enumerate(D8.rows)
+               if r is not None and r.req.qid == "pd8-0")
+    back = paged.gather_blocks_host(D8.k_pool, D8.v_pool, D8._row_blocks[rid],
+                                    D8.k_scale, D8.v_scale)
+    data = [s for s in segs8 if s["n_blocks"]]
+    same8 = len(back) == 4 and all(
+        _same_bytes(torch.cat([s["payload"][c] for s in data]), back[c])
+        for c in range(4))
+    cont = list(p8) + list(first.output_ids)
+    (rest,), _ = serve(D8, [APIGenerateInput(
+        qid="pd8-0", prompt_ids=cont, input_ids=cont,
+        gconfig=GenerationHyperparameters(max_new_tokens=int8_new,
+                                          greedy=True))])
+    check_outputs([rest], cfg, int8_new, f"{tag} int8")
+    log(f"{tag}, int8 pools: {len(segs8)} segments, "
+        f"{P8.handoff_bytes_total / 1e6:.2f} MB (int8 bytes and float32 "
+        f"scales, 4 components); the imported blocks equal the segments bit "
+        f"for bit: {same8}; then {len(rest.output_ids)} tokens with "
+        f"{D8.prefill_tokens_total} prefilled and {D8.resumed_total} resume")
+    if not same8 or D8.prefill_tokens_total or D8.resumed_total != 1:
+        raise AssertionError(f"{tag}: the int8 handoff")
+    gate8.check(f"{tag}, int8 pools")
+    for eng, what in ((P8, "int8 prefill engine"), (D8, "int8 decode engine")):
+        audit_pool(eng, f"{tag}, {what}")
+    res["launches_int8"] = dict(gate8.total)
+    del P8, D8
+
+    # -- 4. the fabric: a peer prefix pull ----------------------------------------
+    name_resolve.reconfigure("memory")
+    constants.set_experiment_trial_names(expr, "fabric")
+    servers = [start_server(GenServerConfig(
+        worker_name=f"gen_server_{i}", **common), expr, "fabric",
+        f"{tag}, fabric") for i in range(2)]
+    engines = [s[0].engine for s in servers]
+    manager = mthread = mclient = prm = None
+    try:
+        # round robin, and the session's affinity gives way to any foreign
+        # load on its hot server: the next turn moves, with a hint
+        manager, mthread, mclient = _start_manager(
+            expr, "fabric", worker_name="gserver_manager", n_servers=2,
+            schedule_policy="round_robin", affinity_imbalance_factor=1.0,
+            affinity_imbalance_slack_tokens=0.0)
+        prm = PartialRolloutManager(mclient, gconf,
+                                    new_tokens_per_chunk=new_tokens,
+                                    request_timeout=600.0)
+        shared = make_prompts(cfg.vocab_size,
+                              [fabric_pages * page_size + fabric_tail],
+                              SEED + 64)[0]
+        own, w1, w2 = make_prompts(cfg.vocab_size,
+                                   [fabric_suffix, control_len,
+                                    3 * control_len], SEED + 65)
+        fgate = LaunchGate(engines, cfg.n_layers, False)
+        fgate.start()
+        generate(prm, [("fab@t0-0", shared)])
+        generate(prm, [("fabw1-0", w1)])
+        generate(prm, [("fabw2-0", w2)])
+        owner = next(e for e in engines if e.prefill_tokens_total >= len(shared))
+        puller = next(e for e in engines if e is not owner)
+        before = puller.prefill_tokens_total
+        tik = time.perf_counter()
+        (fab,) = generate(prm, [("fab@t1-0", shared + own)])
+        t_pull = time.perf_counter() - tik
+        check_outputs([fab], cfg, new_tokens, f"{tag} fabric")
+        st = puller.prefix_peer_stats()
+        saved = len(shared + own) - (puller.prefill_tokens_total - before)
+        block_bytes = puller._pool_block_bytes()
+        log(f"{tag}, fabric: the session's second request moved servers with "
+            f"a kv_source hint ({manager._m_fabric_routes.value()} fabric "
+            f"routes): {st['pulls_total']} pull of "
+            f"{st['pull_bytes_total'] / 1e6:.1f} MB "
+            f"({st['pull_bytes_total'] // block_bytes} blocks), rejects "
+            f"{st['pull_rejects']}; it prefilled "
+            f"{puller.prefill_tokens_total - before} of "
+            f"{len(shared + own)} prompt tokens ({saved} saved); the request "
+            f"took {t_pull:.2f} s on {card}")
+        if (st["pulls_total"] != 1 or st["pull_rejects"]
+                or st["pull_bytes_total"] != fabric_pages * block_bytes
+                or saved < fabric_pages * page_size):
+            raise AssertionError(f"{tag}: the fabric pull {st}, saved {saved}")
+        res["fabric_gap"] = _gap(forced_logprobs(params0, cfg, [fab]),
+                                 _served([fab]))
+        if not _gap_gate("the pulled-prefix answer", res["fabric_gap"],
+                         tol_mean, tol_max, phase=tag):
+            raise AssertionError(f"{tag}: the pulled answer off the forward")
+        fgate.check(f"{tag}, fabric servers")
+    finally:
+        stop(servers, manager, mthread, [prm, mclient])
+    for i, eng in enumerate(engines):
+        audit_pool(eng, f"{tag}, fabric server {i}")
+    for k, v in fgate.total.items():
+        res["launches"][k] += v
+    res["fabric"] = dict(bytes=st["pull_bytes_total"], saved=saved,
+                         request_s=t_pull)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"{tag}: phase {res['phase_s']:.1f} s on {card}")
+    return res
+
+
 def _by_path(tree, prefix=""):
     """``{path: leaf}`` of a dict/list tree."""
     if isinstance(tree, dict):
@@ -2965,16 +3499,12 @@ def hf_phase(cfg, master, device, card, hf_dir, *, prompt_lens=HF_PROMPT_LENS,
         GenerationHyperparameters,
     )
     from areal_tpu_torch.api.system_api import GenServerConfig
-    from areal_tpu_torch.base import constants, name_resolve, names
+    from areal_tpu_torch.base import constants, name_resolve
     from areal_tpu_torch.engine.backend import make_model
     from areal_tpu_torch.engine.train_engine import TrainEngine
     from areal_tpu_torch.interfaces.ppo_interface import model_logprobs_fwd
     from areal_tpu_torch.models.convert import serving_params
-    from areal_tpu_torch.system.generation_server import (
-        GenerationServerWorker,
-        GenServerClient,
-        parse_server_registration,
-    )
+    from areal_tpu_torch.system.generation_server import GenServerClient
 
     tag = "hf"
     t_phase = time.perf_counter()
@@ -3013,31 +3543,10 @@ def hf_phase(cfg, master, device, card, hf_dir, *, prompt_lens=HF_PROMPT_LENS,
         model=ModelAbstraction("random", {"config": cfg, "seed": SEED + 1}),
         max_concurrent_batch=max_batch, kv_cache_len=kv_cache_len,
         device=None if cuda else str(device), **server_kw)
-    worker = GenerationServerWorker()
-    failed = []
-
-    def run_server():
-        try:
-            worker.run(config)
-        except Exception as e:  # noqa: BLE001 - raised below
-            failed.append(e)
-
-    thread = threading.Thread(target=run_server, daemon=True,
-                              name="gen-server-hf")
+    worker, thread, addr, failed = start_server(config, "chipsmoke", "hf",
+                                                tag)
     client = None
-    thread.start()
     try:
-        key = names.gen_server("chipsmoke", "hf", "gen_server_hf")
-        tik = time.perf_counter()
-        while True:
-            try:
-                addr = parse_server_registration(name_resolve.get(key))[0]
-                break
-            except name_resolve.NameEntryNotFoundError:
-                if not thread.is_alive() or time.perf_counter() - tik > 300:
-                    raise AssertionError(
-                        f"{tag}: the server did not start: {failed}")
-                time.sleep(0.01)
         client = GenServerClient(addr, timeout=600)
         eng = worker.engine
         payload = {"path": hf_dir, "version": 1, "format": "hf"}
@@ -6927,6 +7436,12 @@ def main() -> int:
     server = server_phase(cut_cfg, cut_master, device, card)
     log(f"server phase done at {time.perf_counter() - t_start:.1f} s; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    pd = pd_phase(cut_cfg, device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"P/D phase done at {time.perf_counter() - t_start:.1f} s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     hf_root = tempfile.mkdtemp(prefix="chip_smoke_hf_")
     try:
         hf_dir = os.path.join(hf_root, "qwen2")
@@ -6990,7 +7505,7 @@ def main() -> int:
 
     entries = kernel_entries(kern, long_kern, eng, long_launches, flash,
                              train, prefix, server, hf, sync, training, loop,
-                             procs, features, family)
+                             procs, features, family, pd)
     if parent is not None:
         torch.cuda.empty_cache()
         parent_ab(parent)
@@ -7011,11 +7526,12 @@ def main() -> int:
 
 
 def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
-                   hf, sync, training, loop, procs, features, family):
+                   hf, sync, training, loop, procs, features, family, pd):
     """The ``{"kernels": [...]}`` line's entries: every kernel, with its
     launches on the main paths (the engine's greedy wave, the long-context
-    arms, the prefix-cache phase, the generation server, the server that
-    swapped in the HF directory and the async-PPO loop; sync PPO's
+    arms, the prefix-cache phase, the generation server, the P/D fleet and
+    the fabric's servers, the server that swapped in the HF directory and
+    the async-PPO loop; sync PPO's
     generation for ``flash_decode``; the trainer's steps, sync PPO's, the
     training phase's (SFT, DPO, rw and the options arm, remat recomputes
     included), the family phase's SFT of Gemma and Mistral, its windowed
@@ -7044,13 +7560,14 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
         return max(src[k]["max_abs_err"] for k in keys)
 
     fp_prefix, int8_prefix = (prefix[k]["launches"] for k in ("auto", "int8"))
+    pd_fp, pd_i8 = pd["launches"], pd["launches_int8"]
     feat_fp, feat_i8 = (features["launches"][k] for k in ("fp", "int8"))
     entries = [
         entry("paged_flash_attention", paged_src, paged_ref,
               eng["launches"] + arm_launches("std", False) + fp_prefix["std"]
               + server["launches"]["std"] + hf["launches"]["std"]
               + loop["launches"]["std"] + procs["launches"]["std"]
-              + feat_fp["std"],
+              + feat_fp["std"] + pd_fp["std"],
               max(errs("decode", "prefill", "prefill_long",
                        "prefill_mid_page", "verify"),
                   errs("standard_bf16", src=long_kern)),
@@ -7063,7 +7580,8 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
                   hf_swap=hf["launches"]["std"],
                   async_ppo=loop["launches"]["std"],
                   async_ppo_processes=procs["launches"]["std"],
-                  serving_features=feat_fp["std"]),
+                  serving_features=feat_fp["std"],
+                  pd_handoff_and_fabric=pd_fp["std"]),
               prefill_entry_launches=(eng["prefill_launches"]
                                       + arm_launches("prefill", False)
                                       + fp_prefix["prefill"]
@@ -7071,7 +7589,8 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
                                       + hf["launches"]["prefill"]
                                       + loop["launches"]["prefill"]
                                       + procs["launches"]["prefill"]
-                                      + feat_fp["prefill"]),
+                                      + feat_fp["prefill"]
+                                      + pd_fp["prefill"]),
               verify_window_launches=feat_fp["verify"],
               prefill={k: kern["prefill"][k] for k in timed},
               prefill_long={k: kern["prefill_long"][k] for k in timed},
@@ -7081,17 +7600,20 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
               long_decode={k: long_kern["standard_bf16"][k] for k in timed}),
         entry("paged_flash_attention_int8", paged_src,
               "areal_tpu/ops/paged_attention.py:116",
-              arm_launches("std", True) + int8_prefix["std"] + feat_i8["std"],
+              arm_launches("std", True) + int8_prefix["std"] + feat_i8["std"]
+              + pd_i8["std"],
               max(errs("int8_decode", "int8_prefill", "int8_prefill_long",
                        "int8_prefill_mid_page", "int8_verify"),
                   errs("standard_int8", src=long_kern)),
               long_kern["standard_int8"],
               launches_by_path=dict(long_context=arm_launches("std", True),
                                     prefix_cache=int8_prefix["std"],
-                                    serving_features=feat_i8["std"]),
+                                    serving_features=feat_i8["std"],
+                                    pd_handoff=pd_i8["std"]),
               prefill_entry_launches=(arm_launches("prefill", True)
                                       + int8_prefix["prefill"]
-                                      + feat_i8["prefill"]),
+                                      + feat_i8["prefill"]
+                                      + pd_i8["prefill"]),
               decode={k: kern["int8_decode"][k] for k in timed},
               prefill={k: kern["int8_prefill"][k] for k in timed},
               prefill_long={k: kern["int8_prefill_long"][k] for k in timed},

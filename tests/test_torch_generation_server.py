@@ -297,10 +297,14 @@ def test_metrics_carry_swap_counters_and_slo_digests(sides):
 def test_cancel_and_refused_commands(sides):
     jside, pside = sides
     assert pside.client.call("stream_cancel", {"qid": "nobody"}) == {"ok": True}
-    for cmd in ("generate_stream", "stream_poll", "import_handoff",
-                "export_prefix"):
+    for cmd in ("generate_stream", "stream_poll"):
         with pytest.raises(RuntimeError, match="NotImplementedError"):
             pside.client.call(cmd, {"qid": "x"})
+    # a prefix nobody cached: an empty export, as from the JAX server
+    for side in (pside, jside):
+        assert side.client.call("export_prefix", {
+            "qid": "x", "tokens": list(range(40, 80))}) == {
+                "segments": [], "reason": "miss"}
     assert pside.engine.version == 1
 
 
@@ -415,13 +419,19 @@ def test_engine_cancel_releases_rows():
 ], ids=["prefill", "decode", "processes", "mesh", "compile_watch", "spec",
         "int8_weights", "host_tier", "dense"])
 def test_out_of_slice_options_are_refused(kw):
-    """The P/D roles, multi-process servers, meshes and the compile watch
-    are refused; speculative decoding, int8 weights, the host tier and the
-    dense cache configure a server whose engine holds them."""
+    """Multi-process servers, meshes and the compile watch are refused; the
+    P/D roles register as the JAX server registers them, and speculative
+    decoding, int8 weights, the host tier and the dense cache configure a
+    server whose engine holds them."""
+    from areal_tpu.base.topology import MeshSpec
+    from areal_tpu.system import generation_server as jgs
     from areal_tpu_torch.api.config import ModelAbstraction
     from areal_tpu_torch.api.system_api import GenServerConfig, SpecDecodeConfig
-    from areal_tpu_torch.base import constants, name_resolve
-    from areal_tpu_torch.system.generation_server import GenerationServerWorker
+    from areal_tpu_torch.base import constants, name_resolve, names
+    from areal_tpu_torch.system.generation_server import (
+        GenerationServerWorker,
+        format_server_registration,
+    )
 
     if kw.get("spec_decode") == "spec":
         kw = dict(spec_decode=SpecDecodeConfig(enabled=True))
@@ -430,7 +440,7 @@ def test_out_of_slice_options_are_refused(kw):
         **dict(SERVER, worker_name="gen_server_options", **kw))
     key = next(iter(kw))
     if key not in ("spec_decode", "serving_weight_dtype",
-                   "prefix_cache_host_bytes", "cache_mode"):
+                   "prefix_cache_host_bytes", "cache_mode", "role"):
         with pytest.raises(NotImplementedError):
             GenerationServerWorker().configure(cfg)
         return
@@ -447,6 +457,17 @@ def test_out_of_slice_options_are_refused(kw):
             assert m["weight_quant_storage_bits"] == 8
         elif key == "prefix_cache_host_bytes":
             assert m["prefix_cache_host_bytes_budget"] == 1 << 20
+        elif key == "role":
+            role = kw["role"]
+            reg = format_server_registration(worker.addr, None, role=role)
+            assert reg == jgs.format_server_registration(
+                worker.addr, MeshSpec(), role=role)
+            assert reg.endswith(f"|{role}")
+            assert name_resolve.get(names.gen_server(
+                EXPR, "options", "gen_server_options")) == reg
+            assert m["role"] == role and m["segment_transport"] == "host-numpy"
+            assert m["handoff_exports_total"] == 0 and eng.paged
+            assert eng._handoff_streaming
         else:
             assert m["cache_mode"] == "dense" and m["preempted_total"] == 0
     finally:

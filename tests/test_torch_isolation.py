@@ -109,13 +109,14 @@ TRAINING_MODULES = [
 
 #: the serving features' modules: speculative decoding, the prefix cache's
 #: host tier, the paged and dense forwards, int8 serving weights, the
-#: kernels' wrappers they call and the card-only tools that measure them
+#: kernels' wrappers they call and the tools that measure them (the P/D
+#: handoff's and the KV fabric's phase among them)
 SERVING_FEATURE_MODULES = [
     f"areal_tpu_torch.{m}" for m in (
         "engine.spec_decode", "engine.prefix_cache", "engine.dispatch",
         "engine.batching", "engine.sampling", "models.paged",
         "ops.paged_attention", "ops.decode_attention",
-        "tools.features_rehearsal", "tools.w8_controls",
+        "tools.features_rehearsal", "tools.w8_controls", "tools.pd_rehearsal",
     )
 ]
 
@@ -424,8 +425,8 @@ def test_kernel_source_targets_hopper():
     ids=lambda kw: next(iter(kw)),
 )
 def test_out_of_slice_options_are_refused(kw):
-    """P/D handoff streaming (item 8) and meshes (item 10) are refused; the
-    host tier, int8 weights, speculative decoding and the dense cache are
+    """Meshes (item 10) are refused; the host tier, int8 weights,
+    speculative decoding, the dense cache and the streamed handoff are
     served and hold what was asked for."""
     cfg, params = _tiny_engine_args()
 
@@ -436,11 +437,31 @@ def test_out_of_slice_options_are_refused(kw):
         )
 
     key = next(iter(kw))
-    if key in ("handoff_streaming", "mesh"):
-        with pytest.raises(NotImplementedError,
-                           match="item 8" if key == "handoff_streaming"
-                           else "item 10"):
+    if key == "mesh":
+        with pytest.raises(NotImplementedError, match="item 10"):
             make()
+    elif key == "handoff_streaming":
+        # a prompt of one page and a bit, filled in one chunk: one segment
+        # with the page goes out as the chunk lands, then the final one
+        eng = make()
+        from areal_tpu_torch.api.model_api import (
+            APIGenerateInput,
+            GenerationHyperparameters,
+        )
+
+        prompt = list(range(1, 21))
+        eng.submit(APIGenerateInput(
+            qid="h", prompt_ids=prompt, input_ids=prompt,
+            gconfig=GenerationHyperparameters(max_new_tokens=4),
+            metadata={"handoff_to": "peer"}))
+        while eng.has_work:
+            eng.step()
+        segs = eng.drain_handoff_segments()
+        assert [(s["seq"], s["n_blocks"], s["final"]) for s in segs] == [
+            (0, 1, False), (1, 1, True)]
+        assert segs[0]["dest"] == "peer" and segs[0]["payload"][0].shape[0] == 1
+        assert eng.handoff_stats()["segment_exports_total"] == 2
+        assert eng.drain_results()["h"].output_ids == segs[1]["generated"]
     elif key == "prefix_cache":
         stats = make().prefix_cache_stats()
         assert stats["host_bytes_budget"] == 1 << 20
