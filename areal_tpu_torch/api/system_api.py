@@ -387,13 +387,12 @@ class EvaluatorConfig:
     max_prompts: int = 64
     max_new_tokens: int = 256
     interval: float = 5.0
-    # JAX platform policy for the eval subprocess (scheduler/evaluator.py
-    # resolve_eval_env).  "auto" (default): run ON a spare local
-    # accelerator whenever the experiment's workers leave one free
-    # (pinned via TPU_VISIBLE_DEVICES — the reference's dedicated eval
-    # partition, realhf/scheduler/evaluator.py:34), falling back to CPU
-    # only when every chip is claimed.  A platform string forces it;
-    # "" inherits the host platform unconditionally.
+    # the eval subprocess's device (scheduler/evaluator.py
+    # resolve_eval_env): "auto" (default) runs it on a card, a spare one
+    # when the workers leave one, else shared with them, pinned with
+    # CUDA_VISIBLE_DEVICES (no card is an error); "cpu" runs it on the
+    # CPU; "" inherits the environment; a torch device string is passed
+    # to the eval CLI as it is
     device: str = "auto"
 
 
@@ -426,11 +425,6 @@ class ExperimentConfig:
             raise NotImplementedError(
                 "the serving gateway (gateway) is not ported to "
                 "areal_tpu_torch yet (ROADMAP.md queue 1, item 16)"
-            )
-        if self.evaluator is not None:
-            raise NotImplementedError(
-                "the automatic evaluator (evaluator) is not ported to "
-                "areal_tpu_torch yet (ROADMAP.md queue 1, item 11)"
             )
         if self.trace is not None:
             workers = [self.master, self.gserver_manager, self.gateway]

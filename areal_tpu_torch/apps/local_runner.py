@@ -6,8 +6,11 @@ gserver manager, rollout workers and the master.  On one card the
 trainer and the servers share the device; each launches its work on its
 own CUDA stream where it does (the server's staged restore, the trainer's
 steps on the default stream), and nothing here synchronises the whole
-device.  The serving gateway and the automatic evaluator are refused by
-``ExperimentConfig.lazy_init`` (ROADMAP.md queue 1, items 16 and 11).
+device.  An experiment's ``evaluator`` runs on a thread of its own: it
+submits an eval job per HF save through the local scheduler client and
+logs each result by global step; the run's end stops it and kills a job
+still running.  The serving gateway is refused by
+``ExperimentConfig.lazy_init`` (ROADMAP.md queue 1, item 16).
 """
 
 from __future__ import annotations
@@ -94,6 +97,25 @@ def run_experiment_local(
     # rollout stack (async experiments)
     aux_threads, aux_workers = _start_rollout_stack(cfg, errors)
 
+    # the automatic evaluator (the component the process launcher drives)
+    evaluator = None
+    eval_stop = threading.Event()
+    if cfg.evaluator is not None:
+        from areal_tpu_torch.scheduler.evaluator import (
+            make_evaluator,
+            run_evaluator_loop,
+        )
+
+        evaluator = make_evaluator(cfg)
+        et = threading.Thread(
+            target=run_evaluator_loop,
+            args=(evaluator, eval_stop, cfg.evaluator.interval),
+            daemon=True,
+            name="evaluator",
+        )
+        et.start()
+        aux_threads.append(et)
+
     master = MasterWorker()
     master_err: List[BaseException] = []
 
@@ -117,7 +139,11 @@ def run_experiment_local(
             raise RuntimeError("master failed") from master_err[0]
     finally:
         # every worker stops on every exit path: a failed or timed-out run
-        # must not leave engines decoding in daemon threads
+        # must not leave engines decoding in daemon threads; nor may the
+        # evaluator leave its detached eval job running
+        eval_stop.set()
+        if evaluator is not None:
+            evaluator.shutdown()
         for w in workers + aux_workers:
             w.exit()
     for t in threads + aux_threads:

@@ -11,9 +11,11 @@ and launches them all again with ``AREAL_RECOVER=1``, up to
 the model workers reload their last train-state checkpoint.  When the
 master completes, the other workers are asked to exit and are reaped.
 
-The automatic evaluator stays refused, as ``ExperimentConfig.lazy_init``
-refuses it (ROADMAP.md queue 1, item 11), and so does the gateway worker
-(item 16).
+An experiment's ``evaluator`` is stepped by the monitor loop: it submits
+an eval job per HF save through the launcher's scheduler layer; every exit
+path harvests what finished and stops a job still running.  The gateway
+worker stays refused, as ``ExperimentConfig.lazy_init`` refuses it
+(ROADMAP.md queue 1, item 16).
 
 Usage::
 
@@ -158,9 +160,13 @@ def _monitor(
     # not the length of one step
     hb_timeout = float(os.environ.get("AREAL_HEARTBEAT_TIMEOUT", "60"))
     panel = WorkerControlPanel(cfg.experiment_name, cfg.trial_name)
+    evaluator = _make_evaluator(cfg)
     try:
         _monitor_loop(sched, deadline, status_key, master_name, panel,
-                      [w for _, _, w in specs], hb_timeout)
+                      [w for _, _, w in specs], hb_timeout,
+                      evaluator=evaluator,
+                      eval_interval=(cfg.evaluator.interval
+                                     if evaluator is not None else 0.0))
     except JobException as e:
         panel.close()
         logger.error("the end of %s's log:\n%s", e.worker_type,
@@ -170,12 +176,28 @@ def _monitor(
     except BaseException:
         panel.close()
         raise
+    finally:
+        # every exit path (a worker's failure, the deadline, Ctrl-C)
+        # reaps the detached eval job, or a restart would race the orphan
+        if evaluator is not None:
+            evaluator._harvest()
+            evaluator.shutdown()
     _shutdown_workers(sched, specs, panel, master_name)
 
 
+def _make_evaluator(cfg: system_api.ExperimentConfig):
+    """The checkpoint-watching evaluator the monitor loop steps (None when
+    the experiment configures none); its jobs go through a local scheduler
+    client of their own."""
+    from areal_tpu_torch.scheduler.evaluator import make_evaluator
+
+    return make_evaluator(cfg, scheduler_mode="local")
+
+
 def _monitor_loop(sched, deadline, status_key, master_name, panel,
-                  all_names, hb_timeout):
+                  all_names, hb_timeout, evaluator=None, eval_interval=0.0):
     last_hb_check = time.monotonic()
+    last_eval_step = time.monotonic()
     while True:
         for job in sched.find_all():
             if job.state == JobState.FAILED:
@@ -201,6 +223,10 @@ def _monitor_loop(sched, deadline, status_key, master_name, panel,
                                  "declaring LOST", w, hb_timeout)
                 raise JobException(sched.run_name, stale[0], "?",
                                    JobState.FAILED)
+        if evaluator is not None and (
+                time.monotonic() - last_eval_step > eval_interval):
+            last_eval_step = time.monotonic()
+            evaluator.step()
         if deadline and time.monotonic() > deadline:
             raise TimeoutError("experiment timed out")
         time.sleep(0.5)

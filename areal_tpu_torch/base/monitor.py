@@ -8,9 +8,10 @@ allocator's bytes in use and at peak) instead of the TPU's
 card read them (the model workers with each train step, the generation
 servers with each ``metrics`` reply, each its own allocator); the
 background sampler reads the host only, so the master, in a process of
-its own, never creates a CUDA context.  The HBM ledger's reconciliation
-is not ported (ROADMAP.md queue 1, item 11), nor is the TPU peak-FLOP table
-(the train engine keeps the card's own, ``engine/train_engine.py``).
+its own, never creates a CUDA context.  After each device sample the HBM
+ledger (:mod:`~areal_tpu_torch.observability.hbm_ledger`) is reconciled
+against ``torch.cuda.memory_allocated``.  The TPU peak-FLOP table is not
+ported (the train engine keeps the card's own, ``engine/train_engine.py``).
 The JAX package's time marks are not copied: nothing in the port records
 them.
 """
@@ -73,6 +74,11 @@ def device_memory_stats() -> Dict[str, float]:
 
     out: Dict[str, float] = {}
     if not torch.cuda.is_available():
+        # no device: the ledger's reconciliation is vacuous (drift 0)
+        from areal_tpu_torch.observability import get_registry
+        from areal_tpu_torch.observability.hbm_ledger import get_ledger
+
+        get_ledger().reconcile(get_registry(), None)
         return out
     for i in range(torch.cuda.device_count()):
         stats = torch.cuda.memory_stats(i)
@@ -98,6 +104,14 @@ def device_memory_stats() -> Dict[str, float]:
                 reg.gauge("areal_device_hbm_peak_gb").set(v, device=dev)
             elif field == "hbm_limit_gb":
                 reg.gauge("areal_device_hbm_limit_gb").set(v, device=dev)
+        # the ledger's device tags must sum to at most the allocator's own
+        # bytes in tensors; the excess publishes as
+        # areal_hbm_ledger_drift_gb (0 while the ledger is honest)
+        from areal_tpu_torch.observability.hbm_ledger import get_ledger
+
+        get_ledger().reconcile(reg, sum(
+            torch.cuda.memory_allocated(i)
+            for i in range(torch.cuda.device_count())))
     except Exception:  # noqa: BLE001 - monitoring must not kill work
         logger.exception("metric registry publish failed")
     return out

@@ -92,9 +92,22 @@ Design, as in the reference:
   giving back every block it took.  Payloads are host tensors (an int8
   pool's bytes with their scales), bit-identical through the import.
 
+* A request whose metadata sets ``stream`` opens a token stream: each
+  token the engine folds in (a fill's first token, a dense admission's,
+  a harvested decode chunk's, a verify window's accepted ones) is pushed
+  once, in fold order, into a bounded buffer (``stream_buffer_cap``,
+  overflow counted as dropped) that :meth:`~ContinuousBatchingEngine.
+  drain_stream` empties; a stream nobody drained for
+  ``stream_stale_steps`` engine steps is named by
+  :meth:`~ContinuousBatchingEngine.stale_stream_qids`, for the server to
+  cancel.
+* Every allocation seam holds a handle in the HBM ledger
+  (:mod:`~areal_tpu_torch.observability.hbm_ledger`): the serving weights,
+  a staged tree, the KV pool and its int8 scales, the prefix cache's host
+  tier, undrained stream buffers and queued handoff segments.
+
 Left out so far, each rejected explicitly where a caller could ask for it:
-token streams (ROADMAP.md queue 1, item 11), tensor-parallel meshes (item
-10), MoE models, and the HBM ledger.
+tensor-parallel meshes (ROADMAP.md queue 1, item 10) and MoE models.
 """
 
 from __future__ import annotations
@@ -103,6 +116,7 @@ import contextlib
 import dataclasses
 import threading
 import time
+import weakref
 import zlib
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
@@ -123,6 +137,11 @@ from areal_tpu_torch.models import paged, quantize
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.convert import serving_dtype, serving_params
 from areal_tpu_torch.models.transformer import KVCache, decode_chunk, prefill
+from areal_tpu_torch.observability.hbm_ledger import (
+    HbmLedger,
+    get_ledger,
+    tree_nbytes,
+)
 from areal_tpu_torch.observability.latency import LatencyDigest, LatencyRecord
 from areal_tpu_torch.observability.tracing import get_tracer
 
@@ -322,6 +341,7 @@ class ContinuousBatchingEngine:
         mesh=None,
         server_name: str = "",
         tokenizer=None,
+        hbm_ledger: Optional[HbmLedger] = None,
     ):
         """Arguments mirror the reference engine's.  ``device`` defaults to
         ``cuda``; pass ``"cpu"`` to run on the CPU.  ``params`` is the port's
@@ -434,6 +454,30 @@ class ContinuousBatchingEngine:
             else None
         )
         self.params = self._serving_copy(params)
+        # the HBM ledger: one handle per allocation seam; close() audits
+        # them and releases them (so does collecting an engine never
+        # closed).  Handles are no-ops on a disabled ledger
+        self.hbm_ledger = hbm_ledger if hbm_ledger is not None else get_ledger()
+        led = self.hbm_ledger
+        self._led_weights = led.register(
+            "weights", tree_nbytes(self.params), name="engine.params")
+        self._led_staged = led.register(
+            "staged_weights", name="engine.staged_params")
+        self._led_kv_pool = led.register("kv_pool", name="engine.kv_pool")
+        self._led_kv_scales = led.register(
+            "kv_scales", name="engine.kv_scales")
+        self._led_spill = led.register(
+            "prefix_spill_host", name="engine.prefix_spill")
+        self._led_streams = led.register(
+            "stream_buffers", name="engine.streams")
+        self._led_handoff = led.register(
+            "handoff_staging", name="engine.handoff")
+        self._led_handles = (
+            self._led_weights, self._led_staged, self._led_kv_pool,
+            self._led_kv_scales, self._led_spill, self._led_streams,
+            self._led_handoff,
+        )
+        weakref.finalize(self, _release_handles, self._led_handles)
         self.max_batch = max_batch
         self.kv_cache_len = kv_cache_len
         self.chunk_size = chunk_size
@@ -506,10 +550,14 @@ class ContinuousBatchingEngine:
                     host_bytes_budget=host_bytes,
                     block_bytes=self._pool_block_bytes(),
                     spill_fetch=self._spill_gather if host_bytes > 0 else None,
+                    ledger_handle=self._led_spill,
                 )
         else:
             dev = self.device
             self.cache = KVCache.zeros(cfg, max_batch, kv_cache_len, dev)
+            # the dense cache's bytes land under the same kv_pool tag
+            self._led_kv_pool.set(tree_nbytes(
+                [self.cache.k, self.cache.v, self.cache.lengths]))
             self.cur_tokens = torch.zeros(max_batch, dtype=torch.int32,
                                           device=dev)
             self.active = torch.zeros(max_batch, dtype=torch.bool, device=dev)
@@ -554,6 +602,16 @@ class ContinuousBatchingEngine:
             "stall_s": LatencyDigest(),
         }
         self.cancelled_total = 0
+        # token streams: per-qid buffers fed where tokens are folded in
+        # (a fill's first token, a dense admission's, a harvested chunk's)
+        # and drained by the server; bounded, overflow counted as dropped
+        self._streams: Dict[str, Dict[str, Any]] = {}
+        self.stream_buffer_cap = 4096
+        # a stream nobody drained for this many engine steps (a step-keyed
+        # clock, as the reference's) is reported stale for a cancel
+        self.stream_stale_steps = 2048
+        self.streams_opened_total = 0
+        self.stream_dropped_total = 0
         # cancels of rows caught mid-fill, retried after each step's fills
         self._cancel_wanted: set = set()
         self.gen_tokens_total = 0
@@ -643,6 +701,8 @@ class ContinuousBatchingEngine:
         self.kv_pool_bytes, self.kv_scale_bytes = paged.kv_pool_layout_bytes(
             cfg, self.n_blocks, BS, kv_cache_dtype=self.kv_cache_dtype
         )
+        self._led_kv_pool.set(self.kv_pool_bytes)
+        self._led_kv_scales.set(self.kv_scale_bytes)
         self.kv_lengths = torch.zeros(max_batch, dtype=torch.int32, device=dev)
         self.cur_tokens = torch.zeros(max_batch, dtype=torch.int32, device=dev)
         self.active = torch.zeros(max_batch, dtype=torch.bool, device=dev)
@@ -1582,13 +1642,18 @@ class ContinuousBatchingEngine:
     # -- public API --------------------------------------------------------------
 
     def submit(self, req: model_api.APIGenerateInput) -> str:
-        if (req.metadata or {}).get("stream"):
-            raise _not_ported("token streaming (metadata['stream'])", item=11)
         with self._lock:
             self._pending.append(req)
             self._result_events[req.qid] = threading.Event()
             if self._slo_enabled:
                 self._submit_ts[req.qid] = time.monotonic()
+            if (req.metadata or {}).get("stream"):
+                self._streams[req.qid] = {
+                    "toks": deque(maxlen=self.stream_buffer_cap),
+                    "drain_step": self._step_seq,
+                    "dropped": 0,
+                }
+                self.streams_opened_total += 1
         return req.qid
 
     # -- request-level SLO plane ----------------------------------------------
@@ -1692,13 +1757,67 @@ class ContinuousBatchingEngine:
         return None
 
     def drain_results(self) -> Dict[str, model_api.APIGenerateOutput]:
-        """Pop every finished result."""
+        """Pop every finished result (and the stream of each: a caller that
+        drains results reads no streams)."""
         with self._lock:
             out = dict(self._results)
             self._results.clear()
             for qid in out:
                 self._result_events.pop(qid, None)
+                self._streams.pop(qid, None)
         return out
+
+    # -- token streams -------------------------------------------------------------
+
+    def _stream_push(self, row: _Row, toks: List[int]):
+        """Feed a row's newly folded tokens into its stream (one dict miss
+        for a request without one)."""
+        if not toks:
+            return
+        with self._lock:
+            st = self._streams.get(row.req.qid)
+            if st is None:
+                return
+            q = st["toks"]
+            before = len(q)
+            q.extend(int(t) for t in toks)
+            dropped = before + len(toks) - len(q)
+            if dropped > 0:  # the bounded buffer overflowed (undrained)
+                st["dropped"] += dropped
+                self.stream_dropped_total += dropped
+
+    def drain_stream(self, qid: str) -> Optional[List[int]]:
+        """Pop a stream's buffered tokens (None: no such stream open)."""
+        with self._lock:
+            st = self._streams.get(qid)
+            if st is None:
+                return None
+            st["drain_step"] = self._step_seq
+            out = list(st["toks"])
+            st["toks"].clear()
+            return out
+
+    def stream_close(self, qid: str):
+        with self._lock:
+            self._streams.pop(qid, None)
+
+    def stale_stream_qids(self) -> List[str]:
+        """Streams nobody drained for ``stream_stale_steps`` engine steps
+        (step-keyed, never wall clock): the server cancels them."""
+        with self._lock:
+            return [
+                qid for qid, st in self._streams.items()
+                if self._step_seq - st["drain_step"] > self.stream_stale_steps
+            ]
+
+    def stream_stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "open_streams": len(self._streams),
+                "opened_total": self.streams_opened_total,
+                "dropped_tokens_total": self.stream_dropped_total,
+                "cancelled_total": self.cancelled_total,
+            }
 
     # -- cancellation ------------------------------------------------------------
 
@@ -1707,6 +1826,7 @@ class ContinuousBatchingEngine:
             self._results.pop(qid, None)
             self._result_events.pop(qid, None)
             self._submit_ts.pop(qid, None)
+            self._streams.pop(qid, None)
         self._cancel_wanted.discard(qid)
         self.cancelled_total += 1
         self.tracer.event(qid, "engine.cancel", step=self._step_seq)
@@ -1756,7 +1876,8 @@ class ContinuousBatchingEngine:
             self._finalize_cancel(qid)
             return True
         with self._lock:
-            known = qid in self._results or qid in self._result_events
+            known = (qid in self._results or qid in self._result_events
+                     or qid in self._streams)
         if known:
             self._finalize_cancel(qid)
             return True
@@ -1789,6 +1910,7 @@ class ContinuousBatchingEngine:
             params = self._serving_copy(params)
         with self._lock:
             self._new_params = (params, version, pre_sharded)
+            self._ledger_sync_staged_locked()
             return self.n_inflight
 
     def _serving_copy(self, params):
@@ -1871,6 +1993,7 @@ class ContinuousBatchingEngine:
                 return version
             self._staged_params = params
             self._staged_version = version
+            self._ledger_sync_staged_locked()
         logger.info(
             "staged weights v%s in %.3fs (decode uninterrupted)",
             version, time.perf_counter() - tik,
@@ -1910,6 +2033,7 @@ class ContinuousBatchingEngine:
             self._new_params = (self._staged_params, self._staged_version, True)
             self._staged_params = None
             self._staged_version = None
+            self._ledger_sync_staged_locked()
             return self.n_inflight
 
     def discard_staged(self):
@@ -1917,6 +2041,32 @@ class ContinuousBatchingEngine:
         with self._lock:
             self._staged_params = None
             self._staged_version = None
+            self._ledger_sync_staged_locked()
+
+    def _ledger_sync_staged_locked(self):
+        """Re-derive the ``staged_weights`` attribution from the two slots
+        that can hold a swap tree on the device: the staged slot and a
+        swap not applied yet (in the port every pending tree is a serving
+        copy on the engine's device, staged or not).  Caller holds
+        ``self._lock``."""
+        nbytes = tree_nbytes(self._staged_params)
+        if self._new_params is not None:
+            nbytes += tree_nbytes(self._new_params[0])
+        self._led_staged.set(nbytes)
+
+    def _ledger_sync_host_buffers(self):
+        """Recompute the ``stream_buffers`` and ``handoff_staging`` host
+        bytes from the queues themselves, once per step (they change at
+        many sites; a recomputed total cannot drift)."""
+        if not self.hbm_ledger.enabled:
+            return
+        with self._lock:
+            # undrained stream tokens as int32 ids (the payload's bytes)
+            stream_b = 4 * sum(len(st["toks"]) for st in self._streams.values())
+        self._led_streams.set(stream_b)
+        self._led_handoff.set(sum(
+            _nbytes(seg.get("payload") or ()) for seg in self._handoff_segments
+        ))
 
     def swap_stats(self) -> Dict[str, float]:
         """Cumulative weight-swap counters."""
@@ -1935,17 +2085,52 @@ class ContinuousBatchingEngine:
         self._paused.clear()
 
     def close(self) -> Dict[str, int]:
-        """Leak audit by refcount: every pool block's refcount must equal
-        the references held to it by the rows (decoding, filling and
-        parked; a fill's blocks are its first target's row blocks), the
-        prefix cache and the partly imported handoff streams and prefix
-        pulls, and the free stack must hold exactly the blocks
-        nobody references, once each.  Returns ``{"kv_blocks": n}`` for
-        the n blocks that disagree, ``{}`` when none does.  With no parked
-        rows and a flushed cache, a whole pool is free.  Idempotent.  A
-        dense engine holds no pool: ``{}``."""
-        if not self.paged:
-            return {}
+        """The leak audit, then the release of this engine's ledger
+        attributions.  Returns ``{}`` when nothing leaked, else:
+
+        * ``kv_blocks``: the pool blocks whose refcount disagrees with the
+          references held to them by the rows (decoding, filling and
+          parked; a fill's blocks are its first target's row blocks), the
+          prefix cache and the partly imported handoff streams and prefix
+          pulls, or that the free stack holds other than once exactly
+          when nobody references them.  With no parked rows and a flushed
+          cache, a whole pool is free.  A dense engine holds no pool;
+        * the ledger's host and staging tags still holding bytes, as the
+          reference's close reports them: ``staged_weights`` (a swap tree
+          neither committed nor discarded), ``stream_buffers`` (undrained
+          token streams), ``handoff_staging`` (segments never pushed);
+          and ``prefix_spill_host`` when its attribution differs from the
+          host tier the prefix cache holds (the port's audit accounts for
+          a held tier, as it does for held blocks, where the reference
+          counts every unflushed tier).
+
+        The resident tags (weights, kv_pool, kv_scales) release silently:
+        holding them was the engine's job.  Idempotent: a second call
+        audits the blocks again; the released handles read 0."""
+        leaked = self._ledger_audit()
+        if self.paged:
+            leaked.update(self._pool_audit())
+        for h in self._led_handles:
+            h.release()
+        return leaked
+
+    def _ledger_audit(self) -> Dict[str, int]:
+        self._ledger_sync_host_buffers()
+        with self._lock:
+            self._ledger_sync_staged_locked()
+        leaked: Dict[str, int] = {}
+        for h in (self._led_staged, self._led_streams, self._led_handoff):
+            if h.bytes:
+                leaked[h.subsystem] = h.bytes
+        held = (self._prefix_cache.host_bytes_held
+                if self._prefix_cache is not None else 0)
+        if not self._led_spill._released and self._led_spill.bytes != held:
+            leaked["prefix_spill_host"] = self._led_spill.bytes - held
+        if leaked:
+            logger.warning("engine close leak audit: %s", leaked)
+        return leaked
+
+    def _pool_audit(self) -> Dict[str, int]:
         want = np.zeros(self.n_blocks, np.int64)
         for blocks in self._row_blocks:
             np.add.at(want, np.asarray(blocks, np.int64), 1)
@@ -2041,6 +2226,7 @@ class ContinuousBatchingEngine:
             for leaf in _leaves(new_params):
                 leaf.record_stream(stream)
         self.params = new_params
+        self._led_weights.set(tree_nbytes(new_params))
         self.version = (
             target_version if target_version is not None else self.version + 1
         )
@@ -2057,6 +2243,7 @@ class ContinuousBatchingEngine:
                 )
                 self._staged_params = None
                 self._staged_version = None
+            self._ledger_sync_staged_locked()
         # parked rows hold KV of the old weights: release them (their
         # continuations prefill under the new weights)
         for row_id, row in enumerate(self.rows):
@@ -2402,6 +2589,7 @@ class ContinuousBatchingEngine:
                 row.versions = [self.version]
                 row.filling = False
                 self._slo_first_token(row, now=t_first)
+                self._stream_push(row, [int(tok)])
                 if tok in self.stop_tokens or tgt.max_new <= 1:
                     row.no_eos = tok not in self.stop_tokens
                     self._finish(tgt.row_id, row, started=False)
@@ -2973,6 +3161,7 @@ class ContinuousBatchingEngine:
             )
             self._slo_admitted(row, now=t_admit)
             self._slo_first_token(row, now=t_first)
+            self._stream_push(row, [int(tok)])
             if tok in self.stop_tokens or max_new <= 1:
                 row.no_eos = tok not in self.stop_tokens
                 self._finish(row_id, row, started=False)
@@ -3098,6 +3287,7 @@ class ContinuousBatchingEngine:
             if toks and self._slo_enabled:
                 self._slo_first_token(row, now=t_harvest)
                 row.t_last = t_harvest
+            self._stream_push(row, toks)
             if not active[row_id]:
                 last = row.generated[-1] if row.generated else -1
                 row.no_eos = last not in self.stop_tokens
@@ -3176,6 +3366,12 @@ class ContinuousBatchingEngine:
         engine's step only drains the ring.  Returns the
         number of tokens harvested in this step, mid-step ring drains
         (weight swaps, preemptions) included."""
+        try:
+            return self._step()
+        finally:
+            self._ledger_sync_host_buffers()
+
+    def _step(self) -> int:
         self._step_seq += 1
         h0 = self.decode_tokens_total
         if self._paused.is_set():
@@ -3211,6 +3407,13 @@ class ContinuousBatchingEngine:
         ):
             self._harvest_oldest()
         return self.decode_tokens_total - h0
+
+
+def _release_handles(handles):
+    """Release an engine's ledger handles (an engine collected without
+    ``close()`` gives its attributions back)."""
+    for h in handles:
+        h.release()
 
 
 def _spec_tree(tree, cfg: TransformerConfig, device, name: str = ""):

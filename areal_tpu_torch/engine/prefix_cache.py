@@ -172,6 +172,7 @@ class RadixPrefixCache:
         host_bytes_budget: int = 0,
         block_bytes: int = 0,
         spill_fetch: Optional[Callable[[List[int]], Tuple[Any, ...]]] = None,
+        ledger_handle=None,
     ):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -187,6 +188,9 @@ class RadixPrefixCache:
         self._seq = 0
         self.version = 0
         self.blocks_held = 0
+        #: the HBM ledger's ``prefix_spill_host`` handle, set to the host
+        #: tier's bytes at every change (None: no ledger)
+        self.ledger_handle = ledger_handle
         self.host_bytes_held = 0
         self.host_blocks_held = 0
         # cumulative stats
@@ -199,6 +203,18 @@ class RadixPrefixCache:
         self.spilled_blocks_total = 0
         self.restored_blocks_total = 0
         self.host_dropped_blocks_total = 0
+
+    @property
+    def host_bytes_held(self) -> int:
+        return self._host_bytes_held
+
+    @host_bytes_held.setter
+    def host_bytes_held(self, nbytes: int) -> None:
+        # every change passes here, so the ledger's attribution cannot
+        # drift from the cache's own accounting
+        self._host_bytes_held = nbytes
+        if self.ledger_handle is not None:
+            self.ledger_handle.set(nbytes)
 
     @property
     def _host_enabled(self) -> bool:

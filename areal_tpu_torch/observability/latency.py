@@ -19,8 +19,7 @@ midpoint of its bucket, so an in-range quantile is within
 one.  Values outside the covered range clamp to the nearest edge bucket.
 :func:`digest_from_bucket_samples` rebuilds a digest from a scraped page
 and :func:`fleet_slo_rows` merges every worker's into fleet percentiles
-(the master's aggregator; the port's workers do not serve ``/metrics``
-yet, ROADMAP.md queue 1, item 11).
+(the master's aggregator, over each worker's ``/metrics``).
 """
 
 from __future__ import annotations

@@ -6,10 +6,9 @@ mutation takes a per-metric lock, so worker threads, poll loops and daemon
 samplers may write concurrently; ``render()`` emits Prometheus text
 exposition format 0.0.4.
 
-The JAX package checks label keys against its canonical metric table
-(``observability/table.py``); that table, the ``/metrics`` HTTP server that
-serves this registry and the compile watch are not ported yet (ROADMAP.md
-queue 1, item 11), so here every metric is untabled.
+Label KEYS must match the canonical table entry when one exists
+(:mod:`~areal_tpu_torch.observability.table`), so series cannot fork: a
+series whose keys differ from its entry's raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ import re
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from areal_tpu_torch.observability.table import MetricSpec, table_index
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
@@ -58,7 +58,7 @@ def _fmt_labels(key: LabelKey, extra: Sequence[Tuple[str, str]] = ()) -> str:
 class _Metric:
     TYPE = "untyped"
 
-    def __init__(self, name: str, help_: str, spec=None):
+    def __init__(self, name: str, help_: str, spec: Optional[MetricSpec]):
         self.name = name
         self.help = help_
         self._spec = spec
@@ -224,8 +224,7 @@ class MetricsRegistry:
     def __init__(self):
         self._metrics: Dict[str, _Metric] = {}
         self._lock = threading.Lock()
-        # name -> table spec; empty until the metric table is ported
-        self._table: Dict = {}
+        self._table = table_index()
 
     def _get_or_create(self, cls, name: str, help_: Optional[str], **kw):
         if not _NAME_RE.match(name):

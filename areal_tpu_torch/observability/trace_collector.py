@@ -1,7 +1,7 @@
 """Master-side trace collector: harvest, persist, watch for stalls (copy
-of ``areal_tpu/observability/trace_collector.py``; the port's workers do
-not serve ``/trace`` yet, ROADMAP.md queue 1, item 11, so in the port it
-discovers no endpoint).
+of ``areal_tpu/observability/trace_collector.py``; each worker's
+``/trace`` route is served by its ``/metrics`` server,
+:mod:`areal_tpu_torch.observability.server`).
 
 The collector is the assembly half of the distributed flight recorder
 (:mod:`tracing` is the worker-side recording half):
@@ -36,6 +36,7 @@ import urllib.request
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 from areal_tpu_torch.base import logging_, name_resolve, names
+from areal_tpu_torch.observability.table import stall_kind
 from areal_tpu_torch.observability.tracing import (
     TraceConfig,
     to_trace_events,
@@ -44,16 +45,6 @@ from areal_tpu_torch.observability.tracing import (
 
 logger = logging_.getLogger("trace_collector")
 
-#: the stall kinds of the JAX package's ``observability/table.py``
-#: ``STALL_KIND_TABLE`` (the metric table itself is not ported)
-STALL_KINDS = ("span_deadline", "buffer_age", "slo", "recompile")
-
-
-def stall_kind(kind: str) -> str:
-    """Validate-and-return a stall ``kind``."""
-    if kind not in STALL_KINDS:
-        raise ValueError(f"unknown stall kind {kind!r}")
-    return kind
 
 
 class StallWatchdog:

@@ -16,8 +16,7 @@ samples the same rollouts without coordination; retries are always
 recorded, and :meth:`Tracer.force` records a root explicitly (a weight
 swap's ``swap-v{n}`` root).  The master's collector
 (:mod:`trace_collector`) harvests rings over each worker's ``/trace``
-HTTP route, which the port's workers do not serve yet (ROADMAP.md queue
-1, item 11): in the port it finds no endpoint and records nothing, and
+HTTP route (:mod:`~areal_tpu_torch.observability.server`), and
 :func:`record_train_consumption` feeds this process's own ring and
 registry.
 """

@@ -81,7 +81,11 @@ def _target(name: str):
 def build_many(names) -> dict:
     """Compile every ``csrc/<name>.cu`` whose hashed build is missing, one
     ``nvcc`` process per source, all started together; then load each.
-    Returns ``{name: Library}``."""
+    Returns ``{name: Library}``.  A build on disk is never rebuilt, so a
+    second process (an eval job beside a trainer) loads what the first
+    built; two processes that build at once each write a temporary file of
+    their own and rename it into place, so a loaded library's file is
+    never written over."""
     jobs = {}
     for name in names:
         src, out = _target(name)
@@ -117,6 +121,26 @@ def build(name: str) -> Library:
     return build_many([name])[name]
 
 
+#: the libraries this process has loaded (``load_library``'s cache), by
+#: name; what the compile watch counts (``loaded_count``)
+LOADED: dict = {}
+#: callables ``fn(name, build_seconds)`` told of each library this process
+#: loads, ``build_seconds`` 0.0 for a build found on disk
+_load_listeners: list = []
+
+
+def add_load_listener(fn) -> None:
+    """Tell ``fn(name, build_seconds)`` of every library loaded from now
+    on (the compile watch's duration signal)."""
+    if fn not in _load_listeners:
+        _load_listeners.append(fn)
+
+
+def loaded_count(*names: str) -> int:
+    """How many of the named libraries this process has loaded."""
+    return sum(name in LOADED for name in names)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> Library:
     """The built library for ``csrc/<name>.cu``, built once per process.
@@ -129,7 +153,19 @@ def load_library(name: str) -> Library:
             f"the CUDA kernel library {name!r} needs a CUDA device, and "
             "torch.cuda.is_available() is False"
         )
-    return build(name)
+    lib = _built.pop(name, None) or build(name)
+    LOADED[name] = lib
+    for fn in list(_load_listeners):
+        try:
+            fn(name, lib.build_seconds)
+        except Exception:  # noqa: BLE001 - a listener never stops a launch
+            pass
+    return lib
+
+
+#: libraries ``load_libraries`` built, handed to ``load_library`` so their
+#: nvcc seconds and logs survive the load
+_built: dict = {}
 
 
 def load_libraries(*names: str) -> dict:
@@ -145,5 +181,7 @@ def load_libraries(*names: str) -> dict:
         )
     built = build_many(names)
     for name in names:
-        load_library(name)  # finds the fresh builds on disk
+        if name not in LOADED:
+            _built[name] = built[name]
+        load_library(name)
     return built

@@ -13,7 +13,15 @@ The API is a ZMQ ROUTER socket:
   version already applied or queued is acknowledged) ->
   ``{"num_interrupted", "version"}`` / ``{"staged", "stage_seconds"}``;
 * ``("pause" | "resume", {})``, ``("stream_cancel", {"qid"})``;
-* ``("metrics", {})`` -> the engine's counters, swap times and SLO digests;
+* token streams: ``("generate_stream", APIGenerateInput)`` -> ``{"ok",
+  "qid"}`` at once, then ``("stream_poll", {"qid"})`` -> ``{"tokens",
+  "done", "result"}``: the tokens folded in since the last poll, and the
+  result once the request finished (which closes the stream).  A stream
+  nobody polled for the engine's ``stream_stale_steps`` steps is
+  cancelled;
+* ``("metrics", {})`` -> the engine's counters, swap times, SLO digests,
+  stream counters, the HBM ledger's bytes and peaks and the compile
+  watch's counters;
 * prefill/decode disaggregation and the KV fabric, between servers:
   ``("import_handoff", {"unit"})``, ``("import_handoff_segment",
   {"segment"})`` -> ``{"imported", "reason"}``, and ``("export_prefix",
@@ -43,10 +51,16 @@ the int8 sibling tree a publisher advertises in the snapshot's manifest
 (:meth:`GenerationServerWorker._negotiate_weight_format`).  The config's
 ``spec_decode`` block, ``prefix_cache_host_bytes`` and ``cache_mode``
 ("dense" and "auto", which serves a sliding-window model such as Mistral
-on the dense cache) pass to the engine.  Not ported yet, each refused
-where a caller could ask for it: multi-process servers and meshes of more
-than one device (ROADMAP.md queue 1, item 10), token streams, the compile
-watch and the ``/metrics`` HTTP server (item 11).
+on the dense cache) pass to the engine.
+
+Each poll publishes the engine's counters and its HBM ledger into the
+process registry, which the worker's ``/metrics`` server serves, and
+polls the compile watch (:mod:`~areal_tpu_torch.observability.
+compile_watch`) over the engine's kernel entries: with
+``compile_quiet_after_steps`` > 0, a kernel library loaded for a watched
+entry after that many engine steps fires the recompile sentinel.  Not
+ported yet, each refused where a caller could ask for it: multi-process
+servers and meshes of more than one device (ROADMAP.md queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -232,9 +246,6 @@ def _check_config(config: system_api.GenServerConfig):
         raise _not_ported(
             f"serving on a mesh of {config.world_size} devices", item=10
         )
-    if config.compile_quiet_after_steps > 0:
-        raise _not_ported("the compile watch (compile_quiet_after_steps)",
-                          item=11)
 
 
 class GenerationServerWorker(worker_base.Worker):
@@ -320,6 +331,9 @@ class GenerationServerWorker(worker_base.Worker):
         )
         # qid -> ROUTER identity awaiting the result
         self._waiting: Dict[str, bytes] = {}
+        # token streams opened, whose submit may not have been applied yet
+        # (a stream_poll can come before the generate_stream's batch)
+        self._open_streams: set = set()
         self._update_reply_idents = []  # clients awaiting update_weights
         self._import_reply_idents = []  # clients awaiting import_handoff
         self._segment_reply_idents = []  # ... import_handoff_segment
@@ -347,6 +361,7 @@ class GenerationServerWorker(worker_base.Worker):
         # device (the manager's pre-pause barrier)
         self._staging: Optional[Dict] = None
         self._start_time = time.monotonic()
+        self._compile_watch = self._make_compile_watch(config)
 
         # the engine keeps plain cumulative counters; the worker mirrors
         # them into the registry as counter deltas and gauges each poll
@@ -481,6 +496,52 @@ class GenerationServerWorker(worker_base.Worker):
         }
         self._obs_last: Dict[str, float] = {}
 
+    def _make_compile_watch(self, config):
+        """The compile watch over the engine's kernel entries: the paged
+        fill and decode chunks (``models/paged.py``), or the dense decode
+        chunk and admission prefill (``models/transformer.py``), each by
+        the libraries it launches.  A steady-state load
+        force-samples every in-flight row's trace root."""
+        from areal_tpu_torch.observability.compile_watch import (
+            CompileWatch,
+            library_entry,
+        )
+        from areal_tpu_torch.observability.tracing import member_root
+
+        eng = self.engine
+
+        def _force_inflight_roots(fns):
+            for row in eng.rows:
+                if row is not None:
+                    eng.tracer.force(member_root(row.req.qid))
+
+        watch = CompileWatch(
+            quiet_after_steps=config.compile_quiet_after_steps,
+            on_steady_compile=_force_inflight_roots,
+        )
+        if eng.paged:
+            def _paged_sig():
+                return (f"page={eng.page_size},chunk={eng.chunk_size},"
+                        f"n_blocks={eng.n_blocks},batch={eng.max_batch}")
+
+            watch.watch("paged_fill_chunk", library_entry("paged_attention"),
+                        signature=_paged_sig)
+            watch.watch("paged_decode_chunk", library_entry(
+                "paged_attention", "paged_attention_deep"),
+                signature=_paged_sig)
+        else:
+            def _dense_sig():
+                return (f"cache_len={eng.kv_cache_len},"
+                        f"chunk={eng.chunk_size},batch={eng.max_batch}")
+
+            # the dense decode chunk's attention is flash_decode (the deep
+            # library's entry); an admission's prefill runs the flash kernel
+            watch.watch("decode_chunk", library_entry("paged_attention_deep"),
+                        signature=_dense_sig)
+            watch.watch("admit_rows", library_entry("flash_attention"),
+                        signature=_dense_sig)
+        return watch
+
     def _export_engine_metrics(self):
         eng = self.engine
         pstats = eng.prefix_cache_stats()
@@ -573,6 +634,12 @@ class GenerationServerWorker(worker_base.Worker):
         for frac in eng.drain_spec_accept_samples():
             self._obs_spec_accept.observe(frac)
         self._obs["mesh_devices"].set(eng.mesh_devices)
+        # the HBM ledger's bytes and peaks, per subsystem
+        eng.hbm_ledger.publish(self._registry)
+        # the compile watch: arm it off the engine's step clock, then diff
+        # the watched entries (counts, spans, and the sentinel when armed)
+        self._compile_watch.note_step(eng._step_seq)
+        self._compile_watch.poll()
 
     # -- API ---------------------------------------------------------------
 
@@ -597,8 +664,22 @@ class GenerationServerWorker(worker_base.Worker):
                         self._handoff_dest[payload.qid] = dest
                     batch.append((cmd, payload))
                     continue  # reply when the result is ready
+                elif cmd == "generate_stream":
+                    # acknowledged at once; the submit rides the batch with
+                    # the stream flag, and the result stays with the engine
+                    # for stream_poll (no _waiting entry)
+                    md = dict(payload.metadata or {})
+                    md["stream"] = True
+                    payload.metadata = md
+                    self._open_streams.add(payload.qid)
+                    batch.append(("generate", payload))
+                    resp = {"ok": True, "qid": payload.qid}
+                elif cmd == "stream_poll":
+                    # a read, answered at once like ``metrics``
+                    resp = self._stream_poll(payload)
                 elif cmd == "stream_cancel":
                     # releases the row's pool blocks: applied in the batch
+                    self._open_streams.discard(payload["qid"])
                     batch.append((cmd, payload))
                     resp = {"ok": True}
                 elif cmd == "update_weights":
@@ -626,8 +707,6 @@ class GenerationServerWorker(worker_base.Worker):
                     # the owner's side of a pull: a gather, answered at
                     # once like ``metrics`` (no engine state changes)
                     resp = self._export_prefix(payload)
-                elif cmd in ("generate_stream", "stream_poll"):
-                    raise _not_ported(f"token streams ({cmd!r})", item=11)
                 else:
                     resp = {"error": f"unknown command {cmd}"}
             except Exception as e:  # noqa: BLE001
@@ -644,7 +723,11 @@ class GenerationServerWorker(worker_base.Worker):
                     self.engine.submit(payload)
                 except Exception as e:  # noqa: BLE001 - reported to the client
                     self.logger.exception("generate refused")
-                    ident = self._waiting.pop(payload.qid)
+                    ident = self._waiting.pop(payload.qid, None)
+                    if ident is None:
+                        # a stream: its next poll finds no stream
+                        self._open_streams.discard(payload.qid)
+                        continue
                     self._sock.send_multipart(
                         [ident, b"", pickle.dumps({"error": repr(e)})]
                     )
@@ -1098,6 +1181,38 @@ class GenerationServerWorker(worker_base.Worker):
             return 0
         return self.engine.commit_staged(expected_version=version)
 
+    def _stream_poll(self, payload: Dict) -> Dict:
+        """One poll of a token stream: the tokens buffered since the last
+        poll, and the final result (closing the stream) once the request
+        finished."""
+        qid = payload["qid"]
+        eng = self.engine
+        toks = eng.drain_stream(qid)
+        out = eng.try_get_result(qid)
+        if out is not None:
+            extra = eng.drain_stream(qid)
+            if extra:
+                toks = (toks or []) + extra
+            eng.stream_close(qid)
+            self._open_streams.discard(qid)
+            return {
+                "tokens": toks or [],
+                "done": True,
+                "result": {
+                    "output_ids": list(out.output_ids),
+                    "output_logprobs": list(out.output_logprobs),
+                    "no_eos": bool(out.no_eos),
+                    "version_start": out.version_start,
+                    "version_end": out.version_end,
+                },
+            }
+        if toks is None:
+            if qid in self._open_streams:
+                # the generate_stream's batch is not applied yet
+                return {"tokens": [], "done": False, "result": None}
+            return {"error": f"unknown stream {qid}"}
+        return {"tokens": toks, "done": False, "result": None}
+
     def metrics(self) -> Dict:
         eng = self.engine
         return {
@@ -1138,9 +1253,16 @@ class GenerationServerWorker(worker_base.Worker):
             **{f"swap_{k}": v for k, v in eng.swap_stats().items()},
             "slo": eng.slo_stats(),
             "slo_digests": eng.slo_digests(),
+            "streams": eng.stream_stats(),
             "cancelled_total": eng.cancelled_total,
             "preempted_total": eng.preempted_total,
             "preempted_by_class": dict(eng.preempted_by_class),
+            # the HBM ledger's bytes and peaks per subsystem (the
+            # aggregator's merge_hbm folds the scraped gauges into fleet
+            # rows) and the compile watch's counters
+            "hbm_ledger": eng.hbm_ledger.snapshot(),
+            "hbm_ledger_peak": eng.hbm_ledger.watermarks(),
+            **self._compile_watch.stats(),
             # on a card, this process's own allocator's gauges
             **(monitor.device_memory_stats()
                if eng.device.type == "cuda" else {}),
@@ -1150,6 +1272,12 @@ class GenerationServerWorker(worker_base.Worker):
 
     def _poll(self) -> worker_base.PollResult:
         batch = self._serve_api()
+        # a stream nobody polled for stream_stale_steps engine steps (a
+        # client gone) is cancelled in this batch
+        for qid in self.engine.stale_stream_qids():
+            self.logger.warning("cancelling stale token stream %s", qid)
+            self._open_streams.discard(qid)
+            batch.append(("stream_cancel", {"qid": qid}))
         # start the owner RPCs of new pulls; settled ones join this batch
         self._pump_prefix_pulls()
         batch.extend(self._drain_pull_commands())
@@ -1200,9 +1328,14 @@ class GenerationServerWorker(worker_base.Worker):
             rec["thread"].join()
         eng = getattr(self, "engine", None)
         if eng is not None:
+            # the leak audit, then the release of the ledger attributions
             leaked = eng.close()
+            self.exit_leak_audit = leaked
             if leaked:
                 self.logger.warning("leak audit at exit: %s", leaked)
+        watch = getattr(self, "_compile_watch", None)
+        if watch is not None:
+            watch.close()
         for client in getattr(self, "_peer_clients", {}).values():
             client.close()  # ends a push in flight promptly
         pool = getattr(self, "_handoff_pool", None)

@@ -1,11 +1,10 @@
 """Worker lifecycle base classes (port of ``areal_tpu/system/worker_base.py``:
 ``Worker`` with its ``_configure`` + ``_poll`` contract and run loop,
 ``PollResult``, the ``WorkerServer`` command socket with its status and
-heartbeat keys in name_resolve, and the controller side,
+heartbeat keys in name_resolve and its per-worker ``/metrics`` HTTP server
+(:mod:`areal_tpu_torch.observability.server`: ``/metrics``, ``/trace``,
+``/healthz``, ``/profile``), and the controller side,
 ``WorkerControlPanel``, which the multi-process launcher drives).
-
-Not ported yet: the per-worker ``/metrics`` HTTP server that the JAX
-package's ``WorkerServer`` starts (ROADMAP.md queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -71,6 +70,28 @@ class WorkerServer:
             keepalive_ttl=None,
             replace=True,
         )
+        # every worker serves its registry at /metrics (and its flight
+        # recorder at /trace), found through the names.metric_server keys
+        from areal_tpu_torch.observability import get_registry
+        from areal_tpu_torch.observability.server import (
+            start_worker_metrics_server,
+            worker_group,
+        )
+        from areal_tpu_torch.observability.tracing import get_tracer
+
+        self.tracer = get_tracer()
+        self.tracer.worker = worker_name
+        self.metrics_registry = get_registry()
+        self.metrics_registry.gauge("areal_worker_info").set(
+            1, worker=worker_name, group=worker_group(worker_name)
+        )
+        self._uptime_gauge = self.metrics_registry.gauge(
+            "areal_worker_uptime_seconds"
+        )
+        self._start_time = time.monotonic()
+        self.metrics_server = start_worker_metrics_server(
+            worker_name, experiment_name, trial_name, self.metrics_registry
+        )
         self._status = WorkerServerStatus.IDLE
         self._status_key = names.worker_status(
             experiment_name, trial_name, worker_name
@@ -89,8 +110,10 @@ class WorkerServer:
         self._beat_thread.start()
 
     def beat(self):
-        """Write a liveness timestamp."""
+        """Write a liveness timestamp (and tick the uptime gauge: gauges
+        are read at scrape time)."""
         name_resolve.add(self._heartbeat_key, str(time.time()), replace=True)
+        self._uptime_gauge.set(time.monotonic() - self._start_time)
 
     def _beat_loop(self):
         while not self._beat_stop.wait(HEARTBEAT_INTERVAL):
@@ -101,6 +124,11 @@ class WorkerServer:
 
     def register_handler(self, command: str, fn):
         self._handlers[command] = fn
+
+    def note_activity(self):
+        """Refresh the ``/healthz`` last-activity stamp (productive polls)."""
+        if self.metrics_server is not None:
+            self.metrics_server.note_activity()
 
     def set_status(self, status: WorkerServerStatus):
         self._status = status
@@ -134,6 +162,9 @@ class WorkerServer:
         self._beat_stop.set()
         self._beat_thread.join(timeout=HEARTBEAT_INTERVAL + 1)
         self._sock.close(linger=0)
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
+            self.metrics_server = None
 
 
 class WorkerControlPanel:
@@ -351,6 +382,8 @@ class Worker:
                 r = self._poll()
                 if r.sample_count == r.batch_count == 0:
                     time.sleep(0.002)
+                elif self._server:
+                    self._server.note_activity()
             status = self._exit_status or WorkerServerStatus.COMPLETED
             if self._server:
                 self._server.set_status(status)
@@ -400,6 +433,8 @@ class AsyncWorker(Worker):
                 r = await self._poll_async()
                 if r.sample_count == r.batch_count == 0:
                     await asyncio.sleep(0.002)
+                elif self._server:
+                    self._server.note_activity()
             status = self._exit_status or WorkerServerStatus.COMPLETED
             if self._server:
                 self._server.set_status(status)

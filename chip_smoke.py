@@ -312,6 +312,21 @@ SERVER_NEW_TOKENS = 384
 SERVER_CONT_NEW_TOKENS = 64
 #: the leaf whose shape the bad-manifest control alters
 SERVER_BAD_LEAF = "layers/0/mlp/down/w"
+#: the server's compile watch arms after this many engine steps
+#: (``compile_quiet_after_steps``); every kernel library is loaded before
+#: the server starts, so none may load after it
+SERVER_QUIET_STEPS = 16
+#: the stream arm: prompts shorter than the server's
+#: prefix_cache_min_match_tokens (64), so a request's second run prefills
+#: what its first did, each served alone, first without a stream and then
+#: through generate_stream under the same qid (sampling is keyed on the
+#: qid and the position, so equal logits give equal tokens)
+STREAM_PROMPT_LENS = (37, 61)
+STREAM_NEW_TOKENS = 64
+#: the seconds of the server phase's /profile capture during decode (a
+#: 1.5 s capture held ~41000 kernel events and stalled the server for
+#: ~30 s while it was exported, H100 80GB HBM3, 700 W)
+PROFILE_SECONDS = 0.5
 #: the P/D phase (``pd_phase``): a prefill and a decode server at the
 #: engine phase's settings (8 rows x 4096, pages of 256, fill chunks of
 #: 512) on the CUT_LAYERS copy, PROMPT_LENS with this many new tokens each
@@ -368,6 +383,14 @@ ASYNC_ANSWER_WORDS = 300
 #: the manager has swapped step 1's version in: the run shows one swap
 #: staged and committed while trainer and server share the process
 LOOP_TRAIN_BS = 16
+#: phase 8's evaluator: a benchmark-style jsonl of this many problems
+#: (prompts of EVAL_PROMPT_WORDS words), each answered with this many
+#: tokens by the eval job the evaluator submits for the run's HF save; the
+#: master's exit waits at most EVAL_WAIT_S for its harvest
+EVAL_ROWS = 16
+EVAL_PROMPT_WORDS = (40, 200)
+EVAL_NEW_TOKENS = 64
+EVAL_WAIT_S = 300.0
 LOOP_NEW_TOKENS = 32
 LOOP_STEPS = 2
 LOOP_OFFPOLICYNESS = 0
@@ -2510,6 +2533,8 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
                  prompt_len=PREFIX_PROMPT, new_tokens=SERVER_NEW_TOKENS,
                  cont_new=SERVER_CONT_NEW_TOKENS, max_batch=LONG_MAX_BATCH,
                  kv_cache_len=LONG_KV_CACHE_LEN, mb_tokens=None,
+                 stream_prompt_lens=STREAM_PROMPT_LENS,
+                 stream_new=STREAM_NEW_TOKENS, profile_s=PROFILE_SECONDS,
                  **server_kw):
     """The train-to-serve weight path through the generation server, as the
     gserver manager drives it (stage on every server, pause, commit,
@@ -2532,13 +2557,30 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
        the first token under v1; a second commit must be acknowledged;
     4. continue every answer under v1 (``cont_new`` tokens); stage a
        snapshot whose manifest alters one leaf's shape, which must fail
-       before any tensor is read, name the leaf, and leave v1 serving.
+       before any tensor is read, name the leaf, and leave v1 serving;
+    5. the stream arm (:func:`stream_arm`): each of
+       ``stream_prompt_lens`` served alone without a stream, then through
+       ``generate_stream`` and ``stream_poll`` under the same qid.
+
+    Observability (:func:`server_observability`): the server runs with a
+    compile watch (``compile_quiet_after_steps``) and a ``/metrics``
+    server of its own; the HBM ledger (the phase's own) attributes the
+    weights and the pool, reconciles with 0 drift against the bytes the
+    allocator gained since the server started, and reads drift above the
+    slack when a control registers the pool twice; ``staged_weights``
+    holds the staged tree until the apply; one ``/profile`` capture of
+    ``profile_s`` during the group's decode names the paged decode
+    kernel, and a second request during it gets 409.
 
     Gates: every token's version; logprobs of v0 tokens against the trainer
     forward of the v0 weights and of v1 tokens against that of ``master``;
     the paged launches against the engine's dispatched work
-    (:class:`LaunchGate`); the metrics reply's SLO digests and swap
-    counters; the leak audit once the server has stopped.  ``server_kw``
+    (:class:`LaunchGate`, the stream arm included); the metrics reply's
+    SLO digests, swap counters, ledger and compile-watch counters; the
+    watch quiet at steady state and its control (an entry whose library
+    count grows) firing the sentinel once; the streamed tokens equal to the
+    result's and to the unstreamed run's; the leak audit of the server's
+    ``close()`` (empty) and once the server has stopped.  ``server_kw``
     overrides GenServerConfig fields (CPU rehearsals)."""
     import dataclasses
     import os
@@ -2562,6 +2604,7 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
     from areal_tpu_torch.interfaces.ppo_interface import model_logprobs_fwd
     from areal_tpu_torch.models.convert import serving_params
     from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.observability import hbm_ledger
     from areal_tpu_torch.ops import paged_attention as pa
     from areal_tpu_torch.system.generation_server import GenServerClient
 
@@ -2569,7 +2612,10 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
     t_phase = time.perf_counter()
     res = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_publish_")
-    worker = client = thread = None
+    worker = client = thread = obs = None
+    # the phase's own ledger: this server's engine is all it attributes
+    prev_ledger = hbm_ledger.get_ledger()
+    hbm_ledger.set_ledger(hbm_ledger.HbmLedger())
     try:
         # 1. publish v1
         snap = os.path.join(tmp, "v1")
@@ -2602,12 +2648,15 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
             model=ModelAbstraction("random", {"config": cfg, "seed": SEED}),
             max_concurrent_batch=max_batch, kv_cache_len=kv_cache_len,
             device=None if device.type == "cuda" else str(device),
-            **server_kw)
+            **dict(dict(compile_quiet_after_steps=SERVER_QUIET_STEPS),
+                   **server_kw))
+        obs = server_observability(device, tag)
         tik = time.perf_counter()
         worker, thread, addr, failed = start_server(config, "chipsmoke",
                                                     "server", tag)
         client = GenServerClient(addr, timeout=600)
         eng = worker.engine
+        obs.started(worker)
         log(f"{tag}: GenerationServerWorker at {addr} in "
             f"{time.perf_counter() - tik:.1f} s: {eng.max_batch} rows x "
             f"{eng.kv_cache_len} tokens, pages of {eng.page_size}, decode "
@@ -2657,6 +2706,7 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
             if not thread.is_alive():
                 raise AssertionError(f"{tag}: the server died: {failed}")
             time.sleep(0.001)
+        obs.start_profile(profile_s)  # runs beside the decode and the stage
         w0 = (eng.decode_steps_total, eng.decode_chunks_total,
               eng.decode_tokens_total, eng.prefill_calls,
               pa.paged_flash_attention.launches)
@@ -2695,6 +2745,7 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
             f"the published weights ({n_leaves} leaves): {same}")
         if not same:
             raise AssertionError(f"{tag}: the staged tree differs")
+        obs.staged(eng)
         if client.call("pause", {}) != "paused":
             raise AssertionError(f"{tag}: pause")
         # the paged calls from the group's start to the pause, the stage
@@ -2788,8 +2839,13 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
                 or eng.swap_stage_s != stage_s or eng.staged_version is not None
                 or probe.output_versions != [1] * len(probe.output_ids)):
             raise AssertionError(f"{tag}: the bad-manifest control: {error!r}")
-        launches.check(f"{tag}, group, continuations and probe")
+        obs.applied(eng)
+        obs.finish_profile()
+        res["streams"] = stream_arm(client, cfg, stream_prompt_lens,
+                                    stream_new, tag)
+        launches.check(f"{tag}, group, continuations, probe and streams")
         metrics = client.call("metrics", {})
+        res.update(obs.steady(worker, metrics))
         log(f"{tag}: metrics: version {metrics['version']}, swaps "
             f"{metrics['swap_swaps_total']} ({metrics['swap_swaps_staged_total']}"
             f" staged), stage {metrics['swap_stage_s']:.3f} s, pause "
@@ -2812,9 +2868,17 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
             worker.exit()
         if thread is not None:
             thread.join(120)
+        if obs is not None:
+            obs.close()
+        hbm_ledger.set_ledger(prev_ledger)
         shutil.rmtree(tmp, ignore_errors=True)
     if thread.is_alive():
         raise AssertionError(f"{tag}: the server did not stop")
+    leaked = getattr(worker, "exit_leak_audit", None)
+    log(f"{tag}: the server's close() leak audit at exit: {leaked}")
+    if leaked != {}:
+        raise AssertionError(f"{tag}: the leak audit at close() gave "
+                             f"{leaked}")
     audit_pool(eng, tag)
     del eng, worker
     if device.type == "cuda":
@@ -2861,6 +2925,295 @@ def server_phase(cfg, master, device, card, *, group=PREFIX_GROUP,
     if t_first_v1 is None:
         raise AssertionError(f"{tag}: no token under v1 was seen")
     return res
+
+
+class server_observability:  # noqa: N801 - a phase helper, used as one
+    """The server phase's observability gates, step by step: the
+    ``/metrics`` server of the generation server (a gate: it must start and
+    register), the compile watch's sizes at start and its steady state with
+    a control, the HBM ledger's attributions, its reconciliation against
+    the bytes the allocator gained since the server started (0 drift) and
+    a double-count control (drift above the slack), and one ``/profile``
+    capture during decode that must name the paged decode kernel."""
+
+    def __init__(self, device, tag):
+        import torch
+
+        from areal_tpu_torch.base import name_resolve, names
+        from areal_tpu_torch.observability.server import (
+            start_worker_metrics_server,
+        )
+
+        self.device, self.tag = device, tag
+        self.cuda = device.type == "cuda"
+        self.res = {}
+        gc.collect()
+        self.base = None
+        if self.cuda:
+            torch.cuda.synchronize(device)
+            self.base = torch.cuda.memory_allocated(device)
+        self.capture_dir = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+        self.srv = start_worker_metrics_server("gen_server_0", "chipsmoke",
+                                               "server")
+        if self.srv is None:
+            raise AssertionError(f"{tag}: the /metrics server did not start")
+        self.srv.capture_dir = self.capture_dir
+        self.addr = name_resolve.get(names.metric_server(
+            "chipsmoke", "server", "gen_server", "gen_server_0"))
+        log(f"{tag}: /metrics, /trace, /healthz and /profile at {self.addr} "
+            f"(registered in name_resolve)")
+
+    def _get(self, path):
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(f"http://{self.addr}{path}",
+                                        timeout=30) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def _in_use(self):
+        import torch
+
+        if not self.cuda:
+            return None
+        torch.cuda.synchronize(self.device)
+        return torch.cuda.memory_allocated(self.device) - self.base
+
+    def started(self, worker):
+        """The watch's sizes and the ledger right after the server's start."""
+        from areal_tpu_torch.base import monitor
+        from areal_tpu_torch.observability import get_registry
+        from areal_tpu_torch.observability.hbm_ledger import tree_nbytes
+        from areal_tpu_torch.ops import _build
+
+        tag, eng = self.tag, worker.engine
+        sizes = worker._compile_watch.cache_sizes()
+        want = {"paged_fill_chunk": _build.loaded_count("paged_attention"),
+                "paged_decode_chunk": _build.loaded_count(
+                    "paged_attention", "paged_attention_deep")}
+        log(f"{tag}: compile watch (quiet after "
+            f"{worker._compile_watch.quiet_after_steps} engine steps): the "
+            f"kernel libraries each entry launches, loaded at the server's "
+            f"start: {sizes}")
+        if sizes != want or (self.cuda and sizes != {
+                "paged_fill_chunk": 1, "paged_decode_chunk": 2}):
+            raise AssertionError(f"{tag}: watch sizes {sizes}, loaded {want}")
+        led, reg = eng.hbm_ledger, get_registry()
+        snap = led.snapshot()
+        weights = tree_nbytes(eng.params)
+        if (snap["weights"] != weights or weights <= 0
+                or snap["kv_pool"] != eng.kv_pool_bytes
+                or snap["kv_scales"] != eng.kv_scale_bytes
+                or any(snap[k] for k in ("staged_weights", "prefix_spill_host",
+                                         "stream_buffers",
+                                         "handoff_staging"))):
+            raise AssertionError(f"{tag}: ledger at start {snap}")
+        in_use = self._in_use()
+        rec = led.reconcile(reg, in_use)
+        dup = led.register("kv_pool", eng.kv_pool_bytes,
+                           name="control.double_count")
+        ctl = led.reconcile(reg, in_use)
+        dup.release()
+        after = led.reconcile(reg, in_use)
+        monitor.device_memory_stats()  # the monitor's own reconciliation
+        whole = reg.gauge("areal_hbm_ledger_drift_gb").value()
+        log(f"{tag}: ledger at start: weights {snap['weights']} B, kv_pool "
+            f"{snap['kv_pool']} B, kv_scales {snap['kv_scales']} B; device "
+            f"tags {rec['ledger_device_bytes']:.0f} B against "
+            f"{rec['device_in_use_bytes']:.0f} B the allocator gained since "
+            f"the server started: drift {rec['drift_gb']} GB (vacuous "
+            f"{rec['vacuous']}); control (the pool registered twice): drift "
+            f"{ctl['drift_gb']:.3f} GB; released: {after['drift_gb']} GB; the "
+            f"monitor's reconciliation against the whole process: {whole} GB")
+        if not rec["ok"] or not after["ok"] or whole != 0.0 or (
+                self.cuda and (rec["vacuous"] or ctl["ok"]
+                               or ctl["drift_gb"] <= 0)):
+            raise AssertionError(f"{tag}: reconciliation {rec}, control "
+                                 f"{ctl}, after {after}, monitor {whole}")
+        self.res["ledger"] = dict(snapshot=snap, reconcile=rec, control=ctl)
+
+    def start_profile(self, seconds):
+        import json as _json
+
+        code, body = self._get(f"/profile?seconds={seconds}")
+        started = _json.loads(body)
+        code2, body2 = self._get(f"/profile?seconds={seconds}")
+        log(f"{self.tag}: /profile?seconds={seconds}: {code} {started}; a "
+            f"second request during it: {code2} {_json.loads(body2)['status']}")
+        if code != 200 or started["status"] != "started" or code2 != 409:
+            raise AssertionError(f"{self.tag}: /profile gave {code} "
+                                 f"{started}, then {code2}")
+        self.profile_t0 = time.perf_counter()
+
+    def finish_profile(self):
+        import json as _json
+
+        deadline = time.perf_counter() + 300
+        while self.srv.profile_status()["state"] == "running":
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{self.tag}: the capture did not end")
+            time.sleep(0.05)
+        code, body = self._get("/profile?status=1")
+        status = _json.loads(body)
+        if status.get("state") != "done":
+            raise AssertionError(f"{self.tag}: the capture: {status}")
+        with open(status["trace"]) as f:
+            events = _json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        decode = [e for e in kernels
+                  if "paged_decode_kernel" in e.get("name", "")]
+        log(f"{self.tag}: the capture ({status['seconds']} s, done "
+            f"{time.perf_counter() - self.profile_t0:.1f} s after the "
+            f"request) wrote {os.path.getsize(status['trace'])} B of trace: "
+            f"{len(events)} events, {len(kernels)} kernel events, "
+            f"{len(decode)} of the paged decode kernel "
+            f"({sum(e.get('dur', 0) for e in decode) / 1e3:.2f} ms)")
+        if self.cuda and not decode:
+            raise AssertionError(f"{self.tag}: the /profile trace names no "
+                                 "paged decode kernel")
+        self.res["profile"] = dict(events=len(events), kernels=len(kernels),
+                                   paged_decode=len(decode))
+
+    def staged(self, eng):
+        from areal_tpu_torch.observability.hbm_ledger import tree_nbytes
+
+        n = eng.hbm_ledger.snapshot()["staged_weights"]
+        want = tree_nbytes(eng._staged_params)
+        log(f"{self.tag}: ledger while v1 is staged: staged_weights {n} B "
+            f"(the staged tree's {want} B)")
+        if n != want or n <= 0:
+            raise AssertionError(f"{self.tag}: staged_weights {n}, tree {want}")
+
+    def applied(self, eng):
+        from areal_tpu_torch.observability.hbm_ledger import tree_nbytes
+
+        snap = eng.hbm_ledger.snapshot()
+        peak = eng.hbm_ledger.watermarks()["staged_weights"]
+        log(f"{self.tag}: ledger after the commit applied: staged_weights "
+            f"{snap['staged_weights']} B (peak {peak} B), weights "
+            f"{snap['weights']} B")
+        if (snap["staged_weights"] != 0 or peak <= 0
+                or snap["weights"] != tree_nbytes(eng.params)):
+            raise AssertionError(f"{self.tag}: ledger after the apply {snap}")
+
+    def steady(self, worker, metrics):
+        """The watch at steady state, quiet; then its control: an entry
+        whose library count grows must fire the sentinel exactly once."""
+        from areal_tpu_torch.observability import get_registry
+        from areal_tpu_torch.observability import prom_text
+
+        tag, watch = self.tag, worker._compile_watch
+        quiet = dict(steady=watch.steady, compiles=dict(watch.compiles_total),
+                     steady_compiles=watch.steady_compiles_total,
+                     fires=watch.sentinel_fires_total)
+        log(f"{tag}: compile watch after {worker.engine._step_seq} engine "
+            f"steps: {quiet}; metrics reply "
+            f"{ {k: v for k, v in metrics.items() if k.startswith('xla_')} }")
+        if (not quiet["steady"] or any(quiet["compiles"].values())
+                or quiet["steady_compiles"] or quiet["fires"]
+                or metrics["xla_sentinel_fires_total"] != 0
+                or metrics["hbm_ledger"]["kv_pool"] != worker.engine.kv_pool_bytes):
+            raise AssertionError(f"{tag}: the watch at steady state {quiet}")
+        stalls = get_registry().counter("areal_trace_stall_total")
+        s0 = stalls.value(kind="recompile")
+        box = [0]
+
+        class grows:  # noqa: N801 - a watched entry
+            @staticmethod
+            def _cache_size():
+                return box[0]
+
+        watch.watch("control_entry", grows)
+        box[0] = 1  # one library "loads" under the entry, at steady state
+        deadline = time.perf_counter() + 30
+        while watch.compiles_total.get("control_entry", 0) < 1:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{tag}: the poll never saw the control")
+            time.sleep(0.01)
+        time.sleep(0.3)  # quiet polls after it: one episode, one fire
+        fires = watch.sentinel_fires_total
+        stall = stalls.value(kind="recompile") - s0
+        code, body = self._get("/metrics")
+        fams = prom_text.parse(body.decode())
+        scraped = {s.labels.get("fn"): s.value
+                   for s in fams["areal_xla_compiles_total"].samples}
+        rows = {s.labels["subsystem"]: s.value
+                for s in fams["areal_hbm_ledger_bytes"].samples}
+        log(f"{tag}: compile-watch control (an entry whose count grew at "
+            f"steady state): sentinel fires {fires}, "
+            f"areal_trace_stall_total{{kind=recompile}} +{stall}; scraped "
+            f"areal_xla_compiles_total {scraped}, areal_hbm_ledger_bytes "
+            f"{rows}")
+        if (fires != 1 or stall != 1 or watch.steady_compiles_total != 1
+                or scraped.get("control_entry") != 1.0
+                or rows != {k: float(v) for k, v in
+                            worker.engine.hbm_ledger.snapshot().items()}):
+            raise AssertionError(f"{tag}: the watch's control fired {fires} "
+                                 f"times ({stall}), scraped {scraped} {rows}")
+        self.res["watch"] = dict(quiet, control_fires=fires)
+        return dict(observability=self.res)
+
+    def close(self):
+        self.srv.stop()
+        shutil.rmtree(self.capture_dir, ignore_errors=True)
+
+
+def stream_arm(client, cfg, lens, new_tokens, tag):
+    """Each prompt served alone twice under one qid: without a stream, then
+    through ``generate_stream``, polled with ``stream_poll`` until done.
+    The streamed tokens must equal the final result's ``output_ids`` and
+    the unstreamed run's tokens; logs each stream's polls and its first
+    token's latency."""
+    from areal_tpu_torch.api.model_api import (
+        APIGenerateInput,
+        GenerationHyperparameters,
+    )
+
+    out = []
+    for i, prompt in enumerate(make_prompts(cfg.vocab_size, lens, SEED + 43)):
+        qid = f"stream-{i}"
+
+        def inp():
+            return APIGenerateInput(
+                qid=qid, prompt_ids=prompt, input_ids=prompt,
+                gconfig=GenerationHyperparameters(max_new_tokens=new_tokens))
+
+        plain = client.generate(inp())
+        t0 = time.perf_counter()
+        ack = client.call("generate_stream", inp())
+        if ack != {"ok": True, "qid": qid}:
+            raise AssertionError(f"{tag}: generate_stream gave {ack}")
+        toks, polls, first, sizes = [], 0, None, []
+        while True:
+            r = client.call("stream_poll", {"qid": qid})
+            polls += 1
+            if r["tokens"]:
+                sizes.append(len(r["tokens"]))
+                if first is None:
+                    first = time.perf_counter() - t0
+            toks += r["tokens"]
+            if r["done"]:
+                break
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"{tag}: stream {qid} did not finish")
+            time.sleep(0.002)
+        wall = time.perf_counter() - t0
+        result = r["result"]
+        log(f"{tag}: stream {qid} (prompt {len(prompt)}, {new_tokens} new): "
+            f"{polls} polls, tokens arrived in batches {sizes}, first token "
+            f"{first:.4f} s after generate_stream, done in {wall:.3f} s; "
+            f"streamed == result: {toks == result['output_ids']}, == the "
+            f"unstreamed run: {toks == list(plain.output_ids)}")
+        if (toks != result["output_ids"] or toks != list(plain.output_ids)
+                or len(toks) != new_tokens or result["version_end"] != 1):
+            raise AssertionError(f"{tag}: stream {qid}: {toks} against "
+                                 f"{result['output_ids']} and "
+                                 f"{plain.output_ids}")
+        out.append(dict(polls=polls, first_token_s=first, wall_s=wall))
+    return out
 
 
 def start_server(config, expr, trial, what):
@@ -4539,6 +4892,76 @@ def async_inputs(tmp, vocab, *, rows=ASYNC_ROWS, words=ASYNC_PROMPT_WORDS,
     return tok_dir, path
 
 
+def eval_benchmark(tmp, vocab, n_answers, *, rows=EVAL_ROWS,
+                   words=EVAL_PROMPT_WORDS, seed=SEED + 97):
+    """A benchmark-style jsonl (``{"problem", "answer", "id"}``, as the
+    AIME/MATH-500 files are) of ``rows`` problems in the words of
+    :func:`async_inputs`' tokenizer, each answered ``42``.  Returns its
+    path."""
+    import json
+
+    import numpy as np
+
+    n_plain = vocab - 3 - n_answers
+    rng = np.random.default_rng(seed)
+    path = os.path.join(tmp, "bench", "test.jsonl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        for i in range(rows):
+            n = int(rng.integers(words[0], words[1] + 1))
+            f.write(json.dumps(dict(
+                id=f"p{i}", answer="42",
+                problem=" ".join(f"w{j}" for j in rng.integers(0, n_plain, n))
+            )) + "\n")
+    return path
+
+
+def eval_gate(tag, evaluators, wait, step, rows, cuda):
+    """The run's evaluator and its one job: it evaluated the HF save of
+    global step ``step`` (harvested before the run's end, not killed),
+    on the card (its log names the CUDA device and the paged kernel's
+    launches, above 0), over ``rows`` problems, and its scores were logged
+    by global step."""
+    import torch
+
+    if len(evaluators) != 1:
+        raise AssertionError(f"{tag}: {len(evaluators)} evaluators built")
+    ev = evaluators[0]
+    st = ev._steps.get(step)
+    log(f"{tag}: evaluator: checkpoints found {sorted(ev._steps)}; the "
+        f"master's exit waited {wait.get('s', 0.0):.1f} s for globalstep"
+        f"{step}'s eval (status "
+        f"{st.status.name if st is not None else None})")
+    if not wait.get("done") or st is None or st.status.name != "DONE":
+        raise AssertionError(f"{tag}: the eval of globalstep{step} did not "
+                             "succeed before the run's end")
+    result = st.result
+    out_log = os.path.join(os.path.dirname(st.output_path), "output.log")
+    with open(out_log, errors="replace") as f:
+        text = f.read()
+    device = torch.cuda.get_device_name(0) if cuda else "cpu"
+    launches = int(result.get("paged_kernel_launches", -1))
+    logged = [r for r in read_jsonl(os.path.join(ev.output_root,
+                                                 "stats.jsonl"))
+              if r.get("step") == step]
+    log(f"{tag}: eval job ({' '.join(ev._default_argv(st)[1:3])}, "
+        f"device policy {ev.device or 'the card'}): {result['n_prompts']} "
+        f"problems, accuracy {result['accuracy']}, pass@k "
+        f"{result['pass_at_k']}, per task {result['per_task']}, generation "
+        f"{result['gen_time_s']} s on {result['device']}, paged kernel "
+        f"launches {launches}; logged at global step {step}: "
+        f"{ {k: v for k, v in (logged or [{}])[0].items() if k.startswith('eval/')} }")
+    if (result["device"] != device or device not in text
+            or f'"paged_kernel_launches": {launches}' not in text
+            or (cuda and launches <= 0) or result["n_prompts"] != rows
+            or not logged or "eval/accuracy" not in logged[0]):
+        raise AssertionError(f"{tag}: the eval job's result {result}, "
+                             f"logged {logged}")
+    return dict(launches=launches, accuracy=result["accuracy"],
+                gen_time_s=result["gen_time_s"], wait_s=wait.get("s"),
+                device=result["device"])
+
+
 def token_version_gate(tag, train_steps, member,
                        offpolicyness=ASYNC_OFFPOLICYNESS):
     """Every trajectory a train step consumed: its tokens' versions
@@ -4620,7 +5043,8 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
                     chunk_tokens=ASYNC_CHUNK_TOKENS,
                     max_tokens_per_mb=MAX_TOKENS_PER_MB, steps=ASYNC_STEPS,
                     offpolicyness=ASYNC_OFFPOLICYNESS,
-                    n_answers=ASYNC_ANSWER_WORDS, timeout=600.0, **exp_kw):
+                    n_answers=ASYNC_ANSWER_WORDS, timeout=600.0,
+                    eval_rows=EVAL_ROWS, eval_new=EVAL_NEW_TOKENS, **exp_kw):
     """The whole async-PPO loop through the port's entry point:
     ``AsyncPPOMathExperiment`` at the recipe's settings (with the cuts of
     the ASYNC_* constants) through ``run_experiment_local``: a generation
@@ -4648,7 +5072,16 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
     dispatched; the leak audit of the server's pool; the trainer and the
     server built from ``hf_dir``, and one HF save that names
     ``Qwen2ForCausalLM`` and reloads bit-identical to the trainer's final
-    float32 weights.  ``exp_kw`` overrides experiment fields (CPU
+    float32 weights.
+
+    The experiment has an ``evaluator`` over a benchmark-style jsonl of
+    ``eval_rows`` problems (:func:`eval_benchmark`): the runner's evaluator
+    must find the HF save and submit ``python -m areal_tpu_torch.apps.eval``
+    through the local scheduler client, onto the card (``"auto"``); the
+    master's exit waits for its harvest (the run's end would kill a job
+    still running), and the job must have succeeded, logged its CUDA
+    device and a paged-kernel launch count above 0, and its scores must be
+    logged by global step.  ``exp_kw`` overrides experiment fields (CPU
     rehearsals)."""
     import os
     import shutil
@@ -4661,7 +5094,10 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
     from areal_tpu_torch.api.config import DatasetAbstraction, ModelAbstraction
     from areal_tpu_torch.api.data import MicroBatchSpec
     from areal_tpu_torch.api.model_api import GenerationHyperparameters
-    from areal_tpu_torch.api.system_api import ExperimentSaveEvalControl
+    from areal_tpu_torch.api.system_api import (
+        EvaluatorConfig,
+        ExperimentSaveEvalControl,
+    )
     from areal_tpu_torch.apps.local_runner import run_experiment_local
     from areal_tpu_torch.base import constants, name_resolve
     from areal_tpu_torch.engine import backend, checkpoint
@@ -4676,17 +5112,24 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
     from areal_tpu_torch.ops.flash_attention import flash_attention as fa
     from areal_tpu_torch.system import gserver_manager as gm
     from areal_tpu_torch.system import model_worker as mw
+    from areal_tpu_torch.scheduler import evaluator as evaluator_mod
     from areal_tpu_torch.system import partial_rollout as pr
     from areal_tpu_torch.system.generation_server import GenerationServerWorker
+    from areal_tpu_torch.system.master_worker import MasterWorker
 
     tag = "async-ppo"
     log(f"{tag}: packages: {package_line()}")
     t_phase = time.perf_counter()
     cuda = device.type == "cuda"
     tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
-    env0 = {k: os.environ.get(k) for k in ("AREAL_LOG_ROOT", "AREAL_SAVE_ROOT")}
+    env0 = {k: os.environ.get(k)
+            for k in ("AREAL_LOG_ROOT", "AREAL_SAVE_ROOT", "PYTHONPATH")}
     os.environ["AREAL_LOG_ROOT"] = os.path.join(tmp, "logs")
     os.environ["AREAL_SAVE_ROOT"] = os.path.join(tmp, "save")
+    # the eval job runs this checkout's package
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, env0["PYTHONPATH"]) if p)
     name_resolve.reconfigure("memory")
     reg = get_registry()
     L = cfg.n_layers
@@ -4694,6 +5137,7 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
     # -- what the wrappers record -----------------------------------------
     servers, fetch_s, publishes, manifests, swaps, stage_rpcs = [], [], [], [], [], []
     builds, saves = [], []  # make_model calls; HF saves
+    evaluators, eval_wait = [], {}  # the runner's evaluator; the exit's wait
     members = {}  # member qid -> (per-token versions, start, end)
     mfcs = []  # one record per actor_inf / actor_train call
     failures = []  # raised by the wrappers' checks, re-raised here
@@ -4863,6 +5307,32 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
                               bytes=_dir_bytes(path)))
         return f
 
+    def on_make_evaluator(orig):
+        def f(*a, **kw):
+            ev = orig(*a, **kw)
+            evaluators.append(ev)
+            return ev
+        return f
+
+    def on_master_exit(orig):
+        # the run ends when the master does, and its end stops the
+        # evaluator and kills a job still running: wait for the harvest of
+        # the last save (the one this run writes) first
+        def f(self):
+            tik = time.perf_counter()
+            done = False
+            while evaluators and time.perf_counter() - tik < EVAL_WAIT_S:
+                st = evaluators[0]._steps.get(steps)
+                if st is not None and st.status.name in ("DONE", "FAILED"):
+                    done = True
+                    break
+                time.sleep(0.1)
+            eval_wait.update(s=time.perf_counter() - tik, done=done)
+            return orig(self)
+        return f
+
+    patch(evaluator_mod, "make_evaluator", on_make_evaluator)
+    patch(MasterWorker, "_exit_hook", on_master_exit)
     patch(GenerationServerWorker, "_configure", on_configure)
     patch(backend, "make_model", on_make_model)
     patch(mw.ModelWorker, "_save_model", on_save)
@@ -4918,6 +5388,12 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
                 "dataset_path": data_path, "max_length": ASYNC_MAX_LENGTH}),
             **exp_args)
         xcfg = exp.initial_setup()
+        bench_path = eval_benchmark(tmp, cfg.vocab_size, n_answers,
+                                    rows=eval_rows)
+        xcfg.evaluator = EvaluatorConfig(
+            dataset_path=bench_path, model_name="actor",
+            max_prompts=eval_rows, max_new_tokens=eval_new, interval=1.0,
+            device="auto" if cuda else "cpu")
         log(f"{tag}: AsyncPPOMathExperiment: trainer graph "
             f"{[r.name for r in xcfg.master.model_rpcs]}, "
             f"{len(xcfg.gen_servers)} generation server, "
@@ -4949,6 +5425,7 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
         raise AssertionError(f"{tag}: {failures}")
     (server,) = servers
     eng = server.engine
+    evaluation = eval_gate(tag, evaluators, eval_wait, steps, eval_rows, cuda)
 
     # -- the master's steps ---------------------------------------------
     hist = master.stats_history
@@ -5108,7 +5585,7 @@ def async_ppo_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
         step_s=walls, fetch_wait_s=sum(fetch_s), run_s=run_s,
         decode_tok_s=decode_toks / run_s, publishes=publishes, swaps=swaps,
         staleness=dict(staleness), gap=gap, peak_gib=peak, phase_s=secs,
-        work=work, saves=saves)
+        work=work, saves=saves, eval=evaluation)
     log(f"{tag}: step walls {[round(w, 3) for w in walls]} s; the trainer "
         f"waited {sum(fetch_s):.3f} s for data in {len(fetch_s)} fetches; "
         f"fleet decode {decode_toks} tokens in the {run_s:.1f} s run = "
@@ -6858,6 +7335,98 @@ def trial_records(log_dir):
             by_worker("probe.*.jsonl", ("probe.", ".jsonl")))
 
 
+def scrape_fleet(xcfg, log_dir, stop, out, timeout=600.0):
+    """Once the generation server serves a trained version (step 1 is
+    done and its weights swapped in): scrape every worker's ``/metrics``
+    over HTTP at the address its server registered in name_resolve (each
+    must be there, and name its worker), then hold the generation server's
+    ``areal_hbm_ledger_bytes`` rows, and the aggregator's fleet rows
+    (``ClusterMetricsAggregator.merge_hbm``), against its ``metrics`` RPC's
+    ``hbm_ledger`` read before and after the scrape (retried while a swap
+    moves them).  Fills ``out``: ``ok`` on success, else an ``error``."""
+    import urllib.request
+
+    from areal_tpu_torch.apps.main import _worker_specs
+    from areal_tpu_torch.base import name_resolve, names
+    from areal_tpu_torch.observability import prom_text
+    from areal_tpu_torch.observability.aggregator import (
+        ClusterMetricsAggregator,
+    )
+    from areal_tpu_torch.observability.server import worker_group
+    from areal_tpu_torch.system.generation_server import (
+        GenServerClient,
+        parse_server_registration,
+    )
+
+    expr, trial = xcfg.experiment_name, xcfg.trial_name
+
+    def page(addr):
+        with urllib.request.urlopen(f"http://{addr}/metrics",
+                                    timeout=10) as r:
+            return prom_text.parse(r.read().decode())
+
+    gname = xcfg.gen_servers[0].worker_name
+    try:
+        deadline = time.time() + timeout
+        client = None
+        while True:
+            if stop.wait(1.0) or time.time() > deadline:
+                out["error"] = "the server never served a trained version"
+                return
+            try:
+                if client is None:
+                    client = GenServerClient(parse_server_registration(
+                        name_resolve.get(names.gen_server(
+                            expr, trial, gname)))[0], timeout=10)
+                if client.call("metrics", {})["version"] >= 1:
+                    break
+            except Exception:  # noqa: BLE001 - not up yet: ask again
+                if client is not None:
+                    client.close()
+                client = None
+        addrs, series = {}, {}
+        for _, _, w in _worker_specs(xcfg):
+            addrs[w] = name_resolve.get(names.metric_server(
+                expr, trial, worker_group(w), w))
+            fams = page(addrs[w])
+            info = fams.get("areal_worker_info")
+            if info is None or not any(
+                    s.labels.get("worker") == w for s in info.samples):
+                out["error"] = f"{w}'s page does not name it"
+                return
+            series[w] = sum(len(f.samples) for f in fams.values())
+        out.update(workers=sorted(addrs), series=series)
+        agg = ClusterMetricsAggregator(expr, trial)
+        try:
+            for attempt in range(1, 11):
+                before = client.call("metrics", {})["hbm_ledger"]
+                fams = page(addrs[gname])
+                rows = {s.labels["subsystem"]: s.value
+                        for s in fams["areal_hbm_ledger_bytes"].samples}
+                fleet = agg.merge_hbm(agg.scrape())
+                after = client.call("metrics", {})["hbm_ledger"]
+                want = {k: float(v) for k, v in after.items()}
+                out.update(rows=rows, rpc=after, attempts=attempt,
+                           fleet={k: v for k, v in fleet.items()
+                                  if k.endswith("/bytes")
+                                  or k == "hbm/drift_gb_max"})
+                if (before == after and rows == want and all(
+                        fleet.get(f"hbm/{k}/bytes") == v
+                        for k, v in want.items())
+                        and fleet.get("hbm/drift_gb_max", 0.0) == 0.0
+                        and want["kv_pool"] > 0 and want["weights"] > 0):
+                    out["ok"] = True
+                    return
+                if stop.wait(1.0):
+                    break
+            out["error"] = "the scraped rows never matched the RPC's"
+        finally:
+            client.close()
+            agg.close()
+    except Exception as e:  # noqa: BLE001 - reported by the phase
+        out["error"] = repr(e)
+
+
 def kill_after_recover_info(step, recover_info, counters, stop, out,
                             poll=0.2):
     """Wait for the master's recover info to resume at ``step`` (its
@@ -6976,6 +7545,7 @@ def processes_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
     os.environ.update(env)
     L = cfg.n_layers
     kill = {}
+    scrape = {}  # what scrape_fleet read from the workers' /metrics
     stop = threading.Event()
     apps = []  # (time, [(pid, MiB)]) samples of nvidia-smi
 
@@ -7068,6 +7638,9 @@ def processes_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
         threads.append(threading.Thread(
             target=sample_beats, daemon=True, name="chip-smoke-beats",
             args=([w for _, _, w in _worker_specs(xcfg)],)))
+        threads.append(threading.Thread(
+            target=scrape_fleet, daemon=True, name="chip-smoke-scrape",
+            args=(xcfg, log_dir, stop, scrape)))
         if cuda:
             threads.append(threading.Thread(target=sample_apps, daemon=True,
                                             name="chip-smoke-smi"))
@@ -7090,6 +7663,15 @@ def processes_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
     if not kill:
         raise AssertionError(f"{tag}: the model worker was never killed "
                              f"(no recover info at step {ckpt_step})")
+    log(f"{tag}: /metrics of every worker, scraped through name_resolve "
+        f"once the server served v1: {scrape.get('workers')} (series per page "
+        f"{scrape.get('series')}); the generation server's "
+        f"areal_hbm_ledger_bytes rows {scrape.get('rows')} against its "
+        f"metrics RPC's hbm_ledger {scrape.get('rpc')}; the aggregator's "
+        f"fleet rows {scrape.get('fleet')} ({scrape.get('attempts')} "
+        f"attempts)")
+    if not scrape.get("ok"):
+        raise AssertionError(f"{tag}: the /metrics scrape: {scrape}")
     recs = [r for lines in probes.values() for r in lines]
 
     def probe(kind, launch=None):
@@ -7300,7 +7882,7 @@ def processes_phase(cfg, device, card, hf_dir, *, rows=ASYNC_ROWS,
         restart_s=restart_s, decode_tok_s=sum(decode_toks.values()) / run_s,
         ckpt=dict(bytes=ckpt["bytes"], write_s=ckpt["s"], read_s=load["s"]),
         peaks=peaks, gap=gap, staleness=dict(staleness), phase_s=secs,
-        smi_fullest=biggest, heartbeat_gaps=beats)
+        smi_fullest=biggest, heartbeat_gaps=beats, scrape=scrape)
     log(f"{tag}: step walls {[round(w, 3) for w in walls]} s; actor_train "
         f"{[round(st['actor_train/elapsed'], 3) for st in stats]} s; the "
         f"trainer waited {fetch:.3f} s for data ({fetch / sum(walls):.1%} of "
@@ -7529,7 +8111,9 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
                    hf, sync, training, loop, procs, features, family, pd):
     """The ``{"kernels": [...]}`` line's entries: every kernel, with its
     launches on the main paths (the engine's greedy wave, the long-context
-    arms, the prefix-cache phase, the generation server, the P/D fleet and
+    arms, the prefix-cache phase, the generation server with its token
+    streams, the loop's evaluator job (counted in its own process and
+    reported in its result), the P/D fleet and
     the fabric's servers, the server that swapped in the HF directory and
     the async-PPO loop; sync PPO's
     generation for ``flash_decode``; the trainer's steps, sync PPO's, the
@@ -7567,7 +8151,7 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
               eng["launches"] + arm_launches("std", False) + fp_prefix["std"]
               + server["launches"]["std"] + hf["launches"]["std"]
               + loop["launches"]["std"] + procs["launches"]["std"]
-              + feat_fp["std"] + pd_fp["std"],
+              + feat_fp["std"] + pd_fp["std"] + loop["eval"]["launches"],
               max(errs("decode", "prefill", "prefill_long",
                        "prefill_mid_page", "verify"),
                   errs("standard_bf16", src=long_kern)),
@@ -7581,7 +8165,8 @@ def kernel_entries(kern, long_kern, eng, long, flash, train, prefix, server,
                   async_ppo=loop["launches"]["std"],
                   async_ppo_processes=procs["launches"]["std"],
                   serving_features=feat_fp["std"],
-                  pd_handoff_and_fabric=pd_fp["std"]),
+                  pd_handoff_and_fabric=pd_fp["std"],
+                  evaluator_job=loop["eval"]["launches"]),
               prefill_entry_launches=(eng["prefill_launches"]
                                       + arm_launches("prefill", False)
                                       + fp_prefix["prefill"]

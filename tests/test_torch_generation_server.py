@@ -13,6 +13,8 @@ its own package's client.
 * A retried commit is acknowledged; a stage of the version already served
   is dropped; the metrics reply carries the swap counters and the SLO
   digests.
+* A token stream (``generate_stream``, then ``stream_poll`` until done)
+  delivers the result's tokens, the same on both servers.
 * What the port does not serve is refused with ``NotImplementedError``.
 """
 
@@ -294,12 +296,58 @@ def test_metrics_carry_swap_counters_and_slo_digests(sides):
     assert got["decode_chunks_total"] > 0
 
 
+def test_metrics_carry_the_ledger_and_the_compile_watch(sides):
+    """Both servers' metrics replies carry the HBM ledger's bytes and peaks
+    per subsystem and the compile watch's counters; the port publishes the
+    ledger into its registry each poll."""
+    from areal_tpu.observability.hbm_ledger import SUBSYSTEMS
+    from areal_tpu_torch.observability import get_registry
+
+    jside, pside = sides
+    got = pside.client.call("metrics", {})
+    ref = jside.client.call("metrics", {})
+    eng = pside.engine
+    for m in (got, ref):
+        assert set(m["hbm_ledger"]) == set(SUBSYSTEMS)
+        assert set(m["hbm_ledger_peak"]) == set(SUBSYSTEMS)
+        assert m["xla_steady_compiles_total"] == 0
+        assert m["xla_sentinel_fires_total"] == 0
+        assert m["streams"]["open_streams"] == 0
+    # the process ledger holds at least this engine's attributions (other
+    # engines of this process may add theirs)
+    assert got["hbm_ledger"]["kv_pool"] >= eng.kv_pool_bytes > 0
+    assert got["hbm_ledger"]["weights"] > 0
+    assert {k for k in got if k.startswith("xla_compiles/")} == {
+        "xla_compiles/paged_fill_chunk", "xla_compiles/paged_decode_chunk"}
+    page = get_registry().render()
+    assert 'areal_hbm_ledger_bytes{subsystem="kv_pool"}' in page
+
+
 def test_cancel_and_refused_commands(sides):
+    """A cancel of an unknown qid is acknowledged; a token stream round
+    trip gives the result's tokens, equal on both servers, and closes the
+    stream; an uncached prefix exports nothing."""
     jside, pside = sides
     assert pside.client.call("stream_cancel", {"qid": "nobody"}) == {"ok": True}
-    for cmd in ("generate_stream", "stream_poll"):
-        with pytest.raises(RuntimeError, match="NotImplementedError"):
-            pside.client.call(cmd, {"qid": "x"})
+    streamed = {}
+    for side in (pside, jside):
+        inp = side.make_input("st0", _prompts(2)[1], 21)
+        assert side.client.call("generate_stream", inp) == {
+            "ok": True, "qid": "st0"}
+        toks = []
+        for _ in range(2000):
+            r = side.client.call("stream_poll", {"qid": "st0"})
+            toks += r["tokens"]
+            if r["done"]:
+                break
+            time.sleep(0.005)
+        assert r["done"] and toks == r["result"]["output_ids"]
+        assert len(toks) == 21 and r["result"]["version_end"] == 1
+        with pytest.raises(RuntimeError, match="unknown stream"):
+            side.client.call("stream_poll", {"qid": "st0"})
+        streamed[side.name] = toks
+    assert streamed["port"] == streamed["jax"]
+    assert pside.client.call("metrics", {})["streams"]["opened_total"] == 1
     # a prefix nobody cached: an empty export, as from the JAX server
     for side in (pside, jside):
         assert side.client.call("export_prefix", {
@@ -419,10 +467,10 @@ def test_engine_cancel_releases_rows():
 ], ids=["prefill", "decode", "processes", "mesh", "compile_watch", "spec",
         "int8_weights", "host_tier", "dense"])
 def test_out_of_slice_options_are_refused(kw):
-    """Multi-process servers, meshes and the compile watch are refused; the
-    P/D roles register as the JAX server registers them, and speculative
-    decoding, int8 weights, the host tier and the dense cache configure a
-    server whose engine holds them."""
+    """Multi-process servers and meshes are refused; the P/D roles register
+    as the JAX server registers them, a quiet period arms the compile
+    watch, and speculative decoding, int8 weights, the host tier and the
+    dense cache configure a server whose engine holds them."""
     from areal_tpu.base.topology import MeshSpec
     from areal_tpu.system import generation_server as jgs
     from areal_tpu_torch.api.config import ModelAbstraction
@@ -440,7 +488,8 @@ def test_out_of_slice_options_are_refused(kw):
         **dict(SERVER, worker_name="gen_server_options", **kw))
     key = next(iter(kw))
     if key not in ("spec_decode", "serving_weight_dtype",
-                   "prefix_cache_host_bytes", "cache_mode", "role"):
+                   "prefix_cache_host_bytes", "cache_mode", "role",
+                   "compile_quiet_after_steps"):
         with pytest.raises(NotImplementedError):
             GenerationServerWorker().configure(cfg)
         return
@@ -468,6 +517,17 @@ def test_out_of_slice_options_are_refused(kw):
             assert m["role"] == role and m["segment_transport"] == "host-numpy"
             assert m["handoff_exports_total"] == 0 and eng.paged
             assert eng._handoff_streaming
+        elif key == "compile_quiet_after_steps":
+            watch = worker._compile_watch
+            assert watch.quiet_after_steps == 8 and not watch.steady
+            # the paged entries, by the kernel libraries each launches
+            # (none loads on the CPU)
+            assert watch.cache_sizes() == {
+                "paged_fill_chunk": 0, "paged_decode_chunk": 0}
+            watch.note_step(8)
+            assert watch.armed and watch.poll() == {}
+            assert m["xla_steady_compiles_total"] == 0
+            assert m["xla_sentinel_fires_total"] == 0
         else:
             assert m["cache_mode"] == "dense" and m["preempted_total"] == 0
     finally:

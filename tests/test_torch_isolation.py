@@ -121,6 +121,19 @@ SERVING_FEATURE_MODULES = [
 ]
 
 
+#: the observability plane and the evaluator (the metric table, the
+#: ledger, the compile watch, the HTTP server, the eval CLI and the tool
+#: that runs their card phases)
+OBSERVABILITY_MODULES = [
+    f"areal_tpu_torch.{m}" for m in (
+        "observability.table", "observability.hbm_ledger",
+        "observability.compile_watch", "observability.server",
+        "scheduler.evaluator", "apps.eval", "data.benchmarks", "ops._build",
+        "tools.obs_rehearsal",
+    )
+]
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     prev = torch.get_num_threads()
@@ -142,7 +155,7 @@ def test_no_jax_and_no_reference_package_imported():
         "assert not bad, bad\n"
         "assert len(mods) >= 12, mods\n"
         f"missing = sorted(set("
-        f"{sorted(SERVING_MODULES + LOOP_MODULES + HF_MODULES + LAUNCH_MODULES + SYNC_MODULES + TRAINING_MODULES + SERVING_FEATURE_MODULES)!r}) "
+        f"{sorted(SERVING_MODULES + LOOP_MODULES + HF_MODULES + LAUNCH_MODULES + SYNC_MODULES + TRAINING_MODULES + SERVING_FEATURE_MODULES + OBSERVABILITY_MODULES)!r}) "
         "- set(mods))\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"
@@ -171,7 +184,7 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize("module", LOOP_MODULES + SERVING_MODULES + HF_MODULES
                          + LAUNCH_MODULES + SYNC_MODULES + TRAINING_MODULES
-                         + SERVING_FEATURE_MODULES)
+                         + SERVING_FEATURE_MODULES + OBSERVABILITY_MODULES)
 def test_no_module_imports_jax_or_the_reference_anywhere(module):
     rel = module.replace(".", "/")
     path = REPO / f"{rel}.py"
